@@ -1,0 +1,184 @@
+"""Process-wide metrics registry: counters, gauges, bounded histograms.
+
+The port's copy of the JAX package's registry (``repro.obs.metrics``):
+kernel telemetry and the store's stage timings publish into the
+module-level ``REGISTRY``; components whose stats must stay
+instance-scoped construct their own registry from the same primitives.
+
+All primitives are thread-safe. ``Histogram`` keeps a bounded ring of
+the last ``cap`` samples in seconds and snapshots to
+``{"n", "p50_ms", "p99_ms"}``, the same shape as the JAX package's.
+
+Exposition: ``snapshot()`` (plain dict), ``to_json()`` and
+``to_prometheus()`` (text format: counters/gauges as bare samples,
+histograms as ``_count``/``_p50_ms``/``_p99_ms`` samples).
+"""
+from __future__ import annotations
+
+import json
+import threading
+
+import numpy as np
+
+
+def _expo_name(name: str) -> str:
+    """Sanitize a metric name for Prometheus exposition (dots and any
+    other punctuation become underscores)."""
+    return "".join(c if c.isalnum() or c == "_" else "_" for c in name)
+
+
+class Counter:
+    """Monotonic thread-safe counter (float-capable for byte totals)."""
+
+    __slots__ = ("_lock", "_v")
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._v = 0.0
+
+    def inc(self, delta: float = 1.0) -> None:
+        with self._lock:
+            self._v += delta
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._v
+
+
+class Gauge:
+    """Last-write-wins instantaneous value (e.g. queue depth, pressure)."""
+
+    __slots__ = ("_lock", "_v")
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._v = 0.0
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._v = float(value)
+
+    def add(self, delta: float) -> None:
+        with self._lock:
+            self._v += delta
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._v
+
+
+class Histogram:
+    """Bounded latency histogram: a ring of the last ``cap`` samples
+    (seconds), snapshotting to p50/p99 milliseconds. ``n`` counts every
+    sample ever recorded; only the ring is bounded."""
+
+    __slots__ = ("_lock", "_cap", "_buf", "_i", "n")
+
+    def __init__(self, cap: int = 8192):
+        self._lock = threading.Lock()
+        self._cap = max(int(cap), 1)
+        self._buf: list[float] = []
+        self._i = 0
+        self.n = 0
+
+    def record(self, seconds: float) -> None:
+        with self._lock:
+            self.n += 1
+            if len(self._buf) < self._cap:
+                self._buf.append(seconds)
+            else:
+                self._buf[self._i] = seconds
+                self._i = (self._i + 1) % self._cap
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            if not self._buf:
+                return {"n": 0, "p50_ms": 0.0, "p99_ms": 0.0}
+            a = np.asarray(self._buf)
+            n = self.n
+        return {"n": n,
+                "p50_ms": float(np.percentile(a, 50) * 1e3),
+                "p99_ms": float(np.percentile(a, 99) * 1e3)}
+
+
+class MetricsRegistry:
+    """Get-or-create namespace of counters/gauges/histograms.
+
+    ``counter(name)`` etc. are idempotent: the first call creates the
+    metric, later calls return the same object — callers hold no
+    references and never coordinate registration. A name is bound to one
+    metric kind; reusing it as another kind raises ``TypeError``.
+    """
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._metrics: dict[str, object] = {}
+
+    def _get(self, name: str, cls, *args):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = cls(*args)
+            elif not isinstance(m, cls):
+                raise TypeError(f"metric {name!r} is {type(m).__name__}, "
+                                f"not {cls.__name__}")
+            return m
+
+    def counter(self, name: str) -> Counter:
+        return self._get(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
+    def histogram(self, name: str, cap: int = 8192) -> Histogram:
+        return self._get(name, Histogram, cap)
+
+    def snapshot(self) -> dict:
+        """Point-in-time dict: counters/gauges to their value, histograms
+        to their ``{"n", "p50_ms", "p99_ms"}`` snapshot."""
+        with self._lock:
+            items = list(self._metrics.items())
+        out: dict[str, object] = {}
+        for name, m in items:
+            out[name] = (m.snapshot() if isinstance(m, Histogram)
+                         else m.value)
+        return out
+
+    def to_json(self, **extra) -> str:
+        """JSON dump of ``snapshot()`` (plus any ``extra`` top-level
+        fields, e.g. a timestamp the caller stamps)."""
+        return json.dumps({"metrics": self.snapshot(), **extra}, indent=2,
+                          default=str)
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition: one ``name value`` sample per
+        counter/gauge; histograms expand to ``_count``/``_p50_ms``/
+        ``_p99_ms`` samples."""
+        with self._lock:
+            items = list(self._metrics.items())
+        lines = []
+        for name, m in items:
+            pname = _expo_name(name)
+            if isinstance(m, Histogram):
+                s = m.snapshot()
+                lines.append(f"# TYPE {pname} summary")
+                lines.append(f"{pname}_count {s['n']}")
+                lines.append(f"{pname}_p50_ms {s['p50_ms']}")
+                lines.append(f"{pname}_p99_ms {s['p99_ms']}")
+            else:
+                kind = "counter" if isinstance(m, Counter) else "gauge"
+                lines.append(f"# TYPE {pname} {kind}")
+                lines.append(f"{pname} {m.value}")
+        return "\n".join(lines) + "\n"
+
+    def clear(self) -> None:
+        """Drop every metric (test isolation for the global registry)."""
+        with self._lock:
+            self._metrics.clear()
+
+
+#: the process-wide default registry: kernel telemetry, pool churn, and
+#: stage timings publish here; scrape with ``REGISTRY.to_prometheus()``.
+REGISTRY = MetricsRegistry()
