@@ -8,9 +8,11 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
 ``build/repro_torch/`` on first use. It prints one JSON object per line:
 
   env             card, power limit, torch/CUDA versions, kernel build time
-  kernel          each CUDA kernel at ragged edge shapes, then at the main
-                  path's own shapes: max |kernel - plain version| (must be
-                  0), kernel / plain / library times, and its bound
+  kernel          each CUDA kernel at ragged edge shapes (the delta codec
+                  at every lane dtype, with extreme values), then at the
+                  shapes its path gives it: max |kernel - plain version|
+                  (must be 0; the codec compares bits and per-tile stats),
+                  kernel / plain / library times, and its bound
   main_path       one store at UniProtKB/Swiss-Prot scale (570,000 entries,
                   sequence 64 x int32, length 1 x int32, annotation
                   8 x int32; 8 full releases at ts 10..80 with 3% sequence
@@ -19,10 +21,21 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   get_increments over the 7 release windows, a cold
                   get_version and compact(30), every row checked against
                   the release that produced it
+  chain_decode    the superlog's device chain decode (torch ops) of the
+                  packed sequence field, timed alone beside its bound
+  persistence     the same store built again with save(path) after every
+                  release (incremental), a force_full save (with its stage
+                  split), a lazy load that reads only the segments a
+                  pinned query needs, get_versions at Q = 8 after lazy and
+                  eager loads, and compact(30, path=) then a reload, every
+                  row checked against its release
+  persistence_parity  a 2,000-entry history with int32, uint16 and float32
+                  fields saved from device="cpu" and device="cuda":
+                  byte-identical MANIFEST.json, index and segment files
   cpu_gpu_parity  a 2,000-entry history through device="cpu" and
                   device="cuda": identical views, increments and digests
-  kernels         per kernel: launches during main_path, error, times,
-                  bound
+  kernels         per kernel: launches during the path that runs it,
+                  error, times, bound
 
 then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any mismatch or error ends the run with a
@@ -32,10 +45,14 @@ generators seeded with ``--seed``.
 from __future__ import annotations
 
 import argparse
+import cProfile
 import json
 import os
+import pstats
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -59,7 +76,23 @@ SOURCES = {
                       "src/repro/kernels/version_select.py:30"),
     "keep_mask": ("src/repro_torch/csrc/keep_mask.cu",
                   "src/repro/kernels/compact_rewrite.py:35"),
+    "delta_pack": ("src/repro_torch/csrc/delta_codec.cu",
+                   "src/repro/kernels/delta_codec.py:56 and :63"),
+    "delta_unpack": ("src/repro_torch/csrc/delta_codec.cu",
+                     "src/repro/kernels/delta_codec.py:69 and :74"),
+    "delta_pack_wide": ("src/repro_torch/csrc/delta_codec.cu",
+                        "src/repro/kernels/delta_codec.py:154 and :179"),
+    "delta_unpack_wide": ("src/repro_torch/csrc/delta_codec.cu",
+                          "src/repro/kernels/delta_codec.py:166 and :179"),
 }
+# the kernels each driven path must launch at least once
+PATH_KERNELS = {
+    "main_path": ("fingerprint", "masked_cumsum", "keep_mask"),
+    "persistence": ("fingerprint", "masked_cumsum", "keep_mask",
+                    "delta_pack"),
+}
+CODEC_DTYPES = ("int8", "int16", "uint16", "int32", "uint32", "float16",
+                "float32", "int64", "float64")
 INT32 = np.iinfo(np.int32)
 DEV = "cuda"
 
@@ -273,7 +306,8 @@ class KernelBench:
         return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
     def run(self, name: str, shape: dict, kernel, plain, nbytes, ops,
-            library=None, *, timed: bool, main: bool = False) -> None:
+            library=None, *, timed: bool, main: bool = False,
+            quiet: bool = False) -> dict:
         got = kernel()
         want = plain()
         sync()
@@ -283,8 +317,13 @@ class KernelBench:
         for g, w in zip(got, want):
             check(g.shape == w.shape and g.dtype == w.dtype,
                   f"{name} {shape}: {g.shape} {g.dtype} vs {w.shape} {w.dtype}")
-            if g.numel():
-                err = max(err, int((g.long() - w.long()).abs().max()))
+            # compare bits: floats (the codec's XOR deltas, NaN included)
+            # as the int lanes of their width
+            if g.is_floating_point():
+                g, w = int_lanes(g), int_lanes(w)
+            if g.numel() and not torch.equal(g, w):
+                err = max(err, float((g.double() - w.double()).abs().max()),
+                          1)
         bound_ms, bound_by = self.bound(nbytes, ops)
         rec = {"phase": "kernel", "name": name, "shape": shape,
                "max_abs_diff": err, "bound_ms": bound_ms,
@@ -295,10 +334,12 @@ class KernelBench:
             rec["plain_ms"] = cuda_ms(plain, self.reps)
             rec["library_ms"] = (cuda_ms(library, self.reps)
                                  if library is not None else None)
-        emit(rec)
+        if not quiet:
+            emit(rec)
         check(err == 0, f"{name} {shape}: kernel differs from plain by {err}")
         if main:
             self.main[name] = rec
+        return rec
 
     # -- the three kernels --------------------------------------------------
     def fingerprint(self, lanes, *, timed=True, main=False):
@@ -319,6 +360,42 @@ class KernelBench:
                  library=lambda: torch.cumsum(mask, dim=1, dtype=torch.int32),
                  timed=timed, main=main)
 
+    def codec(self, name, a, b, *, unsigned=False, timed=True, main=False,
+              label=None, quiet=False) -> dict:
+        """One delta-codec wrapper on the pair (a, b): bits and per-tile
+        stats against the plain version (``ref``) on the same card."""
+        kops, ref = self.kops, self.kops.ref
+        tile = kops.launch.tile_for("delta_codec")
+        n, w = a.shape
+        fl = a.is_floating_point()
+        op = {"delta_pack": "xor" if fl else "sub",
+              "delta_unpack": "xor" if fl else "add",
+              "delta_pack_wide": "xor" if fl else "sub",
+              "delta_unpack_wide": "xor" if fl else "add"}[name]
+        fn = getattr(kops, name)
+        if name == "delta_pack":
+            kernel = lambda: fn(a, b, unsigned=unsigned)  # noqa: E731
+
+            def plain():
+                d = ref.ref_codec(a, b, op)
+                return d, ref.ref_tile_stat(d, tile, "nonzero" if fl
+                                            else "maxabs", unsigned=unsigned)
+        else:
+            kernel = lambda: fn(a, b)  # noqa: E731
+            plain = lambda: ref.ref_codec(a, b, op)  # noqa: E731
+        if fl:
+            x, y = int_lanes(a), int_lanes(b)
+            library = lambda: torch.bitwise_xor(x, y)  # noqa: E731
+        else:
+            library = {"sub": lambda: torch.sub(a, b),
+                       "add": lambda: torch.add(a, b)}[op]
+        n_tiles = -(-n // tile)
+        return self.run(
+            name, {"N": n, "W": w, "dtype": label or str(a.dtype)}, kernel,
+            plain, nbytes=3 * a.numel() * a.element_size() + 4 * n_tiles,
+            ops=(2 if name == "delta_pack" else 1) * a.numel(),
+            library=library, timed=timed, main=main, quiet=quiet)
+
     def keep_mask(self, ts, cutoff, *, timed=True, main=False):
         (c,) = ts.shape
         tile = self.kops.launch.tile_for("keep_mask")
@@ -328,6 +405,36 @@ class KernelBench:
                  lambda: self.kops.ref.ref_keep_mask(ts, cutoff, tile),
                  nbytes=8 * c + 4 * n_tiles, ops=2 * c,
                  timed=timed, main=main)
+
+
+def int_lanes(t: torch.Tensor) -> torch.Tensor:
+    """The signed int lanes of ``t``'s width (bits unchanged)."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def codec_pair(rng, dtype: str, n: int, w: int):
+    """(new, old, unsigned) device tensors for the codec: random lanes
+    with the dtype's extremes (ints) or NaN and +-inf (floats), a third of
+    them unchanged. Unsigned dtypes travel as their signed bit view, as
+    the store keeps them."""
+    dt = np.dtype(dtype)
+    if dt.kind in "iu":
+        info = np.iinfo(dt)
+        new = rng.integers(info.min, info.max, (n, w), endpoint=True, dtype=dt)
+        old = rng.integers(info.min, info.max, (n, w), endpoint=True, dtype=dt)
+        new.flat[0], old.flat[0] = info.min, info.max
+        new.flat[-1], old.flat[-1] = info.max, info.min
+        if dt.kind == "i":
+            new.flat[new.size // 2], old.flat[new.size // 2] = info.min, 0
+        new, old = (x.view(f"i{dt.itemsize}") for x in (new, old))
+    else:
+        new = rng.normal(scale=100, size=(n, w)).astype(dt)
+        old = rng.normal(scale=100, size=(n, w)).astype(dt)
+        new.flat[0], old.flat[-1], new.flat[-1] = np.nan, np.inf, -np.inf
+    old[::3] = new[::3]
+    return (torch.as_tensor(new, device=DEV), torch.as_tensor(old, device=DEV),
+            dt.kind == "u")
 
 
 def phase_kernel_edges(bench: KernelBench, rng) -> None:
@@ -355,6 +462,26 @@ def phase_kernel_edges(bench: KernelBench, rng) -> None:
         for cutoff in (0, -(2**31) + 1, ts_max):
             bench.keep_mask(torch.as_tensor(ts, device=dev), cutoff,
                             timed=False)
+    # the codec: every lane dtype at ragged N, summarized in one line
+    cases = []
+    for dtype in CODEC_DTYPES:
+        wide = np.dtype(dtype).itemsize == 8
+        for n in (1, 511, 513, 70_001):
+            for w in (1, 8, 64):
+                new, old, uns = codec_pair(rng, dtype, n, w)
+                pack, unpack = (("delta_pack_wide", "delta_unpack_wide")
+                                if wide else ("delta_pack", "delta_unpack"))
+                cases.append(bench.codec(pack, new, old, unsigned=uns,
+                                         timed=False, label=dtype,
+                                         quiet=True))
+                cases.append(bench.codec(unpack, new, old, timed=False,
+                                         label=dtype, quiet=True))
+    emit({"phase": "kernel_edges", "kernels": sorted({c["name"]
+                                                      for c in cases}),
+          "dtypes": list(CODEC_DTYPES), "N": [1, 511, 513, 70_001],
+          "W": [1, 8, 64], "cases": len(cases),
+          "max_abs_diff": max(c["max_abs_diff"] for c in cases),
+          "stats_compared": "per tile", "gpu": bench.smi})
 
 
 def phase_main_path(VersionedStore, FieldSchema, kops, releases) -> dict:
@@ -432,10 +559,13 @@ def phase_main_path(VersionedStore, FieldSchema, kops, releases) -> dict:
         check_view(v, releases, t, fields)
     rec["launches"] = {k: fn.launches for k, fn in kops.KERNELS.items()}
     emit(rec)
-    for name, n in rec["launches"].items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+    for name in PATH_KERNELS["main_path"]:
+        check(rec["launches"][name] > 0,
+              f"kernel {name} never launched on the main path")
+    seq = sl.fields["sequence"]
     return {"launches": rec["launches"], "scan_ts": scan_ts,
-            "compact_ts": compact_ts}
+            "compact_ts": compact_ts,
+            "packed_seq": (seq.packed_host, seq.heads_host, seq.vals_host)}
 
 
 def phase_kernel_main(bench: KernelBench, kops, releases, main_out) -> None:
@@ -452,6 +582,216 @@ def phase_kernel_main(bench: KernelBench, kops, releases, main_out) -> None:
         bench.masked_cumsum(main_out["scan_ts"], tq, main=(q == 64))
     bench.keep_mask(torch.as_tensor(main_out["compact_ts"], device=DEV),
                     COMPACT_TS, main=True)
+
+
+def phase_chain_decode(kops, compat, roofline, smi, packed_seq) -> None:
+    """The superlog's chain decode (torch ops, not a hand-written kernel)
+    alone on the packed sequence field: its time beside its bound (read
+    the deltas and the head flags once, write the int32 decode once)."""
+    packed, heads, vals = packed_seq
+    check(packed is not None, "the sequence field was not delta-packed")
+    d = torch.as_tensor(packed, device=DEV)
+    h = torch.as_tensor(heads, device=DEV)
+    out = compat.truncate_bits(kops.chain_decode(d, h), vals.dtype.itemsize)
+    sync()
+    check(np.array_equal(out.cpu().numpy(), compat.bits_view(vals)),
+          "chain_decode does not give back the sequence values")
+    nbytes = packed.nbytes + heads.nbytes + 4 * packed.size
+    emit({"phase": "chain_decode", "shape": {"C": packed.shape[0],
+                                             "W": packed.shape[1],
+                                             "dtype": str(packed.dtype)},
+          "ms": cuda_ms(lambda: kops.chain_decode(d, h), TIMED_REPS),
+          "bound_ms": nbytes / roofline.HBM_BW * 1e3, "bound_by": "bytes",
+          "gpu": smi})
+
+
+def tree_bytes(path: str) -> dict:
+    """Every file under ``path``: relative path -> bytes."""
+    out = {}
+    for d, _, names in os.walk(path):
+        for n in names:
+            p = os.path.join(d, n)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, path)] = f.read()
+    return out
+
+
+def save_stages(prof: cProfile.Profile) -> dict:
+    """Seconds of a profiled save spent in its stages (cumulative)."""
+    st = pstats.Stats(prof)
+    want = {"cells_after": lambda f: f == "cells_after",
+            "csr": lambda f: f == "csr",
+            "chain_pack": lambda f: f == "_chain_pack_timed",
+            "npz_compress": lambda f: f == "savez_compressed",
+            "fsync": lambda f: f.endswith(".fsync>"),
+            "sha256": lambda f: f.endswith(".openssl_sha256>"),
+            "file_write": lambda f: f.startswith("<method 'write' of '_io."),
+            "manifest": lambda f: f == "write_manifest"}
+    out = {k: 0.0 for k in want}
+    for (_file, _line, fn), (_cc, _nc, _tt, ct, _callers) in st.stats.items():
+        for k, match in want.items():
+            if match(fn):
+                out[k] += ct
+    return out
+
+
+def phase_persistence(VersionedStore, FieldSchema, kops, releases,
+                      root: str) -> dict:
+    """The store built again with a save after every release, then a
+    full save, lazy and eager loads, and compact(30, path=)."""
+    for fn in kops.KERNELS.values():
+        fn.launches = 0
+    schema = [FieldSchema("sequence", SEQ_W, "int32"),
+              FieldSchema("length", 1, "int32"),
+              FieldSchema("annotation", ANN_W, "int32")]
+    fields = [f.name for f in schema]
+    st = VersionedStore("uniprot_sprot", schema, capacity=N_ENTRIES)
+    inc_dir, full_dir = os.path.join(root, "inc"), os.path.join(root, "full")
+    rec = {"phase": "persistence", "saves": []}
+    inc_prof = cProfile.Profile()
+    for r in releases:
+        st.update(r["ts"], keys_of(r["ids"]), r["table"])
+        if r is not releases[0]:
+            inc_prof.enable()
+        stats, s = wall(lambda: st.save(inc_dir))
+        inc_prof.disable()
+        rec["saves"].append({"ts": r["ts"], "s": s, "mode": stats["mode"],
+                             "bytes_written": stats["bytes_written"],
+                             "raw_bytes": stats["raw_bytes"],
+                             "packed_bytes": stats["packed_bytes"]})
+        check(stats["mode"] == ("full" if r is releases[0]
+                                else "incremental"),
+              f"save after release {r['ts']} was {stats['mode']}")
+    rec["incremental_save_stages_s"] = save_stages(inc_prof)
+    prof = cProfile.Profile()
+    prof.enable()
+    stats, rec["full_save_s"] = wall(lambda: st.save(full_dir,
+                                                     force_full=True))
+    prof.disable()
+    rec["full_save"] = stats
+    rec["full_save_stages_s"] = save_stages(prof)
+    check(stats["mode"] == "full", "force_full did not rewrite")
+    # the arrays the full save packed, for the codec's kernel timing
+    codec_in = {f: st.fields[f].log.csr(st.n_rows)
+                for f in ("sequence", "annotation")}
+    del st
+    # lazy open: only the manifest and the index, every segment stat-checked
+    lazy, rec["lazy_open_s"] = wall(lambda: VersionedStore.load(inc_dir))
+    pending = {f: len(lazy.fields[f].log._pending) for f in fields}
+    check(all(n == len(releases) for n in pending.values()),
+          f"lazy open read segments: {pending}")
+    view, rec["first_pinned_query_s"] = wall(
+        lambda: lazy.get_version(20, fields=["length"]))
+    check_view(view, releases, 20, ["length"])
+    after = {f: len(lazy.fields[f].log._pending) for f in fields}
+    check(after["sequence"] == after["annotation"] == len(releases)
+          and after["length"] == len(releases) - 2,
+          f"the pinned query read other segments: {after}")
+    rec["pending_after_pinned_query"] = after
+    q8 = RELEASE_TS
+
+    def check_q8(store, name):
+        views, rec[f"get_versions_8_{name}_s"] = wall(
+            lambda: store.get_versions(q8))
+        for t, v in zip(q8, views):
+            check_view(v, releases, t, fields)
+
+    check_q8(lazy, "lazy")
+    eager, rec["eager_open_s"] = wall(
+        lambda: VersionedStore.load(inc_dir, lazy=False))
+    check_q8(eager, "eager")
+    del eager
+    stats, rec["compact_path_s"] = wall(
+        lambda: lazy.compact(COMPACT_TS, path=inc_dir))
+    rec["compact_path"] = stats
+    check(stats["segments_retained"] > 0 and stats["cells_dropped"] > 0,
+          f"compact(path=) retained or dropped nothing: {stats}")
+    del lazy
+    reopened, rec["reopen_after_compact_s"] = wall(
+        lambda: VersionedStore.load(inc_dir))
+    later = [t for t in RELEASE_TS if t >= COMPACT_TS] + [55, 85]
+    for t, v in zip(later, reopened.get_versions(later)):
+        check_view(v, releases, t, fields)
+    rec["views_checked"] = 1 + 2 * len(q8) + len(later)
+    rec["launches"] = {k: fn.launches for k, fn in kops.KERNELS.items()}
+    emit(rec)
+    for name in PATH_KERNELS["persistence"]:
+        check(rec["launches"][name] > 0,
+              f"kernel {name} never launched on the persistence path")
+    return {"launches": rec["launches"], "codec_in": codec_in}
+
+
+def phase_persistence_parity(VersionedStore, FieldSchema, seed: int,
+                             root: str) -> None:
+    """One small history with int32, uint16 and float32 fields saved from
+    device="cpu" and device="cuda": every file byte-identical."""
+    releases = make_releases(PARITY_ENTRIES, len(RELEASE_TS), seed + 3)
+    schema = [FieldSchema("sequence", SEQ_W, "int32"),
+              FieldSchema("length", 1, "int32"),
+              FieldSchema("annotation", ANN_W, "int32"),
+              FieldSchema("flags", 2, "uint16"),
+              FieldSchema("score", 1, "float32")]
+    stores = [VersionedStore("parity", schema, device=d)
+              for d in ("cpu", DEV)]
+    dirs = [os.path.join(root, f"parity_{i}") for i in range(2)]
+    frng = np.random.default_rng(seed + 4)
+    files = 0
+    for r in releases:
+        table = dict(r["table"])
+        n = len(r["ids"])
+        table["flags"] = 65500 + frng.integers(0, 36, (n, 2), dtype=np.uint16)
+        table["score"] = frng.normal(size=(n, 1)).astype(np.float32)
+        outs = []
+        for s, d in zip(stores, dirs):
+            s.update(r["ts"], keys_of(r["ids"]), table)
+            outs.append(s.save(d))
+        check(outs[0] == outs[1], f"save stats differ at {r['ts']}")
+    for step in ("saved", "compacted"):
+        if step == "compacted":
+            outs = [s.compact(COMPACT_TS, path=d)
+                    for s, d in zip(stores, dirs)]
+            check(outs[0] == outs[1], "compact(path=) stats differ")
+        a, b = tree_bytes(dirs[0]), tree_bytes(dirs[1])
+        check(sorted(a) == sorted(b), f"{step}: file lists differ")
+        for k in a:
+            check(a[k] == b[k], f"{step}: {k} differs between cpu and cuda")
+        files += len(a)
+    emit({"phase": "persistence_parity", "entries": PARITY_ENTRIES,
+          "releases": len(releases), "files_compared": files,
+          "identical": True})
+
+
+def phase_codec_main(bench: KernelBench, compat, codec_in, rng) -> None:
+    """The codec at the shapes of the persistence phase's full save: the
+    sequence log (C x 64 int32) and the annotation log (C x 8 int32),
+    each cell against its chain predecessor as chain_pack pairs them.
+    The float XORs, the unpacks and the 8-byte ops, which no store of this
+    schema reaches, are timed at the annotation log's shape."""
+    pairs = {}
+    for f, (vals, _tss, ptr) in codec_in.items():
+        heads = np.zeros(len(vals), bool)
+        heads[ptr[:-1][np.diff(ptr) > 0]] = True
+        new = torch.as_tensor(compat.bits_view(vals), device=DEV)
+        prev = torch.roll(new, 1, 0)
+        prev[torch.as_tensor(heads, device=DEV)] = 0
+        pairs[f] = (new, prev)
+    bench.codec("delta_pack", *pairs["sequence"], main=True)
+    bench.codec("delta_pack", *pairs["annotation"])
+    bench.codec("delta_unpack", *pairs["annotation"], main=True)
+    new, prev = pairs["annotation"]
+    c, w = new.shape
+    fl = torch.as_tensor(rng.normal(size=(c, w)).astype(np.float32),
+                         device=DEV)
+    fl_prev = torch.roll(fl, 1, 0)
+    bench.codec("delta_pack", fl, fl_prev)
+    bench.codec("delta_unpack", fl, fl_prev)
+    wide, wide_prev = new.to(torch.int64) << 20, prev.to(torch.int64) << 20
+    bench.codec("delta_pack_wide", wide, wide_prev, main=True)
+    bench.codec("delta_unpack_wide", wide, wide_prev, main=True)
+    fl64, fl64_prev = fl.to(torch.float64), fl_prev.to(torch.float64)
+    bench.codec("delta_pack_wide", fl64, fl64_prev)
+    bench.codec("delta_unpack_wide", fl64, fl64_prev)
+    del pairs, fl, fl_prev, wide, wide_prev, fl64, fl64_prev
 
 
 def phase_parity(VersionedStore, FieldSchema, seed: int) -> None:
@@ -529,7 +869,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, src)
     from repro_torch.core import FieldSchema, VersionedStore
-    from repro_torch.kernels import _build, ops as kops
+    from repro_torch.kernels import _build, _compat, ops as kops
     from repro_torch.launch import roofline
 
     t_start = time.perf_counter()
@@ -541,13 +881,31 @@ def main() -> int:
     releases = make_releases(N_ENTRIES, len(RELEASE_TS), args.seed)
     main_out = phase_main_path(VersionedStore, FieldSchema, kops, releases)
     phase_kernel_main(bench, kops, releases, main_out)
+    phase_chain_decode(kops, _compat, roofline, smi,
+                       main_out.pop("packed_seq"))
+    # store directories live inside the checkout's gitignored build tree
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(HERE,
+                                                                  "build"))
+    try:
+        pers_out = phase_persistence(VersionedStore, FieldSchema, kops,
+                                     releases, root)
+        phase_codec_main(bench, _compat, pers_out.pop("codec_in"), rng)
+        phase_persistence_parity(VersionedStore, FieldSchema, args.seed,
+                                 root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     phase_parity(VersionedStore, FieldSchema, args.seed)
+    # each kernel's launches come from the path that runs it: the codec
+    # from persistence, the rest from the main path
+    path_of = {k: pers_out if k.startswith("delta_") else main_out
+               for k in SOURCES}
     rows = []
     for name, (source, replaces) in SOURCES.items():
         m = bench.main[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": main_out["launches"][name],
+                     "launches": path_of[name]["launches"][name],
                      "max_abs_err": m["max_abs_diff"], "ms": m["kernel_ms"],
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"],

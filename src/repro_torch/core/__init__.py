@@ -1,5 +1,5 @@
-"""The versioned meta-database store (``store``) and carrying a store
-across (``state``)."""
+"""The versioned meta-database store (``store``), its segmented on-disk
+layout (``segments``), and carrying a store across in memory (``state``)."""
 from .store import (FieldSchema, Increment, VersionInfo, VersionView,
                     VersionedStore)
 

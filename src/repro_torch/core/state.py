@@ -6,7 +6,8 @@ device. The arrays are what a JAX-package store holds too (each log's
 consolidated CSR and the release history), so a test can read them out
 of a ``repro`` store and hand them to the port; head state is not carried
 but rebuilt lazily on the first mutation, as after the JAX package's
-``load``. The on-disk format waits for the persistence slice.
+``load``. This is the in-memory route between the packages; the on-disk
+route is a store directory (``save``/``load``, core/segments.py).
 
 State layout::
 

@@ -20,9 +20,13 @@ run on the store's device through the CUDA kernels; key bookkeeping, the
 CSR build and the digest chain stay in host numpy (the HBase-master
 analogue), exactly where the JAX package keeps them.
 
-Persistence (``save``/``load``/``compact(path=...)``) and shard placement
-wait for later slices of the port; ``attach_segments`` is kept for them.
-``core/state.py`` carries a store's logs and history across instead.
+Persistence is segmented and append-only (core/segments.py), in the JAX
+package's on-disk format byte for byte: ``save()`` writes only cells newer
+than the on-disk manifest's watermark, ``load()`` attaches lazy segment
+handles that are spliced into a log's CSR only when a query's timestamp
+bound reaches them, and ``compact(..., path=...)`` rewrites covered
+segments into a base segment while retaining the tail. ``core/state.py``
+carries a store across in memory. Shard placement waits for a later slice.
 
 Invalidation contract: ``log_epoch`` is a monotone counter bumped by every
 log mutation (update/delete/add_field/compact). Any externally cached
@@ -51,11 +55,6 @@ Timestamp = int
 
 # device-side timestamps are int32; host keeps int64.
 TS_MAX = 2**31 - 2
-
-_PERSISTENCE = ("save/load and on-disk compaction wait for the persistence "
-                "slice of the port; use core/state.py (to_state/from_state) "
-                "to carry a store across")
-
 
 class OperationCancelled(RuntimeError):
     """A cooperatively cancelled query (see ``get_versions(cancel=...)``).
@@ -190,8 +189,8 @@ class _CellLog:
     (``_chunks``), a previously consolidated CSR (``_csr``), and — after a
     lazy load — on-disk segment handles (``_pending``, sorted by ts0).
     Pending segments are materialized only when a caller's timestamp bound
-    reaches their range (fed by the persistence slice). ``device`` is
-    where the log's scans run.
+    reaches their range, so a pinned old version reads only the segments
+    at or below that version. ``device`` is where the log's scans run.
     """
 
     def __init__(self, width: int, dtype: np.dtype, device: torch.device):
@@ -253,6 +252,40 @@ class _CellLog:
         self._chunks = []
         self._row_ptr = np.asarray(ptr)
         self._n_rows_at_build = n_rows
+
+    def cells_after(self, cutoff: Timestamp):
+        """All cells with ts > cutoff as (rows, ts, vals) sorted by
+        (row, ts) — the incremental-save extraction. Only pending segments
+        that could hold such cells (ts1 > cutoff) are read; for a store
+        loaded from ``cutoff``'s own manifest that is none of them, so the
+        cost is O(cells appended since the last save)."""
+        keep = []
+        for h in self._pending:
+            if h.ts1 > cutoff:
+                self._materialize(h)
+            else:
+                keep.append(h)
+        self._pending = keep
+        parts = list(self._chunks)
+        if self._csr is not None:
+            vals0, tss0, rows0 = self._csr
+            parts.insert(0, (rows0, tss0, vals0))
+        # mask per part BEFORE concatenating: a consolidated history with
+        # nothing past the cutoff contributes one comparison pass, not a
+        # full copy + lexsort — incremental save stays O(new cells)
+        kept = []
+        for rows, tss, vals in parts:
+            m = tss > cutoff
+            if m.any():
+                kept.append((rows[m], tss[m], vals[m]))
+        if not kept:
+            return (np.zeros(0, np.int32), np.zeros(0, np.int64),
+                    np.zeros((0, self.width), self.dtype))
+        rows = np.concatenate([c[0] for c in kept])
+        tss = np.concatenate([c[1] for c in kept])
+        vals = np.concatenate([c[2] for c in kept])
+        order = np.lexsort((tss, rows))
+        return rows[order], tss[order], vals[order]
 
     def csr(self, n_rows: int, *, through_ts: Timestamp | None = None):
         """Returns (vals (C,W), ts (C,), row_ptr (n_rows+1,)) sorted by (row, ts).
@@ -749,9 +782,11 @@ class VersionedStore:
 
     Public surface: ``update``/``delete`` ingest releases, ``get_version``/
     ``get_versions`` and ``get_increment``/``get_increments`` materialize,
-    ``compact`` collapses old history in memory, ``to_state``/
-    ``from_state`` carry a store across (core/state.py), and ``log_epoch``
-    is the cache-invalidation contract (see module docstring).
+    ``compact`` collapses old history (in memory, and on disk with
+    ``path=``), ``save``/``load`` persist to the segmented on-disk layout
+    (core/segments.py), ``to_state``/``from_state`` carry a store across in
+    memory (core/state.py), and ``log_epoch`` is the cache-invalidation
+    contract (see module docstring).
 
     ``device``: where the store's scans, gathers and fingerprints run.
     None means the CUDA card, and raises without one; pass ``"cpu"`` to
@@ -1348,14 +1383,20 @@ class VersionedStore:
         Args:
           before_ts: compaction horizon (inclusive).
           label: label for the synthetic base release in ``versions``.
-          path: a store directory for the on-disk rewrite; not ported
-            yet (raises NotImplementedError before anything changes).
+          path: optional store directory — when given, the on-disk segments
+            are rewritten too (covered segments replaced by a base segment,
+            segments entirely above ``before_ts`` retained untouched; see
+            ``segments.compact_on_disk``).
 
         Returns:
-          dict with ``cells_dropped`` / ``versions_kept``.
+          dict with ``cells_dropped`` / ``versions_kept`` and, when ``path``
+          is given, the on-disk rewrite stats (``segments_written``,
+          ``segments_retained``, ``bytes_written``, ...).
         """
-        if path is not None:
-            raise NotImplementedError(_PERSISTENCE)
+        # captured before rechaining: compact_on_disk proves the on-disk
+        # manifest is an ancestor of THIS history (not a same-shaped
+        # divergent store's) against the pre-compaction chain
+        pre_digests = list(self._version_digests)
         dropped = 0
         for col in list(self.fields.values()) + [self.exists_log]:
             vals, tss, ptr = col.csr(self.n_rows) if isinstance(col, _CellLog) \
@@ -1387,17 +1428,69 @@ class VersionedStore:
             f"compact|{before_ts}|{self._history_digest}".encode())
             .hexdigest()[:16])
         self._invalidate_log()
-        return {"cells_dropped": dropped, "versions_kept": len(kept) + 1}
+        stats = {"cells_dropped": dropped, "versions_kept": len(kept) + 1}
+        if path is not None:
+            from . import segments
+            stats.update(segments.compact_on_disk(
+                self, path, before_ts, prior_digests=pre_digests))
+        return stats
 
-    # -- persistence: waits for the persistence slice of the port ------------
+    # -- persistence: segmented, append-only layout (core/segments.py) -------
     def save(self, path: str, *, force_full: bool = False) -> dict:
-        """Not ported yet: raises NotImplementedError."""
-        raise NotImplementedError(_PERSISTENCE)
+        """Persist to the segmented on-disk layout at ``path`` (the JAX
+        package's format: either package opens what the other saved).
+
+        Incremental when the directory already holds a manifest that is a
+        prefix of this store (same name/schema/keys/version history): only
+        cells newer than the manifest's ``saved_through_ts`` are written,
+        one segment per changed field — bytes written are O(new cells),
+        independent of total history size. Anything else (first save,
+        post-compaction, divergent history, ``force_full=True``) is a full
+        rewrite that also migrates/removes legacy monolithic snapshots.
+        Segments are chain-packed on the store's device.
+
+        Args:
+          path: store directory (created if missing).
+          force_full: skip the incremental check and rewrite everything.
+
+        Returns:
+          dict with ``mode`` ("incremental" | "full"), ``segments_written``,
+          ``bytes_written`` (segments + manifest written by THIS call),
+          ``raw_bytes`` / ``packed_bytes`` (pre/post chain-packing sizes of
+          the written cells), and ``disk_bytes`` (total store footprint).
+        """
+        from . import segments
+        return segments.save_store(self, path, force_full=force_full)
 
     @classmethod
-    def load(cls, path: str, *, lazy: bool = True) -> "VersionedStore":
-        """Not ported yet: raises NotImplementedError."""
-        raise NotImplementedError(_PERSISTENCE)
+    def load(cls, path: str, *, lazy: bool = True,
+             device=None) -> "VersionedStore":
+        """Open a store directory (segmented manifest, or a legacy
+        monolithic snapshot for backward compatibility), written by either
+        package.
+
+        Args:
+          path: directory written by ``save`` (or a legacy snapshot).
+          lazy: when True (default), segment files are only stat-checked
+            (existence + exact size, so torn writes fail fast) and attached
+            as pending handles — their cells are read the first time a
+            query's timestamp bound reaches them, and head state is rebuilt
+            on the first mutation. ``lazy=False`` materializes everything
+            eagerly.
+          device: where the reopened store runs, as for the constructor:
+            None is the CUDA card (and raises without one); ``"cpu"`` runs
+            the kernels' plain torch versions on the host.
+
+        Returns:
+          A fully functional VersionedStore.
+
+        Raises:
+          FileNotFoundError: no manifest or legacy snapshot at ``path``.
+          segments.CorruptSegmentError: a listed segment is missing or
+            truncated (lazy) / fails its checksum (on read).
+        """
+        from . import segments
+        return segments.load_store(cls, path, lazy=lazy, device=device)
 
     # -- carrying a store across (core/state.py) ------------------------------
     def to_state(self) -> dict:

@@ -31,4 +31,21 @@ __device__ __forceinline__ int block_sum(int v, int* scratch) {
   return total;
 }
 
+// Signed max of `v` over the block, valid in thread 0 only (INT32_MIN for
+// an empty reduction). Same scratch contract as block_sum.
+__device__ __forceinline__ int block_max(int v, int* scratch) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  v = __reduce_max_sync(kFullMask, v);
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  int total = INT32_MIN;
+  if (warp == 0) {
+    const int n_warps = blockDim.x >> 5;
+    total = __reduce_max_sync(kFullMask,
+                              lane < n_warps ? scratch[lane] : INT32_MIN);
+  }
+  return total;
+}
+
 }  // namespace repro

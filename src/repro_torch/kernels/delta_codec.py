@@ -1,19 +1,158 @@
-"""Chain decode on the device, and the delta narrowing rule.
+"""The delta codec: elementwise pack/unpack kernels, the on-disk chain
+codec built on them, and chain decode on the device.
 
-Integer superlog fields stay chain-delta-packed on the device: the first
-cell of every row chain raw, every later cell as a wraparound delta
-against its predecessor, narrowed to the smallest int that holds every
-delta. ``chain_decode`` reconstructs the values inside the gather path
-(core/store.py). The JAX package leaves this scan to XLA
-(``jax.lax.associative_scan``); the port leaves it to torch ops on the
-store's device. A fused decode-at-index gather kernel is a later
-optimization. The on-disk chain codec waits for the persistence slice.
+The store keeps a set of database versions with delta compression (HBase
+timestamped cells + Snappy in the paper). On-disk cell segments store, for
+each updated row, the delta against the row's previous value: arithmetic
+difference for integer fields and bitwise XOR for float fields (unchanged
+exponent and mantissa bytes zero out, which the segment files' deflate
+exploits).
+
+The elementwise ops are the CUDA kernel ``csrc/delta_codec.cu``:
+``delta_pack`` / ``delta_unpack`` on 1-, 2- and 4-byte lanes, with one
+int32 stat per 512-row tile (max |delta| for ints, the nonzero count for
+float XOR), and ``delta_pack_wide`` / ``delta_unpack_wide`` on 8-byte
+lanes (native int64 on Hopper, where the JAX package split each value into
+two int32 lanes). A CPU tensor takes the plain torch version in ``ref``; a
+CUDA tensor launches the kernel (and counts the launch on the wrapper's
+``launches``) or raises.
+
+On-disk chain format (``core/segments.py`` segment files): cells are
+sorted by (row, ts); within each row's run ("chain") the first cell is
+packed against zero (stored raw) and every later cell against its
+predecessor. Chains never cross a segment, so every segment decodes on its
+own, which is what makes lazy loading possible. ``chain_pack`` packs on the
+given device and narrows on the host; ``chain_unpack`` is a host numpy
+depth loop, as in the JAX package. Both write the same bytes as the JAX
+package's ``chain_pack`` / ``chain_unpack``.
+
+``chain_decode`` is the device inverse of the same chain format for the
+fused superlog: integer fields stay chain-delta-packed on the device and
+decode inside the gather path (core/store.py). The JAX package leaves this
+scan to XLA (``jax.lax.associative_scan``); the port leaves it to torch ops
+on the store's device. A fused decode-at-index gather kernel is a later
+optimization.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
+from ..obs import kerneltel
+from . import _build, ref
+from ._compat import bits_view, cdiv, from_bits, resolve_device, stream_ptr
+from .launch import tile_for
+
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_BLOCK = 256  # threads per tile block
+_OPS = {"sub": 0, "add": 1, "xor": 2}
+_STATS = {"none": 0, "maxabs": 1, "maxabs_unsigned": 2, "nonzero": 3}
+_NARROW = (torch.int8, torch.int16, torch.int32, torch.float16,
+           torch.bfloat16, torch.float32)
+_WIDE = (torch.int64, torch.float64)
+
+
+def _check_pair(a, b, names: str, dtypes) -> None:
+    na, nb = names.split(",")
+    for t, name in ((a, na), (b, nb)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+        if t.ndim != 2 or t.dtype not in dtypes:
+            raise ValueError(f"{name} must be 2-D of {dtypes}, got "
+                             f"{t.ndim}-D {t.dtype}")
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name} is on {t.device}; only cpu and cuda")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if a.shape != b.shape or a.dtype != b.dtype or a.device != b.device:
+        raise ValueError(f"{na} and {nb} differ: {tuple(a.shape)} {a.dtype} "
+                         f"{a.device} vs {tuple(b.shape)} {b.dtype} "
+                         f"{b.device}")
+
+
+def _run(wrapper, a, b, op: str, stat: str, *, unsigned: bool = False):
+    """(a op b, per-tile stat): the plain version for CPU tensors, the
+    kernel for CUDA tensors (counted on ``wrapper.launches``)."""
+    tile = tile_for("delta_codec")
+    if a.device.type == "cpu":
+        out = ref.ref_codec(a, b, op)
+        return out, ref.ref_tile_stat(out, tile, stat, unsigned=unsigned)
+    n, w = a.shape
+    out = torch.empty_like(a)
+    stats = torch.empty(cdiv(n, tile), dtype=torch.int32, device=a.device)
+    if n == 0 or w == 0:
+        return out, stats.zero_()
+    kind = ("maxabs_unsigned" if stat == "maxabs" and unsigned else stat)
+    fn = _build.kernel_fn("delta_codec", "delta_codec_launch", _ARGS)
+    with torch.cuda.device(a.device):
+        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                n, w, a.element_size(), _OPS[op], _STATS[kind], tile, _BLOCK,
+                stream_ptr(a))
+    _build.check(rc, "delta_codec", "delta_codec_launch")
+    wrapper.launches += 1
+    return out, stats
+
+
+def delta_pack(new: torch.Tensor, old: torch.Tensor, *,
+               unsigned: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pack (new, old) -> (delta, stat), both (N, W) of one dtype in
+    int8/int16/int32/float16/bfloat16/float32.
+
+    Ints: ``delta = new - old`` in wraparound arithmetic, ``stat`` the max
+    |delta| of each 512-row tile widened to int32 (zero-extended when
+    ``unsigned``: pass it for the signed bit view of a uint8/uint16 field).
+    Floats: ``delta`` the XOR of the bits, ``stat`` the count of nonzero
+    lanes per tile. ``stat`` has ceil(N / 512) entries; a ragged last tile
+    counts as padded with zero rows. 8-byte lanes go to
+    :func:`delta_pack_wide`."""
+    _check_pair(new, old, "new,old", _NARROW)
+    fl = new.is_floating_point()
+    a, b = (ref.int_lanes(new), ref.int_lanes(old)) if fl else (new, old)
+    d, stat = _run(delta_pack, a, b, "xor" if fl else "sub",
+                   "nonzero" if fl else "maxabs", unsigned=unsigned)
+    return (d.view(new.dtype) if fl else d), stat
+
+
+def delta_unpack(delta: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`delta_pack`: ``delta + old`` (wraparound) for
+    ints, the XOR of the bits for floats."""
+    _check_pair(delta, old, "delta,old", _NARROW)
+    fl = delta.is_floating_point()
+    a, b = ((ref.int_lanes(delta), ref.int_lanes(old)) if fl
+            else (delta, old))
+    out, _ = _run(delta_unpack, a, b, "xor" if fl else "add", "none")
+    return out.view(delta.dtype) if fl else out
+
+
+def delta_pack_wide(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """8-byte pack on (N, W) int64 or float64: exact 64-bit modular
+    subtract, or the XOR of the bits for float64."""
+    _check_pair(new, old, "new,old", _WIDE)
+    fl = new.is_floating_point()
+    a, b = (new.view(torch.int64), old.view(torch.int64)) if fl else (new, old)
+    out, _ = _run(delta_pack_wide, a, b, "xor" if fl else "sub", "none")
+    return out.view(new.dtype)
+
+
+def delta_unpack_wide(delta: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`delta_pack_wide` (64-bit modular add / XOR)."""
+    _check_pair(delta, old, "delta,old", _WIDE)
+    fl = delta.is_floating_point()
+    a, b = ((delta.view(torch.int64), old.view(torch.int64)) if fl
+            else (delta, old))
+    out, _ = _run(delta_unpack_wide, a, b, "xor" if fl else "add", "none")
+    return out.view(delta.dtype)
+
+
+for _w in (delta_pack, delta_unpack, delta_pack_wide, delta_unpack_wide):
+    _w.launches = 0
+
+
+# -- device-side chain decode (segmented scan) --------------------------------
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
     """int64 -> the int32 two's-complement value of its low 32 bits."""
@@ -70,3 +209,112 @@ def narrow_dtype(maxabs: int, base=np.int32) -> type:
     if maxabs < 2**31:
         return np.int32
     return base
+
+
+# -- host-facing chain codec (the on-disk segment cell format) ---------------
+
+def _chain_heads(rows: np.ndarray) -> np.ndarray:
+    first = np.ones(len(rows), bool)
+    first[1:] = rows[1:] != rows[:-1]
+    return first
+
+
+def chain_pack(vals: np.ndarray, rows: np.ndarray, *,
+               device=None) -> tuple[np.ndarray, dict]:
+    """Delta-pack a (row, ts)-sorted cell run for on-disk storage.
+
+    Args:
+      vals: (C, W) host cell values, sorted so equal-row cells are
+        adjacent and in ascending ts order within the row ("chains").
+      rows: (C,) row index of each cell (defines the chain boundaries).
+      device: where the pack runs (None: the CUDA card; ``"cpu"`` takes the
+        plain torch version).
+
+    Returns:
+      (packed, meta): ``packed`` has the same shape as ``vals``, the first
+      cell of each chain raw and later cells as deltas vs their predecessor
+      (arithmetic for ints, XOR of the bits for floats). Integer deltas of
+      4 or more bytes are narrowed to int8/int16/int32 when the whole run
+      allows it. ``meta`` records ``mode`` ("raw" for empty input, else
+      "delta"), the original ``dtype`` name, and optionally ``narrow``.
+    """
+    if len(vals) == 0:
+        return vals.copy(), {"mode": "raw", "dtype": vals.dtype.name}
+    # traffic model: read new + predecessor cells, write the delta;
+    # arithmetic: one sub/xor per element (the stat rides along). The port
+    # streams no pad slack, so padded_nbytes is the logical traffic.
+    with kerneltel.launch("delta_codec", nbytes=3 * vals.nbytes,
+                          flops=vals.size):
+        return _chain_pack_timed(vals, rows, resolve_device(device))
+
+
+def _chain_pack_timed(vals: np.ndarray, rows: np.ndarray,
+                      device: torch.device) -> tuple[np.ndarray, dict]:
+    vals = np.ascontiguousarray(vals)
+    dt = vals.dtype
+    flat = vals.reshape(len(vals), -1)
+    # floats go up as floats (the wrapper XORs their bits); ints as the
+    # signed int of their width, with the signedness passed alongside
+    new = torch.as_tensor(flat if dt.kind == "f" else bits_view(flat),
+                          device=device)
+    # prev on the device: each cell's predecessor, chain heads against zero
+    prev = torch.roll(new, 1, 0)
+    prev[torch.as_tensor(_chain_heads(rows), device=device)] = 0
+    if dt.itemsize == 8:
+        d = delta_pack_wide(new, prev)
+    else:
+        d, _stat = delta_pack(new, prev, unsigned=dt.kind == "u")
+    delta = from_bits(d, dt).reshape(vals.shape)
+    meta = {"mode": "delta", "dtype": dt.name}
+    if np.issubdtype(dt, np.integer) and dt.itemsize >= 4:
+        # bound via min/max lifted to Python ints, on the delta in its own
+        # dtype: exact for int64-min (where np.abs wraps negative) and for
+        # uint32 deltas at or above 2**31
+        maxabs = max(-int(delta.min()), int(delta.max())) if delta.size else 0
+        narrow = np.dtype(narrow_dtype(
+            maxabs, base=np.int64 if dt.itemsize == 8 else np.int32))
+        if narrow != dt:
+            delta = delta.astype(narrow)
+            meta["narrow"] = narrow.name
+    return delta, meta
+
+
+def chain_unpack(packed: np.ndarray, rows: np.ndarray, meta: dict,
+                 out_dtype: np.dtype) -> np.ndarray:
+    """Invert ``chain_pack`` on the host: reconstruct (C, W) cell values.
+
+    Chains are rebuilt one depth level per pass (chains are short: one
+    cell per version the row changed in), so the cost is
+    O(cells x max_chain_depth / chain_count) vectorized numpy steps.
+
+    Raises:
+      KeyError/TypeError: if ``meta`` does not come from ``chain_pack``.
+    """
+    if meta["mode"] == "raw" or len(packed) == 0:
+        return packed.astype(out_dtype)
+    # traffic model mirrors chain_pack's: read delta + predecessor, write
+    # the reconstruction; one add/xor per element
+    with kerneltel.launch("delta_codec", nbytes=3 * packed.nbytes,
+                          flops=packed.size):
+        return _chain_unpack_timed(packed, rows, meta, out_dtype)
+
+
+def _chain_unpack_timed(packed: np.ndarray, rows: np.ndarray, meta: dict,
+                        out_dtype: np.dtype) -> np.ndarray:
+    stored = np.dtype(meta["dtype"])
+    delta = packed.astype(stored) if "narrow" in meta else packed
+    out = delta.copy()
+    first = _chain_heads(rows)
+    starts = np.nonzero(first)[0]
+    lens = np.diff(np.append(starts, len(rows)))
+    is_float = np.issubdtype(stored, np.floating)
+    ib = {8: np.int64, 4: np.int32, 2: np.int16}.get(stored.itemsize, np.int32)
+    with np.errstate(over="ignore"):
+        for depth in range(1, int(lens.max()) if len(lens) else 0):
+            idx = starts[lens > depth] + depth
+            if is_float:
+                out[idx] = (out[idx].view(ib)
+                            ^ out[idx - 1].view(ib)).view(out.dtype)
+            else:
+                out[idx] = out[idx] + out[idx - 1]
+    return out.astype(out_dtype)

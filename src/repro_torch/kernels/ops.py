@@ -13,15 +13,19 @@ from . import launch, ref
 from .batched_select import (batched_masked_cumsum, batched_version_select,
                              scan_bucket)
 from .compact_rewrite import compact_rewrite, keep_mask, ref_compact_rewrite
-from .delta_codec import chain_decode, narrow_dtype
+from .delta_codec import (chain_decode, chain_pack, chain_unpack,
+                          delta_pack, delta_pack_wide, delta_unpack,
+                          delta_unpack_wide, narrow_dtype)
 from .fingerprint import fingerprint
 from .version_select import masked_cumsum, version_select
 
 __all__ = [
     "KERNELS", "batched_masked_cumsum", "batched_version_select",
-    "chain_decode", "compact_rewrite", "fingerprint", "fingerprint_rows",
-    "keep_mask", "launch", "masked_cumsum", "narrow_dtype", "ref",
-    "ref_compact_rewrite", "scan_bucket", "to_int_lanes", "version_select",
+    "chain_decode", "chain_pack", "chain_unpack", "compact_rewrite",
+    "delta_pack", "delta_pack_wide", "delta_unpack", "delta_unpack_wide",
+    "fingerprint", "fingerprint_rows", "keep_mask", "launch",
+    "masked_cumsum", "narrow_dtype", "ref", "ref_compact_rewrite",
+    "scan_bucket", "to_int_lanes", "version_select",
 ]
 
 #: kernel name -> the wrapper that launches it (and counts its launches)
@@ -29,6 +33,10 @@ KERNELS = {
     "fingerprint": fingerprint,
     "masked_cumsum": batched_masked_cumsum,
     "keep_mask": keep_mask,
+    "delta_pack": delta_pack,
+    "delta_unpack": delta_unpack,
+    "delta_pack_wide": delta_pack_wide,
+    "delta_unpack_wide": delta_unpack_wide,
 }
 
 

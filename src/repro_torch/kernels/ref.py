@@ -135,3 +135,97 @@ def ref_chain_decode(deltas: np.ndarray, heads: np.ndarray, *,
             if not heads[i]:
                 out[i] = (out[i] ^ out[i - 1]) if xor else out[i] + out[i - 1]
     return out
+
+
+# ---------------------------------------------------------------------------
+# delta codec: elementwise version-chain delta packing (sub for ints,
+# XOR of the bits for floats, so unchanged mantissa bytes zero out).
+# ---------------------------------------------------------------------------
+
+_LANES = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _wrap_bits(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """int64 tensor of exact results -> their low ``bits`` bits as the
+    signed int of that width (two's-complement wraparound)."""
+    sign = 1 << (bits - 1)
+    return (((x + sign) & ((1 << bits) - 1)) - sign).to(
+        _LANES[bits // 8])
+
+
+def _add64(a: torch.Tensor, b: torch.Tensor, sign: int) -> torch.Tensor:
+    """a + sign * b modulo 2**64 on int64 tensors, on (lo, hi) 32-bit
+    halves so no int64 operation overflows (the borrow or carry moves from
+    lo into hi; ``hi * 2**32 + lo`` stays inside the int64 range)."""
+    lo = (a & 0xFFFFFFFF) + sign * (b & 0xFFFFFFFF)  # in (-2**32, 2**33)
+    hi = (a >> 32) + sign * (b >> 32) + (lo >> 32)   # arithmetic shifts
+    return _wrap32(hi) * 2**32 + (lo & 0xFFFFFFFF)
+
+
+def int_lanes(x: torch.Tensor) -> torch.Tensor:
+    """``x`` viewed as the signed int of its item size (bits unchanged)."""
+    return x.view(_LANES[x.element_size()])
+
+
+def ref_codec(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
+    """a op b (op "sub", "add" or "xor") on the int lanes of a and b, in
+    wraparound arithmetic of their width; the result has a's dtype."""
+    x, y = int_lanes(a), int_lanes(b)
+    if op == "xor":
+        out = x ^ y
+    elif x.dtype == torch.int64:
+        out = _add64(x, y, -1 if op == "sub" else 1)
+    else:
+        wide = (x.to(torch.int64) - y.to(torch.int64) if op == "sub"
+                else x.to(torch.int64) + y.to(torch.int64))
+        out = _wrap_bits(wide, 8 * x.element_size())
+    return out.view(a.dtype)
+
+
+def ref_delta_pack(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """new - old (wraparound) for ints, XOR of the bits for floats."""
+    return ref_codec(new, old, "xor" if new.is_floating_point() else "sub")
+
+
+def ref_delta_unpack(delta: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """delta + old (wraparound) for ints, XOR of the bits for floats."""
+    return ref_codec(delta, old, "xor" if delta.is_floating_point() else "add")
+
+
+def ref_delta_pack64(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """The 8-byte pack: exact 64-bit modular subtract for int64, XOR of
+    the bits for float64."""
+    return ref_delta_pack(new, old)
+
+
+def ref_delta_unpack64(delta: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """The 8-byte unpack: 64-bit modular add, or XOR for float64."""
+    return ref_delta_unpack(delta, old)
+
+
+def ref_tile_stat(delta: torch.Tensor, tile: int, kind: str, *,
+                  unsigned: bool = False) -> torch.Tensor:
+    """The codec's per-tile stat over (N, W) ``delta``, one int32 per tile
+    of ``tile`` rows, the ragged last tile padded with zero rows.
+
+    kind "maxabs": max over the tile of |d| with d widened to int32
+    (zero-extended when ``unsigned``; |INT32_MIN| wraps to INT32_MIN);
+    "nonzero": the count of nonzero lanes; "none": 0."""
+    n = delta.shape[0]
+    n_tiles = cdiv(n, tile)
+    if kind == "none" or n_tiles == 0:
+        return torch.zeros(n_tiles, dtype=torch.int32, device=delta.device)
+    d = int_lanes(delta.reshape(n, -1)).to(torch.int64)
+    if kind == "nonzero":
+        v = (d != 0).to(torch.int64)
+    else:
+        bits = 8 * delta.element_size()
+        if unsigned and bits < 32:
+            d = d & ((1 << bits) - 1)
+        v = _wrap32(d.abs())
+    pad = round_up(n, tile) - n
+    v = torch.cat([v, v.new_zeros((pad, v.shape[1]))])
+    v = v.reshape(n_tiles, -1)
+    if kind == "nonzero":
+        return v.sum(dim=1).to(torch.int32)
+    return v.amax(dim=1).to(torch.int32)

@@ -1,11 +1,15 @@
 """Observability the store calls: the metrics registry (``metrics``),
-trace spans and the stage timer (``trace``), and per-kernel launch
-telemetry with roofline fractions (``kerneltel``). The structured logger
-and the flight recorder wait for the slices that use them."""
+trace spans and the stage timer (``trace``), the flight recorder of
+recent events (``recorder``), and per-kernel launch telemetry with
+roofline fractions (``kerneltel``). The structured logger waits for the
+slices that use it."""
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry, REGISTRY
-from .trace import Span, StageTimer, current_span, new_trace_id, span
+from .recorder import RECORDER, FlightRecorder, install_excepthook
+from .trace import (Span, StageTimer, current_span, current_trace_id,
+                    new_trace_id, span)
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY", "Span",
-    "StageTimer", "current_span", "new_trace_id", "span",
+    "Counter", "FlightRecorder", "Gauge", "Histogram", "MetricsRegistry",
+    "RECORDER", "REGISTRY", "Span", "StageTimer", "current_span",
+    "current_trace_id", "install_excepthook", "new_trace_id", "span",
 ]

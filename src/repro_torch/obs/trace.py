@@ -5,8 +5,8 @@ The port's copy of ``repro.obs.trace``. ``StageTimer`` keeps the additive
 folds each stage's seconds into the enclosing span and into the registry
 histogram ``stage.<name>``. ``span(name, ...)`` pushes onto the calling
 thread's stack (nesting gives ``parent`` links) and on exit records its
-duration into the ``span.<name>`` histogram; the flight-recorder event the
-JAX package also writes waits until the recorder is ported.
+duration into the ``span.<name>`` histogram and one ``span`` event into the
+flight recorder (``obs/recorder.py``).
 """
 from __future__ import annotations
 
@@ -56,6 +56,12 @@ def current_span() -> Span | None:
     return stack[-1] if stack else None
 
 
+def current_trace_id() -> str | None:
+    """The active trace id on this thread (None outside any span)."""
+    s = current_span()
+    return s.trace_id if s is not None else None
+
+
 class span:
     """Context manager opening a span on the calling thread.
 
@@ -94,6 +100,13 @@ class span:
         s.duration_s = time.perf_counter() - self._t0
         _tls.stack.pop()
         REGISTRY.histogram(f"span.{s.name}").record(s.duration_s)
+        from .recorder import RECORDER
+        RECORDER.record(
+            "span", name=s.name, trace=s.trace_id, parent=s.parent_id,
+            duration_s=s.duration_s,
+            **({"stages": dict(s.stages)} if s.stages else {}),
+            **({"error": repr(exc)} if exc is not None else {}),
+            **s.fields)
         return False
 
 

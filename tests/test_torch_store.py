@@ -244,7 +244,9 @@ def test_get_versions_is_one_batched_scan(rng, monkeypatch):
     assert set(trace) == {"scan", "gather", "materialize"}
 
 
-def test_superlog_epochs_cancel_and_unported_persistence(rng):
+def test_superlog_epochs_cancel_and_unported_persistence(rng, tmp_path):
+    """Epochs and cancellation; and persistence, once unported, now saves,
+    reopens and compacts on disk exactly as the JAX package does."""
     tw = Twin()
     history(tw, rng, n_versions=2)
     sl = tw.t.superlog()
@@ -256,11 +258,17 @@ def test_superlog_epochs_cancel_and_unported_persistence(rng):
     assert not tw.t.has_device_state()
     with pytest.raises(tstore.OperationCancelled):
         tw.t.get_versions([10, 20], cancel=lambda: True)
-    for call in (lambda: tw.t.save("x"), lambda: tstore.VersionedStore.load("x"),
-                 lambda: tw.t.compact(10, path="x")):
-        with pytest.raises(NotImplementedError, match="persistence"):
-            call()
-    tw.same_state()  # the refused compact(path=) changed nothing
+    dirs = [str(tmp_path / "j"), str(tmp_path / "t")]
+    assert tw.j.save(dirs[0]) == tw.t.save(dirs[1])
+    reopened = tstore.VersionedStore.load(dirs[1], device="cpu")
+    assert reopened._version_digests == tw.t._version_digests
+    assert (tw.j.compact(15, path=dirs[0])
+            == tw.t.compact(15, path=dirs[1]))
+    tw.same_state()
+    for name in ("MANIFEST.json", "SEGMENTS.1.jsonl"):
+        with open(f"{dirs[0]}/{name}", "rb") as a, \
+                open(f"{dirs[1]}/{name}", "rb") as b:
+            assert a.read() == b.read(), name
 
 
 def test_store_without_device_needs_cuda(monkeypatch):
