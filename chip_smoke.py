@@ -9,10 +9,13 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
 
   env             card, power limit, torch/CUDA versions, kernel build time
   kernel          each CUDA kernel at ragged edge shapes (the delta codec
-                  at every lane dtype, with extreme values), then at the
-                  shapes its path gives it: max |kernel - plain version|
-                  (must be 0; the codec compares bits and per-tile stats),
-                  kernel / plain / library times, and its bound
+                  at every lane dtype, with extreme values; the route at
+                  the empty key, trailing-zero and 125+ byte keys; the
+                  stacked scan at S = 1/3/4, ragged C, boundaries at 0 and
+                  C), then at the shapes its path gives it: max |kernel -
+                  plain version| (must be 0; the codec compares bits and
+                  per-tile stats), kernel / plain / library times, and its
+                  bound
   main_path       one store at UniProtKB/Swiss-Prot scale (570,000 entries,
                   sequence 64 x int32, length 1 x int32, annotation
                   8 x int32; 8 full releases at ts 10..80 with 3% sequence
@@ -23,6 +26,20 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   the release that produced it
   chain_decode    the superlog's device chain decode (torch ops) of the
                   packed sequence field, timed alone beside its bound
+  sharding        the same 8 releases into a ShardedStore of 4 shards
+                  (ts 10..40 through update, ts 50..80 through threaded
+                  ShardedReleaseSession waves of 4 chunks), get_versions at
+                  Q = 1/8/64 (serial: Q = 1/8) and get_increments over the
+                  7 windows under serial and stacked placement (and mesh
+                  with 2+ cards), every row checked against its release
+                  and byte for byte against an unsharded store's answers;
+                  compact(30), a full save, a lazy reopen on the card and
+                  Q = 8 after it
+  serial_vs_stacked_scan  the four per-shard scans the serial placement
+                  runs at Q = 64, timed beside the one stacked scan
+  sharding_parity a 2,000-entry sharded history saved from device="cpu"
+                  and device="cuda": byte-identical SHARD_MANIFEST.json and
+                  shard trees
   persistence     the same store built again with save(path) after every
                   release (incremental), a force_full save (with its stage
                   split), a lazy load that reads only the segments a
@@ -74,6 +91,10 @@ SOURCES = {
     "masked_cumsum": ("src/repro_torch/csrc/masked_cumsum.cu",
                       "src/repro/kernels/batched_select.py:50 and "
                       "src/repro/kernels/version_select.py:30"),
+    "stacked_masked_cumsum": ("src/repro_torch/csrc/masked_cumsum.cu",
+                              "src/repro/kernels/batched_select.py:115"),
+    "shard_route": ("src/repro_torch/csrc/shard_route.cu",
+                    "src/repro/kernels/shard_route.py:40"),
     "keep_mask": ("src/repro_torch/csrc/keep_mask.cu",
                   "src/repro/kernels/compact_rewrite.py:35"),
     "delta_pack": ("src/repro_torch/csrc/delta_codec.cu",
@@ -90,7 +111,10 @@ PATH_KERNELS = {
     "main_path": ("fingerprint", "masked_cumsum", "keep_mask"),
     "persistence": ("fingerprint", "masked_cumsum", "keep_mask",
                     "delta_pack"),
+    "sharding": ("fingerprint", "shard_route", "stacked_masked_cumsum",
+                 "masked_cumsum", "keep_mask", "delta_pack"),
 }
+N_SHARDS = 4  # the JAX package's default shard count
 CODEC_DTYPES = ("int8", "int16", "uint16", "int32", "uint32", "float16",
                 "float32", "int64", "float64")
 INT32 = np.iinfo(np.int32)
@@ -360,6 +384,28 @@ class KernelBench:
                  library=lambda: torch.cumsum(mask, dim=1, dtype=torch.int32),
                  timed=timed, main=main)
 
+    def stacked_masked_cumsum(self, ts, tq, *, timed=True, main=False,
+                              quiet=False) -> dict:
+        (s, c), (q,) = ts.shape, tq.shape
+        mask = (ts[:, None, :] <= tq[None, :, None]).to(torch.int32)
+        return self.run(
+            "stacked_masked_cumsum", {"S": s, "C": c, "Q": q},
+            lambda: self.kops.stacked_masked_cumsum(ts, tq),
+            lambda: self.kops.ref.ref_stacked_masked_cumsum(ts, tq),
+            nbytes=s * c * 4 + q * 4 + s * q * c * 4, ops=2 * s * q * c,
+            library=lambda: torch.cumsum(mask, dim=2, dtype=torch.int32),
+            timed=timed, main=main, quiet=quiet)
+
+    def shard_route(self, lanes, lens, n_shards, *, timed=True, main=False,
+                    quiet=False) -> dict:
+        n, w = lanes.shape
+        return self.run(
+            "shard_route", {"N": n, "W": w, "shards": n_shards},
+            lambda: self.kops.shard_route(lanes, lens, n_shards),
+            lambda: self.kops.ref.ref_shard_route(lanes, lens, n_shards),
+            nbytes=n * w * 4 + 2 * n * 4, ops=n * (8 * w + 5),
+            timed=timed, main=main, quiet=quiet)
+
     def codec(self, name, a, b, *, unsigned=False, timed=True, main=False,
               label=None, quiet=False) -> dict:
         """One delta-codec wrapper on the pair (a, b): bits and per-tile
@@ -482,6 +528,56 @@ def phase_kernel_edges(bench: KernelBench, rng) -> None:
           "W": [1, 8, 64], "cases": len(cases),
           "max_abs_diff": max(c["max_abs_diff"] for c in cases),
           "stats_compared": "per tile", "gpu": bench.smi})
+
+
+def phase_kernel_edges_sharding(bench: KernelBench, rng) -> None:
+    """The sharding slice's kernels at edge shapes, compared only and
+    summarized in one line: the route at the empty key, keys whose real
+    bytes end in zeros and keys of 125+ bytes (the rotation wraps past 31
+    lanes), for 1, 2, 5 and 7 shards; the stacked scan at S = 1/3/4, ragged
+    C with int32-max padding, Q = 1/8/64, and its boundary sample at
+    boundaries 0 and C."""
+    kops, ref = bench.kops, bench.kops.ref
+    edge = [b"", b"\x00", b"a", b"a\x00", b"a\x00\x00\x00\x00", b"x" * 125,
+            b"y" * 200 + b"\x00",
+            bytes(rng.integers(0, 256, 257, dtype=np.uint8))]
+    cases = []
+    for n in (1, 513, 100_003):
+        keys = (edge + keys_of(np.arange(n)))[:n]
+        lanes, lens = (torch.as_tensor(a, device=DEV)
+                       for a in kops.key_lanes(keys))
+        for n_shards in (1, 2, 5, 7):
+            cases.append(bench.shard_route(lanes, lens, n_shards,
+                                           timed=False, quiet=True))
+    for s in (1, 3, 4):
+        for c in (1, 2047, 2049, 5001):
+            ts = np.full((s, c), INT32.max, np.int32)
+            for i in range(s):  # real cells, then padding (none in row 0)
+                n_real = c if i == 0 else int(rng.integers(0, c + 1))
+                ts[i, :n_real] = np.sort(rng.integers(-5, 97, n_real))
+            bnd = np.sort(rng.integers(0, c + 1, (s, 9)), axis=1)
+            bnd[:, 0], bnd[:, -1] = 0, c
+            ts_t = torch.as_tensor(ts, device=DEV)
+            bnd_t = torch.as_tensor(bnd.astype(np.int32), device=DEV)
+            for q in (1, 8, 64):
+                tq = rng.integers(-10, 110, q).astype(np.int32)
+                tq[0] = 2**31 - 2
+                tq_t = torch.as_tensor(tq, device=DEV)
+                cases.append(bench.stacked_masked_cumsum(
+                    ts_t, tq_t, timed=False, quiet=True))
+                got = kops.stacked_boundary_select(ts_t, tq_t, bnd_t)
+                want = ref.ref_stacked_boundary_select(ts_t, tq_t, bnd_t)
+                sync()
+                check(torch.equal(got, want),
+                      f"stacked_boundary_select S {s} C {c} Q {q} differs")
+    emit({"phase": "kernel_edges_sharding",
+          "kernels": sorted({c["name"] for c in cases}),
+          "route_N": [1, 513, 100_003], "route_shards": [1, 2, 5, 7],
+          "stacked_S": [1, 3, 4], "stacked_C": [1, 2047, 2049, 5001],
+          "stacked_Q": [1, 8, 64], "cases": len(cases),
+          "boundary_selects_compared": 36,
+          "max_abs_diff": max(c["max_abs_diff"] for c in cases),
+          "gpu": bench.smi})
 
 
 def phase_main_path(VersionedStore, FieldSchema, kops, releases) -> dict:
@@ -794,6 +890,252 @@ def phase_codec_main(bench: KernelBench, compat, codec_in, rng) -> None:
     del pairs, fl, fl_prev, wide, wide_prev, fl64, fl64_prev
 
 
+def uncounted(kops, fn):
+    """Run ``fn`` (reference work beside a path) without adding to any
+    kernel's launch count."""
+    before = {k: f.launches for k, f in kops.KERNELS.items()}
+    try:
+        return fn()
+    finally:
+        for k, f in kops.KERNELS.items():
+            f.launches = before[k]
+
+
+def same_bytes(x: np.ndarray, y: np.ndarray) -> bool:
+    """Same dtype, shape and bytes, compared without copying."""
+    return (x.dtype == y.dtype and x.shape == y.shape
+            and np.array_equal(np.ascontiguousarray(x).view(np.uint8),
+                               np.ascontiguousarray(y).view(np.uint8)))
+
+
+def same_rows(a, b, what: str) -> None:
+    """Two answers of the store byte for byte: keys, row ids, values."""
+    check(a.keys == b.keys and same_bytes(a.row_idx, b.row_idx),
+          f"{what}: rows differ")
+    check(list(a.values) == list(b.values), f"{what}: fields differ")
+    for f in a.values:
+        check(same_bytes(a.values[f], b.values[f]), f"{what}: {f} differs")
+
+
+def phase_sharding(core, placement, kops, releases, root: str) -> dict:
+    """The releases through a 4-shard ShardedStore on the card, queried
+    under every placement and checked row by row against the releases and
+    byte for byte against an unsharded store, then compacted, saved and
+    reopened lazily."""
+    schema = [core.FieldSchema("sequence", SEQ_W, "int32"),
+              core.FieldSchema("length", 1, "int32"),
+              core.FieldSchema("annotation", ANN_W, "int32")]
+    fields = [f.name for f in schema]
+    # the unsharded store whose answers the sharded ones must equal
+    plain = core.VersionedStore("uniprot_sprot", schema, capacity=N_ENTRIES)
+    for r in releases:
+        uncounted(kops, lambda: plain.update(r["ts"], keys_of(r["ids"]),
+                                             r["table"]))
+    rec = {"phase": "sharding", "shards": N_SHARDS,
+           "entries": len(releases[0]["ids"]), "releases": len(releases)}
+    # route_keys alone on the last release's keys: the host packing of the
+    # key bytes (key_lanes) and the whole call
+    last_keys = keys_of(releases[-1]["ids"])
+    _, rec["key_lanes_s"] = wall(lambda: kops.key_lanes(last_keys))
+    _, rec["route_keys_s"] = wall(lambda: uncounted(
+        kops, lambda: kops.route_keys(last_keys, N_SHARDS, DEV)))
+    for fn in kops.KERNELS.values():
+        fn.launches = 0
+    st = core.ShardedStore("uniprot_sprot", schema, n_shards=N_SHARDS,
+                           capacity=N_ENTRIES)
+    rec["update_s"], rec["session_apply_s"], rec["session_finish_s"] = (
+        [], [], [])
+    for r in releases:
+        keys = keys_of(r["ids"])
+        if r["ts"] <= 40:
+            _, s = wall(lambda: st.update(r["ts"], keys, r["table"]))
+            rec["update_s"].append(s)
+            continue
+        sess = st.begin_release(r["ts"], parallel=True)
+        applies = []
+        for part in np.array_split(np.arange(len(keys)), 4):
+            chunk = [keys[i] for i in part]
+            table = {f: v[part] for f, v in r["table"].items()}
+            _, s = wall(lambda: sess.apply(chunk, table))
+            applies.append(s)
+        _, s = wall(sess.finish)
+        rec["session_apply_s"].append(applies)
+        rec["session_finish_s"].append(s)
+    check(st.versions == plain.versions,
+          "sharded VersionInfo differs from the unsharded store's")
+    check(st.n_rows == plain.n_rows and st.row_keys == plain.row_keys,
+          "sharded key order differs from the unsharded store's")
+    rec["rows_per_shard"] = [st.shard(i).n_rows for i in range(N_SHARDS)]
+    _, rec["superlog_build_s"] = wall(
+        lambda: [st.shard(i).superlog() for i in range(N_SHARDS)])
+    queries = {1: [RELEASE_TS[-1]], 8: RELEASE_TS,
+               64: sorted(set(np.linspace(5, 85, 64).astype(int).tolist()))}
+    pairs = list(zip(RELEASE_TS[:-1], RELEASE_TS[1:len(releases)]))
+    placements = {"serial": placement.plan_placement(N_SHARDS,
+                                                     force="serial"),
+                  "stacked": placement.ShardPlacement("stacked")}
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        # one shard per card, round robin when there are fewer than 4
+        placements["mesh"] = placement.ShardPlacement("mesh", tuple(
+            torch.device("cuda", i % cards) for i in range(N_SHARDS)))
+    rec["mesh"] = ("run" if cards >= 2
+                   else f"not run: {cards} card (mesh needs 2 or more)")
+    # the unsharded answers, once (a placement switch drops the stacked
+    # copy, so each placement runs all its queries in a row)
+    want = {q: uncounted(kops, lambda: plain.get_versions(tss))
+            for q, tss in queries.items()}
+    want_inc = uncounted(kops, lambda: plain.get_increments(
+        pairs, significant_fields=["sequence"]))
+    rec["get_versions_s"] = {p: {} for p in placements}
+    rec["get_versions_stages_s"] = {p: {} for p in placements}
+    rec["get_increments_s"] = {}
+    n_checked = 0
+    for name, pl in placements.items():
+        st.placement = pl
+        if name == "stacked":
+            _, rec["stacked_build_s"] = wall(st._placed_superlog)
+            placed = st._placed
+            rec["stacked_shape"] = {"S": N_SHARDS, "Cmax": placed.cmax,
+                                    "Bmax": placed.bmax,
+                                    "cells": placed.n_cells}
+        for q, tss in queries.items():
+            if name == "serial" and q == 64:
+                # cut to keep the script near 300 s: 40.7 s on one H100,
+                # 30.2 s of it the host merge of 64 x 611k rows
+                continue
+            stages = {}
+            views, s = wall(lambda: st.get_versions(tss, trace=stages))
+            rec["get_versions_s"][name][str(q)] = s
+            rec["get_versions_stages_s"][name][str(q)] = stages
+            for t, v, w in zip(tss, views, want[q]):
+                check_view(v, releases, t, fields)
+                same_rows(v, w, f"{name} get_versions Q {q} at {t}")
+            n_checked += len(views)
+            del views
+        incs, rec["get_increments_s"][name] = wall(
+            lambda: st.get_increments(pairs, significant_fields=["sequence"]))
+        for (t0, t1), inc, w in zip(pairs, incs, want_inc):
+            check_increment(inc, release_at(releases, t0),
+                            release_at(releases, t1))
+            check(np.array_equal(inc.kind, w.kind),
+                  f"{name} increment ({t0}, {t1}]: kinds differ")
+            same_rows(inc, w, f"{name} increment ({t0}, {t1}]")
+        n_checked += len(incs)
+        del incs
+        if name == "serial":  # each shard's own scan input, for timing
+            shard_ts = [st.shard(i).superlog().ts[
+                : st.shard(i).superlog().n_cells] for i in range(N_SHARDS)]
+        if name == "stacked":
+            rec["profile_stacked_get_versions_8"] = device_profile(
+                lambda: st.get_versions(queries[8]))
+    del want, want_inc
+    # compact, one full save, a lazy reopen on the card, Q = 8 after it
+    stats, rec["compact_s"] = wall(lambda: st.compact(COMPACT_TS))
+    uncounted(kops, lambda: plain.compact(COMPACT_TS))
+    check(stats["cells_dropped"] > 0 and st.versions == plain.versions,
+          f"sharded compact differs: {stats}")
+    path = os.path.join(root, "sharded")
+    stats, rec["save_s"] = wall(lambda: st.save(path))
+    check(stats["mode"] == "full" and stats["n_shards"] == N_SHARDS,
+          f"first sharded save was {stats['mode']}")
+    rec["save"] = stats
+    reopened, rec["lazy_open_s"] = wall(
+        lambda: core.ShardedStore.load(path, device=DEV))
+    check(reopened.device == torch.device(DEV)
+          and all(reopened.shard(i).device == torch.device(DEV)
+                  for i in range(N_SHARDS)),
+          f"the reopened store is not on {DEV}")
+    q8 = [t for t in RELEASE_TS if t >= COMPACT_TS] + [55, 85]
+    check(len(q8) == 8, "8 query timestamps after the compaction")
+    views, rec["get_versions_8_reopened_s"] = wall(
+        lambda: reopened.get_versions(q8))
+    want = uncounted(kops, lambda: plain.get_versions(q8))
+    for t, v, w in zip(q8, views, want):
+        check_view(v, releases, t, fields)
+        same_rows(v, w, f"reopened get_versions at {t}")
+    n_checked += len(views)
+    del views, want, reopened
+    rec["results_checked"] = n_checked
+    rec["launches"] = {k: fn.launches for k, fn in kops.KERNELS.items()}
+    emit(rec)
+    for name in PATH_KERNELS["sharding"]:
+        check(rec["launches"][name] > 0,
+              f"kernel {name} never launched on the sharding path")
+    lanes, lens = kops.key_lanes(last_keys)
+    return {"launches": rec["launches"],
+            "stack": (placed._blocks[0][2], placed._blocks[0][3]),
+            "shard_ts": shard_ts, "route_in": (lanes, lens)}
+
+
+def phase_kernel_sharding(bench: KernelBench, sharding_out) -> None:
+    """The sharding slice's kernels at the shapes the sharding phase gave
+    them: the route of the last release's keys over 4 shards, the stacked
+    scan of the 4 shards' (S, Cmax) ts stack at Q = 1/8/64, and beside it
+    the four per-shard scans the serial placement runs at Q = 64."""
+    lanes, lens = sharding_out.pop("route_in")
+    bench.shard_route(torch.as_tensor(lanes, device=DEV),
+                      torch.as_tensor(lens, device=DEV), N_SHARDS, main=True)
+    ts, _bnd = sharding_out.pop("stack")
+    for q in (1, 8, 64):
+        tq = torch.as_tensor(np.linspace(5, 85, q).astype(np.int32),
+                             device=DEV)
+        bench.stacked_masked_cumsum(ts, tq, main=(q == 64))
+    # the serial placement's scans of the same cells: one unstacked scan
+    # per shard over its own fused ts (no padding), back to back
+    shard_ts = sharding_out.pop("shard_ts")
+    emit({"phase": "serial_vs_stacked_scan", "Q": 64,
+          "shard_cells": [int(t.shape[0]) for t in shard_ts],
+          "four_serial_scans_ms": cuda_ms(
+              lambda: [bench.kops.batched_masked_cumsum(t, tq)
+                       for t in shard_ts], bench.reps),
+          "stacked_ms": bench.main["stacked_masked_cumsum"]["kernel_ms"],
+          "stacked_shape": {"S": ts.shape[0], "C": ts.shape[1]},
+          "gpu": bench.smi})
+    del ts, _bnd, shard_ts
+
+
+def phase_sharding_parity(core, seed: int, root: str) -> None:
+    """One small sharded history with int32, uint16 and float32 fields
+    saved from device="cpu" and device="cuda": SHARD_MANIFEST.json and
+    every shard's files byte-identical, after compact(path=) too."""
+    releases = make_releases(PARITY_ENTRIES, len(RELEASE_TS), seed + 5)
+    schema = [core.FieldSchema("sequence", SEQ_W, "int32"),
+              core.FieldSchema("length", 1, "int32"),
+              core.FieldSchema("annotation", ANN_W, "int32"),
+              core.FieldSchema("flags", 2, "uint16"),
+              core.FieldSchema("score", 1, "float32")]
+    stores = [core.ShardedStore("parity", schema, n_shards=N_SHARDS,
+                                device=d) for d in ("cpu", DEV)]
+    dirs = [os.path.join(root, f"sharded_parity_{i}") for i in range(2)]
+    frng = np.random.default_rng(seed + 6)
+    files = 0
+    for r in releases:
+        table = dict(r["table"])
+        n = len(r["ids"])
+        table["flags"] = 65500 + frng.integers(0, 36, (n, 2), dtype=np.uint16)
+        table["score"] = frng.normal(size=(n, 1)).astype(np.float32)
+        outs = []
+        for s, d in zip(stores, dirs):
+            s.update(r["ts"], keys_of(r["ids"]), table)
+            outs.append(s.save(d))
+        check(outs[0] == outs[1], f"sharded save stats differ at {r['ts']}")
+    for step in ("saved", "compacted"):
+        if step == "compacted":
+            outs = [s.compact(COMPACT_TS, path=d)
+                    for s, d in zip(stores, dirs)]
+            check(outs[0] == outs[1], "sharded compact(path=) stats differ")
+        a, b = tree_bytes(dirs[0]), tree_bytes(dirs[1])
+        check(sorted(a) == sorted(b), f"{step}: file lists differ")
+        check("SHARD_MANIFEST.json" in a, "no shard manifest")
+        for k in a:
+            check(a[k] == b[k], f"{step}: {k} differs between cpu and cuda")
+        files += len(a)
+    emit({"phase": "sharding_parity", "entries": PARITY_ENTRIES,
+          "shards": N_SHARDS, "releases": len(releases),
+          "files_compared": files, "identical": True})
+
+
 def phase_parity(VersionedStore, FieldSchema, seed: int) -> None:
     """The same small history through device="cpu" and device="cuda"."""
     releases = make_releases(PARITY_ENTRIES, len(RELEASE_TS), seed + 1)
@@ -868,7 +1210,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, src)
-    from repro_torch.core import FieldSchema, VersionedStore
+    from repro_torch import core
+    from repro_torch.core import FieldSchema, VersionedStore, placement
     from repro_torch.kernels import _build, _compat, ops as kops
     from repro_torch.launch import roofline
 
@@ -878,6 +1221,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     bench = KernelBench(kops, roofline, smi, TIMED_REPS)
     phase_kernel_edges(bench, rng)
+    phase_kernel_edges_sharding(bench, rng)
     releases = make_releases(N_ENTRIES, len(RELEASE_TS), args.seed)
     main_out = phase_main_path(VersionedStore, FieldSchema, kops, releases)
     phase_kernel_main(bench, kops, releases, main_out)
@@ -888,6 +1232,9 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(HERE,
                                                                   "build"))
     try:
+        shard_out = phase_sharding(core, placement, kops, releases, root)
+        phase_kernel_sharding(bench, shard_out)
+        phase_sharding_parity(core, args.seed, root)
         pers_out = phase_persistence(VersionedStore, FieldSchema, kops,
                                      releases, root)
         phase_codec_main(bench, _compat, pers_out.pop("codec_in"), rng)
@@ -897,9 +1244,12 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     phase_parity(VersionedStore, FieldSchema, args.seed)
     # each kernel's launches come from the path that runs it: the codec
-    # from persistence, the rest from the main path
-    path_of = {k: pers_out if k.startswith("delta_") else main_out
-               for k in SOURCES}
+    # from persistence, the route and the stacked scan from sharding, the
+    # rest from the main path
+    path_of = {k: (pers_out if k.startswith("delta_")
+                   else shard_out if k in ("shard_route",
+                                           "stacked_masked_cumsum")
+                   else main_out) for k in SOURCES}
     rows = []
     for name, (source, replaces) in SOURCES.items():
         m = bench.main[name]

@@ -26,7 +26,8 @@ than the on-disk manifest's watermark, ``load()`` attaches lazy segment
 handles that are spliced into a log's CSR only when a query's timestamp
 bound reaches them, and ``compact(..., path=...)`` rewrites covered
 segments into a base segment while retaining the tail. ``core/state.py``
-carries a store across in memory. Shard placement waits for a later slice.
+carries a store across in memory; ``core/shard.py`` spreads one over
+shards.
 
 Invalidation contract: ``log_epoch`` is a monotone counter bumped by every
 log mutation (update/delete/add_field/compact). Any externally cached
@@ -670,11 +671,12 @@ class ReleaseSession:
         ``add_field`` (the ingest engine passes the parser schema) when a
         later chunk might need a wider dtype.
 
-        ``_precast``/``_fps`` are a sharded facade's wave fast path (the
-        sharding slice): the facade value-casts the full chunk and
-        fingerprints it with ONE kernel launch per field, so per-shard
-        sub-applies skip the cast and slice the shared fingerprints
-        instead of launching ``n_shards`` small fingerprint kernels."""
+        ``_precast``/``_fps`` are a sharded facade's wave fast path
+        (``core/shard.ShardedReleaseSession``): the facade value-casts the
+        full chunk and fingerprints it with ONE kernel launch per field, so
+        per-shard sub-applies skip the cast and slice the shared
+        fingerprints instead of launching ``n_shards`` small fingerprint
+        kernels."""
         if self._finished:
             raise RuntimeError("release session already finished")
         st = self.store

@@ -7,6 +7,8 @@ by accident.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -47,6 +49,17 @@ def check_tensor(t, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name} is on {t.device}; only cpu and cuda")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+_launch_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` under a lock: a sharded store's
+    release session launches kernels from its per-shard worker threads,
+    and ``+= 1`` on an attribute is not atomic across threads."""
+    with _launch_lock:
+        wrapper.launches += 1
 
 
 def stream_ptr(t: torch.Tensor) -> int:

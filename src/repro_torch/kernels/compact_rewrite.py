@@ -18,7 +18,8 @@ import torch
 
 from ..obs import kerneltel
 from . import _build, ref
-from ._compat import bits_view, cdiv, check_tensor, from_bits, stream_ptr
+from ._compat import (bits_view, cdiv, check_tensor, count_launch,
+                      from_bits, stream_ptr)
 from .launch import tile_for
 
 _ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
@@ -51,7 +52,7 @@ def keep_mask(ts: torch.Tensor, cutoff: int):
         rc = fn(ts.data_ptr(), c, cutoff, keep.data_ptr(), counts.data_ptr(),
                 n_tiles, tile // _ITEMS, stream_ptr(ts))
     _build.check(rc, "keep_mask", "keep_mask_launch")
-    keep_mask.launches += 1
+    count_launch(keep_mask)
     return keep, counts
 
 

@@ -42,7 +42,8 @@ import torch
 
 from ..obs import kerneltel
 from . import _build, ref
-from ._compat import bits_view, cdiv, from_bits, resolve_device, stream_ptr
+from ._compat import (bits_view, cdiv, count_launch, from_bits,
+                      resolve_device, stream_ptr)
 from .launch import tile_for
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -93,7 +94,7 @@ def _run(wrapper, a, b, op: str, stat: str, *, unsigned: bool = False):
                 n, w, a.element_size(), _OPS[op], _STATS[kind], tile, _BLOCK,
                 stream_ptr(a))
     _build.check(rc, "delta_codec", "delta_codec_launch")
-    wrapper.launches += 1
+    count_launch(wrapper)
     return out, stats
 
 

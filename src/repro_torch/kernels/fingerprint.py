@@ -13,7 +13,7 @@ import ctypes
 import torch
 
 from . import _build, ref
-from ._compat import check_tensor, stream_ptr
+from ._compat import check_tensor, count_launch, stream_ptr
 from .launch import tile_for
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -37,7 +37,7 @@ def fingerprint(lanes: torch.Tensor) -> torch.Tensor:
         rc = fn(lanes.data_ptr(), out.data_ptr(), n, w,
                 tile_for("fingerprint"), stream_ptr(lanes))
     _build.check(rc, "fingerprint", "fingerprint_launch")
-    fingerprint.launches += 1
+    count_launch(fingerprint)
     return out
 
 

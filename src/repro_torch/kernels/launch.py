@@ -8,12 +8,14 @@ pads inputs to a tile multiple.
 """
 from __future__ import annotations
 
-#: elements per block (fingerprint, delta_codec: rows per block). Each is a multiple of
-#: the kernel's items per thread and at most 1024 threads' worth.
+#: elements per block (fingerprint, shard_route, delta_codec: rows per
+#: block). Each is a multiple of the kernel's items per thread and at most
+#: 1024 threads' worth.
 DEFAULT_TILES = {
     "masked_cumsum": 2048,  # 512 threads x 4 cells
     "keep_mask": 1024,      # 256 threads x 4 cells
     "fingerprint": 256,     # one thread per row
+    "shard_route": 512,     # one thread per key; the JAX package's tile
     "delta_codec": 512,     # rows per block (256 threads); the JAX
                             # package's tile, so the per-tile stats match
 }

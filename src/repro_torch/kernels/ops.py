@@ -2,7 +2,9 @@
 
 ``KERNELS`` names each hand-written CUDA kernel's wrapper; each wrapper
 carries a ``launches`` count of the times it launched its kernel (CPU
-tensors take the plain version and count nothing).
+tensors take the plain version and count nothing). ``batched_masked_cumsum``
+and ``stacked_masked_cumsum`` launch the same CUDA kernel with one row and
+with S rows, and count apart, so a run shows which form its path took.
 """
 from __future__ import annotations
 
@@ -11,27 +13,33 @@ import torch
 
 from . import launch, ref
 from .batched_select import (batched_masked_cumsum, batched_version_select,
-                             scan_bucket)
+                             scan_bucket, stacked_boundary_select,
+                             stacked_masked_cumsum)
 from .compact_rewrite import compact_rewrite, keep_mask, ref_compact_rewrite
 from .delta_codec import (chain_decode, chain_pack, chain_unpack,
                           delta_pack, delta_pack_wide, delta_unpack,
                           delta_unpack_wide, narrow_dtype)
 from .fingerprint import fingerprint
+from .shard_route import key_lanes, merge_shard_rows, route_keys, shard_route
 from .version_select import masked_cumsum, version_select
 
 __all__ = [
     "KERNELS", "batched_masked_cumsum", "batched_version_select",
     "chain_decode", "chain_pack", "chain_unpack", "compact_rewrite",
     "delta_pack", "delta_pack_wide", "delta_unpack", "delta_unpack_wide",
-    "fingerprint", "fingerprint_rows", "keep_mask", "launch",
-    "masked_cumsum", "narrow_dtype", "ref", "ref_compact_rewrite",
-    "scan_bucket", "to_int_lanes", "version_select",
+    "fingerprint", "fingerprint_rows", "keep_mask", "key_lanes", "launch",
+    "masked_cumsum", "merge_shard_rows", "narrow_dtype", "ref",
+    "ref_compact_rewrite", "route_keys", "scan_bucket", "shard_route",
+    "stacked_boundary_select", "stacked_masked_cumsum", "to_int_lanes",
+    "version_select",
 ]
 
 #: kernel name -> the wrapper that launches it (and counts its launches)
 KERNELS = {
     "fingerprint": fingerprint,
     "masked_cumsum": batched_masked_cumsum,
+    "stacked_masked_cumsum": stacked_masked_cumsum,
+    "shard_route": shard_route,
     "keep_mask": keep_mask,
     "delta_pack": delta_pack,
     "delta_unpack": delta_unpack,

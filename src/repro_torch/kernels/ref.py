@@ -70,6 +70,31 @@ def ref_batched_masked_cumsum(ts: torch.Tensor,
     return torch.cumsum(m.to(torch.int32), dim=1, dtype=torch.int32)
 
 
+def ref_stacked_masked_cumsum(ts_stack: torch.Tensor,
+                              t_queries: torch.Tensor) -> torch.Tensor:
+    """ts_stack: (S, C) one padded fused-ts row per shard; t_queries: (Q,)
+    -> (S, Q, C) int32 inclusive cumsum of (ts <= t_q) per (shard, query).
+    Padding cells hold int32 max, above every clamped query, so they never
+    count."""
+    m = ts_stack[:, None, :] <= t_queries.to(ts_stack.dtype)[None, :, None]
+    return torch.cumsum(m.to(torch.int32), dim=2, dtype=torch.int32)
+
+
+def ref_stacked_boundary_select(ts_stack: torch.Tensor,
+                                t_queries: torch.Tensor,
+                                boundaries: torch.Tensor) -> torch.Tensor:
+    """Entry (s, q, b) is the count of cells with ts <= t_q among the
+    first ``boundaries[s, b]`` cells of shard s: the per-shard superlog
+    boundary cumsums of every shard at once. boundaries: (S, B) int32 CSR
+    positions in [0, C] -> (S, Q, B) int32."""
+    cum = ref_stacked_masked_cumsum(ts_stack, t_queries)
+    s, q, _ = cum.shape
+    cum0 = torch.cat([torch.zeros((s, q, 1), dtype=torch.int32,
+                                  device=cum.device), cum], dim=2)
+    idx = boundaries.long()[:, None, :].expand(s, q, boundaries.shape[1])
+    return torch.gather(cum0, 2, idx)
+
+
 def ref_batched_version_select(log_vals, log_ts, row_ptr, t_queries):
     """Q-query segmented last-cell-with-ts<=T selection over a CSR log:
     returns (out (Q, N, W), found (Q, N))."""
@@ -100,6 +125,55 @@ def ref_version_select(log_vals, log_ts, row_ptr, t_query: int):
                       device=log_ts.device)
     out, found = ref_batched_version_select(log_vals, log_ts, row_ptr, tq)
     return out[0], found[0]
+
+
+# ---------------------------------------------------------------------------
+# shard_route: stable key -> shard hashing for the sharded store.
+# ---------------------------------------------------------------------------
+
+# xxHash 32-bit primes, wrapped to int32 (the same bits as the uint32
+# multiplies the kernel does)
+RT_MUL1 = np.int32(-1640531535)   # 0x9E3779B1
+RT_MUL2 = np.int32(-2048144777)   # 0x85EBCA77
+RT_MUL3 = np.int32(-1028477379)   # 0xC2B2AE3D
+RT_MUL4 = np.int32(668265263)     # 0x27D4EB2F
+
+
+def _lsr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of the 32-bit pattern of ``x`` (int64 holding an
+    int32 value): torch's ``>>`` is arithmetic, so the sign bits are masked
+    off first. The result lies in [0, 2**(32 - s)), a non-negative int32
+    for s >= 1."""
+    return (x & 0xFFFFFFFF) >> s
+
+
+def ref_shard_route(lanes: torch.Tensor, lengths: torch.Tensor,
+                    n_shards: int) -> torch.Tensor:
+    """lanes: (N, W) int32 little-endian-packed key bytes (zero-padded);
+    lengths: (N,) int32 key byte lengths -> (N,) int32 shard ids in
+    [0, n_shards), routing version ``xor-rotate-fold-v1``.
+
+    A zero lane contributes nothing to the fold, so a key routes the same
+    at any padded width; the length in the final mix tells keys whose real
+    bytes end in zeros apart. Wraparound multiplies go through
+    ``_wrap32`` on int64 values (each product stays below 2**62)."""
+    if lanes.ndim != 2 or lanes.dtype != torch.int32:
+        raise ValueError(f"lanes must be (N, W) int32, got "
+                         f"{tuple(lanes.shape)} {lanes.dtype}")
+    n, w = lanes.shape
+    x = lanes.to(torch.int64)
+    h = torch.zeros(n, dtype=torch.int64, device=lanes.device)
+    for j in range(w):
+        t = _wrap32(x[:, j] * int(RT_MUL1))
+        t = t ^ _lsr(t, 15)
+        t = _wrap32(t * int(RT_MUL2))
+        r = (j % 31) + 1  # position-dependent rotate, never by 0 or 32
+        h = h ^ (_wrap32((t & 0xFFFFFFFF) << r) | _lsr(t, 32 - r))
+    h = h ^ _wrap32(lengths.to(torch.int64) * int(RT_MUL3))
+    h = h ^ _lsr(h, 16)
+    h = _wrap32(h * int(RT_MUL4))
+    h = h ^ _lsr(h, 13)
+    return ((h & 0x7FFFFFFF) % int(n_shards)).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -17,11 +17,11 @@ def kernel_roofline(flops: float, nbytes: float, wall_s: float) -> dict:
 
     ``flops``/``nbytes`` are the launch path's analytic estimates (see the
     call sites of ``obs/kerneltel.py``: ``batched_select``,
-    ``compact_rewrite`` and ``delta_codec``), ``wall_s`` the measured
-    launch-to-host-sync wall. The kernels of this package do integer and
-    compare work on the CUDA cores, so their compute term uses the CUDA
-    cores' rate. ``roofline_fraction`` is ``max(t_compute, t_memory) /
-    wall``.
+    ``compact_rewrite``, ``delta_codec`` and ``shard_route``), ``wall_s``
+    the measured launch-to-host-sync wall. The kernels of this package do
+    integer and compare work on the CUDA cores, so their compute term uses
+    the CUDA cores' rate. ``roofline_fraction`` is ``max(t_compute,
+    t_memory) / wall``.
     """
     t_compute = flops / PEAK_CUDA_CORE_OPS
     t_memory = nbytes / HBM_BW

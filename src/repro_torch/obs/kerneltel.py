@@ -1,9 +1,10 @@
 """Kernel launch telemetry: wall time + bytes/FLOP roofline accounting.
 
 The port's copy of ``repro.obs.kerneltel``. The store's host-facing
-kernel sites (the fused superlog scan ``batched_select``, the
-``compact_rewrite`` log rewrite, and ``delta_codec``, the on-disk chain
-pack and unpack) wrap themselves in
+kernel sites (the fused superlog scan ``batched_select``, serial and
+stacked, the ``compact_rewrite`` log rewrite, ``delta_codec``, the
+on-disk chain pack and unpack, and ``shard_route``, the sharded store's
+key routing) wrap themselves in
 ``launch(name, nbytes=..., flops=...)``: the context manager times
 launch-to-host-sync wall and aggregates per-kernel
 ``calls / wall_s / bytes / flops`` here, publishing mirrors into the
