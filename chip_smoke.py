@@ -51,6 +51,39 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   byte-identical MANIFEST.json, index and segment files
   cpu_gpu_parity  a 2,000-entry history through device="cpu" and
                   device="cuda": identical views, increments and digests
+  kernel_edges_serving  flash attention at the JAX package's kernel-test
+                  shapes, D 16/32/64/128, f32 and bf16, Sq > Sk and
+                  Sq = 1, within FLASH_TOL of its plain version; the
+                  masked merge at N 1/511/512/513, W 1-9, every element
+                  size, int32 and int64 timestamps, bit for bit
+  merge           kops.masked_merge on the first release's sequence table
+                  (570,000 x 64 int32) with the second release's rows for
+                  the entries whose sequence changed, checked against a
+                  numpy select
+  serving         llama3.2-1b at full width and depth (weights drawn from
+                  a numpy generator seeded with --seed, loaded through
+                  models/weights.py): a Scheduler run of 16 requests of
+                  4-47 tokens (max_new 16, max_batch 8, greedy), then one
+                  32,768-token request with 16 decode steps through
+                  ServeEngine; prefill wall per bucket, decode tokens/s,
+                  p50/p99 latency, peak memory and the flash launches
+                  (one per layer per prefill), read from each engine
+                  call's serve.generate span. The first bucket is checked
+                  against the same batch and weights through
+                  device="cpu": its prefill logits in bf16
+                  (SERVE_TOL_BF16), and in f32 (SERVE_TOL) its prefill
+                  and SERVE_CHECK_STEPS decode steps fed the same tokens;
+                  the scheduler's first tokens against the card's
+                  prefill; the 32k request's ring decode, in f32, against
+                  a prefill of the same tokens (SERVE_TOL); and the flash
+                  kernel against its plain version on the layer-0 q/k/v
+                  that the counted prefills handed it (first bucket and
+                  32k prompt)
+  serving_profile one bucket's generate and the 32k prefill under
+                  torch.profiler: device time, idle share, top kernels
+  serving_parity  the smoke config (f32) through device="cpu" and
+                  device="cuda": the same greedy ids from a Scheduler
+                  run, prefill logits within SMOKE_TOL
   kernels         per kernel: launches during the path that runs it,
                   error, times, bound
 
@@ -62,7 +95,9 @@ generators seeded with ``--seed``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import cProfile
+import dataclasses
 import json
 import os
 import pstats
@@ -105,6 +140,10 @@ SOURCES = {
                         "src/repro/kernels/delta_codec.py:154 and :179"),
     "delta_unpack_wide": ("src/repro_torch/csrc/delta_codec.cu",
                           "src/repro/kernels/delta_codec.py:166 and :179"),
+    "masked_merge": ("src/repro_torch/csrc/masked_merge.cu",
+                     "src/repro/kernels/masked_merge.py:24"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:33"),
 }
 # the kernels each driven path must launch at least once
 PATH_KERNELS = {
@@ -113,7 +152,27 @@ PATH_KERNELS = {
                     "delta_pack"),
     "sharding": ("fingerprint", "shard_route", "stacked_masked_cumsum",
                  "masked_cumsum", "keep_mask", "delta_pack"),
+    "merge": ("masked_merge",),
+    "serving": ("flash_attention",),
 }
+ARCH = "llama3.2-1b"
+SERVE_REQUESTS, SERVE_MAX_NEW, SERVE_MAX_BATCH = 16, 16, 8
+LONG_PROMPT = 32_768  # prefill_32k's length, at batch 1 instead of 32
+# the full model's logits on the card against the same batch and weights
+# on the CPU (|logit| is a few units at this init). f32: the same
+# arithmetic, summed in another order. bf16: both round to 8 significant
+# bits at every product and norm, at other places, over 16 layers; the
+# run also reports the card's bf16 against its f32 logits, the same spread
+SERVE_TOL = 1e-3
+SERVE_TOL_BF16 = 0.25
+SERVE_CHECK_STEPS = 4  # f32 decode steps of the first bucket on both sides
+SMOKE_TOL = 1e-4  # f32 logits, card against CPU (sums in another order)
+# flash kernel against its plain version: |got - want| <= atol + rtol *
+# |want|. f32: sums in another order. bf16: both round the same f32
+# result, which may straddle a rounding boundary: one bf16 ulp (2^-7 of
+# the value) apart
+FLASH_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-5, 2**-7)}
+PLAIN_FLASH_TILE = 1024  # the plain version's (bq, bk) tiles on the card
 N_SHARDS = 4  # the JAX package's default shard count
 CODEC_DTYPES = ("int8", "int16", "uint16", "int32", "uint32", "float16",
                 "float32", "int64", "float64")
@@ -324,23 +383,34 @@ class KernelBench:
         self.kops, self.roof, self.smi, self.reps = kops, roofline, smi, reps
         self.main: dict[str, dict] = {}
 
-    def bound(self, nbytes: float, ops: float) -> tuple[float, str]:
+    def bound(self, nbytes: float, ops: float,
+              peak: float | None = None) -> tuple[float, str]:
         tb = nbytes / self.roof.HBM_BW
-        to = ops / self.roof.PEAK_CUDA_CORE_OPS
+        to = ops / (peak or self.roof.PEAK_CUDA_CORE_OPS)
         return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
     def run(self, name: str, shape: dict, kernel, plain, nbytes, ops,
             library=None, *, timed: bool, main: bool = False,
-            quiet: bool = False) -> dict:
+            quiet: bool = False, tol: tuple | None = None,
+            peak: float | None = None, reps: int | None = None) -> dict:
+        """``tol`` (atol, rtol): compare values within it instead of bits;
+        ``peak``: the compute rate of the bound (default: CUDA cores)."""
         got = kernel()
         want = plain()
         sync()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        err = 0
+        err, ok = 0, True
         for g, w in zip(got, want):
             check(g.shape == w.shape and g.dtype == w.dtype,
                   f"{name} {shape}: {g.shape} {g.dtype} vs {w.shape} {w.dtype}")
+            if tol is not None:
+                d = (g.float() - w.float()).abs()
+                if d.numel():
+                    err = max(err, float(d.max()))
+                    ok &= bool((d <= tol[0] + tol[1] * w.float().abs())
+                               .all())
+                continue
             # compare bits: floats (the codec's XOR deltas, NaN included)
             # as the int lanes of their width
             if g.is_floating_point():
@@ -348,19 +418,24 @@ class KernelBench:
             if g.numel() and not torch.equal(g, w):
                 err = max(err, float((g.double() - w.double()).abs().max()),
                           1)
-        bound_ms, bound_by = self.bound(nbytes, ops)
+                ok = False
+        bound_ms, bound_by = self.bound(nbytes, ops, peak)
         rec = {"phase": "kernel", "name": name, "shape": shape,
                "max_abs_diff": err, "bound_ms": bound_ms,
                "bound_by": bound_by, "replaces": SOURCES[name][1],
                "gpu": self.smi}
+        if tol is not None:
+            rec["tol"] = {"atol": tol[0], "rtol": tol[1]}
         if timed:
-            rec["kernel_ms"] = cuda_ms(kernel, self.reps)
-            rec["plain_ms"] = cuda_ms(plain, self.reps)
-            rec["library_ms"] = (cuda_ms(library, self.reps)
+            n = reps or self.reps
+            rec["kernel_ms"] = cuda_ms(kernel, n)
+            rec["plain_ms"] = cuda_ms(plain, n)
+            rec["library_ms"] = (cuda_ms(library, n)
                                  if library is not None else None)
+            rec["reps"] = n
         if not quiet:
             emit(rec)
-        check(err == 0, f"{name} {shape}: kernel differs from plain by {err}")
+        check(ok, f"{name} {shape}: kernel differs from plain by {err}")
         if main:
             self.main[name] = rec
         return rec
@@ -441,6 +516,51 @@ class KernelBench:
             plain, nbytes=3 * a.numel() * a.element_size() + 4 * n_tiles,
             ops=(2 if name == "delta_pack" else 1) * a.numel(),
             library=library, timed=timed, main=main, quiet=quiet)
+
+    def masked_merge(self, base, upd, rm, fm, ts, ts_new, *, timed=True,
+                     main=False, quiet=False) -> dict:
+        n, w = base.shape
+        sel = rm[:, None] & fm[None, :]
+        ts_new_t = torch.tensor(ts_new, dtype=ts.dtype, device=ts.device)
+        return self.run(
+            "masked_merge", {"N": n, "W": w, "dtype": str(base.dtype),
+                             "ts": str(ts.dtype)},
+            lambda: self.kops.masked_merge(base, upd, rm, fm, ts, ts_new),
+            lambda: self.kops.ref.ref_masked_merge(base, upd, rm, fm, ts,
+                                                   ts_new),
+            nbytes=3 * base.numel() * base.element_size() + n + w
+            + 2 * n * ts.element_size(), ops=n * w + n,
+            library=lambda: (torch.where(sel, upd, base),
+                             torch.where(rm, ts_new_t, ts)),
+            timed=timed, main=main, quiet=quiet)
+
+    def flash(self, q, k, v, *, timed=True, main=False, quiet=False,
+              reps=None) -> dict:
+        """Flash attention against its plain version within FLASH_TOL,
+        bound by its causal FLOPs at the dtype's peak; the library
+        yardstick (SDPA) only at Sq == Sk, since its causal mask is
+        top-left aligned."""
+        import torch.nn.functional as F
+        from repro_torch.kernels.flash_attention import causal_pairs
+        b, sq, h, d = q.shape
+        sk, kh = k.shape[1], k.shape[2]
+        library = None
+        if sq == sk:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        return self.run(
+            "flash_attention", {"B": b, "Sq": sq, "Sk": sk, "H": h, "K": kh,
+                                "D": d, "dtype": str(q.dtype)},
+            lambda: self.kops.flash_attention(q, k, v),
+            lambda: self.kops.ref.ref_flash_attention(
+                q, k, v, bq=PLAIN_FLASH_TILE, bk=PLAIN_FLASH_TILE),
+            nbytes=nbytes, ops=4 * b * h * d * causal_pairs(sq, sk),
+            library=library, timed=timed, main=main, quiet=quiet,
+            tol=FLASH_TOL[q.dtype],
+            peak=self.roof.compute_peak(str(q.dtype).split(".")[-1]),
+            reps=reps)
 
     def keep_mask(self, ts, cutoff, *, timed=True, main=False):
         (c,) = ts.shape
@@ -1196,6 +1316,405 @@ def phase_parity(VersionedStore, FieldSchema, seed: int) -> None:
           "digests_equal": True})
 
 
+# ---------------------------------------------------------------------------
+# the serving slice: masked merge, flash attention, llama3.2-1b
+# ---------------------------------------------------------------------------
+
+FLASH_EDGE_SHAPES = [  # (B, Sq, Sk, H, K, D)
+    (2, 256, 256, 8, 4, 64), (1, 100, 300, 4, 4, 32), (1, 1, 129, 8, 8, 64),
+    (1, 37, 37, 2, 1, 128), (2, 128, 640, 4, 2, 16), (1, 45, 130, 14, 2, 64),
+    (1, 150, 40, 4, 2, 32), (1, 1, 1, 4, 2, 128), (3, 65, 65, 4, 4, 16),
+]
+
+
+def phase_kernel_edges_serving(bench: KernelBench, rng) -> None:
+    """The serving slice's kernels at edge shapes, compared only and
+    summarized in one line."""
+    cases = []
+    gen = torch.Generator(device=DEV).manual_seed(int(rng.integers(2**31)))
+    for dt in (torch.float32, torch.bfloat16):
+        for b, sq, sk, h, kh, d in FLASH_EDGE_SHAPES:
+            q = torch.randn(b, sq, h, d, generator=gen, device=DEV).to(dt)
+            k = torch.randn(b, sk, kh, d, generator=gen, device=DEV).to(dt)
+            v = torch.randn(b, sk, kh, d, generator=gen, device=DEV).to(dt)
+            cases.append(bench.flash(q, k, v, timed=False, quiet=True))
+    n_flash = len(cases)
+    for n in (1, 511, 512, 513):
+        for w in range(1, 10):
+            for dtype in ("int8", "float16", "float32", "float64"):
+                base, upd, _ = codec_pair(rng, dtype, n, w)
+                rm = torch.as_tensor(rng.random(n) < 0.4, device=DEV)
+                fm = torch.as_tensor(rng.random(w) < 0.7, device=DEV)
+                for ts_dt in (np.int32, np.int64):
+                    top = np.iinfo(ts_dt).max
+                    ts = torch.as_tensor(rng.integers(0, top, n, dtype=ts_dt,
+                                                      endpoint=True),
+                                         device=DEV)
+                    cases.append(bench.masked_merge(base, upd, rm, fm, ts, top,
+                                                    timed=False, quiet=True))
+    # what the kernels do not take raises on the card: no plain fallback
+    refused = 0
+    for call, exc in (
+            (lambda: bench.kops.flash_attention(
+                torch.zeros(1, 8, 4, 96, device=DEV),
+                torch.zeros(1, 8, 2, 96, device=DEV),
+                torch.zeros(1, 8, 2, 96, device=DEV)), ValueError),
+            (lambda: bench.kops.flash_attention(
+                *(torch.zeros(1, 8, 2, 64, device=DEV, dtype=torch.float16)
+                  for _ in range(3))), TypeError),
+            (lambda: bench.kops.masked_merge(
+                *(torch.zeros(4, 2, device=DEV, dtype=torch.complex128)
+                  for _ in range(2)), torch.ones(4, dtype=torch.bool,
+                                                 device=DEV),
+                torch.ones(2, dtype=torch.bool, device=DEV),
+                torch.zeros(4, dtype=torch.int32, device=DEV), 1),
+             TypeError)):
+        try:
+            call()
+        except exc:
+            refused += 1
+    check(refused == 3, f"only {refused} of 3 unsupported inputs raised")
+    flash_err = max(c["max_abs_diff"] for c in cases[:n_flash])
+    merge_err = max(c["max_abs_diff"] for c in cases[n_flash:])
+    emit({"phase": "kernel_edges_serving",
+          "flash_shapes": FLASH_EDGE_SHAPES, "flash_dtypes": ["float32",
+                                                              "bfloat16"],
+          "flash_cases": n_flash, "flash_max_abs_diff": flash_err,
+          "flash_tol": {str(k): v for k, v in FLASH_TOL.items()},
+          "merge_N": [1, 511, 512, 513], "merge_W": list(range(1, 10)),
+          "merge_elem_bytes": [1, 2, 4, 8], "merge_ts": ["int32", "int64"],
+          "merge_cases": len(cases) - n_flash, "merge_max_abs_diff": merge_err,
+          "unsupported_inputs_raised": refused, "gpu": bench.smi})
+
+
+def phase_merge(kops, releases) -> dict:
+    """masked_merge on the head table: the first release's sequence field
+    (570,000 x 64 int32) takes the second release's rows where the
+    entry's sequence changed; timestamps go to 20 on those rows."""
+    for fn in kops.KERNELS.values():
+        fn.launches = 0
+    r0, r1 = releases[0], releases[1]
+    base = r0["table"]["sequence"]
+    alive = np.isin(r0["ids"], r1["ids"])
+    upd = base.copy()
+    upd[alive] = r1["table"]["sequence"][np.searchsorted(r1["ids"],
+                                                         r0["ids"][alive])]
+    rm = (upd != base).any(axis=1)
+    fm = np.ones(base.shape[1], bool)
+    ts = np.full(len(base), r0["ts"], np.int64)
+    args = [torch.as_tensor(a, device=DEV) for a in (base, upd, rm, fm, ts)]
+    (merged, ts_out), s = wall(lambda: kops.masked_merge(*args, r1["ts"]))
+    check(np.array_equal(merged.cpu().numpy(),
+                         np.where(rm[:, None] & fm[None, :], upd, base)),
+          "masked_merge: merged rows differ from the numpy select")
+    check(np.array_equal(ts_out.cpu().numpy(), np.where(rm, r1["ts"], ts)),
+          "masked_merge: timestamps differ from the numpy select")
+    rec = {"phase": "merge", "N": base.shape[0], "W": base.shape[1],
+           "rows_merged": int(rm.sum()), "wall_s": s,
+           "launches": {k: fn.launches for k, fn in kops.KERNELS.items()}}
+    emit(rec)
+    for name in PATH_KERNELS["merge"]:
+        check(rec["launches"][name] > 0,
+              f"kernel {name} never launched on the merge path")
+    return {"launches": rec["launches"], "args": args, "ts_new": r1["ts"]}
+
+
+def serving_requests(cfg, seed: int) -> list:
+    """The JAX package's launcher's synthetic stream: prompts of 4-47
+    tokens from a numpy generator seeded with ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(SERVE_REQUESTS):
+        n = int(rng.integers(4, 48))
+        out.append((f"req{i:04d}", rng.integers(3, cfg.vocab, size=n)))
+    return out
+
+
+def first_bucket(requests, max_batch: int):
+    """The first batch the scheduler forms: the smallest bucket's first
+    ``max_batch`` requests, right-padded with 0 (its pad id)."""
+    from repro_torch.serve.scheduler import _bucket
+    bucket = min(_bucket(len(t)) for _, t in requests)
+    reqs = [(r, t) for r, t in requests if _bucket(len(t)) == bucket]
+    reqs = reqs[:max_batch]
+    batch = np.zeros((len(reqs), bucket), np.int32)
+    for i, (_, t) in enumerate(reqs):
+        batch[i, :len(t)] = t
+    return [r for r, _ in reqs], batch
+
+
+@contextlib.contextmanager
+def layer0_inputs(n_layers: int):
+    """Keep the q, k and v that each prefill hands the flash kernel at
+    layer 0, by wrapping the attention module's ``flash_attention``; the
+    kernel launches and counts as before. The prefill pads its caches
+    into new tensors, so nothing writes to the kept ones afterwards."""
+    from repro_torch.models import attention as A
+    orig, kept, calls = A.flash_attention, [], [0]
+
+    def wrapped(q, k, v):
+        if calls[0] % n_layers == 0:
+            kept.append((q, k, v))
+        calls[0] += 1
+        return orig(q, k, v)
+
+    A.flash_attention = wrapped
+    try:
+        yield kept
+    finally:
+        A.flash_attention = orig
+
+
+def greedy_logits(kops, cfg, params, batch, dev, steps: int, ids=None):
+    """The logits of ``batch``'s prefill and of ``steps`` decode steps
+    after it, fed ``ids`` (B, steps) or, without them, this run's own
+    greedy tokens: ((steps + 1, B, V) f32 on the host, the ids fed)."""
+    from repro_torch.models import build
+
+    def run():
+        bundle = build(cfg)
+        logits, state = bundle.prefill(
+            params, {"tokens": torch.as_tensor(batch, device=dev)},
+            pad_to=batch.shape[1] + steps)
+        out, fed = [logits[:, 0].cpu()], []
+        for t in range(steps):
+            tok = (ids[:, t:t + 1] if ids is not None
+                   else out[-1].argmax(-1, keepdim=True))
+            fed.append(tok)
+            logits, state = bundle.decode(params, tok.to(dev), state)
+            out.append(logits[:, 0].cpu())
+        return (torch.stack(out),
+                torch.cat(fed, 1) if fed else None)
+    return uncounted(kops, run)
+
+
+def ring_decode_gap(kops, cfg, params, prompt, steps: int) -> float:
+    """The card's decode over the long prompt's ring against a prefill of
+    the same tokens: max |logit difference| at the last of ``steps``
+    greedy decode steps (the ring holds prompt + ``steps`` + 1 slots, as
+    the served request's does)."""
+    from repro_torch.models import build
+
+    def run():
+        bundle = build(cfg)
+        toks = torch.as_tensor(prompt.astype(np.int64), device=DEV)
+        logits, state = bundle.prefill(params, {"tokens": toks},
+                                       pad_to=toks.shape[1] + steps + 1)
+        fed = []
+        for _ in range(steps):
+            fed.append(logits[:, 0].argmax(-1, keepdim=True))
+            logits, state = bundle.decode(params, fed[-1], state)
+        del state
+        ref = bundle.prefill(params, {"tokens": torch.cat([toks, *fed],
+                                                          1)})[0]
+        return float((logits - ref).abs().max())
+    return uncounted(kops, run)
+
+
+def phase_serving(kops, seed: int) -> dict:
+    """llama3.2-1b at full width and depth through Scheduler and
+    ServeEngine on the card, then one 32k-token request."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.models import build, weights
+    from repro_torch.obs.recorder import RECORDER
+    from repro_torch.serve import Scheduler, ServeConfig, ServeEngine
+    cfg = get_config(ARCH)
+    rec = {"phase": "serving", "arch": ARCH, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "params": cfg.param_count(),
+           "dtype": cfg.dtype}
+    t0 = time.perf_counter()
+    tree = weights.random_tree(cfg, np.random.default_rng(seed))
+    rec["weights_draw_s"] = time.perf_counter() - t0
+    params, rec["weights_load_s"] = wall(
+        lambda: weights.from_jax_tree(cfg, tree, device=DEV))
+    rec["weights_bytes"] = sum(
+        t.numel() * t.element_size() for t in
+        [*params["embed"].values(), *params["final_norm"].values()]
+        + [t for lay in params["layers"] for sub in lay.values()
+           for t in sub.values()])
+    engine = ServeEngine(cfg, params,
+                         ServeConfig(max_new_tokens=SERVE_MAX_NEW),
+                         run=RunConfig())
+    sched = Scheduler(engine, max_batch=SERVE_MAX_BATCH)
+    requests = serving_requests(cfg, seed)
+    long_prompt = np.random.default_rng(seed + 1).integers(
+        3, cfg.vocab, (1, LONG_PROMPT)).astype(np.int32)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    RECORDER.clear()
+    for fn in kops.KERNELS.values():
+        fn.launches = 0
+    with layer0_inputs(cfg.n_layers) as qkv:
+        for rid, toks in requests:
+            sched.submit(rid, toks)
+        stats, rec["scheduler_wall_s"] = wall(sched.run_until_drained)
+        rec["peak_memory_scheduler_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        long_out, rec["long_wall_s"] = wall(
+            lambda: engine.generate(long_prompt))
+    rec["peak_memory_long_bytes"] = torch.cuda.max_memory_allocated()
+    rec["launches"] = {k: fn.launches for k, fn in kops.KERNELS.items()}
+    # one serve.generate span per engine call: the bucket shape and the
+    # prefill (to the first token on the host) and decode walls
+    hist = [e for e in RECORDER.events("span")
+            if e["name"] == "serve.generate"]
+    rec["n_done"] = stats["n_done"]
+    rec["p50_latency_s"] = stats["p50_latency_s"]
+    rec["p99_latency_s"] = stats["p99_latency_s"]
+    rec["buckets"] = [{"batch": h["batch"], "seq": h["seq"],
+                       "prefill_s": h["stages"]["prefill"],
+                       "decode_steps": h["decode_steps"],
+                       "decode_s": h["stages"]["decode"],
+                       "decode_tokens_per_s": h["batch"] * h["decode_steps"]
+                       / h["stages"]["decode"]} for h in hist]
+    short = rec["buckets"][:-1]
+    rec["decode_tokens_per_s"] = (
+        sum(h["batch"] * h["decode_steps"] for h in short)
+        / sum(h["decode_s"] for h in short))
+    rec["stats"] = dict(engine.stats)
+    check(stats["n_done"] == SERVE_REQUESTS, f"{stats['n_done']} done")
+    for rid, _ in requests:
+        out = sched.done[rid].output
+        check(out.shape == (SERVE_MAX_NEW,) and (out >= 0).all()
+              and (out < cfg.vocab).all(), f"{rid}: bad output {out}")
+    check(long_out.shape == (1, SERVE_MAX_NEW) and (long_out >= 0).all()
+          and (long_out < cfg.vocab).all(), "32k request: bad output")
+    check(len(hist) == len(qkv) and hist[-1]["seq"] == LONG_PROMPT,
+          f"{len(hist)} generate spans, {len(qkv)} layer-0 inputs kept")
+    check(rec["launches"]["flash_attention"] == cfg.n_layers * len(hist),
+          f"flash launches {rec['launches']['flash_attention']} != "
+          f"{cfg.n_layers} per prefill x {len(hist)} prefills")
+    for name in PATH_KERNELS["serving"]:
+        check(rec["launches"][name] > 0,
+              f"kernel {name} never launched on the serving path")
+
+    # the first bucket against the same batch and weights on the CPU:
+    # prefill logits in the serving dtype (bf16, SERVE_TOL_BF16), and in
+    # f32 (SERVE_TOL) the prefill and SERVE_CHECK_STEPS greedy decode
+    # steps, both sides fed the CPU's tokens
+    rids, batch = first_bucket(requests, SERVE_MAX_BATCH)
+    check(tuple(qkv[0][0].shape[:2]) == batch.shape,
+          "the first prefill was not the first bucket")
+    bundle = build(cfg)
+    first = np.array([sched.done[r].output[0] for r in rids])
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gpu16, _ = greedy_logits(kops, cfg, params, batch, DEV, 0)
+    t1 = time.perf_counter()
+    cpu_params = weights.from_jax_tree(cfg, tree, device="cpu")
+    cpu16, _ = greedy_logits(kops, cfg, cpu_params, batch, "cpu", 0)
+    del cpu_params
+    rec["cpu_check_bf16_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cpu_params = weights.from_jax_tree(cfg32, tree, device="cpu")
+    cpu32, fed = greedy_logits(kops, cfg32, cpu_params, batch, "cpu",
+                               SERVE_CHECK_STEPS)
+    del cpu_params
+    rec["cpu_check_f32_s"] = time.perf_counter() - t1
+    params32 = weights.from_jax_tree(cfg32, tree, device=DEV)
+    del tree
+    gpu32, _ = greedy_logits(kops, cfg32, params32, batch, DEV,
+                             SERVE_CHECK_STEPS, ids=fed)
+    # the 32k request's ring decode, in f32, against a fresh prefill
+    t1 = time.perf_counter()
+    ring_gap = ring_decode_gap(kops, cfg32, params32, long_prompt,
+                               SERVE_MAX_NEW - 1)
+    rec["ring_check_s"] = time.perf_counter() - t1
+    del params32
+    checks = {}
+    for name, gpu, cpu, tol in (("bf16", gpu16, cpu16, SERVE_TOL_BF16),
+                                ("f32", gpu32, cpu32, SERVE_TOL)):
+        top2 = torch.topk(cpu, 2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) > 2 * tol
+        checks[name] = {
+            "decode_steps": cpu.shape[0] - 1,
+            "max_abs_logit_diff": float((gpu - cpu).abs().max()),
+            "tol": tol, "logit_max_abs": float(cpu.abs().max()),
+            "tokens_decided": int(decided.sum()),
+            "tokens_equal": int((gpu.argmax(-1) == cpu.argmax(-1)).sum()),
+            "decided_equal": bool(torch.equal(gpu.argmax(-1)[decided],
+                                              cpu.argmax(-1)[decided]))}
+    rec["first_bucket_check"] = {
+        "batch": list(batch.shape), **checks,
+        "bf16_vs_f32_card_max_abs_logit_diff": float(
+            (gpu16[0] - gpu32[0]).abs().max())}
+    rec["ring_check"] = {"prompt": LONG_PROMPT, "decode_steps":
+                         SERVE_MAX_NEW - 1, "dtype": "float32",
+                         "max_abs_logit_diff": ring_gap, "tol": SERVE_TOL}
+    sq, sk = qkv[0][0].float(), qkv[0][1].float()
+    rec["layer0_attention_logit_std"] = float(torch.einsum(
+        "bqkgd,bskd->bkgqs", sq.unflatten(2, (cfg.n_kv_heads, -1)), sk).std()
+        * cfg.hd ** -0.5)
+    emit(rec)
+    for name, c in checks.items():
+        check(c["max_abs_logit_diff"] <= c["tol"],
+              f"first bucket: card vs CPU {name} logits differ by "
+              f"{c['max_abs_logit_diff']} > {c['tol']}")
+        check(c["decided_equal"], f"first bucket: a decided {name} token "
+                                  f"differs between card and CPU")
+    check(ring_gap <= SERVE_TOL, f"32k ring decode: logits {ring_gap} "
+                                 f"from a prefill of the same tokens")
+    check(np.array_equal(first, gpu16[0].argmax(-1).numpy()),
+          "first bucket: the scheduler's first tokens are not the prefill's")
+    # where the serving time goes: one bucket's generate (prefill and 16
+    # decode steps) and the 32k prefill under torch.profiler, after the
+    # counted run
+    rec_prof = {"phase": "serving_profile", "gpu": nvidia_smi_line(),
+                "bucket": list(batch.shape),
+                "generate_first_bucket": device_profile(
+                    lambda: engine.generate(batch)),
+                "prefill_32k": device_profile(lambda: bundle.prefill(
+                    params, {"tokens": torch.as_tensor(long_prompt,
+                                                       device=DEV)}))}
+    emit(rec_prof)
+    del engine, sched, params
+    return {"launches": rec["launches"], "long_qkv": qkv[-1],
+            "short_qkv": qkv[0]}
+
+
+def phase_kernel_serving(bench: KernelBench, merge_out, serving_out) -> None:
+    """The serving slice's kernels at the shapes their paths gave them,
+    timed: flash attention on layer 0's q/k/v of the 32k prompt and of
+    the first bucket, the masked merge on the head table."""
+    bench.flash(*serving_out.pop("long_qkv"), main=True, reps=3)
+    bench.flash(*serving_out.pop("short_qkv"))
+    torch.cuda.empty_cache()
+    bench.masked_merge(*merge_out.pop("args"), merge_out["ts_new"],
+                       main=True)
+
+
+def phase_serving_parity(seed: int) -> None:
+    """The smoke config, in f32, through device="cpu" and device="cuda":
+    the same greedy ids from a Scheduler run and the same prefill logits
+    within SMOKE_TOL."""
+    from repro_torch.configs import RunConfig, get_smoke_config
+    from repro_torch.models import build, weights
+    from repro_torch.serve import Scheduler, ServeConfig, ServeEngine
+    cfg = dataclasses.replace(get_smoke_config(ARCH), dtype="float32")
+    tree = weights.random_tree(cfg, np.random.default_rng(seed + 3))
+    requests = serving_requests(cfg, seed + 4)
+    _, batch = first_bucket(requests, SERVE_MAX_BATCH)
+    outs, logits = [], []
+    for dev in ("cpu", DEV):
+        params = weights.from_jax_tree(cfg, tree, device=dev)
+        engine = ServeEngine(cfg, params,
+                             ServeConfig(max_new_tokens=SERVE_MAX_NEW),
+                             run=RunConfig())
+        sched = Scheduler(engine, max_batch=SERVE_MAX_BATCH)
+        for rid, toks in requests:
+            sched.submit(rid, toks)
+        sched.run_until_drained()
+        outs.append({r: sched.done[r].output for r, _ in requests})
+        logits.append(build(cfg).prefill(params, {"tokens": torch.as_tensor(
+            batch, device=dev)})[0].cpu())
+    err = float((logits[0] - logits[1]).abs().max())
+    same = all(np.array_equal(outs[0][r], outs[1][r]) for r, _ in requests)
+    emit({"phase": "serving_parity", "config": cfg.name, "dtype": cfg.dtype,
+          "requests": len(requests), "ids_equal": same,
+          "max_abs_logit_diff": err, "tol": SMOKE_TOL})
+    check(same, "smoke serving: greedy ids differ between cpu and cuda")
+    check(err <= SMOKE_TOL, f"smoke serving: logits differ by {err}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1215,6 +1734,10 @@ def main() -> int:
     from repro_torch.kernels import _build, _compat, ops as kops
     from repro_torch.launch import roofline
 
+    # f32 products in full f32 on the card (the plain versions and the
+    # serving checks compare against f32 arithmetic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     phase_env(_build.build_all(), smi)
@@ -1222,8 +1745,10 @@ def main() -> int:
     bench = KernelBench(kops, roofline, smi, TIMED_REPS)
     phase_kernel_edges(bench, rng)
     phase_kernel_edges_sharding(bench, rng)
+    phase_kernel_edges_serving(bench, rng)
     releases = make_releases(N_ENTRIES, len(RELEASE_TS), args.seed)
     main_out = phase_main_path(VersionedStore, FieldSchema, kops, releases)
+    merge_out = phase_merge(kops, releases)
     phase_kernel_main(bench, kops, releases, main_out)
     phase_chain_decode(kops, _compat, roofline, smi,
                        main_out.pop("packed_seq"))
@@ -1243,12 +1768,19 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_parity(VersionedStore, FieldSchema, args.seed)
+    del releases
+    serving_out = phase_serving(kops, args.seed)
+    phase_kernel_serving(bench, merge_out, serving_out)
+    phase_serving_parity(args.seed)
     # each kernel's launches come from the path that runs it: the codec
     # from persistence, the route and the stacked scan from sharding, the
-    # rest from the main path
+    # merge from its phase, flash attention from serving, the rest from
+    # the main path
     path_of = {k: (pers_out if k.startswith("delta_")
                    else shard_out if k in ("shard_route",
                                            "stacked_masked_cumsum")
+                   else merge_out if k == "masked_merge"
+                   else serving_out if k == "flash_attention"
                    else main_out) for k in SOURCES}
     rows = []
     for name, (source, replaces) in SOURCES.items():

@@ -8,9 +8,10 @@ pads inputs to a tile multiple.
 """
 from __future__ import annotations
 
-#: elements per block (fingerprint, shard_route, delta_codec: rows per
-#: block). Each is a multiple of the kernel's items per thread and at most
-#: 1024 threads' worth.
+#: elements per block (fingerprint, shard_route, delta_codec,
+#: masked_merge: rows per block). Each is a multiple of the kernel's items
+#: per thread and at most 1024 threads' worth. The flash attention
+#: kernel's tiles are compile-time constants of its source.
 DEFAULT_TILES = {
     "masked_cumsum": 2048,  # 512 threads x 4 cells
     "keep_mask": 1024,      # 256 threads x 4 cells
@@ -18,6 +19,8 @@ DEFAULT_TILES = {
     "shard_route": 512,     # one thread per key; the JAX package's tile
     "delta_codec": 512,     # rows per block (256 threads); the JAX
                             # package's tile, so the per-tile stats match
+    "masked_merge": 512,    # rows per block (256 threads); the JAX
+                            # package's TILE_N
 }
 
 

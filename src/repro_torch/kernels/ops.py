@@ -1,4 +1,4 @@
-"""The store's single door to the kernels (+ dtype plumbing).
+"""The package's single door to the kernels (+ dtype plumbing).
 
 ``KERNELS`` names each hand-written CUDA kernel's wrapper; each wrapper
 carries a ``launches`` count of the times it launched its kernel (CPU
@@ -20,6 +20,8 @@ from .delta_codec import (chain_decode, chain_pack, chain_unpack,
                           delta_pack, delta_pack_wide, delta_unpack,
                           delta_unpack_wide, narrow_dtype)
 from .fingerprint import fingerprint
+from .flash_attention import flash_attention
+from .masked_merge import masked_merge
 from .shard_route import key_lanes, merge_shard_rows, route_keys, shard_route
 from .version_select import masked_cumsum, version_select
 
@@ -27,8 +29,9 @@ __all__ = [
     "KERNELS", "batched_masked_cumsum", "batched_version_select",
     "chain_decode", "chain_pack", "chain_unpack", "compact_rewrite",
     "delta_pack", "delta_pack_wide", "delta_unpack", "delta_unpack_wide",
-    "fingerprint", "fingerprint_rows", "keep_mask", "key_lanes", "launch",
-    "masked_cumsum", "merge_shard_rows", "narrow_dtype", "ref",
+    "fingerprint", "fingerprint_rows", "flash_attention", "keep_mask",
+    "key_lanes", "launch", "masked_cumsum", "masked_merge",
+    "merge_shard_rows", "narrow_dtype", "ref",
     "ref_compact_rewrite", "route_keys", "scan_bucket", "shard_route",
     "stacked_boundary_select", "stacked_masked_cumsum", "to_int_lanes",
     "version_select",
@@ -45,6 +48,8 @@ KERNELS = {
     "delta_unpack": delta_unpack,
     "delta_pack_wide": delta_pack_wide,
     "delta_unpack_wide": delta_unpack_wide,
+    "masked_merge": masked_merge,
+    "flash_attention": flash_attention,
 }
 
 

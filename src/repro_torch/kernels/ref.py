@@ -303,3 +303,100 @@ def ref_tile_stat(delta: torch.Tensor, tile: int, kind: str, *,
     if kind == "nonzero":
         return v.sum(dim=1).to(torch.int32)
     return v.amax(dim=1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# masked_merge: fused (row-mask & field-mask) select + EXISTS/ts stamping.
+# ---------------------------------------------------------------------------
+
+
+def ref_masked_merge(base: torch.Tensor, upd: torch.Tensor,
+                     row_mask: torch.Tensor, field_mask: torch.Tensor,
+                     ts_base: torch.Tensor, ts_new: int):
+    """base/upd: (N, W) of one dtype; row_mask: (N,) bool; field_mask:
+    (W,) bool; ts_base: (N,) int32 or int64; ts_new: int -> (merged (N, W),
+    ts_out (N,) of ts_base's dtype). The select runs on the values' bits,
+    so float NaN payloads and signed zeros come through unchanged."""
+    sel = row_mask[:, None] & field_mask[None, :]
+    merged = torch.where(sel, int_lanes(upd), int_lanes(base))
+    ts_out = torch.where(row_mask, torch.tensor(ts_new, dtype=ts_base.dtype,
+                                                device=ts_base.device),
+                         ts_base)
+    return merged.view(base.dtype), ts_out
+
+
+# ---------------------------------------------------------------------------
+# flash attention (causal, GQA): the oracle is plain softmax attention.
+# ---------------------------------------------------------------------------
+
+NEG = -1e30
+
+
+def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, scale: float | None = None
+                  ) -> torch.Tensor:
+    """q: (B, Sq, H, D); k/v: (B, Sk, K, D) with H % K == 0, f32 math over
+    the full (Sq, Sk) logits. Queries are the last Sq positions of the key
+    axis; a query that sees no key gives NaN (softmax over nothing)."""
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    g = h // kh
+    qf = q.float() * (scale if scale is not None else d ** -0.5)
+    qf = qf.reshape(b, sq, kh, g, d)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        logits = logits.masked_fill(~(qpos >= kpos), float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def ref_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, bq: int = 128, bk: int = 128) -> torch.Tensor:
+    """The flash kernel's plain version: q (B, Sq, H, D), k/v (B, Sk, K, D)
+    -> (B, Sq, H, D) in q's dtype, causal with the queries aligned to the
+    end of the key axis.
+
+    An online softmax over ``bk``-key tiles for each ``bq``-row query tile,
+    with f32 m, l and acc, q scaled by D^-0.5 before the product, masked
+    logits at -1e30 and p = 0 where masked, the tiles past the diagonal
+    skipped (the causal trip count), and acc / max(l, 1e-30): a query that
+    sees no key gives 0, as the Pallas kernel does. It never holds more than
+    (bq, bk) logits per head, so it runs at 32k tokens where the full
+    logits of ``ref_attention`` would not fit."""
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    g = h // kh
+    offset = sk - sq
+    qf = (q.float() * d ** -0.5).reshape(b, sq, kh, g, d).permute(0, 2, 3, 1,
+                                                                  4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]   # (B, K, 1, Sk, D)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    for q0 in range(0, sq, bq):
+        q1 = min(q0 + bq, sq)
+        qt = qf[:, :, :, q0:q1]                      # (B, K, G, n, D)
+        qpos = torch.arange(q0, q1, device=q.device) + offset
+        m = torch.full(qt.shape[:-1], NEG, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(qt.shape, dtype=torch.float32, device=q.device)
+        n_tiles = min(max(cdiv(offset + q1, bk), 0), cdiv(sk, bk))
+        for t in range(n_tiles):
+            k0, k1 = t * bk, min((t + 1) * bk, sk)
+            logits = qt @ kf[:, :, :, k0:k1].transpose(-1, -2)
+            kpos = torch.arange(k0, k1, device=q.device)
+            mask = qpos[:, None] >= kpos[None, :]
+            logits = torch.where(mask, logits, NEG)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(mask, torch.exp(logits - m_new[..., None]), 0.0)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + p @ vf[:, :, :, k0:k1]
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).reshape(b, q1 - q0, h,
+                                                         d).to(q.dtype)
+    return out

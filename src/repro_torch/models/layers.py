@@ -1,0 +1,165 @@
+"""Parameter shapes and their initialization, plus the shared layers
+(norms, RoPE, MLP, embedding and head) as functions on tensors.
+
+The JAX package keeps every parameter as an f32 master and casts the
+matrix weights to the activation dtype at each use. Rounding to nearest
+even gives the same values once as every time, so the port casts the
+matrix weights once, when they are made or loaded, and keeps them in the
+activation dtype (half the bytes a decode step reads in bf16). Norm scales
+and biases stay f32: the norms apply them in f32.
+
+``ParamSpec`` mirrors the JAX package's (shape and init rule; the logical
+sharding axes have no use in a one-card port). The port's own init draws
+from a seeded ``torch.Generator``: normal with std ``1 / sqrt(fan_in)``
+(0.02 for the embedding), ``fan_in`` the second-to-last dim as in the JAX
+package, except for the 3-D attention weights, where it is the size of
+the contracted dims (d_model for wq/wk/wv, heads x head_dim for wo). The
+JAX package takes the head count (wq) and head_dim (wo) there, which at
+llama3.2-1b's width gives q and k entries of std 8 and attention logits of
+std about 128: every softmax is nearly one-hot, and a rounding in the last
+bit of a logit can change which key wins, so two devices (or bf16 and
+f32) give different answers after 16 layers. JAX's seeded init is not
+reproducible across processes anyway (it folds Python's salted ``hash``
+of each parameter path into the key), so the port does not try to match
+it; weights that must match come across from a parameter tree
+(``models/weights.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    init: str = "normal"              # normal | zeros | ones | embed
+    matrix: bool = True               # kept in the activation dtype
+    fan_in: int = 0                   # 0: the second-to-last dim
+
+    @property
+    def std(self) -> float:
+        if self.init == "embed":
+            return 0.02
+        fan_in = self.fan_in or (self.shape[-2] if len(self.shape) >= 2
+                                 else self.shape[-1])
+        return 1.0 / float(np.sqrt(max(fan_in, 1)))
+
+
+def init_param(spec: ParamSpec, gen: torch.Generator, dtype: torch.dtype,
+               device) -> torch.Tensor:
+    """One parameter: drawn in f32 (as the JAX package's masters), then
+    cast to ``dtype``."""
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return x.mul_(spec.std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def norm_spec(cfg) -> dict:
+    if cfg.norm == "layernorm_np":     # OLMo: non-parametric LN
+        return {}
+    if cfg.norm == "layernorm":
+        return {"scale": ParamSpec((cfg.d_model,), "ones", matrix=False),
+                "bias": ParamSpec((cfg.d_model,), "zeros", matrix=False)}
+    return {"scale": ParamSpec((cfg.d_model,), "ones", matrix=False)}
+
+
+def apply_norm(p: dict, x: torch.Tensor, kind: str,
+               eps: float = 1e-5) -> torch.Tensor:
+    """rmsnorm | layernorm | layernorm_np over the last dim, in f32 (the
+    f32 scale and bias applied in f32), cast back to ``x``'s dtype."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (y * p["scale"]).to(x.dtype)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if kind == "layernorm":
+        y = y * p["scale"] + p["bias"]
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               sections: tuple[int, ...] | None = None) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S). Rotates the two halves of the
+    head dim (not interleaved pairs), in f32."""
+    if sections is not None:
+        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet; "
+                                  "see ROADMAP.md")
+    d = x.shape[-1]
+    freqs = torch.as_tensor(rope_freqs(d, theta), device=x.device)
+    angles = positions[..., None].float() * freqs          # (B, S, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (gated SwiGLU or plain)
+# ---------------------------------------------------------------------------
+
+def mlp_spec(cfg, d_ff: int | None = None) -> dict:
+    d_ff = d_ff or cfg.d_ff
+    s = {"wi": ParamSpec((cfg.d_model, d_ff)),
+         "wo": ParamSpec((d_ff, cfg.d_model))}
+    if cfg.mlp_gated:
+        s["wg"] = ParamSpec((cfg.d_model, d_ff))
+    return s
+
+
+def _act(cfg):
+    if cfg.act == "silu":
+        return F.silu
+    return lambda h: F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+
+
+def apply_mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    h = x @ p["wi"]
+    if cfg.mlp_gated:
+        h = _act(cfg)(x @ p["wg"]) * h
+    else:
+        h = _act(cfg)(h)
+    return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# embeddings / head
+# ---------------------------------------------------------------------------
+
+def embed_spec(cfg) -> dict:
+    s = {"tok": ParamSpec((cfg.vocab, cfg.d_model), "embed")}
+    if not cfg.tie_embeddings:
+        s["head"] = ParamSpec((cfg.d_model, cfg.vocab))
+    return s
+
+
+def apply_embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["tok"][tokens]
+
+
+def apply_head(p: dict, x: torch.Tensor) -> torch.Tensor:
+    w = p["head"] if "head" in p else p["tok"].T
+    return x @ w

@@ -1,0 +1,112 @@
+"""Carry parameters across from the JAX package's parameter tree.
+
+The JAX package's tree, as numpy arrays, is ``{"embed": {"tok"[, "head"]},
+"blocks": [one dict per sublayer of the layer pattern, each leaf stacked
+over the pattern's repeats], "final_norm"}``; for the dense family the
+pattern is one layer, so ``blocks`` holds one dict whose leaves carry a
+leading layer axis. ``from_jax_tree`` unstacks it into the port's
+per-layer tree on a device, casting the matrices to the config's dtype
+(the JAX package keeps f32 masters and casts them at each use, with the
+same rounding) and keeping the norm parameters in f32. ``to_jax_tree`` is
+the inverse, in f32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels._compat import resolve_device
+from . import transformer as tf
+from .layers import ParamSpec
+
+
+def _leaves(spec, tree, path=()):
+    """(path, ParamSpec, array) for every leaf of ``spec`` in ``tree``."""
+    if isinstance(spec, ParamSpec):
+        yield path, spec, tree
+        return
+    keys = spec.keys() if isinstance(spec, dict) else range(len(spec))
+    for k in keys:
+        yield from _leaves(spec[k], tree[k], path + (k,))
+
+
+def _set(tree: dict, path: tuple, value) -> None:
+    for k in path[:-1]:
+        tree = tree[k]
+    tree[path[-1]] = value
+
+
+def from_jax_tree(cfg, tree: dict, device=None) -> dict:
+    """The JAX package's parameter tree (numpy or array-likes) -> the
+    port's parameter tree on ``device`` (None: the CUDA card). Raises on a
+    missing leaf or a shape that does not fit ``cfg``."""
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    spec = tf.model_spec(cfg)
+    blocks = tree["blocks"]
+    if len(blocks) != 1:
+        raise ValueError(f"a dense tree has one block pattern, got "
+                         f"{len(blocks)}")
+    jax_like = {"embed": tree["embed"], "final_norm": tree["final_norm"],
+                "layers": [{k: {n: a[l] for n, a in v.items()}
+                            for k, v in blocks[0].items()}
+                           for l in range(cfg.n_layers)]}
+    out = _empty_like(spec)
+    for path, s, arr in _leaves(spec, jax_like):
+        arr = np.array(arr, np.float32)  # a writable host copy
+        if arr.shape != s.shape:
+            raise ValueError(f"{'/'.join(map(str, path))}: shape "
+                             f"{arr.shape} != {s.shape}")
+        t = torch.from_numpy(arr).to(dev)
+        _set(out, path, t.to(dtype) if s.matrix else t)
+    return out
+
+
+def to_jax_tree(cfg, params: dict) -> dict:
+    """The port's parameter tree -> the JAX package's layout, as f32 numpy
+    arrays with the layer axis stacked."""
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    layers = params["layers"]
+    blocks = [{k: {n: np.stack([host(layers[l][k][n])
+                                for l in range(len(layers))])
+                   for n in layers[0][k]}
+               for k in layers[0]}]
+    return {"embed": {k: host(v) for k, v in params["embed"].items()},
+            "blocks": blocks,
+            "final_norm": {k: host(v)
+                           for k, v in params["final_norm"].items()}}
+
+
+def random_tree(cfg, rng: np.random.Generator) -> dict:
+    """A JAX-layout f32 parameter tree drawn from a numpy generator with
+    the port's init rules (``layers.ParamSpec``): the host-side source of
+    seeded weights that both packages can load. These follow the JAX
+    package's rules except for the attention weights, whose fan-in is
+    their contracted dims (see ``layers.py`` and ROADMAP.md Queue 3)."""
+    spec = tf.model_spec(cfg)
+
+    def draw(s: ParamSpec):
+        if s.init in ("zeros", "ones"):
+            return np.full(s.shape, s.init == "ones", np.float32)
+        x = rng.standard_normal(s.shape, dtype=np.float32)
+        x *= np.float32(s.std)
+        return x
+
+    port_like = _empty_like(spec)
+    for path, s, _ in _leaves(spec, spec):
+        _set(port_like, path, draw(s))
+    layers = port_like["layers"]
+    return {"embed": port_like["embed"],
+            "final_norm": port_like["final_norm"],
+            "blocks": [{k: {n: np.stack([lay[k][n] for lay in layers])
+                            for n in layers[0][k]} for k in layers[0]}]}
+
+
+def _empty_like(spec):
+    if isinstance(spec, ParamSpec):
+        return None
+    if isinstance(spec, dict):
+        return {k: _empty_like(v) for k, v in spec.items()}
+    return [_empty_like(v) for v in spec]

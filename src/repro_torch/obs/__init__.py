@@ -1,8 +1,8 @@
 """Observability the store calls: the metrics registry (``metrics``),
 trace spans and the stage timer (``trace``), the flight recorder of
-recent events (``recorder``), and per-kernel launch telemetry with
-roofline fractions (``kerneltel``). The structured logger waits for the
-slices that use it."""
+recent events (``recorder``), per-kernel launch telemetry with roofline
+fractions (``kerneltel``), and the structured logger the launchers
+configure (``log``)."""
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry, REGISTRY
 from .recorder import RECORDER, FlightRecorder, install_excepthook
 from .trace import (Span, StageTimer, current_span, current_trace_id,

@@ -14,7 +14,10 @@ Bytes/FLOP figures are analytic estimates of the traffic and arithmetic
 (documented at each call site); ``snapshot()`` derives each kernel's
 achieved GB/s and ``roofline_fraction`` against the card's constants in
 ``launch/roofline.py``. ``padded_nbytes`` carries any pad slack
-separately from the logical traffic model. The wall is host time up to
+separately from the logical traffic model. The prefill's flash attention
+is not wrapped: the prefill has no host sync per layer, so a host wall
+there would time the enqueue; ``chip_smoke.py`` times that kernel with
+CUDA events. The wall is host time up to
 the copy back, so it includes launch overhead and the host work between.
 
 Overhead per launch is two ``perf_counter`` reads and one locked dict
