@@ -53,9 +53,14 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   device="cuda": identical views, increments and digests
   kernel_edges_serving  flash attention at the JAX package's kernel-test
                   shapes, D 16/32/64/128, f32 and bf16, Sq > Sk and
-                  Sq = 1, within FLASH_TOL of its plain version; the
-                  masked merge at N 1/511/512/513, W 1-9, every element
-                  size, int32 and int64 timestamps, bit for bit
+                  Sq = 1, and at shapes that straddle the tensor-core
+                  kernel's 128-row tiles (Sq 129 and 300 with Sk - Sq not
+                  a multiple of 128, Sk 257, GQA groups 1/4/8, B 3, Sk 0,
+                  a strided q, a k whose base TMA cannot read), within
+                  FLASH_TOL of its plain version, with the design each
+                  case took; the masked merge at N 1/511/512/513, W 1-9,
+                  every element size, int32 and int64 timestamps, bit for
+                  bit
   merge           kops.masked_merge on the first release's sequence table
                   (570,000 x 64 int32) with the second release's rows for
                   the entries whose sequence changed, checked against a
@@ -85,7 +90,8 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   device="cuda": the same greedy ids from a Scheduler
                   run, prefill logits within SMOKE_TOL
   kernels         per kernel: launches during the path that runs it,
-                  error, times, bound
+                  error, times, bound (flash attention twice: bf16 on the
+                  tensor cores, f32 on the CUDA cores, at 32k)
 
 then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any mismatch or error ends the run with a
@@ -144,6 +150,9 @@ SOURCES = {
                      "src/repro/kernels/masked_merge.py:24"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:33"),
+    # the same wrapper at f32: the CUDA-core kernel of the same source
+    "flash_attention_f32": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:33"),
 }
 # the kernels each driven path must launch at least once
 PATH_KERNELS = {
@@ -365,6 +374,12 @@ def nvidia_smi_line() -> str:
 
 
 def phase_env(build_info: dict, smi: str) -> None:
+    """The card, the toolchain and the kernels' build: ptxas's registers
+    and spills per kernel; for flash attention its whole report (shared
+    memory, setmaxnreg, wgmma warnings) and the count of tensor-core
+    product instructions (HGMMA) in its SASS, where cuobjdump exists."""
+    from repro_torch.kernels import _build
+    ptxas = build_info["ptxas"]
     emit({"phase": "env", "gpu": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
@@ -372,7 +387,10 @@ def phase_env(build_info: dict, smi: str) -> None:
           "built": build_info["built"],
           "ptxas": {k: [ln.strip() for ln in v.splitlines()
                         if "registers" in ln or "spill" in ln]
-                    for k, v in build_info["ptxas"].items()}})
+                    for k, v in ptxas.items()},
+          "flash_ptxas": [ln.strip() for ln in ptxas.get(
+              "flash_attention", "").splitlines() if ln.strip()],
+          "flash_hgmma": _build.sass_opcodes("flash_attention", "HGMMA")})
 
 
 class KernelBench:
@@ -535,28 +553,42 @@ class KernelBench:
             timed=timed, main=main, quiet=quiet)
 
     def flash(self, q, k, v, *, timed=True, main=False, quiet=False,
-              reps=None) -> dict:
+              reps=None, name="flash_attention") -> dict:
         """Flash attention against its plain version within FLASH_TOL,
-        bound by its causal FLOPs at the dtype's peak; the library
-        yardstick (SDPA) only at Sq == Sk, since its causal mask is
-        top-left aligned."""
+        bound by its causal FLOPs at the dtype's peak, with the design the
+        wrapper takes (``shape["design"]``); the library yardstick (SDPA)
+        only at Sq == Sk, since its causal mask is top-left aligned. SDPA
+        takes GQA itself in bf16; in f32 its memory-efficient kernel,
+        which does not, gets k and v repeated over the query heads (made
+        before the timing), since its math fallback would hold the full
+        logits."""
         import torch.nn.functional as F
-        from repro_torch.kernels.flash_attention import causal_pairs
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        from repro_torch.kernels import flash_attention as fa
         b, sq, h, d = q.shape
         sk, kh = k.shape[1], k.shape[2]
         library = None
-        if sq == sk:
+        if sq == sk and q.dtype == torch.bfloat16:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             library = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, is_causal=True, enable_gqa=True)
+        elif sq == sk:
+            qt, kt, vt = (x.transpose(1, 2) for x in (
+                q, k.repeat_interleave(h // kh, 2),
+                v.repeat_interleave(h // kh, 2)))
+
+            def library():
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    return F.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         return self.run(
-            "flash_attention", {"B": b, "Sq": sq, "Sk": sk, "H": h, "K": kh,
-                                "D": d, "dtype": str(q.dtype)},
+            name, {"B": b, "Sq": sq, "Sk": sk, "H": h, "K": kh, "D": d,
+                   "dtype": str(q.dtype), "design": fa.design(q.dtype, d)},
             lambda: self.kops.flash_attention(q, k, v),
             lambda: self.kops.ref.ref_flash_attention(
                 q, k, v, bq=PLAIN_FLASH_TILE, bk=PLAIN_FLASH_TILE),
-            nbytes=nbytes, ops=4 * b * h * d * causal_pairs(sq, sk),
+            nbytes=nbytes, ops=4 * b * h * d * fa.causal_pairs(sq, sk),
             library=library, timed=timed, main=main, quiet=quiet,
             tol=FLASH_TOL[q.dtype],
             peak=self.roof.compute_peak(str(q.dtype).split(".")[-1]),
@@ -1014,11 +1046,13 @@ def uncounted(kops, fn):
     """Run ``fn`` (reference work beside a path) without adding to any
     kernel's launch count."""
     before = {k: f.launches for k, f in kops.KERNELS.items()}
+    designs = dict(kops.flash_attention.by_design)
     try:
         return fn()
     finally:
         for k, f in kops.KERNELS.items():
             f.launches = before[k]
+        kops.flash_attention.by_design.update(designs)
 
 
 def same_bytes(x: np.ndarray, y: np.ndarray) -> bool:
@@ -1324,7 +1358,30 @@ FLASH_EDGE_SHAPES = [  # (B, Sq, Sk, H, K, D)
     (2, 256, 256, 8, 4, 64), (1, 100, 300, 4, 4, 32), (1, 1, 129, 8, 8, 64),
     (1, 37, 37, 2, 1, 128), (2, 128, 640, 4, 2, 16), (1, 45, 130, 14, 2, 64),
     (1, 150, 40, 4, 2, 32), (1, 1, 1, 4, 2, 128), (3, 65, 65, 4, 4, 16),
+    # across the tensor-core kernel's 128-row query and key tiles: Sq 129
+    # and 300 with Sk - Sq not a multiple of 128, Sk 257, GQA groups
+    # 1/4/8, B 3, Sq = 1, Sq > Sk and an empty key axis, at D 64 and 128
+    (1, 129, 200, 8, 2, 64), (1, 300, 1000, 8, 8, 128),
+    (2, 257, 257, 8, 1, 64), (3, 200, 333, 8, 2, 128),
+    (1, 1, 300, 8, 1, 128), (2, 300, 130, 4, 1, 64),
+    (1, 129, 129, 16, 2, 64), (1, 5, 0, 4, 2, 64),
 ]
+
+
+def flash_edge_inputs(gen, dt):
+    """(q, k, v) at every FLASH_EDGE_SHAPES entry, then two layouts the
+    tensor-core kernel reads through its plan: a q that is every other
+    head of a wider tensor (strided), and a k whose base is 2 bytes past
+    an allocation (TMA cannot read it; the wrapper copies it)."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV).to(dt)
+    for b, sq, sk, h, kh, d in FLASH_EDGE_SHAPES:
+        yield randn(b, sq, h, d), randn(b, sk, kh, d), randn(b, sk, kh, d)
+    yield (randn(2, 200, 16, 64)[:, :, ::2], randn(2, 200, 2, 64),
+           randn(2, 200, 2, 64))
+    n = 1 * 150 * 2 * 64
+    yield (randn(1, 150, 8, 64), randn(n + 1)[1:].view(1, 150, 2, 64),
+           randn(1, 150, 2, 64))
 
 
 def phase_kernel_edges_serving(bench: KernelBench, rng) -> None:
@@ -1332,13 +1389,16 @@ def phase_kernel_edges_serving(bench: KernelBench, rng) -> None:
     summarized in one line."""
     cases = []
     gen = torch.Generator(device=DEV).manual_seed(int(rng.integers(2**31)))
+    fa = bench.kops.flash_attention
+    by_design = dict(fa.by_design)
     for dt in (torch.float32, torch.bfloat16):
-        for b, sq, sk, h, kh, d in FLASH_EDGE_SHAPES:
-            q = torch.randn(b, sq, h, d, generator=gen, device=DEV).to(dt)
-            k = torch.randn(b, sk, kh, d, generator=gen, device=DEV).to(dt)
-            v = torch.randn(b, sk, kh, d, generator=gen, device=DEV).to(dt)
+        for q, k, v in flash_edge_inputs(gen, dt):
             cases.append(bench.flash(q, k, v, timed=False, quiet=True))
     n_flash = len(cases)
+    designs = {d: fa.by_design[d] - by_design[d] for d in by_design}
+    check(designs["wgmma"] == sum(c["shape"]["design"] == "wgmma"
+                                  for c in cases),
+          f"flash edges: {designs} launches by design")
     for n in (1, 511, 512, 513):
         for w in range(1, 10):
             for dtype in ("int8", "float16", "float32", "float64"):
@@ -1374,12 +1434,19 @@ def phase_kernel_edges_serving(bench: KernelBench, rng) -> None:
         except exc:
             refused += 1
     check(refused == 3, f"only {refused} of 3 unsupported inputs raised")
-    flash_err = max(c["max_abs_diff"] for c in cases[:n_flash])
+    flash_err = {dt: max(c["max_abs_diff"] for c in cases[:n_flash]
+                         if c["shape"]["dtype"] == dt)
+                 for dt in ("torch.float32", "torch.bfloat16")}
     merge_err = max(c["max_abs_diff"] for c in cases[n_flash:])
     emit({"phase": "kernel_edges_serving",
-          "flash_shapes": FLASH_EDGE_SHAPES, "flash_dtypes": ["float32",
-                                                              "bfloat16"],
+          "flash_shapes": FLASH_EDGE_SHAPES + ["strided q", "misaligned k"],
+          "flash_dtypes": ["float32", "bfloat16"],
           "flash_cases": n_flash, "flash_max_abs_diff": flash_err,
+          "flash_designs": [c["shape"]["design"] for c in cases[:n_flash]],
+          "flash_launches_by_design": designs,
+          "flash_worst": {c["shape"]["dtype"]: [c["shape"], c["max_abs_diff"]]
+                          for c in sorted(cases[:n_flash],
+                                          key=lambda c: c["max_abs_diff"])},
           "flash_tol": {str(k): v for k, v in FLASH_TOL.items()},
           "merge_N": [1, 511, 512, 513], "merge_W": list(range(1, 10)),
           "merge_elem_bytes": [1, 2, 4, 8], "merge_ts": ["int32", "int64"],
@@ -1544,6 +1611,8 @@ def phase_serving(kops, seed: int) -> dict:
     RECORDER.clear()
     for fn in kops.KERNELS.values():
         fn.launches = 0
+    by_design = kops.flash_attention.by_design
+    by_design.update(dict.fromkeys(by_design, 0))
     with layer0_inputs(cfg.n_layers) as qkv:
         for rid, toks in requests:
             sched.submit(rid, toks)
@@ -1554,6 +1623,7 @@ def phase_serving(kops, seed: int) -> dict:
             lambda: engine.generate(long_prompt))
     rec["peak_memory_long_bytes"] = torch.cuda.max_memory_allocated()
     rec["launches"] = {k: fn.launches for k, fn in kops.KERNELS.items()}
+    rec["flash_launches_by_design"] = dict(by_design)
     # one serve.generate span per engine call: the bucket shape and the
     # prefill (to the first token on the host) and decode walls
     hist = [e for e in RECORDER.events("span")
@@ -1584,6 +1654,8 @@ def phase_serving(kops, seed: int) -> dict:
     check(rec["launches"]["flash_attention"] == cfg.n_layers * len(hist),
           f"flash launches {rec['launches']['flash_attention']} != "
           f"{cfg.n_layers} per prefill x {len(hist)} prefills")
+    check(by_design["wgmma"] == rec["launches"]["flash_attention"],
+          f"the bf16 prefills' flash launches by design: {by_design}")
     for name in PATH_KERNELS["serving"]:
         check(rec["launches"][name] > 0,
               f"kernel {name} never launched on the serving path")
@@ -1667,15 +1739,21 @@ def phase_serving(kops, seed: int) -> dict:
                                                        device=DEV)}))}
     emit(rec_prof)
     del engine, sched, params
-    return {"launches": rec["launches"], "long_qkv": qkv[-1],
-            "short_qkv": qkv[0]}
+    return {"launches": {**rec["launches"], "flash_attention_f32":
+                         by_design["cuda_core"]},
+            "long_qkv": qkv[-1], "short_qkv": qkv[0]}
 
 
 def phase_kernel_serving(bench: KernelBench, merge_out, serving_out) -> None:
     """The serving slice's kernels at the shapes their paths gave them,
-    timed: flash attention on layer 0's q/k/v of the 32k prompt and of
-    the first bucket, the masked merge on the head table."""
-    bench.flash(*serving_out.pop("long_qkv"), main=True, reps=3)
+    timed: flash attention on layer 0's q/k/v of the 32k prompt (in bf16
+    on the tensor cores, and the same values in f32 on the CUDA cores)
+    and of the first bucket, the masked merge on the head table."""
+    long_qkv = serving_out.pop("long_qkv")
+    bench.flash(*long_qkv, main=True, reps=3)
+    bench.flash(*(x.float() for x in long_qkv), main=True, reps=3,
+                name="flash_attention_f32")
+    del long_qkv
     bench.flash(*serving_out.pop("short_qkv"))
     torch.cuda.empty_cache()
     bench.masked_merge(*merge_out.pop("args"), merge_out["ts_new"],
@@ -1780,7 +1858,7 @@ def main() -> int:
                    else shard_out if k in ("shard_route",
                                            "stacked_masked_cumsum")
                    else merge_out if k == "masked_merge"
-                   else serving_out if k == "flash_attention"
+                   else serving_out if k.startswith("flash_attention")
                    else main_out) for k in SOURCES}
     rows = []
     for name, (source, replaces) in SOURCES.items():

@@ -8,28 +8,67 @@
 // impl="chunked").
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:33
-// (_flash_kernel): the same online softmax with f32 m, l and acc, scale
-// applied to q before the product, masked logits at -1e30, p = 0 where
-// masked, key tiles past the diagonal skipped, and acc / max(l, 1e-30).
+// (_flash_kernel): the same online softmax with f32 m, l and acc, masked
+// logits at -1e30 and p = 0 where masked, key tiles past the diagonal
+// never loaded, and acc / max(l, 1e-30).
 //
 // Bound on this card: operations. The work is 4*B*H*D FLOPs per visible
-// query-key pair (two products), about 4.4 TFLOP per layer for one 32k
-// prompt of llama3.2-1b, against 0.3 GB of q, k, v and o. This design runs
-// the products on the CUDA cores in f32 (67 TFLOP/s peak), so it is many
-// times slower than the tensor cores' bound (989 TFLOP/s bf16): the
-// tensor-core version (wgmma, TMA-fed K/V ring) is a later change.
+// query-key pair (two products): 4.40 TFLOP per layer for one 32k prompt
+// of llama3.2-1b (B 1, H 32, D 64), 4.45 ms at the dense bf16 tensor-core
+// rate of 989.4 TFLOP/s (launch/roofline.py), against 0.3 GB of q, k, v
+// and o (0.09 ms at 3.35 TB/s).
 //
-// Design: one block of 4 warps per (64-row query tile, head, batch).
-// The query tile, scaled, and each 32-key K/V tile are staged in shared
-// memory as f32 (dynamic shared memory: 75 KB at D = 128, over the 48 KB
-// static limit). Each warp owns 16 query rows; for the logits, lane j owns
-// key j of the tile and reads q rows as broadcast float4s; K rows are
-// padded to D + 4 floats so the lanes' float4 reads hit distinct banks.
-// The running max is a warp reduction per row; each lane keeps a partial
-// row sum l and the final l is one reduction at the end. p goes through a
-// per-warp shared strip so that, for p @ v, lane d owns output dims
-// d, d + 32, ... and reads p as broadcast float4s. acc stays in registers.
-// Tiles past the block's last query row are never loaded.
+// Two kernels, chosen in flash_attention_launch by (dtype, D) alone; the
+// Python plan (kernels/flash_attention.py: design) makes the same choice
+// and the launcher refuses a plan that disagrees:
+//
+// * bf16 at D = 64 and 128: flash_wgmma_kernel, on the tensor cores.
+//   One block of three warpgroups per (128-row query tile, query head,
+//   batch), launched heaviest query tile first (the last tile of a 32k
+//   prompt visits 256 key tiles, the first one). Warpgroup 0 is the
+//   producer: one thread loads the Q tile once and then each 128-key K
+//   and V tile by TMA into a ring of kStages stages in dynamic shared
+//   memory, each guarded by a full and an empty mbarrier; it gives its
+//   registers away (setmaxnreg). Warpgroups 1 and 2 each own 64 query
+//   rows and take the registers. Per key tile, S = Q K^T is D/16 wgmma
+//   m64n128k16 with both operands in shared memory (K rows are
+//   D-contiguous: the K-major B operand as stored); the online softmax
+//   runs on the f32 accumulator fragment in registers (row max over the
+//   4 threads that share a row, logits scaled by D^-0.5 log2(e) after the
+//   product, exp2); P is split in registers into two bf16 parts, hi =
+//   bf16(p) and lo = bf16(p - hi), each the register A operand of 8 wgmma
+//   m64nDk16 with V from shared memory as the MN-major B operand
+//   (transposed by the instruction). hi + lo is p to 2^-17, so P V has
+//   f32 precision, as in the TPU kernel and the plain version. P rounded
+//   to bf16 once, as FlashAttention does, moves outputs by several bf16
+//   ulps from the f32-P result, and two computations of p that straddle
+//   a rounding boundary of p differ as much, so no plain version holds it
+//   within two ulps; the lo product, a third of the tensor work, is the
+//   price. m, l and O stay in f32 registers. Only tiles that cross the
+//   diagonal or the end of the key axis are masked. TMA loads 64-column
+//   boxes with the 128-byte swizzle that the wgmma descriptors name, and
+//   zero-fills rows past Sq and Sk; the epilogue writes rows < Sq from
+//   registers. Shared memory: 80 KB at D = 64, 160 KB at D = 128.
+// * f32 at every D, and bf16 at D = 16 and 32: flash_kernel, the products
+//   on the CUDA cores in f32 (67 TFLOP/s peak), so many times slower than
+//   the tensor cores' bound; the f32 checks of the serving path need f32
+//   products. One block of 4 warps per (64-row query tile, head, batch).
+//   The query tile, scaled by D^-0.5 before the product, and each 32-key
+//   K/V tile are staged in shared memory as f32 (dynamic shared memory:
+//   75 KB at D = 128, over the 48 KB static limit). Each warp owns 16
+//   query rows; for the logits, lane j owns key j of the tile and reads q
+//   rows as broadcast float4s; K rows are padded to D + 4 floats so the
+//   lanes' float4 reads hit distinct banks. The running max is a warp
+//   reduction per row; each lane keeps a partial row sum l and the final l
+//   is one reduction at the end. p goes through a per-warp shared strip so
+//   that, for p @ v, lane d owns output dims d, d + 32, ... and reads p as
+//   broadcast float4s. acc stays in registers. Tiles past the block's last
+//   query row are never loaded.
+#include <cuda.h>
+
+#include <atomic>
+#include <cmath>
+#include <type_traits>
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -228,10 +267,12 @@ int launch_typed(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 at D = 64 and 128 takes the tensor-core kernel instead (tc below)
 template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v, void* o,
              int batch, int sq, int sk, int n_heads, int group, Strides qst,
              Strides kst, Strides vst, float scale, cudaStream_t stream) {
+  constexpr bool kF32 = std::is_same_v<T, float>;
   switch (d) {
     case 16:
       return launch_typed<T, 16>(q, k, v, o, batch, sq, sk, n_heads, group,
@@ -240,40 +281,545 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
       return launch_typed<T, 32>(q, k, v, o, batch, sq, sk, n_heads, group,
                                  qst, kst, vst, scale, stream);
     case 64:
-      return launch_typed<T, 64>(q, k, v, o, batch, sq, sk, n_heads, group,
-                                 qst, kst, vst, scale, stream);
+      if constexpr (kF32) {
+        return launch_typed<T, 64>(q, k, v, o, batch, sq, sk, n_heads, group,
+                                   qst, kst, vst, scale, stream);
+      }
+      break;
     case 128:
-      return launch_typed<T, 128>(q, k, v, o, batch, sq, sk, n_heads, group,
-                                  qst, kst, vst, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if constexpr (kF32) {
+        return launch_typed<T, 128>(q, k, v, o, batch, sq, sk, n_heads,
+                                    group, qst, kst, vst, scale, stream);
+      }
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+
+// ---------------------------------------------------------------------------
+// The tensor-core kernel (bf16, D = 64 and 128)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBQ = 128;              // query rows per block (2 x 64)
+constexpr int kBK = 128;              // keys per K/V tile
+constexpr int kCols = 64;             // head-dim columns per TMA box: one
+                                      // 128-byte swizzle row of bf16
+constexpr int kBox = 128 * kCols * 2; // bytes of one 128-row box
+constexpr int kStages = 2;            // depth of the K/V ring
+constexpr int kThreads = 384;         // producer + 2 consumer warpgroups
+constexpr int kConsumerWarps = 8;     // arrivals that free a ring stage
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
+// repeats every 8 rows of 128 bytes): Q, then per stage K and V, each
+// D / 64 boxes of 128 rows x 128 bytes; then the mbarriers.
+template <int D>
+struct Layout {
+  static constexpr int kTile = D / kCols * kBox;
+  static constexpr int kKV = kTile;
+  static constexpr int kBars = kKV + 2 * kStages * kTile;
+  static constexpr int kAlloc = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box of a 4-D map (D, heads, S, B) into shared memory; the bytes
+// complete on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor of a 128-byte-swizzled operand:
+// start address, leading and stride byte offsets (16-byte units), and the
+// swizzle mode in bits 62-63 (1 = 128 B).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// K-major operand (Q as A, K as B): rows of 128 bytes, 8-row groups 1024
+// bytes apart; a k16 step moves 32 bytes along the row.
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  return smem_desc(addr, 16, 1024);
+}
+
+// MN-major operand (V as B of P V): 64 head-dim columns per 128-byte row
+// of a key, 8-key groups 1024 bytes apart, the next 64 columns one box
+// (kBox bytes) on; a k16 step moves 16 keys = 2048 bytes.
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
+  return smem_desc(addr, kBox, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma's registers
+// across the asynchronous product's issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// S (64 x 128, f32) (+)= A (64 x 16, smem) * B (128 x 16, smem)^T.
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// O (64 x D, f32) += P (64 x 16, bf16 in registers) * V (16 x D, smem,
+// MN-major).
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (D == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
   }
 }
 
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// blockIdx.x -> (query tile, head, batch): the last query tile first over
+// every head and batch, heads that share a KV head side by side
+// (kernels/flash_attention.py: launch_order).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   __nv_bfloat16* __restrict__ o, int sq, int sk, int n_heads,
+                   int batch, int group, int n_q_tiles, float scale_log2) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::kBars;
+  const uint32_t full0 = q_full + 8;              // full[s] = full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * kStages;    // empty[s] = empty0 + 8 s
+
+  const int per = n_heads * batch;
+  const int q_tile = n_q_tiles - 1 - static_cast<int>(blockIdx.x) / per;
+  const int h = static_cast<int>(blockIdx.x) % per % n_heads;
+  const int b = static_cast<int>(blockIdx.x) % per / n_heads;
+  const int q0 = q_tile * kBQ;
+  const int offset = sk - sq;
+  // causal trip count: the key tiles up to the block's last query row
+  const int q_last = offset + min(q0 + kBQ, sq) - 1;
+  const int n_tiles =
+      q_last < 0 ? 0 : min(q_last / kBK + 1, (sk + kBK - 1) / kBK);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::kTile);
+      for (int c = 0; c < D / kCols; ++c) {
+        tma_load(base + c * kBox, &qmap, q_full, c * kCols, h, q0, b);
+      }
+      const int kvh = h / group;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(empty0 + 8 * s, ((j / kStages) & 1) ^ 1);
+        const uint32_t ks = base + L::kKV + 2 * s * L::kTile;
+        mbar_expect_tx(full0 + 8 * s, 2 * L::kTile);
+        for (int c = 0; c < D / kCols; ++c) {
+          tma_load(ks + c * kBox, &kmap, full0 + 8 * s, c * kCols, kvh,
+                   j * kBK, b);
+          tma_load(ks + L::kTile + c * kBox, &vmap, full0 + 8 * s, c * kCols,
+                   kvh, j * kBK, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows q0 + 64 (wg - 1) + [0, 64)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int t = threadIdx.x - 128 * wg;
+    const int warp = t >> 5;
+    const int lane = t & 31;
+    const int row_wg = q0 + 64 * (wg - 1);
+    // accumulator fragment: element i of this thread is row
+    // r0 + 8 ((i >> 1) & 1), column 8 (i >> 2) + col0 + (i & 1)
+    const int r0 = row_wg + 16 * warp + (lane >> 2);
+    const int col0 = 2 * (lane & 3);
+    const uint32_t q_wg = base + 64 * 128 * (wg - 1);
+
+    float acc[D / 2];
+    float s[64];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    float m[2] = {-1e30f, -1e30f};
+    float l[2] = {0.f, 0.f};
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % kStages;
+      mbar_wait(full0 + 8 * st, (j / kStages) & 1);
+      const uint32_t ks = base + L::kKV + 2 * st * L::kTile;
+      const uint32_t vs = ks + L::kTile;
+
+      // S = Q K^T: D / 16 steps of 16 head-dim columns
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+        wgmma_qk(s, desc_k_major(q_wg + off), desc_k_major(ks + off),
+                 kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      const int k0 = j * kBK;
+      if (k0 + kBK - 1 > offset + row_wg || k0 + kBK > sk) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int key = k0 + 8 * (i >> 2) + col0 + (i & 1);
+          const int qpos = offset + r0 + 8 * ((i >> 1) & 1);
+          if (key > qpos || key >= sk) s[i] = -INFINITY;
+        }
+      }
+
+      // online softmax, in log2 units: m is the running max of
+      // s * D^-0.5 * log2(e)
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(repro::kFullMask, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(repro::kFullMask, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+        alpha[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+      }
+      // p = 0 where masked (s = -inf); l sums the f32 p. The product
+      // takes p as two bf16 parts, hi = bf16(p) and lo = bf16(p - hi),
+      // whose sum is p to 2^-17: P V at f32 precision, as the TPU kernel
+      // and the plain version compute it. Packed as wgmma's A fragment:
+      // register 4 kk + e of k-step kk holds S elements 8 kk + 2 e, + 1.
+      float psum[2] = {0.f, 0.f};
+      uint32_t pa_hi[32], pa_lo[32];
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int r = (i >> 1) & 1;
+        const float p0 = ex2(fmaf(s[i], scale_log2, -m[r]));
+        const float p1 = ex2(fmaf(s[i + 1], scale_log2, -m[r]));
+        psum[r] += p0 + p1;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        pa_hi[i >> 1] = bits(hi);
+        pa_lo[i >> 1] = bits(__floats2bfloat162_rn(
+            p0 - __low2float(hi), p1 - __high2float(hi)));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+      // O += P_hi V + P_lo V: 8 steps of 16 keys, two products each
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t dv = desc_mn_major(vs + kk * 16 * 128);
+        const uint32_t hi[4] = {pa_hi[4 * kk], pa_hi[4 * kk + 1],
+                                pa_hi[4 * kk + 2], pa_hi[4 * kk + 3]};
+        const uint32_t lo[4] = {pa_lo[4 * kk], pa_lo[4 * kk + 1],
+                                pa_lo[4 * kk + 2], pa_lo[4 * kk + 3]};
+        wgmma_pv<D>(acc, hi, dv);
+        wgmma_pv<D>(acc, lo, dv);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * st);
+    }
+
+    // l over the 4 threads of each row, then acc / max(l, 1e-30)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(repro::kFullMask, l[r], 1);
+      l[r] += __shfl_xor_sync(repro::kFullMask, l[r], 2);
+      l[r] = fmaxf(l[r], 1e-30f);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= sq) continue;
+      __nv_bfloat16* orow =
+          o + ((static_cast<long long>(b) * sq + row) * n_heads + h) * D;
+#pragma unroll
+      for (int jb = 0; jb < D / 8; ++jb) {
+        const __nv_bfloat162 v2 = __floats2bfloat162_rn(
+            acc[4 * jb + 2 * r] / l[r], acc[4 * jb + 2 * r + 1] / l[r]);
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jb + col0) = v2;
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda; this library links only the
+// CUDA runtime, so it is looked up once through the runtime's entry-point
+// query.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      return static_cast<EncodeTiled>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// g: the plan's map (kernels/flash_attention.py: TensorMap.packed): dims
+// (D, heads, S, B), byte strides of dims 1-3, box (64, 1, 128, 1).
+bool encode(CUtensorMap* map, const void* ptr, const long long* g, int d) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || g[0] != d || g[7] != kCols || g[8] != 1 ||
+      g[9] != kBQ || g[10] != 1) {
+    return false;
+  }
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(g[0]),
+                              static_cast<cuuint64_t>(g[1]),
+                              static_cast<cuuint64_t>(g[2]),
+                              static_cast<cuuint64_t>(g[3])};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(g[4]),
+                                 static_cast<cuuint64_t>(g[5]),
+                                 static_cast<cuuint64_t>(g[6])};
+  const cuuint32_t box[4] = {kCols, 1, kBQ, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int batch,
+           int sq, int sk, int n_heads, int group, const long long* maps,
+           int n_q_tiles, float scale, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  if (n_q_tiles != (sq + kBQ - 1) / kBQ || !encode(&qm, q, maps, D)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // an empty key axis loads no key tile (every row gives 0): its maps
+  // are never read, and an empty tensor may have no address to encode
+  if (sk == 0) {
+    km = vm = qm;
+  } else if (!encode(&km, k, maps + 11, D) || !encode(&vm, v, maps + 22, D)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // above 48 KB a launch needs the opt-in, once per card (a bit per
+  // device below 64; others opt in on every call)
+  constexpr int smem = Layout<D>::kAlloc;
+  static std::atomic<unsigned long long> opted{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(opted.load(std::memory_order_relaxed) & bit)) {
+    err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted.fetch_or(bit, std::memory_order_relaxed);
+  }
+  const long long blocks =
+      static_cast<long long>(n_q_tiles) * n_heads * batch;
+  flash_wgmma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem,
+                          stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), sq, sk, n_heads, batch,
+      group, n_q_tiles, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
 }  // namespace
 
 // q: (batch, sq, n_heads, d) and k, v: (batch, sk, n_kv_heads, d), each
-// with the strides given (elements) and a contiguous last dim; o:
-// (batch, sq, n_heads, d) contiguous. dtype 0 = float32, 1 = bfloat16.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for a shape or type
-// the kernel does not take.
-extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int batch, int sq,
-    int sk, int n_heads, int n_kv_heads, int d, int dtype, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    float scale, void* stream) {
+// with a contiguous last dim; o: (batch, sq, n_heads, d) contiguous. `plan`
+// is the host's launch plan (kernels/flash_attention.py: FlashPlan.args),
+// 51 values: batch, sq, sk, n_heads, n_kv_heads, d, dtype (0 = float32,
+// 1 = bfloat16), design (0 = the tensor-core kernel, bf16 at d 64 and 128;
+// 1 = the CUDA-core kernel, every other case), query tiles per head (design
+// 0), the element strides (batch, seq, head) of q, k and v, then the q, k
+// and v tensor maps, 11 values each (design 0). Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a shape, type or plan the kernels do not
+// take.
+extern "C" int flash_attention_launch(const void* q, const void* k,
+                                      const void* v, void* o,
+                                      const long long* plan, float scale,
+                                      void* stream) {
+  const int batch = static_cast<int>(plan[0]), sq = static_cast<int>(plan[1]),
+            sk = static_cast<int>(plan[2]),
+            n_heads = static_cast<int>(plan[3]),
+            n_kv_heads = static_cast<int>(plan[4]),
+            d = static_cast<int>(plan[5]), dtype = static_cast<int>(plan[6]),
+            design = static_cast<int>(plan[7]),
+            n_q_tiles = static_cast<int>(plan[8]);
   if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 || (dtype != 0 &&
                                                        dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool tensor_cores = dtype == 1 && (d == 64 || d == 128);
+  if (design != (tensor_cores ? 0 : 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch <= 0 || sq <= 0 || n_heads <= 0) {
     return static_cast<int>(cudaGetLastError());
   }
-  const Strides qst{q_sb, q_ss, q_sh}, kst{k_sb, k_ss, k_sh},
-      vst{v_sb, v_ss, v_sh};
   const int group = n_heads / n_kv_heads;
   auto s = static_cast<cudaStream_t>(stream);
+  const long long* maps = plan + 18;
+  if (tensor_cores) {
+    return d == 64 ? tc::launch<64>(q, k, v, o, batch, sq, sk, n_heads, group,
+                                    maps, n_q_tiles, scale, s)
+                   : tc::launch<128>(q, k, v, o, batch, sq, sk, n_heads,
+                                     group, maps, n_q_tiles, scale, s);
+  }
+  const Strides qst{plan[9], plan[10], plan[11]},
+      kst{plan[12], plan[13], plan[14]}, vst{plan[15], plan[16], plan[17]};
   if (dtype == 0) {
     return launch_d<float>(d, q, k, v, o, batch, sq, sk, n_heads, group, qst,
                            kst, vst, scale, s);

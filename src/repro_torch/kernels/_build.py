@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -93,6 +94,22 @@ def _build_locked() -> dict:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return {"dir": str(out_dir), "seconds": time.perf_counter() - t0,
             "built": todo, "ptxas": ptxas}
+
+
+def sass_opcodes(source: str, opcode: str) -> int | None:
+    """How many SASS instructions of ``lib<source>.so`` have the opcode
+    ``opcode`` (``HGMMA``: a tensor-core product), read with the toolkit's
+    ``cuobjdump``; None where the toolkit has none. Builds first."""
+    path = build_dir() / f"lib{source}.so"
+    if not path.exists():
+        build_all()
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    return len(re.findall(rf"\b{opcode}[. ]", sass))
 
 
 def kernel_fn(source: str, symbol: str, argtypes: list):

@@ -54,12 +54,15 @@ def check_tensor(t, name: str, dtype: torch.dtype, ndim: int) -> None:
 _launch_lock = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches`` under a lock: a sharded store's
+def count_launch(wrapper, kind: str | None = None) -> None:
+    """Add one to ``wrapper.launches`` (and to ``wrapper.by_design[kind]``
+    where a wrapper has several kernels) under a lock: a sharded store's
     release session launches kernels from its per-shard worker threads,
     and ``+= 1`` on an attribute is not atomic across threads."""
     with _launch_lock:
         wrapper.launches += 1
+        if kind is not None:
+            wrapper.by_design[kind] += 1
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -5,27 +5,172 @@ in device memory (137 GB for llama3.2-1b's 32 heads in f32), so the
 prefill runs the flash algorithm: an online softmax over key tiles with
 f32 running max, sum and accumulator, and no tile past the diagonal.
 
-The kernel is ``csrc/flash_attention.cu``; its plain version is
+The kernels are in ``csrc/flash_attention.cu``; their plain version is
 ``ref.ref_flash_attention``, which runs the same loop in torch ops on
 (bq, bk) tiles. The layout is the JAX package's, (B, S, H, D) for q and
-(B, S, K, D) for k and v, at the function: the kernel reads through the
+(B, S, K, D) for k and v, at the function: the kernels read through the
 strides, so nothing is transposed or padded first.
+
+Two designs, chosen by (dtype, D) alone (:func:`design`):
+
+* ``"wgmma"``, bf16 at D 64 and 128: Hopper's tensor cores. One block of
+  three warpgroups per (128-row query tile, head, batch); a producer
+  thread feeds Q once and K/V tiles of 128 keys through a ring in shared
+  memory by TMA, and two consumer warpgroups of 64 rows each run both
+  products with ``wgmma``. Blocks are launched heaviest query tile first.
+* ``"cuda_core"``, f32 at every D and bf16 at D 16 and 32: the products
+  on the CUDA cores in f32, which the f32 checks need.
+
+The host side of the wgmma launch is computed here, so the CPU tests
+reach it: :func:`plan`, a pure function of the tensors' shapes, strides,
+dtype and base alignment, gives the design, the query tiles and the TMA
+tensor maps (dims, byte strides, boxes), and names the operands TMA
+cannot read as they lie; the C launcher only encodes the maps and checks
+them. :func:`launch_order` and :func:`trip_count` state the block order
+and the causal trip counts that the kernel computes from ``blockIdx``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
 from . import _build, ref
-from ._compat import count_launch, stream_ptr
+from ._compat import cdiv, count_launch
 
-#: head dims the kernel is built for (the JAX package's kernel tests and
+#: head dims the kernels are built for (the JAX package's kernel tests and
 #: llama3.2-1b's 64)
 HEAD_DIMS = (16, 32, 64, 128)
+#: bf16 head dims that take the tensor-core kernel
+WGMMA_HEAD_DIMS = (64, 128)
+DESIGNS = ("wgmma", "cuda_core")
+BLOCK_Q = 128    # query rows per block of the wgmma kernel (2 x 64)
+BLOCK_K = 128    # keys per K/V tile of the wgmma kernel
+BOX_COLS = 64    # head-dim columns per TMA box: 128 bytes of bf16, the
+                 # row of the 128-byte swizzle that wgmma reads
+TMA_ALIGN = 16   # bytes: TMA's alignment of the base and of every stride
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
-         + [ctypes.c_float, ctypes.c_void_p])
+# q, k, v, o, the plan's args, the scale, the stream
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def design(dtype: torch.dtype, d: int) -> str:
+    """The kernel a (dtype, head dim) takes: ``"wgmma"`` for bf16 at D 64
+    and 128, ``"cuda_core"`` for everything else the wrapper accepts."""
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_core"
+
+
+def trip_count(q_tile: int, sq: int, sk: int, bq: int = BLOCK_Q,
+               bk: int = BLOCK_K) -> int:
+    """Key tiles a block of query rows [q_tile * bq, q_tile * bq + bq)
+    visits: those holding keys up to its last row's position, none when
+    that row precedes every key (the plain version's causal trip count)."""
+    q1 = min((q_tile + 1) * bq, sq)
+    return min(max(cdiv(sk - sq + q1, bk), 0), cdiv(sk, bk))
+
+
+def launch_order(sq: int, n_heads: int, batch: int,
+                 bq: int = BLOCK_Q) -> list[tuple[int, int, int]]:
+    """(query tile, head, batch) of each block, by ``blockIdx.x``: the
+    last query tile (the most key tiles) first, over every head and batch,
+    and the heads that share a KV head side by side. The kernel maps
+    ``blockIdx.x`` the same way."""
+    n_q = cdiv(sq, bq)
+    per = n_heads * batch
+    return [(n_q - 1 - t // per, (t % per) % n_heads, (t % per) // n_heads)
+            for t in range(n_q * per)]
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorMap:
+    """One TMA tensor map over a (B, S, heads, D) bf16 tensor, as
+    ``cuTensorMapEncodeTiled`` takes it: dims innermost first (D, heads,
+    S, B), the byte strides of dims 1-3, and the box one load copies
+    (``BOX_COLS`` columns of one head over ``BLOCK_Q`` rows)."""
+    dims: tuple[int, int, int, int]
+    strides: tuple[int, int, int]
+    box: tuple[int, int, int, int]
+
+    def packed(self) -> list[int]:
+        return [*self.dims, *self.strides, *self.box]
+
+
+def tensor_map(t: torch.Tensor, rows: int = BLOCK_Q) -> TensorMap | None:
+    """The TMA map of ``t`` (B, S, heads, D), or None when TMA cannot read
+    it as it lies: a base or a stride that is not a multiple of
+    ``TMA_ALIGN`` bytes. A dim of size 1 is never stepped over, so its
+    stride is taken as the contiguous one."""
+    return _tensor_map(tuple(t.shape), t.stride(), t.element_size(),
+                       t.data_ptr() % TMA_ALIGN == 0, rows)
+
+
+def _tensor_map(shape, stride, es, aligned, rows) -> TensorMap | None:
+    b, s, h, d = shape
+    strides, inner = [], d * es
+    for size, st in zip((h, s, b), (stride[2], stride[1], stride[0])):
+        strides.append(st * es if size > 1 else inner)
+        inner *= max(size, 1)
+    if not aligned or any(st % TMA_ALIGN for st in strides):
+        return None
+    # an empty key axis is never loaded (no key tile), but the map needs
+    # a positive extent to encode
+    return TensorMap((d, h, max(s, 1), b), tuple(strides),
+                     (BOX_COLS, 1, rows, 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """What the host hands the C launcher for one call."""
+    design: str
+    n_q_tiles: int               # wgmma: blocks per (head, batch)
+    maps: tuple | None           # wgmma: TensorMap of q, k, v
+    copies: tuple[str, ...]      # operands TMA cannot read as they lie
+    # the launcher's long long[51]: batch, sq, sk, heads, kv heads, D,
+    # dtype, design, n_q_tiles, the (batch, seq, head) element strides of
+    # q, k and v, then the three maps (zeros for the CUDA-core design);
+    # None while an operand needs a copy
+    args: object = dataclasses.field(default=None, compare=False)
+
+
+def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> FlashPlan:
+    """The launch plan of checked q, k, v. For the wgmma design,
+    ``copies`` names each operand whose base or strides TMA cannot read;
+    the wrapper copies those (``torch.contiguous_format``) and plans
+    again. Nothing here touches the data. Plans are cached by shapes,
+    strides and base alignment: a prefill calls with the same layout in
+    every layer, and the first bucket's call is launch-bound."""
+    return _plan(q.dtype, *((tuple(t.shape), t.stride(),
+                             t.data_ptr() % TMA_ALIGN == 0)
+                            for t in (q, k, v)))
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(dtype, *operands) -> FlashPlan:
+    (b, sq, h, d), (_, sk, kh, _) = operands[0][0], operands[1][0]
+    kind = design(dtype, d)
+    head = [b, sq, sk, h, kh, d, _DTYPES[dtype], DESIGNS.index(kind)]
+    strides = [st for _, stride, _ in operands for st in stride[:3]]
+    if kind != "wgmma":
+        return FlashPlan(kind, 0, None, (), _longs(head + [0] + strides
+                                                   + [0] * 33))
+    es = torch.empty((), dtype=dtype).element_size()
+    maps = tuple(_tensor_map(shape, stride, es, aligned, BLOCK_Q)
+                 for shape, stride, aligned in operands)
+    copies = tuple(n for n, m in zip("qkv", maps) if m is None)
+    n_q = cdiv(sq, BLOCK_Q)
+    if copies:
+        return FlashPlan(kind, n_q, None, copies)
+    return FlashPlan(kind, n_q, maps, (), _longs(
+        head + [n_q] + strides + [x for m in maps for x in m.packed()]))
+
+
+def _longs(vals):
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def _check(q, k, v, causal: bool) -> None:
@@ -57,6 +202,17 @@ def _check(q, k, v, causal: bool) -> None:
         raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
 
 
+def tma_ready(q, k, v):
+    """(q, k, v, plan) with each operand TMA cannot read copied into a
+    fresh contiguous tensor, and the plan of what is launched."""
+    p = plan(q, k, v)
+    if p.copies:
+        q, k, v = (t.clone(memory_format=torch.contiguous_format)
+                   if n in p.copies else t for n, t in zip("qkv", (q, k, v)))
+        p = plan(q, k, v)
+    return q, k, v, p
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: (B, Sq, H, D); k/v: (B, Sk, K, D), H % K == 0, float32 or
@@ -64,29 +220,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Causal with the queries aligned to the END of the key axis (prefill
     and chunked prefill both satisfy this). A CPU tensor takes the plain
-    torch version; a CUDA tensor launches the kernel (and counts the
-    launch in ``flash_attention.launches``)."""
+    torch version; a CUDA tensor launches the kernel of its
+    :func:`design` (and counts the launch in ``flash_attention.launches``
+    and ``flash_attention.by_design``)."""
     _check(q, k, v, causal)
     if q.device.type == "cpu":
         return ref.ref_flash_attention(q, k, v)
-    b, sq, h, d = q.shape
-    sk, kh = k.shape[1], k.shape[2]
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    q, k, v, p = tma_ready(q, k, v)
     fn = _build.kernel_fn("flash_attention", "flash_attention_launch", _ARGS)
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                sq, sk, h, kh, d, _DTYPES[q.dtype], q.stride(0), q.stride(1),
-                q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2), d ** -0.5,
-                stream_ptr(q))
+    # the first bucket's call is launch-bound: switch devices only when q
+    # is not on the current one
+    here = q.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if here else torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                p.args, q.shape[3] ** -0.5,
+                torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "flash_attention", "flash_attention_launch")
-    count_launch(flash_attention)
+    count_launch(flash_attention, p.design)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.by_design = dict.fromkeys(DESIGNS, 0)
 
 
 def causal_pairs(sq: int, sk: int) -> int:

@@ -1,0 +1,232 @@
+"""The flash wrapper's host-side launch plan, on the CPU.
+
+``repro_torch.kernels.flash_attention.plan`` decides everything the
+tensor-core kernel is told from the host: which design a (dtype, head
+dim) takes, the heaviest-first order of the blocks and their causal trip
+counts, and the TMA tensor maps (dims, byte strides, boxes) with their
+alignment. It is a pure function of shapes, strides and addresses, so it
+is tested here; the kernel itself runs only on the card
+(``chip_smoke.py``). The kernel's numerics are emulated here instead: its
+P operand, split into two bf16 parts, gives the plain version's f32
+product within one bf16 ulp, where P rounded to bf16 once would not.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
+    (torch.float32, 16, "cuda_core"), (torch.float32, 32, "cuda_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
+])
+def test_design_is_chosen_by_dtype_and_head_dim(dtype, d, want):
+    assert fa.design(dtype, d) == want
+    q = torch.zeros(1, 5, 4, d, dtype=dtype)
+    kv = torch.zeros(1, 7, 2, d, dtype=dtype)
+    p = fa.plan(q, kv, kv)
+    assert p.design == want
+    assert (p.maps is not None) == (want == "wgmma")
+    assert p.n_q_tiles == (1 if want == "wgmma" else 0)
+    # the launcher's args: the same choice, the shapes and the strides
+    args = list(p.args)
+    assert args[:8] == [1, 5, 7, 4, 2, d, int(dtype == torch.bfloat16),
+                        fa.DESIGNS.index(want)]
+    assert args[9:18] == [*q.stride()[:3], *kv.stride()[:3], *kv.stride()[:3]]
+    assert len(args) == 51 and (want == "wgmma" or not any(args[18:]))
+
+
+def visible_tiles(rows, sq, sk, bk):
+    """Key tiles that hold a key visible to any of ``rows`` (brute force)."""
+    last = max((i + sk - sq for i in rows), default=-1)
+    return 0 if last < 0 else min(last // bk + 1, -(-sk // bk))
+
+
+@pytest.mark.parametrize("sq,sk", [
+    (1, 1), (1, 129), (129, 200), (300, 1000), (257, 257), (300, 130),
+    (150, 40), (128, 128), (32768, 32768), (5, 0),
+])
+def test_trip_counts_cover_exactly_the_visible_key_tiles(sq, sk):
+    n_q = -(-sq // fa.BLOCK_Q)
+    pairs = 0
+    for t in range(n_q):
+        rows = range(t * fa.BLOCK_Q, min((t + 1) * fa.BLOCK_Q, sq))
+        trips = fa.trip_count(t, sq, sk)
+        if sq <= 1024:
+            assert trips == visible_tiles(rows, sq, sk, fa.BLOCK_K)
+        # every visible pair lies in a visited tile, and no visited tile
+        # starts past the key axis
+        assert trips * fa.BLOCK_K >= min(rows[-1] + sk - sq + 1, sk)
+        assert trips == 0 or (trips - 1) * fa.BLOCK_K < sk
+        pairs += sum(max(0, min(i + sk - sq + 1, sk, trips * fa.BLOCK_K))
+                     for i in rows) if sq <= 1024 else 0
+    if sq <= 1024:
+        assert pairs == fa.causal_pairs(sq, sk)
+
+
+@pytest.mark.parametrize("sq,sk,h,b", [(300, 1000, 8, 3), (32768, 32768, 32, 1),
+                                       (300, 130, 4, 2), (1, 1, 4, 1)])
+def test_launch_order_is_heaviest_first_and_covers_every_block(sq, sk, h, b):
+    order = fa.launch_order(sq, h, b)
+    n_q = -(-sq // fa.BLOCK_Q)
+    assert len(order) == n_q * h * b
+    assert sorted(order) == sorted((t, hh, bb) for t in range(n_q)
+                                   for hh in range(h) for bb in range(b))
+    trips = [fa.trip_count(t, sq, sk) for t, _, _ in order]
+    assert trips == sorted(trips, reverse=True)
+    assert order[0][0] == n_q - 1
+    # the query heads of one KV head (group 4) launch side by side
+    assert [hh for _, hh, _ in order[:h]] == list(range(h))
+
+
+def p_kv(*shape):
+    return torch.zeros(shape, dtype=BF16), torch.zeros(shape, dtype=BF16)
+
+
+def test_tensor_maps_of_contiguous_and_strided_operands():
+    q = torch.zeros(2, 300, 8, 64, dtype=BF16)
+    m = fa.tensor_map(q)
+    assert m.dims == (64, 8, 300, 2)
+    assert m.strides == (64 * 2, 8 * 64 * 2, 300 * 8 * 64 * 2)
+    assert m.box == (fa.BOX_COLS, 1, fa.BLOCK_Q, 1)
+    assert len(m.packed()) == 11
+    # every other head of a wider tensor: read through its strides
+    wide = torch.zeros(2, 300, 16, 128, dtype=BF16)
+    qs = wide[:, :, ::2]
+    m = fa.tensor_map(qs)
+    assert m.dims == (128, 8, 300, 2)
+    assert m.strides == (2 * 128 * 2, 16 * 128 * 2, 300 * 16 * 128 * 2)
+    # a dim of size 1 is never stepped over: its stride is the contiguous
+    # one, whatever torch reports
+    one = torch.zeros(1, 10, 1, 64, dtype=BF16).as_strided(
+        (1, 10, 1, 64), (7, 64, 3, 1))
+    assert fa.tensor_map(one).strides == (64 * 2, 64 * 2, 10 * 64 * 2)
+    p = fa.plan(qs, *p_kv(2, 300, 2, 128))
+    assert p.copies == () and p.n_q_tiles == 3
+    args = list(p.args)
+    assert args[:9] == [2, 300, 300, 8, 2, 128, 1, 0, 3]
+    assert args[9:12] == list(qs.stride()[:3])
+    assert len(args) == 51 and args[18:29] == fa.tensor_map(qs).packed()
+    assert fa.plan(qs, *p_kv(2, 300, 2, 128)) is p    # cached by layout
+
+
+def test_misaligned_operands_are_copied_not_refused():
+    q = torch.randn(1, 150, 8, 64).to(BF16)
+    buf = torch.randn(150 * 2 * 64 + 1).to(BF16)
+    k = buf[1:].view(1, 150, 2, 64)          # base 2 bytes past 16
+    v = torch.randn(1, 150, 2, 68).to(BF16)[..., :64]  # rows 136 bytes
+    assert k.data_ptr() % fa.TMA_ALIGN != 0
+    p = fa.plan(q, k, v)
+    assert p.copies == ("k", "v") and p.maps is None
+    assert p.args is None
+    q2, k2, v2, p2 = fa.tma_ready(q, k, v)
+    assert p2.copies == () and p2.maps is not None
+    assert q2 is q and k2 is not k and v2 is not v
+    assert torch.equal(k2, k) and torch.equal(v2, v)
+    assert k2.data_ptr() % fa.TMA_ALIGN == 0
+    # f32 never needs TMA: nothing is copied
+    assert fa.plan(q.float(), k.float(), v.float()).copies == ()
+
+
+def test_queries_before_every_key_plan_no_key_tile():
+    sq, sk = 300, 130
+    assert [fa.trip_count(t, sq, sk) for t in range(3)] == [0, 1, 2]
+    q = torch.zeros(2, sq, 4, 64, dtype=BF16)
+    kv = torch.zeros(2, sk, 1, 64, dtype=BF16)
+    p = fa.plan(q, kv, kv)
+    assert p.n_q_tiles == 3
+    assert p.maps[1].dims == (64, 1, sk, 2)
+    # an empty key axis still encodes (extent 1; no tile is loaded)
+    e = torch.zeros(2, 0, 1, 64, dtype=BF16)
+    assert fa.plan(q, e, e).maps[1].dims[2] == 1
+
+
+def test_cpu_call_counts_no_launch_of_either_design():
+    tops.flash_attention.launches = 0
+    before = dict(tops.flash_attention.by_design)
+    q = torch.randn(1, 9, 4, 64).to(BF16)
+    kv = torch.randn(1, 9, 2, 64).to(BF16)
+    tops.flash_attention(q, kv, kv)
+    tops.flash_attention(q.float(), kv.float(), kv.float())
+    assert tops.flash_attention.launches == 0
+    assert tops.flash_attention.by_design == before
+
+
+def split_p(p):
+    """The tensor-core kernel's P operand: two bf16 parts, hi = bf16(p) and
+    lo = bf16(p - hi), each multiplied with V."""
+    hi = p.to(BF16).float()
+    return hi, (p - hi).to(BF16).float()
+
+
+def full_logits_flash(q, k, v, bk, p_mode):
+    """The tiled online softmax's result written in closed form from the
+    full logits: each p is taken against the running max of the key tiles
+    up to its own, rescaled to the final max in f32, l sums the f32 p, and
+    the P operand of the product with V is ``p_mode``: "f32", "split" (the
+    kernel's hi + lo) or "bf16" (p rounded once)."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qf = q.float().reshape(b, sq, kh, g, d) * d ** -0.5
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    qpos = torch.arange(sq)[:, None] + (sk - sq)
+    mask = qpos >= torch.arange(sk)[None, :]
+    logits = torch.where(mask, logits, tref.NEG)
+    n_t = -(-sk // bk)
+    pad = n_t * bk - sk
+    tiles = torch.nn.functional.pad(logits, (0, pad), value=tref.NEG)
+    tile_max = tiles.unflatten(-1, (n_t, bk)).amax(-1)
+    run_max = torch.cummax(tile_max, -1).values
+    m_of = run_max.repeat_interleave(bk, -1)[..., :sk]
+    p = torch.where(mask, torch.exp(logits - m_of), 0.0)
+    scale = torch.exp(m_of - run_max[..., -1:])
+    l = (p * scale).sum(-1)
+    parts = {"f32": (p,), "split": split_p(p), "bf16": (p.to(BF16).float(),)}
+    acc = sum(torch.einsum("bkgqs,bskd->bkgqd", part * scale, v.float())
+              for part in parts[p_mode])
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+
+
+def within_ulps(got, want, n):
+    """|got - want| <= 1e-5 + n * 2^-7 |want| everywhere (chip_smoke.py's
+    FLASH_TOL[bf16] at n = 1)."""
+    want = want.float()
+    return bool(((got.float() - want).abs()
+                 <= 1e-5 + n * 2 ** -7 * want.abs()).all())
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,d", [
+    (1, 129, 200, 8, 2, 64), (2, 257, 257, 4, 1, 64),
+    (1, 300, 700, 4, 4, 128), (2, 100, 40, 4, 2, 64),
+])
+def test_split_p_keeps_the_plain_versions_f32_product(b, sq, sk, h, kh, d):
+    """The plain version keeps P in f32 and is unchanged: it equals the
+    closed form. The tensor-core kernel's hi + lo split of P gives the same
+    bf16 outputs within one ulp; P rounded to bf16 once, as FlashAttention
+    does, would not hold even within two."""
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32))
+               for s in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d)))
+    got32 = tref.ref_flash_attention(q, k, v)
+    assert float((got32 - full_logits_flash(q, k, v, 128, "f32"))
+                 .abs().max()) < 1e-5
+    q, k, v = (x.to(BF16) for x in (q, k, v))
+    plain = tref.ref_flash_attention(q, k, v)
+    assert plain.dtype == BF16
+    assert torch.equal(tops.flash_attention(q, k, v), plain)
+    assert within_ulps(plain, full_logits_flash(q, k, v, 128, "f32")
+                       .to(BF16), 1)
+    assert within_ulps(full_logits_flash(q, k, v, 128, "split").to(BF16),
+                       plain, 1)
+    assert not within_ulps(full_logits_flash(q, k, v, 128, "bf16")
+                           .to(BF16), plain, 2)
