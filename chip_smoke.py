@@ -16,6 +16,14 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   plain version| (must be 0; the codec compares bits and
                   per-tile stats), kernel / plain / library times, and its
                   bound
+  kernel_edges_scan  the single-pass scan at C = 1, a tile - 1, a tile, a
+                  tile + 1 and 2^24 + 3, Q = 1/2/8/64, timestamps on the
+                  card and (Q <= 8) by value from the host, and two calls
+                  back to back, bit for bit
+  kernel_edges_decode  chain_decode_at at packed int8/16/32 into stored
+                  1/2/4-byte ints, W 1/3/8/64, a misaligned field, the XOR
+                  path, int32/int64 indices at 0 and C - 1, an empty index
+                  and a 10,000-cell chain, bit for bit
   main_path       one store at UniProtKB/Swiss-Prot scale (570,000 entries,
                   sequence 64 x int32, length 1 x int32, annotation
                   8 x int32; 8 full releases at ts 10..80 with 3% sequence
@@ -23,9 +31,10 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   entries): update, get_versions at Q = 1/8/64,
                   get_increments over the 7 release windows, a cold
                   get_version and compact(30), every row checked against
-                  the release that produced it
-  chain_decode    the superlog's device chain decode (torch ops) of the
-                  packed sequence field, timed alone beside its bound
+                  the release that produced it; the device memory a
+                  Q = 1 query adds
+  chain_decode_memory  the device memory the Q = 1 gather's decode adds,
+                  kernel beside its plain version (the full decode)
   sharding        the same 8 releases into a ShardedStore of 4 shards
                   (ts 10..40 through update, ts 50..80 through threaded
                   ShardedReleaseSession waves of 4 chunks), get_versions at
@@ -91,7 +100,9 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   run, prefill logits within SMOKE_TOL
   kernels         per kernel: launches during the path that runs it,
                   error, times, bound (flash attention twice: bf16 on the
-                  tensor cores, f32 on the CUDA cores, at 32k)
+                  tensor cores, f32 on the CUDA cores, at 32k; the scan
+                  twice: Q = 64, and Q = 1 with its single-query launches;
+                  chain_decode at the main path's Q = 1 gather)
 
 then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any mismatch or error ends the run with a
@@ -125,13 +136,19 @@ SEQ_CHURN, NEW_FRAC, DEL_FRAC = 0.03, 0.01, 0.001
 COMPACT_TS = 30
 PARITY_ENTRIES = 2_000
 TIMED_REPS = 20  # back-to-back calls per kernel time
+# rounds of kernel, then library, for a kernel whose lead over its library
+# call is within the host's noise (the Q = 1 scan): its times are the
+# medians of the rounds
+TIMED_ROUNDS = 9
 # kernel -> (its CUDA source, the TPU kernel of the JAX package it replaces)
 SOURCES = {
     "fingerprint": ("src/repro_torch/csrc/fingerprint.cu",
                     "src/repro/kernels/fingerprint.py:29"),
     "masked_cumsum": ("src/repro_torch/csrc/masked_cumsum.cu",
-                      "src/repro/kernels/batched_select.py:50 and "
-                      "src/repro/kernels/version_select.py:30"),
+                      "src/repro/kernels/batched_select.py:50"),
+    # the same wrapper at one query (its launches: the Q = 1 calls)
+    "masked_cumsum_q1": ("src/repro_torch/csrc/masked_cumsum.cu",
+                         "src/repro/kernels/version_select.py:30"),
     "stacked_masked_cumsum": ("src/repro_torch/csrc/masked_cumsum.cu",
                               "src/repro/kernels/batched_select.py:115"),
     "shard_route": ("src/repro_torch/csrc/shard_route.cu",
@@ -153,10 +170,14 @@ SOURCES = {
     # the same wrapper at f32: the CUDA-core kernel of the same source
     "flash_attention_f32": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:33"),
+    "chain_decode": ("src/repro_torch/csrc/chain_decode.cu",
+                     "src/repro/kernels/delta_codec.py:261 (chain_decode, "
+                     "a jax.lax.associative_scan, not Pallas)"),
 }
 # the kernels each driven path must launch at least once
 PATH_KERNELS = {
-    "main_path": ("fingerprint", "masked_cumsum", "keep_mask"),
+    "main_path": ("fingerprint", "masked_cumsum", "keep_mask",
+                  "chain_decode"),
     "persistence": ("fingerprint", "masked_cumsum", "keep_mask",
                     "delta_pack"),
     "sharding": ("fingerprint", "shard_route", "stacked_masked_cumsum",
@@ -366,6 +387,23 @@ def check_increment(inc, r0, r1) -> None:
 # phases
 # ---------------------------------------------------------------------------
 
+def reset_counts(kops) -> None:
+    """Set every kernel's launch count, and its count by kind, to 0."""
+    for fn in kops.KERNELS.values():
+        fn.launches = 0
+        if hasattr(fn, "by_design"):
+            fn.by_design.update(dict.fromkeys(fn.by_design, 0))
+
+
+def read_counts(kops) -> dict:
+    """Launches per kernel since the last reset, with ``masked_cumsum_q1``
+    the scan's single-query launches."""
+    out = {k: fn.launches for k, fn in kops.KERNELS.items()}
+    out["masked_cumsum_q1"] = (
+        kops.batched_masked_cumsum.by_design["single_query"])
+    return out
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -410,9 +448,12 @@ class KernelBench:
     def run(self, name: str, shape: dict, kernel, plain, nbytes, ops,
             library=None, *, timed: bool, main: bool = False,
             quiet: bool = False, tol: tuple | None = None,
-            peak: float | None = None, reps: int | None = None) -> dict:
+            peak: float | None = None, reps: int | None = None,
+            rounds: int = 1) -> dict:
         """``tol`` (atol, rtol): compare values within it instead of bits;
-        ``peak``: the compute rate of the bound (default: CUDA cores)."""
+        ``peak``: the compute rate of the bound (default: CUDA cores);
+        ``rounds``: time kernel and library in that many alternating
+        rounds, report the medians and keep every round."""
         got = kernel()
         want = plain()
         sync()
@@ -446,11 +487,17 @@ class KernelBench:
             rec["tol"] = {"atol": tol[0], "rtol": tol[1]}
         if timed:
             n = reps or self.reps
-            rec["kernel_ms"] = cuda_ms(kernel, n)
+            ks, ls = [], []
+            for _ in range(rounds):
+                ks.append(cuda_ms(kernel, n))
+                if library is not None:
+                    ls.append(cuda_ms(library, n))
+            rec["kernel_ms"] = float(np.median(ks))
             rec["plain_ms"] = cuda_ms(plain, n)
-            rec["library_ms"] = (cuda_ms(library, n)
-                                 if library is not None else None)
+            rec["library_ms"] = float(np.median(ls)) if ls else None
             rec["reps"] = n
+            if rounds > 1:
+                rec["rounds"] = {"kernel_ms": ks, "library_ms": ls}
         if not quiet:
             emit(rec)
         check(ok, f"{name} {shape}: kernel differs from plain by {err}")
@@ -467,15 +514,19 @@ class KernelBench:
                  nbytes=n * w * 4 + n * 8, ops=5 * n * w + 4 * n,
                  timed=timed, main=main)
 
-    def masked_cumsum(self, ts, tq, *, timed=True, main=False):
+    def masked_cumsum(self, ts, tq, *, timed=True, main=False,
+                      quiet=False, rounds=1) -> dict:
+        """The scan. Q = 1 records as ``masked_cumsum_q1``."""
         (c,), (q,) = ts.shape, tq.shape
         mask = (ts[None, :] <= tq[:, None]).to(torch.int32)
-        self.run("masked_cumsum", {"C": c, "Q": q},
-                 lambda: self.kops.batched_masked_cumsum(ts, tq),
-                 lambda: self.kops.ref.ref_batched_masked_cumsum(ts, tq),
-                 nbytes=c * 4 + q * 4 + q * c * 4, ops=2 * q * c,
-                 library=lambda: torch.cumsum(mask, dim=1, dtype=torch.int32),
-                 timed=timed, main=main)
+        return self.run(
+            "masked_cumsum_q1" if q == 1 else "masked_cumsum",
+            {"C": c, "Q": q},
+            lambda: self.kops.batched_masked_cumsum(ts, tq),
+            lambda: self.kops.ref.ref_batched_masked_cumsum(ts, tq),
+            nbytes=c * 4 + q * 4 + q * c * 4, ops=2 * q * c,
+            library=lambda: torch.cumsum(mask, dim=1, dtype=torch.int32),
+            timed=timed, main=main, quiet=quiet, rounds=rounds)
 
     def stacked_masked_cumsum(self, ts, tq, *, timed=True, main=False,
                               quiet=False) -> dict:
@@ -594,6 +645,34 @@ class KernelBench:
             peak=self.roof.compute_peak(str(q.dtype).split(".")[-1]),
             reps=reps)
 
+    def chain_decode(self, deltas, heads, idx, itemsize, *, xor=False,
+                     timed=True, main=False, quiet=False,
+                     label=None) -> dict:
+        """The decode-at-index gather against its plain version (the full
+        torch-ops decode, the take and the truncation), bit for bit. Its
+        bound counts what these inputs need: every cell on a taken cell's
+        chain prefix once (W packed lanes and a head byte each), however
+        many taken cells share it, and each taken cell's index and W
+        output lanes. No single PyTorch call computes a segmented scan,
+        so it has no library time."""
+        c, w = deltas.shape
+        n = idx.shape[0]
+        covered = covered_cells(heads.cpu().numpy(), idx.cpu().numpy())
+        s_in = deltas.element_size()
+        return self.run(
+            "chain_decode", {"C": c, "W": w, "n": n, "packed": str(
+                deltas.dtype), "itemsize": itemsize, "xor": xor,
+                "covered_cells": covered, **({"label": label} if label
+                                             else {})},
+            lambda: self.kops.chain_decode_at(deltas, heads, idx,
+                                              itemsize=itemsize, xor=xor),
+            lambda: self.kops.ref_chain_decode_at(deltas, heads, idx,
+                                                  itemsize=itemsize,
+                                                  xor=xor),
+            nbytes=covered * (w * s_in + 1) + n * idx.element_size()
+            + n * w * itemsize, ops=covered * w + n * w,
+            timed=timed, main=main, quiet=quiet)
+
     def keep_mask(self, ts, cutoff, *, timed=True, main=False):
         (c,) = ts.shape
         tile = self.kops.launch.tile_for("keep_mask")
@@ -603,6 +682,21 @@ class KernelBench:
                  lambda: self.kops.ref.ref_keep_mask(ts, cutoff, tile),
                  nbytes=8 * c + 4 * n_tiles, ops=2 * c,
                  timed=timed, main=main)
+
+
+def covered_cells(heads: np.ndarray, idx: np.ndarray) -> int:
+    """Cells on the chain prefixes of the taken cells ``idx`` (clamped to
+    [0, C)), each counted once: a chain's taken cells share its prefix, so
+    a chain covers its head through its last taken cell. Cells before the
+    first head chain from cell 0."""
+    c = len(heads)
+    if c == 0 or len(idx) == 0:
+        return 0
+    head_at = np.maximum.accumulate(np.where(heads, np.arange(c), 0))
+    u = np.unique(np.clip(idx.astype(np.int64), 0, c - 1))
+    h = head_at[u]
+    last = np.append(h[1:] != h[:-1], True)  # the last taken cell a chain
+    return int((u[last] - h[last] + 1).sum())
 
 
 def int_lanes(t: torch.Tensor) -> torch.Tensor:
@@ -645,16 +739,9 @@ def phase_kernel_edges(bench: KernelBench, rng) -> None:
             lanes[0, 0] = INT32.min
             lanes[-1, -1] = INT32.max
             bench.fingerprint(torch.as_tensor(lanes, device=dev), timed=False)
+    phase_kernel_edges_scan(bench, rng)
+    phase_kernel_edges_decode(bench, rng)
     ts_max = 2**31 - 2
-    for c in (1, 2047, 2049, 5001):
-        for q in (1, 8, 64):
-            ts = np.sort(rng.integers(-5, 97, c)).astype(np.int32)
-            ts[-1] = ts_max
-            tq = rng.integers(-10, 110, q).astype(np.int32)
-            tq[0] = ts_max
-            tq[-1] = -(2**31) + 1
-            bench.masked_cumsum(torch.as_tensor(ts, device=dev),
-                                torch.as_tensor(tq, device=dev), timed=False)
     for c in (1, 1023, 1025, 100_003):
         ts = rng.integers(-100, 100, c).astype(np.int32)
         for cutoff in (0, -(2**31) + 1, ts_max):
@@ -682,6 +769,108 @@ def phase_kernel_edges(bench: KernelBench, rng) -> None:
           "stats_compared": "per tile", "gpu": bench.smi})
 
 
+def phase_kernel_edges_scan(bench: KernelBench, rng) -> None:
+    """The single-pass scan at ragged and large C, compared only and
+    summarized in one line: C = 1, a tile - 1, a tile and a tile + 1,
+    C > 2^24 (counts past 24 bits in the status words), Q = 1/2/8/64, and
+    two calls back to back on one stream with no sync between them."""
+    from repro_torch.kernels.batched_select import TILE as tile
+    kops, ref = bench.kops, bench.kops.ref
+    ts_max = 2**31 - 2
+    sizes = [1, 2047, 2049, tile - 1, tile, tile + 1, 5 * tile + 3, 100_003]
+    cases = []
+    for c in sizes:
+        ts = np.sort(rng.integers(-5, 97, c)).astype(np.int32)
+        ts[-1] = ts_max
+        ts_t = torch.as_tensor(ts, device=DEV)
+        for q in (1, 2, 8, 64):
+            tq = rng.integers(-10, 110, q).astype(np.int32)
+            tq[0] = ts_max
+            tq[-1] = -(2**31) + 1
+            cases.append(bench.masked_cumsum(
+                ts_t, torch.as_tensor(tq, device=DEV), timed=False,
+                quiet=True))
+    big = 2**24 + 3
+    ts_t = torch.as_tensor(rng.integers(0, 100, big).astype(np.int32),
+                           device=DEV)
+    for tq in ([99], [99, 50]):
+        cases.append(bench.masked_cumsum(
+            ts_t, torch.as_tensor(np.array(tq, np.int32), device=DEV),
+            timed=False, quiet=True))
+    tq_t = torch.as_tensor(np.array([99, 50], np.int32), device=DEV)
+    first = kops.batched_masked_cumsum(ts_t, tq_t)
+    second = kops.batched_masked_cumsum(ts_t, tq_t)
+    want = ref.ref_batched_masked_cumsum(ts_t, tq_t)
+    sync()
+    check(torch.equal(first, want) and torch.equal(second, want),
+          "two back-to-back scans on one stream differ from the plain one")
+    check(int(want[0, -1]) == big, "the C > 2^24 case did not count past "
+          "24 bits")
+    emit({"phase": "kernel_edges_scan", "tile": tile, "C": sizes + [big],
+          "Q": [1, 2, 8, 64], "back_to_back": True, "cases": len(cases),
+          "max_abs_diff": max(c["max_abs_diff"] for c in cases),
+          "gpu": bench.smi})
+
+
+def phase_kernel_edges_decode(bench: KernelBench, rng) -> None:
+    """The decode-at-index gather, bit for bit against its plain version
+    and summarized in one line: packed int8/int16/int32 lanes into stored
+    1/2/4-byte ints, W 1/3/8/64 (whole 4-byte chunks and single lanes), a
+    misaligned field, the XOR path, int32 and int64 indices at 0, C - 1,
+    repeated and unsorted, an empty index, cells before the first head,
+    and one 10,000-cell chain."""
+    cases = []
+    c = 5001
+    for packed in (np.int8, np.int16, np.int32):
+        info = np.iinfo(packed)
+        for w in (1, 3, 8, 64):
+            deltas = rng.integers(info.min, info.max, (c, w), endpoint=True,
+                                  dtype=packed)
+            heads = rng.random(c) < 0.3
+            heads[0] = False
+            idx = np.concatenate([[0, c - 1, 0, c - 1],
+                                  rng.integers(0, c, 997)])
+            d = torch.as_tensor(deltas, device=DEV)
+            h = torch.as_tensor(heads, device=DEV)
+            for size in (1, 2, 4):
+                for it in (np.int64, np.int32):
+                    cases.append(bench.chain_decode(
+                        d, h, torch.as_tensor(idx.astype(it), device=DEV),
+                        size, timed=False, quiet=True))
+            size = np.dtype(packed).itemsize
+            cases.append(bench.chain_decode(
+                d, h, torch.as_tensor(idx, device=DEV), size, xor=True,
+                timed=False, quiet=True))
+            cases.append(bench.chain_decode(
+                d, h, torch.zeros(0, dtype=torch.int64, device=DEV), size,
+                timed=False, quiet=True))
+            # the same field one byte past 4-byte alignment: single lanes
+            raw = torch.empty(d.numel() * d.element_size() + 1,
+                              dtype=torch.int8, device=DEV)
+            off = raw[1:].view(d.dtype).view(c, w) if size == 1 else None
+            if off is not None:
+                off.copy_(d)
+                cases.append(bench.chain_decode(
+                    off, h, torch.as_tensor(idx, device=DEV), 4,
+                    timed=False, quiet=True))
+    chain = torch.as_tensor(rng.integers(-128, 127, (10_000, 8),
+                                         dtype=np.int8), device=DEV)
+    for first_head in (True, False):
+        heads = torch.zeros(10_000, dtype=torch.bool, device=DEV)
+        heads[0] = first_head
+        idx = torch.as_tensor(np.array([9_999, 0, 5_000, 9_999]),
+                              device=DEV)
+        cases.append(bench.chain_decode(chain, heads, idx, 4, timed=False,
+                                        quiet=True))
+        cases.append(bench.chain_decode(chain, heads, idx, 1, xor=True,
+                                        timed=False, quiet=True))
+    emit({"phase": "kernel_edges_decode", "C": c, "W": [1, 3, 8, 64],
+          "packed": ["int8", "int16", "int32"], "itemsize": [1, 2, 4],
+          "chain_cells": 10_000, "cases": len(cases),
+          "max_abs_diff": max(x["max_abs_diff"] for x in cases),
+          "gpu": bench.smi})
+
+
 def phase_kernel_edges_sharding(bench: KernelBench, rng) -> None:
     """The sharding slice's kernels at edge shapes, compared only and
     summarized in one line: the route at the empty key, keys whose real
@@ -701,8 +890,10 @@ def phase_kernel_edges_sharding(bench: KernelBench, rng) -> None:
         for n_shards in (1, 2, 5, 7):
             cases.append(bench.shard_route(lanes, lens, n_shards,
                                            timed=False, quiet=True))
+    from repro_torch.kernels.batched_select import TILE as tile
+    stacked_c = (1, 2047, 2049, tile - 1, tile, tile + 1, 5001)
     for s in (1, 3, 4):
-        for c in (1, 2047, 2049, 5001):
+        for c in stacked_c:
             ts = np.full((s, c), INT32.max, np.int32)
             for i in range(s):  # real cells, then padding (none in row 0)
                 n_real = c if i == 0 else int(rng.integers(0, c + 1))
@@ -711,7 +902,7 @@ def phase_kernel_edges_sharding(bench: KernelBench, rng) -> None:
             bnd[:, 0], bnd[:, -1] = 0, c
             ts_t = torch.as_tensor(ts, device=DEV)
             bnd_t = torch.as_tensor(bnd.astype(np.int32), device=DEV)
-            for q in (1, 8, 64):
+            for q in (1, 2, 8, 64):
                 tq = rng.integers(-10, 110, q).astype(np.int32)
                 tq[0] = 2**31 - 2
                 tq_t = torch.as_tensor(tq, device=DEV)
@@ -725,17 +916,16 @@ def phase_kernel_edges_sharding(bench: KernelBench, rng) -> None:
     emit({"phase": "kernel_edges_sharding",
           "kernels": sorted({c["name"] for c in cases}),
           "route_N": [1, 513, 100_003], "route_shards": [1, 2, 5, 7],
-          "stacked_S": [1, 3, 4], "stacked_C": [1, 2047, 2049, 5001],
-          "stacked_Q": [1, 8, 64], "cases": len(cases),
-          "boundary_selects_compared": 36,
+          "stacked_S": [1, 3, 4], "stacked_C": list(stacked_c),
+          "stacked_Q": [1, 2, 8, 64], "cases": len(cases),
+          "boundary_selects_compared": 3 * len(stacked_c) * 4,
           "max_abs_diff": max(c["max_abs_diff"] for c in cases),
           "gpu": bench.smi})
 
 
 def phase_main_path(VersionedStore, FieldSchema, kops, releases) -> dict:
     """The main path on one store at full width, checked row by row."""
-    for fn in kops.KERNELS.values():
-        fn.launches = 0
+    reset_counts(kops)
     schema = [FieldSchema("sequence", SEQ_W, "int32"),
               FieldSchema("length", 1, "int32"),
               FieldSchema("annotation", ANN_W, "int32")]
@@ -766,10 +956,38 @@ def phase_main_path(VersionedStore, FieldSchema, kops, releases) -> dict:
     rec["entries_final"] = st.n_rows
     sl, rec["superlog_build_s"] = wall(st.superlog)
     rec["fused_cells"] = sl.n_cells
+    seq = sl.fields["sequence"]
+    check(seq.packed_host is not None, "the sequence field is not packed")
     _, rec["first_query_s"] = wall(lambda: st.get_versions([RELEASE_TS[-1]]))
     queries = {1: [RELEASE_TS[-1]], 8: RELEASE_TS,
                64: sorted(set(np.linspace(5, 85, 64).astype(int).tolist()))}
     check(len(queries[64]) == 64, "64 distinct query timestamps")
+    # the cells the Q = 1 and Q = 8 gathers take from the packed sequence
+    # field, for timing its decode at the path's shapes, recorded in
+    # untimed calls; the Q = 1 call also gives the device memory a Q = 1
+    # query adds once the superlog is on the card (the packed gather
+    # decodes only the taken cells)
+    gathers, take = {}, seq.take_cells
+
+    @contextlib.contextmanager
+    def recording(q):
+        seq.take_cells = lambda idx: (gathers.setdefault(q, idx.copy()),
+                                      take(idx))[1]
+        try:
+            yield
+        finally:
+            del seq.take_cells
+
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with recording(1):
+        st.get_versions(queries[1])
+    sync()
+    rec["get_versions_1_peak_added_bytes"] = (
+        torch.cuda.max_memory_allocated() - base)
+    with recording(8):
+        st.get_versions(queries[8])
     rec["get_versions_s"], rec["get_versions_stages_s"] = {}, {}
     for q, tss in queries.items():
         stages = {}
@@ -805,52 +1023,83 @@ def phase_main_path(VersionedStore, FieldSchema, kops, releases) -> dict:
     after = [t for t in RELEASE_TS if t >= COMPACT_TS] + [55, 85]
     for t, v in zip(after, st.get_versions(after)):
         check_view(v, releases, t, fields)
-    rec["launches"] = {k: fn.launches for k, fn in kops.KERNELS.items()}
+    rec["launches"] = read_counts(kops)
     emit(rec)
     for name in PATH_KERNELS["main_path"]:
         check(rec["launches"][name] > 0,
               f"kernel {name} never launched on the main path")
-    seq = sl.fields["sequence"]
     return {"launches": rec["launches"], "scan_ts": scan_ts,
-            "compact_ts": compact_ts,
+            "compact_ts": compact_ts, "gathers": gathers,
             "packed_seq": (seq.packed_host, seq.heads_host, seq.vals_host)}
 
 
-def phase_kernel_main(bench: KernelBench, kops, releases, main_out) -> None:
+def phase_kernel_main(bench: KernelBench, kops, compat, releases,
+                      main_out) -> None:
     """Each kernel at the shapes the main path gave it, timed: the first
     release's field tables (570,000 entries), the fused ts that
-    get_versions scanned, and the largest log that compact() masked."""
+    get_versions scanned (at Q = 8 and 64, and at Q = 1 in alternating
+    rounds against torch.cumsum), the largest log that compact()
+    masked, and the packed sequence field's decode at the cells its Q = 1
+    and Q = 8 gathers took, with the device memory the Q = 1 decode adds
+    beside its plain version's."""
     r = releases[0]
     for f in ("length", "annotation", "sequence"):
         lanes = kops.to_int_lanes(r["table"][f], DEV)
         bench.fingerprint(lanes, main=(f == "sequence"))
-    for q in (1, 8, 64):
+    scan_ts = main_out["scan_ts"]
+    for q in (8, 64):
         tq = torch.as_tensor(np.linspace(5, 85, q).astype(np.int32),
                              device=DEV)
-        bench.masked_cumsum(main_out["scan_ts"], tq, main=(q == 64))
+        bench.masked_cumsum(scan_ts, tq, main=(q == 64))
+    # Q = 1: a call takes less time on the host than on the card, but not
+    # much less, so the host's hiccups decide single readings against
+    # torch.cumsum; time it in alternating rounds, and read each one's
+    # device time alone from the profiler
+    tq = torch.tensor([RELEASE_TS[-1]], dtype=torch.int32, device=DEV)
+    bench.masked_cumsum(scan_ts, tq, main=True, rounds=TIMED_ROUNDS)
+    mask = (scan_ts[None, :] <= tq[:, None]).to(torch.int32)
+    per_call = {}
+    for name, fn in (
+            ("kernel", lambda: kops.batched_masked_cumsum(scan_ts, tq)),
+            ("library", lambda: torch.cumsum(mask, dim=1,
+                                             dtype=torch.int32))):
+        fn()
+        sync()
+        prof = device_profile(lambda: [fn() for _ in range(TIMED_REPS)])
+        per_call[name] = {k: ms / TIMED_REPS for k, ms in prof["top_ms"]}
+    emit({"phase": "scan_q1_device", "C": scan_ts.shape[0], "Q": 1,
+          "calls": TIMED_REPS, "device_ms_per_call": per_call,
+          "gpu": bench.smi})
+    del mask
     bench.keep_mask(torch.as_tensor(main_out["compact_ts"], device=DEV),
                     COMPACT_TS, main=True)
-
-
-def phase_chain_decode(kops, compat, roofline, smi, packed_seq) -> None:
-    """The superlog's chain decode (torch ops, not a hand-written kernel)
-    alone on the packed sequence field: its time beside its bound (read
-    the deltas and the head flags once, write the int32 decode once)."""
-    packed, heads, vals = packed_seq
-    check(packed is not None, "the sequence field was not delta-packed")
+    packed, heads, vals = main_out.pop("packed_seq")
     d = torch.as_tensor(packed, device=DEV)
     h = torch.as_tensor(heads, device=DEV)
-    out = compat.truncate_bits(kops.chain_decode(d, h), vals.dtype.itemsize)
-    sync()
-    check(np.array_equal(out.cpu().numpy(), compat.bits_view(vals)),
-          "chain_decode does not give back the sequence values")
-    nbytes = packed.nbytes + heads.nbytes + 4 * packed.size
-    emit({"phase": "chain_decode", "shape": {"C": packed.shape[0],
-                                             "W": packed.shape[1],
-                                             "dtype": str(packed.dtype)},
-          "ms": cuda_ms(lambda: kops.chain_decode(d, h), TIMED_REPS),
-          "bound_ms": nbytes / roofline.HBM_BW * 1e3, "bound_by": "bytes",
-          "gpu": smi})
+    size = vals.dtype.itemsize
+    for q, idx in sorted(main_out.pop("gathers").items()):
+        idx_t = torch.as_tensor(idx, device=DEV)
+        rec = bench.chain_decode(d, h, idx_t, size, main=(q == 1),
+                                 label=f"Q = {q} gather")
+        got = kops.chain_decode_at(d, h, idx_t, itemsize=size)
+        check(np.array_equal(got.cpu().numpy(),
+                             compat.bits_view(vals)[idx]),
+              f"the Q = {q} decode does not give back the sequence values")
+        if q != 1:
+            continue
+        added = {}
+        for name, fn in (("kernel", kops.chain_decode_at),
+                         ("plain", kops.ref_chain_decode_at)):
+            del got
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            got = fn(d, h, idx_t, itemsize=size)
+            sync()
+            added[name] = torch.cuda.max_memory_allocated() - base
+        emit({"phase": "chain_decode_memory", "shape": rec["shape"],
+              "peak_added_bytes": added, "gpu": bench.smi})
+        del got
 
 
 def tree_bytes(path: str) -> dict:
@@ -887,8 +1136,7 @@ def phase_persistence(VersionedStore, FieldSchema, kops, releases,
                       root: str) -> dict:
     """The store built again with a save after every release, then a
     full save, lazy and eager loads, and compact(30, path=)."""
-    for fn in kops.KERNELS.values():
-        fn.launches = 0
+    reset_counts(kops)
     schema = [FieldSchema("sequence", SEQ_W, "int32"),
               FieldSchema("length", 1, "int32"),
               FieldSchema("annotation", ANN_W, "int32")]
@@ -961,7 +1209,7 @@ def phase_persistence(VersionedStore, FieldSchema, kops, releases,
     for t, v in zip(later, reopened.get_versions(later)):
         check_view(v, releases, t, fields)
     rec["views_checked"] = 1 + 2 * len(q8) + len(later)
-    rec["launches"] = {k: fn.launches for k, fn in kops.KERNELS.items()}
+    rec["launches"] = read_counts(kops)
     emit(rec)
     for name in PATH_KERNELS["persistence"]:
         check(rec["launches"][name] > 0,
@@ -1045,14 +1293,15 @@ def phase_codec_main(bench: KernelBench, compat, codec_in, rng) -> None:
 def uncounted(kops, fn):
     """Run ``fn`` (reference work beside a path) without adding to any
     kernel's launch count."""
-    before = {k: f.launches for k, f in kops.KERNELS.items()}
-    designs = dict(kops.flash_attention.by_design)
+    before = {k: (f.launches, dict(getattr(f, "by_design", {})))
+              for k, f in kops.KERNELS.items()}
     try:
         return fn()
     finally:
         for k, f in kops.KERNELS.items():
-            f.launches = before[k]
-        kops.flash_attention.by_design.update(designs)
+            f.launches = before[k][0]
+            if hasattr(f, "by_design"):
+                f.by_design.update(before[k][1])
 
 
 def same_bytes(x: np.ndarray, y: np.ndarray) -> bool:
@@ -1093,8 +1342,7 @@ def phase_sharding(core, placement, kops, releases, root: str) -> dict:
     _, rec["key_lanes_s"] = wall(lambda: kops.key_lanes(last_keys))
     _, rec["route_keys_s"] = wall(lambda: uncounted(
         kops, lambda: kops.route_keys(last_keys, N_SHARDS, DEV)))
-    for fn in kops.KERNELS.values():
-        fn.launches = 0
+    reset_counts(kops)
     st = core.ShardedStore("uniprot_sprot", schema, n_shards=N_SHARDS,
                            capacity=N_ENTRIES)
     rec["update_s"], rec["session_apply_s"], rec["session_finish_s"] = (
@@ -1211,7 +1459,7 @@ def phase_sharding(core, placement, kops, releases, root: str) -> dict:
     n_checked += len(views)
     del views, want, reopened
     rec["results_checked"] = n_checked
-    rec["launches"] = {k: fn.launches for k, fn in kops.KERNELS.items()}
+    rec["launches"] = read_counts(kops)
     emit(rec)
     for name in PATH_KERNELS["sharding"]:
         check(rec["launches"][name] > 0,
@@ -1458,8 +1706,7 @@ def phase_merge(kops, releases) -> dict:
     """masked_merge on the head table: the first release's sequence field
     (570,000 x 64 int32) takes the second release's rows where the
     entry's sequence changed; timestamps go to 20 on those rows."""
-    for fn in kops.KERNELS.values():
-        fn.launches = 0
+    reset_counts(kops)
     r0, r1 = releases[0], releases[1]
     base = r0["table"]["sequence"]
     alive = np.isin(r0["ids"], r1["ids"])
@@ -1478,7 +1725,7 @@ def phase_merge(kops, releases) -> dict:
           "masked_merge: timestamps differ from the numpy select")
     rec = {"phase": "merge", "N": base.shape[0], "W": base.shape[1],
            "rows_merged": int(rm.sum()), "wall_s": s,
-           "launches": {k: fn.launches for k, fn in kops.KERNELS.items()}}
+           "launches": read_counts(kops)}
     emit(rec)
     for name in PATH_KERNELS["merge"]:
         check(rec["launches"][name] > 0,
@@ -1609,8 +1856,7 @@ def phase_serving(kops, seed: int) -> dict:
     sync()
     torch.cuda.reset_peak_memory_stats()
     RECORDER.clear()
-    for fn in kops.KERNELS.values():
-        fn.launches = 0
+    reset_counts(kops)
     by_design = kops.flash_attention.by_design
     by_design.update(dict.fromkeys(by_design, 0))
     with layer0_inputs(cfg.n_layers) as qkv:
@@ -1622,7 +1868,7 @@ def phase_serving(kops, seed: int) -> dict:
         long_out, rec["long_wall_s"] = wall(
             lambda: engine.generate(long_prompt))
     rec["peak_memory_long_bytes"] = torch.cuda.max_memory_allocated()
-    rec["launches"] = {k: fn.launches for k, fn in kops.KERNELS.items()}
+    rec["launches"] = read_counts(kops)
     rec["flash_launches_by_design"] = dict(by_design)
     # one serve.generate span per engine call: the bucket shape and the
     # prefill (to the first token on the host) and decode walls
@@ -1827,9 +2073,7 @@ def main() -> int:
     releases = make_releases(N_ENTRIES, len(RELEASE_TS), args.seed)
     main_out = phase_main_path(VersionedStore, FieldSchema, kops, releases)
     merge_out = phase_merge(kops, releases)
-    phase_kernel_main(bench, kops, releases, main_out)
-    phase_chain_decode(kops, _compat, roofline, smi,
-                       main_out.pop("packed_seq"))
+    phase_kernel_main(bench, kops, _compat, releases, main_out)
     # store directories live inside the checkout's gitignored build tree
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(HERE,

@@ -47,8 +47,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
-from ..kernels._compat import (bits_view, from_bits, resolve_device,
-                               truncate_bits)
+from ..kernels._compat import bits_view, from_bits, resolve_device
 from ..obs import kerneltel
 from ..obs.trace import StageTimer
 
@@ -356,7 +355,7 @@ class _SuperLogField:
     When ``packed_host`` is set the field stays *delta-packed on device*:
     cells are stored as narrowed chain deltas (first cell of every row
     chain raw, flagged by ``heads_host``) and the gather path decodes them
-    on the device (kernels/delta_codec.chain_decode), so device bytes and
+    on the device (kernels/delta_codec.chain_decode_at), so device bytes and
     upload traffic shrink by the narrowing factor. ``vals_host`` remains
     the decoded host copy. Device copies hold the values' bits as the
     signed int of their width (``bits_view``), so every stored dtype
@@ -387,20 +386,20 @@ class _SuperLogField:
 
     def take_cells(self, idx: np.ndarray) -> torch.Tensor:
         """ONE device gather of cell values' bits at field-local cell
-        indices. Delta-packed fields decode on device first (segmented
-        scan over the narrowed deltas); the device keeps only the packed
-        copy."""
+        indices. Delta-packed fields decode only the taken cells, each
+        from its chain's head (``kops.chain_decode_at``); the device keeps
+        only the packed copy."""
         idx = torch.as_tensor(idx, device=self.device)
         if self.packed_host is None:
             return self.vals_dev().index_select(0, idx)
         if self._packed_dev is None:
             self._packed_dev = self._put(self.packed_host)
             self._heads_dev = self._put(self.heads_host)
-        decoded = kops.chain_decode(self._packed_dev, self._heads_dev)
-        # the int32 scan truncated to the stored width == the host depth
-        # loop; the signed int of that width carries the stored bits
-        return truncate_bits(decoded.index_select(0, idx),
-                             self.dtype.itemsize)
+        # the int32 scan of each taken cell's chain truncated to the stored
+        # width == the host depth loop; the signed int of that width
+        # carries the stored bits
+        return kops.chain_decode_at(self._packed_dev, self._heads_dev, idx,
+                                    itemsize=self.dtype.itemsize)
 
     def dev_nbytes(self) -> int:
         n = 0

@@ -45,7 +45,7 @@ def check_tensor(t, name: str, dtype: torch.dtype, ndim: int) -> None:
     if t.dtype != dtype or t.ndim != ndim:
         raise ValueError(f"{name} must be {ndim}-D {dtype}, got "
                          f"{t.ndim}-D {t.dtype}")
-    if t.device.type not in ("cpu", "cuda"):
+    if not (t.is_cuda or t.is_cpu):
         raise ValueError(f"{name} is on {t.device}; only cpu and cuda")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
@@ -65,9 +65,19 @@ def count_launch(wrapper, kind: str | None = None) -> None:
             wrapper.by_design[kind] += 1
 
 
-def stream_ptr(t: torch.Tensor) -> int:
-    """The raw handle of the current CUDA stream on ``t``'s card."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+# torch's own getter of the raw handle (what its compiled kernels call):
+# a fraction of a microsecond, where building a ``torch.cuda.Stream`` takes
+# several; absent from CPU-only builds, which launch nothing
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_ptr(t) -> int:
+    """The raw handle of the current CUDA stream on the card of ``t`` (a
+    CUDA tensor, or a card's index)."""
+    dev = t if isinstance(t, int) else t.get_device()
+    if _raw_stream is not None:
+        return _raw_stream(dev)
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 _BITS = {1: np.int8, 2: np.int16, 4: np.int32, 8: np.int64}

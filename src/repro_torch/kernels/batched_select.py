@@ -3,15 +3,14 @@
 Materializing Q pinned versions of a store needs, for every cell log, the
 running count of cells with ``ts <= t_q`` for each query; the store reads
 it at the CSR row boundaries. ``batched_masked_cumsum`` computes all Q
-rows in one call of the CUDA kernel ``csrc/masked_cumsum.cu`` (a counting
-pass, torch's cumsum over the small (Q, tiles) count array, and a scan
-pass that writes each output value once). The plain version is
-``ref.ref_batched_masked_cumsum``.
+rows in one launch of the CUDA kernel ``csrc/masked_cumsum.cu``, a single
+pass with decoupled look-back that writes each output value once. The
+plain version is ``ref.ref_batched_masked_cumsum``.
 
 The stacked form serves a sharded store under a parallel placement
 (``core/placement.py``): ``stacked_masked_cumsum`` scans S shards' fused
 ts rows, stacked (S, C) and padded with int32 max, for Q queries in the
-same launch pair (the kernel's grid has a shard axis), and
+same one launch (each row's tiles scan on their own), and
 ``stacked_boundary_select`` samples the result at each shard's CSR
 boundaries. Plain versions: ``ref.ref_stacked_masked_cumsum`` and
 ``ref.ref_stacked_boundary_select``. The JAX package's
@@ -21,28 +20,52 @@ nothing per shape, so it has no counterpart.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
 from . import _build, ref
 from ._compat import cdiv, check_tensor, count_launch, stream_ptr
-from .launch import pow2_bucket, tile_for
+from .launch import pow2_bucket
 
-_COUNTS_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p]
-_SCAN_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-_ITEMS = 4  # cells per thread, as in the kernel
-_MAX_ROWS = 65535  # the grid's y extent
+_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p]
+#: cells of a scan tile: ``kTile`` of csrc/masked_cumsum.cu, which refuses
+#: a tile count made with any other
+TILE = 8192
+_MAX_CELLS = 2**31 - 1  # counts are int32
+# the JAX package's scan tile, the floor of its power-of-two cell buckets
+_BUCKET_FLOOR = 2048
 
 
 def scan_bucket(n: int) -> int:
-    """Power-of-two cell bucket of the fused ts array, floored at one scan
-    tile (the store sizes its device ts buffer with it, like the JAX
-    package, so both report the same device bytes)."""
-    return pow2_bucket(n, floor=tile_for("masked_cumsum"))
+    """Power-of-two cell bucket of the fused ts array, floored at the JAX
+    package's scan tile (the store sizes its device ts buffer with it, like
+    the JAX package, so both report the same device bytes)."""
+    return pow2_bucket(n, floor=_BUCKET_FLOOR)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """How one scan of S rows x C cells x Q queries launches: ``n_tiles``
+    tiles a row, and a workspace of ``workspace_words`` 8-byte words (a
+    status word per (row, query, tile), then the ticket counter)."""
+    n_tiles: int
+    workspace_words: int
+
+
+@functools.lru_cache(maxsize=256)
+def scan_plan(s: int, c: int, q: int) -> ScanPlan:
+    """The launch plan of a scan. Raises ValueError where counts could pass
+    int32 or where the tiles exceed the grid."""
+    if c > _MAX_CELLS:
+        raise ValueError(f"{c} cells overflow the int32 counts")
+    n_tiles = cdiv(c, TILE)
+    if s * n_tiles > 2**31 - 1:
+        raise ValueError(f"{s} x {n_tiles} tiles exceed the grid")
+    return ScanPlan(n_tiles, s * q * n_tiles + 1)
 
 
 def _check_queries(ts: torch.Tensor, t_queries: torch.Tensor) -> None:
@@ -52,70 +75,73 @@ def _check_queries(ts: torch.Tensor, t_queries: torch.Tensor) -> None:
                          f"{ts.device}")
 
 
-def _scan_rows(ts: torch.Tensor, t_queries: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel on S rows: ts (S, C) int32 on a card -> (S, Q, C)."""
-    (s, c), (q,) = ts.shape, t_queries.shape
-    out = torch.empty((s, q, c), dtype=torch.int32, device=ts.device)
-    if s == 0 or c == 0 or q == 0:
+def _scan_rows(ts: torch.Tensor, t_queries: torch.Tensor, s: int, c: int,
+               out_shape: tuple) -> torch.Tensor:
+    """The CUDA kernel on S rows of C cells (ts on a card, contiguous) ->
+    ``out_shape`` = (S, Q, C), or (Q, C) for one row. One output
+    allocation, one workspace allocation, one launch; at Q = 1 the host's
+    part of the call is as long as the card's, so it touches each tensor
+    property once."""
+    q = t_queries.shape[0]
+    out = ts.new_empty(out_shape)
+    if out.numel() == 0:
         return out
-    if s > _MAX_ROWS:
-        raise ValueError(f"{s} rows exceed the grid's {_MAX_ROWS}")
-    tile = tile_for("masked_cumsum")
-    n_tiles = cdiv(c, tile)
-    block = tile // _ITEMS
-    counts = torch.empty((s, q, n_tiles), dtype=torch.int32, device=ts.device)
-    with torch.cuda.device(ts.device):
-        stream = stream_ptr(ts)
-        fn = _build.kernel_fn("masked_cumsum", "masked_cumsum_counts",
-                              _COUNTS_ARGS)
-        rc = fn(ts.data_ptr(), s, c, t_queries.data_ptr(), q,
-                counts.data_ptr(), n_tiles, block, stream)
-        _build.check(rc, "masked_cumsum", "masked_cumsum_counts")
-        # exclusive per-tile offsets; cumsum of int32 promotes to int64
-        # unless the dtype is given
-        offsets = torch.cumsum(counts, dim=2, dtype=torch.int32) - counts
-        fn = _build.kernel_fn("masked_cumsum", "masked_cumsum_scan",
-                              _SCAN_ARGS)
-        rc = fn(ts.data_ptr(), s, c, t_queries.data_ptr(), q,
-                offsets.data_ptr(), n_tiles, out.data_ptr(), block, stream)
-        _build.check(rc, "masked_cumsum", "masked_cumsum_scan")
+    plan = scan_plan(s, c, q)
+    # int32 pairs: the 8-byte status words
+    ws = ts.new_empty(2 * plan.workspace_words)
+    # built and loaded on first use, then a dict lookup
+    launch = _build.kernel_fn("masked_cumsum", "masked_cumsum_launch", _ARGS)
+    dev = ts.get_device()
+    args = (ts.data_ptr(), s, c, t_queries.data_ptr(), q, plan.n_tiles,
+            ws.data_ptr(), out.data_ptr(), stream_ptr(dev))
+    if dev == torch.cuda.current_device():
+        rc = launch(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = launch(*args)
+    _build.check(rc, "masked_cumsum", "masked_cumsum_launch")
     return out
 
 
 def batched_masked_cumsum(ts: torch.Tensor,
                           t_queries: torch.Tensor) -> torch.Tensor:
-    """ts: (C,) int32; t_queries: (Q,) int32 on the same device ->
-    (Q, C) int32 inclusive cumsum of (ts <= t_q) per query.
+    """ts: (C,) int32; t_queries: (Q,) int32 on the same device -> (Q, C) int32
+    inclusive cumsum of (ts <= t_q) per query.
 
     A CPU tensor takes the plain torch version; a CUDA tensor launches the
-    kernel (and counts the call in ``batched_masked_cumsum.launches``)."""
+    kernel (and counts the call in ``batched_masked_cumsum.launches``, and
+    in ``by_design["single_query"]`` or ``["batched"]`` by Q)."""
     check_tensor(ts, "ts", torch.int32, 1)
     _check_queries(ts, t_queries)
-    if ts.device.type == "cpu":
+    if not ts.is_cuda:
         return ref.ref_batched_masked_cumsum(ts, t_queries)
-    out = _scan_rows(ts[None], t_queries)[0]
+    out = _scan_rows(ts, t_queries, 1, ts.shape[0],
+                     (t_queries.shape[0], ts.shape[0]))
     if out.numel():
-        count_launch(batched_masked_cumsum)
+        count_launch(batched_masked_cumsum, "single_query"
+                     if t_queries.shape[0] == 1 else "batched")
     return out
 
 
 batched_masked_cumsum.launches = 0
+batched_masked_cumsum.by_design = {"single_query": 0, "batched": 0}
 
 
 def stacked_masked_cumsum(ts_stack: torch.Tensor,
                           t_queries: torch.Tensor) -> torch.Tensor:
-    """ts_stack: (S, C) int32; t_queries: (Q,) int32 on the same device ->
-    (S, Q, C) int32 inclusive cumsum of (ts <= t_q) per (shard, query),
-    all shards in one launch pair. Pad rows and ragged tails with int32
-    max: padding cells never count.
+    """ts_stack: (S, C) int32; t_queries: (Q,) int32 on the same device
+    -> (S, Q, C) int32 inclusive cumsum
+    of (ts <= t_q) per (shard, query), all shards in one launch. Pad rows
+    and ragged tails with int32 max: padding cells never count.
 
     A CPU tensor takes the plain torch version; a CUDA tensor launches the
     kernel (and counts the call in ``stacked_masked_cumsum.launches``)."""
     check_tensor(ts_stack, "ts_stack", torch.int32, 2)
     _check_queries(ts_stack, t_queries)
-    if ts_stack.device.type == "cpu":
+    if not ts_stack.is_cuda:
         return ref.ref_stacked_masked_cumsum(ts_stack, t_queries)
-    out = _scan_rows(ts_stack, t_queries)
+    s, c = ts_stack.shape
+    out = _scan_rows(ts_stack, t_queries, s, c, (s, t_queries.shape[0], c))
     if out.numel():
         count_launch(stacked_masked_cumsum)
     return out

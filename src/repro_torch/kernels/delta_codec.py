@@ -29,21 +29,27 @@ package's ``chain_pack`` / ``chain_unpack``.
 ``chain_decode`` is the device inverse of the same chain format for the
 fused superlog: integer fields stay chain-delta-packed on the device and
 decode inside the gather path (core/store.py). The JAX package leaves this
-scan to XLA (``jax.lax.associative_scan``); the port leaves it to torch ops
-on the store's device. A fused decode-at-index gather kernel is a later
-optimization.
+scan to XLA (``jax.lax.associative_scan``) over the whole field and then
+takes the gathered cells. The port's gather calls ``chain_decode_at``, the
+CUDA kernel ``csrc/chain_decode.cu``, which decodes only the gathered cells
+(each walks back to its chain's head) and never writes the decoded field.
+``chain_decode`` (torch ops) stays as the plain full decode; the plain
+``chain_decode_at``, ``ref_chain_decode_at``, is that decode, the take and
+the truncation.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..obs import kerneltel
 from . import _build, ref
-from ._compat import (bits_view, cdiv, count_launch, from_bits,
-                      resolve_device, stream_ptr)
+from ._compat import (bits_view, cdiv, check_tensor, count_launch,
+                      from_bits, resolve_device, stream_ptr, truncate_bits)
 from .launch import tile_for
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -198,6 +204,121 @@ def chain_decode(deltas: torch.Tensor, heads: torch.Tensor, *,
     before = torch.cat([cs.new_zeros((cs.shape[0], 1)), cs[:, :-1]], dim=1)
     out = _wrap32(cs - before[:, head_at])
     return out.t().contiguous().reshape(deltas.shape)
+
+
+_DECODE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p]
+_PACKED = (torch.int8, torch.int16, torch.int32)
+_OUT = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+
+
+def _check_decode_at(deltas, heads, idx, itemsize: int, xor: bool) -> None:
+    check_tensor(deltas, "deltas", deltas.dtype, 2)
+    if deltas.dtype not in _PACKED:
+        raise ValueError(f"deltas must be one of {_PACKED}, got "
+                         f"{deltas.dtype}")
+    check_tensor(heads, "heads", torch.bool, 1)
+    check_tensor(idx, "idx", idx.dtype, 1)
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"idx must be int32 or int64, got {idx.dtype}")
+    if heads.shape[0] != deltas.shape[0]:
+        raise ValueError(f"{heads.shape[0]} head flags for "
+                         f"{deltas.shape[0]} cells")
+    if heads.device != deltas.device or idx.device != deltas.device:
+        raise ValueError(f"deltas on {deltas.device}, heads on "
+                         f"{heads.device}, idx on {idx.device}")
+    if itemsize not in _OUT:
+        raise ValueError(f"itemsize must be 1, 2 or 4, got {itemsize}")
+    if xor and itemsize != deltas.element_size():
+        raise ValueError(f"the XOR path writes the lanes' own width "
+                         f"({deltas.element_size()}), not {itemsize}")
+    if deltas.shape[0] == 0 and idx.shape[0]:
+        raise IndexError(f"{idx.shape[0]} cells taken from an empty field")
+
+
+def ref_chain_decode_at(deltas: torch.Tensor, heads: torch.Tensor,
+                        idx: torch.Tensor, *, itemsize: int,
+                        xor: bool = False) -> torch.Tensor:
+    """The plain version of :func:`chain_decode_at`: the full decode
+    (:func:`chain_decode`), the take at ``idx`` clamped into [0, C), and
+    the truncation to ``itemsize`` bytes."""
+    _check_decode_at(deltas, heads, idx, itemsize, xor)
+    c, w = deltas.shape
+    if idx.shape[0] == 0:
+        return torch.empty((0, w), dtype=_OUT[itemsize], device=deltas.device)
+    taken = chain_decode(deltas, heads, xor=xor).index_select(
+        0, idx.clamp(0, c - 1))
+    return taken if xor else truncate_bits(taken, itemsize)
+
+
+def chain_decode_at(deltas: torch.Tensor, heads: torch.Tensor,
+                    idx: torch.Tensor, *, itemsize: int,
+                    xor: bool = False) -> torch.Tensor:
+    """The chain-decoded cells ``idx`` of a delta-packed field, without
+    decoding the rest.
+
+    deltas: (C, W) int8/int16/int32 chain deltas, the first cell of every
+    chain raw; heads: (C,) bool flags of those cells (cells before the
+    first head form a chain from cell 0); idx: (n,) int32/int64 cell
+    indices on the same device, clamped into [0, C). Returns (n, W), the
+    signed int of ``itemsize`` bytes, ready for ``from_bits``: the int32
+    wraparound sum of each cell's chain prefix truncated to ``itemsize``
+    bytes, or with ``xor=True`` its XOR in the lanes' own width
+    (``itemsize`` must then be the lanes'). Bit for bit the JAX package's
+    ``chain_decode(deltas, heads)[idx]`` cast to the stored dtype.
+
+    A CPU tensor takes the plain version (:func:`ref_chain_decode_at`); a
+    CUDA tensor launches the kernel (and counts the launch in
+    ``chain_decode_at.launches``)."""
+    _check_decode_at(deltas, heads, idx, itemsize, xor)
+    if deltas.device.type == "cpu":
+        return ref_chain_decode_at(deltas, heads, idx, itemsize=itemsize,
+                                   xor=xor)
+    plan = decode_at_plan(deltas)
+    c, w = deltas.shape
+    out = torch.empty((idx.shape[0], w), dtype=_OUT[itemsize],
+                      device=deltas.device)
+    if out.numel() == 0:
+        return out
+    fn = _build.kernel_fn("chain_decode", "chain_decode_at_launch",
+                          _DECODE_ARGS)
+    here = deltas.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if here else torch.cuda.device(
+            deltas.device):
+        rc = fn(deltas.data_ptr(), heads.data_ptr(), idx.data_ptr(),
+                idx.element_size(), idx.shape[0], c, w,
+                deltas.element_size(), itemsize, int(xor), int(plan.vec),
+                plan.group_log2, out.data_ptr(), _BLOCK,
+                torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "chain_decode", "chain_decode_at_launch")
+    count_launch(chain_decode_at)
+    return out
+
+
+chain_decode_at.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How the kernel lays out a gather: ``vec`` takes 4-byte chunks of
+    4 / itemsize packed lanes, ``group_log2`` the threads per cell."""
+    vec: bool
+    group_log2: int
+
+
+def decode_at_plan(deltas: torch.Tensor) -> DecodePlan:
+    """Chunks of 4 / itemsize lanes where every row starts 4-byte aligned
+    (W a multiple of the chunk and an aligned base), else single lanes;
+    the smallest power-of-two group of threads, at most a warp, that
+    covers a row's chunks."""
+    s = deltas.element_size()
+    w = deltas.shape[1]
+    vec = s < 4 and w % (4 // s) == 0 and deltas.data_ptr() % 4 == 0
+    chunks = w // (4 // s) if vec else w
+    return DecodePlan(vec, min(max(chunks - 1, 0).bit_length(), 5))
 
 
 def narrow_dtype(maxabs: int, base=np.int32) -> type:

@@ -10,10 +10,10 @@ from __future__ import annotations
 
 #: elements per block (fingerprint, shard_route, delta_codec,
 #: masked_merge: rows per block). Each is a multiple of the kernel's items
-#: per thread and at most 1024 threads' worth. The flash attention
-#: kernel's tiles are compile-time constants of its source.
+#: per thread and at most 1024 threads' worth. The scan's and the flash
+#: attention kernel's tiles are compile-time constants of their sources
+#: (the scan's: ``batched_select.TILE``).
 DEFAULT_TILES = {
-    "masked_cumsum": 2048,  # 512 threads x 4 cells
     "keep_mask": 1024,      # 256 threads x 4 cells
     "fingerprint": 256,     # one thread per row
     "shard_route": 512,     # one thread per key; the JAX package's tile

@@ -16,9 +16,10 @@ from .batched_select import (batched_masked_cumsum, batched_version_select,
                              scan_bucket, stacked_boundary_select,
                              stacked_masked_cumsum)
 from .compact_rewrite import compact_rewrite, keep_mask, ref_compact_rewrite
-from .delta_codec import (chain_decode, chain_pack, chain_unpack,
-                          delta_pack, delta_pack_wide, delta_unpack,
-                          delta_unpack_wide, narrow_dtype)
+from .delta_codec import (chain_decode, chain_decode_at, chain_pack,
+                          chain_unpack, delta_pack, delta_pack_wide,
+                          delta_unpack, delta_unpack_wide, narrow_dtype,
+                          ref_chain_decode_at)
 from .fingerprint import fingerprint
 from .flash_attention import flash_attention
 from .masked_merge import masked_merge
@@ -27,11 +28,12 @@ from .version_select import masked_cumsum, version_select
 
 __all__ = [
     "KERNELS", "batched_masked_cumsum", "batched_version_select",
-    "chain_decode", "chain_pack", "chain_unpack", "compact_rewrite",
+    "chain_decode", "chain_decode_at", "chain_pack", "chain_unpack",
+    "compact_rewrite",
     "delta_pack", "delta_pack_wide", "delta_unpack", "delta_unpack_wide",
     "fingerprint", "fingerprint_rows", "flash_attention", "keep_mask",
     "key_lanes", "launch", "masked_cumsum", "masked_merge",
-    "merge_shard_rows", "narrow_dtype", "ref",
+    "merge_shard_rows", "narrow_dtype", "ref", "ref_chain_decode_at",
     "ref_compact_rewrite", "route_keys", "scan_bucket", "shard_route",
     "stacked_boundary_select", "stacked_masked_cumsum", "to_int_lanes",
     "version_select",
@@ -50,6 +52,7 @@ KERNELS = {
     "delta_unpack_wide": delta_unpack_wide,
     "masked_merge": masked_merge,
     "flash_attention": flash_attention,
+    "chain_decode": chain_decode_at,
 }
 
 
