@@ -7,9 +7,12 @@ Needs a CUDA card (it exits non-zero without one) and the CUDA toolkit's
 nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
 ``build/repro_torch/`` on first use. It prints one JSON object per line:
 
-  env             card, power limit, torch/CUDA versions, kernel build time
+  env             card, power limit, torch/CUDA versions, kernel build time,
+                  ptxas reports and the flash kernels' tensor-core
+                  instructions (HGMMA, BF16 and TF32) per kernel
   kernel          each CUDA kernel at ragged edge shapes (the delta codec
-                  at every lane dtype, with extreme values; the route at
+                  at every lane dtype, with extreme values, and on bases 4
+                  and 8 bytes past a 16-byte boundary; the route at
                   the empty key, trailing-zero and 125+ byte keys; the
                   stacked scan at S = 1/3/4, ragged C, boundaries at 0 and
                   C), then at the shapes its path gives it: max |kernel -
@@ -63,13 +66,13 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
   kernel_edges_serving  flash attention at the JAX package's kernel-test
                   shapes, D 16/32/64/128, f32 and bf16, Sq > Sk and
                   Sq = 1, and at shapes that straddle the tensor-core
-                  kernel's 128-row tiles (Sq 129 and 300 with Sk - Sq not
-                  a multiple of 128, Sk 257, GQA groups 1/4/8, B 3, Sk 0,
-                  a strided q, a k whose base TMA cannot read), within
-                  FLASH_TOL of its plain version, with the design each
-                  case took; the masked merge at N 1/511/512/513, W 1-9,
-                  every element size, int32 and int64 timestamps, bit for
-                  bit
+                  kernels' tiles (Sq 129 and 300 with Sk - Sq not a
+                  multiple of any key tile, Sk 257, GQA groups 1/4/8, B 3,
+                  Sk 0, and at D 64 and 128 a strided q and a k whose
+                  base TMA cannot read), within FLASH_TOL of its plain
+                  version, with the design each case took; the masked
+                  merge at N 1/511/512/513, W 1-9, every element size,
+                  int32 and int64 timestamps, bit for bit
   merge           kops.masked_merge on the first release's sequence table
                   (570,000 x 64 int32) with the second release's rows for
                   the entries whose sequence changed, checked against a
@@ -92,17 +95,24 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   a prefill of the same tokens (SERVE_TOL); and the flash
                   kernel against its plain version on the layer-0 q/k/v
                   that the counted prefills handed it (first bucket and
-                  32k prompt)
+                  32k prompt). The f32 checks' prefills (the first
+                  bucket's, the ring check's two) are counted apart: each
+                  of their flash launches must take the f32 tensor-core
+                  design
   serving_profile one bucket's generate and the 32k prefill under
                   torch.profiler: device time, idle share, top kernels
   serving_parity  the smoke config (f32) through device="cpu" and
                   device="cuda": the same greedy ids from a Scheduler
                   run, prefill logits within SMOKE_TOL
   kernels         per kernel: launches during the path that runs it,
-                  error, times, bound (flash attention twice: bf16 on the
-                  tensor cores, f32 on the CUDA cores, at 32k; the scan
-                  twice: Q = 64, and Q = 1 with its single-query launches;
-                  chain_decode at the main path's Q = 1 gather)
+                  error, times, bound (flash attention twice at 32k: bf16,
+                  and f32 on the tensor cores as three TF32 products, its
+                  launches those of the serving phase's f32 checks; the
+                  scan twice: Q = 64, and Q = 1 with its single-query
+                  launches; chain_decode at the main path's Q = 1 gather;
+                  the codec's rows timed in alternating rounds with their
+                  library calls, and the int32 packs' device time per
+                  call with no host time in it, beside torch.sub's)
 
 then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any mismatch or error ends the run with a
@@ -118,6 +128,7 @@ import dataclasses
 import json
 import os
 import pstats
+import re
 import shutil
 import subprocess
 import sys
@@ -137,9 +148,10 @@ COMPACT_TS = 30
 PARITY_ENTRIES = 2_000
 TIMED_REPS = 20  # back-to-back calls per kernel time
 # rounds of kernel, then library, for a kernel whose lead over its library
-# call is within the host's noise (the Q = 1 scan): its times are the
-# medians of the rounds
+# call is within the run's noise (the Q = 1 scan, the codec): its times are
+# the medians of the rounds
 TIMED_ROUNDS = 9
+SPIN_CYCLES = 20_000_000  # about 10 ms of a spin kernel, ahead of queued calls
 # kernel -> (its CUDA source, the TPU kernel of the JAX package it replaces)
 SOURCES = {
     "fingerprint": ("src/repro_torch/csrc/fingerprint.cu",
@@ -167,7 +179,7 @@ SOURCES = {
                      "src/repro/kernels/masked_merge.py:24"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:33"),
-    # the same wrapper at f32: the CUDA-core kernel of the same source
+    # the same wrapper at f32: the f32 tensor-core kernel of the source
     "flash_attention_f32": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:33"),
     "chain_decode": ("src/repro_torch/csrc/chain_decode.cu",
@@ -239,6 +251,24 @@ def cuda_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     sync()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of ``fn`` over ``reps`` calls
+    queued behind a spin kernel (after one warm-up), by CUDA events: the
+    card's time for the calls and the gaps between them, with no call's
+    host time in it."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    sync()
+    torch.cuda._sleep(SPIN_CYCLES)  # outlasts the host's queueing
     start.record()
     for _ in range(reps):
         fn()
@@ -411,13 +441,30 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_label(mangled: str) -> str:
+    """``flash_wgmma_f32_kernel<128>`` from a flash kernel's mangled name
+    (the name itself where it does not parse)."""
+    m = re.search(r"\d(flash\w*?_kernel)I(.*?)EEEv", mangled)
+    if not m:
+        return mangled
+    args = (["float"] if m.group(2).startswith("f") else
+            ["bf16"] if "bfloat16" in m.group(2) else [])
+    args += re.findall(r"Li(\d+)", m.group(2))
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
 def phase_env(build_info: dict, smi: str) -> None:
     """The card, the toolchain and the kernels' build: ptxas's registers
     and spills per kernel; for flash attention its whole report (shared
     memory, setmaxnreg, wgmma warnings) and the count of tensor-core
-    product instructions (HGMMA) in its SASS, where cuobjdump exists."""
+    product instructions (HGMMA) in its SASS, in all and per kernel and
+    variant (BF16, TF32), where cuobjdump exists: each tensor-core kernel,
+    the f32 ones with TF32 products, must have some."""
     from repro_torch.kernels import _build
     ptxas = build_info["ptxas"]
+    by_fn = _build.sass_opcodes_by_function("flash_attention", "HGMMA")
+    by_kernel = (None if by_fn is None else
+                 {kernel_label(k): v for k, v in sorted(by_fn.items())})
     emit({"phase": "env", "gpu": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
@@ -428,7 +475,18 @@ def phase_env(build_info: dict, smi: str) -> None:
                     for k, v in ptxas.items()},
           "flash_ptxas": [ln.strip() for ln in ptxas.get(
               "flash_attention", "").splitlines() if ln.strip()],
-          "flash_hgmma": _build.sass_opcodes("flash_attention", "HGMMA")})
+          "flash_hgmma": (None if by_fn is None else
+                          sum(sum(v.values()) for v in by_fn.values())),
+          "flash_hgmma_by_kernel": by_kernel})
+    if by_kernel is not None:
+        for name, variant in (("flash_wgmma_kernel<64>", "HGMMA.F32.BF16"),
+                              ("flash_wgmma_kernel<128>", "HGMMA.F32.BF16"),
+                              ("flash_wgmma_f32_kernel<64>",
+                               "HGMMA.F32.TF32"),
+                              ("flash_wgmma_f32_kernel<128>",
+                               "HGMMA.F32.TF32")):
+            check(by_kernel.get(name, {}).get(variant, 0) > 0,
+                  f"{name}: no {variant} instruction in its SASS")
 
 
 class KernelBench:
@@ -551,9 +609,10 @@ class KernelBench:
             timed=timed, main=main, quiet=quiet)
 
     def codec(self, name, a, b, *, unsigned=False, timed=True, main=False,
-              label=None, quiet=False) -> dict:
+              label=None, quiet=False, rounds=1) -> dict:
         """One delta-codec wrapper on the pair (a, b): bits and per-tile
-        stats against the plain version (``ref``) on the same card."""
+        stats against the plain version (``ref``) on the same card.
+        ``rounds``: as for :meth:`run`."""
         kops, ref = self.kops, self.kops.ref
         tile = kops.launch.tile_for("delta_codec")
         n, w = a.shape
@@ -584,7 +643,8 @@ class KernelBench:
             name, {"N": n, "W": w, "dtype": label or str(a.dtype)}, kernel,
             plain, nbytes=3 * a.numel() * a.element_size() + 4 * n_tiles,
             ops=(2 if name == "delta_pack" else 1) * a.numel(),
-            library=library, timed=timed, main=main, quiet=quiet)
+            library=library, timed=timed, main=main, quiet=quiet,
+            rounds=rounds)
 
     def masked_merge(self, base, upd, rm, fm, ts, ts_new, *, timed=True,
                      main=False, quiet=False) -> dict:
@@ -606,7 +666,8 @@ class KernelBench:
     def flash(self, q, k, v, *, timed=True, main=False, quiet=False,
               reps=None, name="flash_attention") -> dict:
         """Flash attention against its plain version within FLASH_TOL,
-        bound by its causal FLOPs at the dtype's peak, with the design the
+        bound by its causal FLOPs at the dtype's peak (f32: three TF32
+        products each, ``roofline.compute_peak``), with the design the
         wrapper takes (``shape["design"]``); the library yardstick (SDPA)
         only at Sq == Sk, since its causal mask is top-left aligned. SDPA
         takes GQA itself in bf16; in f32 its memory-efficient kernel,
@@ -761,12 +822,46 @@ def phase_kernel_edges(bench: KernelBench, rng) -> None:
                                          quiet=True))
                 cases.append(bench.codec(unpack, new, old, timed=False,
                                          label=dtype, quiet=True))
+    # bases 4 and 8 bytes past a 16-byte boundary (the kernel's scalar
+    # head), flat lengths that are no multiple of the 16-byte vector (its
+    # tail), and new and old at different offsets (every lane scalar)
+    n_aligned = len(cases)
+    for dtype in CODEC_DTYPES:
+        size = np.dtype(dtype).itemsize
+        pack, unpack = (("delta_pack_wide", "delta_unpack_wide")
+                        if size == 8 else ("delta_pack", "delta_unpack"))
+        for off_new, off_old in ((4, 4), (8, 8), (4, 8)):
+            if off_new % size or off_old % size:
+                continue
+            for n, w in ((1, 7), (513, 3), (1025, 5), (70_001, 9)):
+                new, old, uns = codec_pair(rng, dtype, n, w)
+                new, old = at_offset(new, off_new), at_offset(old, off_old)
+                cases.append(bench.codec(pack, new, old, unsigned=uns,
+                                         timed=False, label=dtype,
+                                         quiet=True))
+                cases.append(bench.codec(unpack, new, old, timed=False,
+                                         label=dtype, quiet=True))
     emit({"phase": "kernel_edges", "kernels": sorted({c["name"]
                                                       for c in cases}),
           "dtypes": list(CODEC_DTYPES), "N": [1, 511, 513, 70_001],
-          "W": [1, 8, 64], "cases": len(cases),
+          "W": [1, 8, 64], "cases": n_aligned,
+          "offset_cases": len(cases) - n_aligned,
+          "offsets_bytes": [[4, 4], [8, 8], [4, 8]],
+          "offset_shapes": [[1, 7], [513, 3], [1025, 5], [70_001, 9]],
           "max_abs_diff": max(c["max_abs_diff"] for c in cases),
           "stats_compared": "per tile", "gpu": bench.smi})
+
+
+def at_offset(t: torch.Tensor, off: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose base lies ``off`` bytes past a
+    16-byte boundary."""
+    nbytes = t.numel() * t.element_size()
+    buf = torch.empty(nbytes + 32, dtype=torch.uint8, device=t.device)
+    start = -buf.data_ptr() % 16 + off
+    x = buf[start:start + nbytes].view(t.dtype).view(t.shape)
+    x.copy_(t)
+    check(x.data_ptr() % 16 == off, f"base {x.data_ptr() % 16}, not {off}")
+    return x
 
 
 def phase_kernel_edges_scan(bench: KernelBench, rng) -> None:
@@ -1260,7 +1355,8 @@ def phase_persistence_parity(VersionedStore, FieldSchema, seed: int,
 def phase_codec_main(bench: KernelBench, compat, codec_in, rng) -> None:
     """The codec at the shapes of the persistence phase's full save: the
     sequence log (C x 64 int32) and the annotation log (C x 8 int32),
-    each cell against its chain predecessor as chain_pack pairs them.
+    each cell against its chain predecessor as chain_pack pairs them,
+    with the int32 packs' device time per call (``codec_device``).
     The float XORs, the unpacks and the 8-byte ops, which no store of this
     schema reaches, are timed at the annotation log's shape."""
     pairs = {}
@@ -1271,33 +1367,61 @@ def phase_codec_main(bench: KernelBench, compat, codec_in, rng) -> None:
         prev = torch.roll(new, 1, 0)
         prev[torch.as_tensor(heads, device=DEV)] = 0
         pairs[f] = (new, prev)
-    bench.codec("delta_pack", *pairs["sequence"], main=True)
-    bench.codec("delta_pack", *pairs["annotation"])
-    bench.codec("delta_unpack", *pairs["annotation"], main=True)
+    # every row in alternating rounds with its library call: a wrapper
+    # call's host work counts once per timing, so one timing can catch a
+    # host hiccup
+    rounds = TIMED_ROUNDS
+    bench.codec("delta_pack", *pairs["sequence"], main=True, rounds=rounds)
+    bench.codec("delta_pack", *pairs["annotation"], rounds=rounds)
+    # the int32 packs' device time per call, queued so that no call's host
+    # time counts, against torch.sub's, in alternating rounds (the
+    # profiler's per-kernel sums missed launches of these calls)
+    device = {}
+    for f in ("sequence", "annotation"):
+        a, b = pairs[f]
+        rec = device[f] = {"shape": list(a.shape), "kernel_ms": [],
+                           "library_ms": []}
+        for _ in range(rounds):
+            rec["kernel_ms"].append(queued_ms(
+                lambda: bench.kops.delta_pack(a, b), TIMED_REPS))
+            rec["library_ms"].append(queued_ms(lambda: torch.sub(a, b),
+                                               TIMED_REPS))
+        rec["kernel_median_ms"] = float(np.median(rec["kernel_ms"]))
+        rec["library_median_ms"] = float(np.median(rec["library_ms"]))
+    emit({"phase": "codec_device", "calls": TIMED_REPS, "rounds": rounds,
+          "int32_pack": device, "gpu": bench.smi})
+    bench.codec("delta_unpack", *pairs["annotation"], main=True,
+                rounds=rounds)
     new, prev = pairs["annotation"]
     c, w = new.shape
     fl = torch.as_tensor(rng.normal(size=(c, w)).astype(np.float32),
                          device=DEV)
     fl_prev = torch.roll(fl, 1, 0)
-    bench.codec("delta_pack", fl, fl_prev)
-    bench.codec("delta_unpack", fl, fl_prev)
+    bench.codec("delta_pack", fl, fl_prev, rounds=rounds)
+    bench.codec("delta_unpack", fl, fl_prev, rounds=rounds)
     wide, wide_prev = new.to(torch.int64) << 20, prev.to(torch.int64) << 20
-    bench.codec("delta_pack_wide", wide, wide_prev, main=True)
-    bench.codec("delta_unpack_wide", wide, wide_prev, main=True)
+    bench.codec("delta_pack_wide", wide, wide_prev, main=True, rounds=rounds)
+    bench.codec("delta_unpack_wide", wide, wide_prev, main=True,
+                rounds=rounds)
     fl64, fl64_prev = fl.to(torch.float64), fl_prev.to(torch.float64)
-    bench.codec("delta_pack_wide", fl64, fl64_prev)
-    bench.codec("delta_unpack_wide", fl64, fl64_prev)
+    bench.codec("delta_pack_wide", fl64, fl64_prev, rounds=rounds)
+    bench.codec("delta_unpack_wide", fl64, fl64_prev, rounds=rounds)
     del pairs, fl, fl_prev, wide, wide_prev, fl64, fl64_prev
 
 
-def uncounted(kops, fn):
+def uncounted(kops, fn, flash: dict | None = None):
     """Run ``fn`` (reference work beside a path) without adding to any
-    kernel's launch count."""
+    kernel's launch count. ``flash``, a dict, gets the flash launches by
+    design that ``fn`` made (the serving checks' f32 prefills)."""
     before = {k: (f.launches, dict(getattr(f, "by_design", {})))
               for k, f in kops.KERNELS.items()}
     try:
         return fn()
     finally:
+        if flash is not None:
+            fa, was = kops.flash_attention, before["flash_attention"][1]
+            for d, n in fa.by_design.items():
+                flash[d] = flash.get(d, 0) + n - was[d]
         for k, f in kops.KERNELS.items():
             f.launches = before[k][0]
             if hasattr(f, "by_design"):
@@ -1606,30 +1730,40 @@ FLASH_EDGE_SHAPES = [  # (B, Sq, Sk, H, K, D)
     (2, 256, 256, 8, 4, 64), (1, 100, 300, 4, 4, 32), (1, 1, 129, 8, 8, 64),
     (1, 37, 37, 2, 1, 128), (2, 128, 640, 4, 2, 16), (1, 45, 130, 14, 2, 64),
     (1, 150, 40, 4, 2, 32), (1, 1, 1, 4, 2, 128), (3, 65, 65, 4, 4, 16),
-    # across the tensor-core kernel's 128-row query and key tiles: Sq 129
-    # and 300 with Sk - Sq not a multiple of 128, Sk 257, GQA groups
-    # 1/4/8, B 3, Sq = 1, Sq > Sk and an empty key axis, at D 64 and 128
+    # across the tensor-core kernels' tiles (bf16: 128 query rows, 128
+    # keys; f32: 128 rows and 64 keys at D 64, 64 rows and 32 keys at
+    # D 128): Sq 129 and 300 with Sk - Sq not a multiple of any key tile,
+    # Sk 257, GQA groups 1/4/8, B 3, Sq = 1, Sq > Sk and an empty key
+    # axis, at D 64 and 128
     (1, 129, 200, 8, 2, 64), (1, 300, 1000, 8, 8, 128),
     (2, 257, 257, 8, 1, 64), (3, 200, 333, 8, 2, 128),
     (1, 1, 300, 8, 1, 128), (2, 300, 130, 4, 1, 64),
     (1, 129, 129, 16, 2, 64), (1, 5, 0, 4, 2, 64),
+    (1, 129, 200, 8, 2, 128), (2, 257, 257, 8, 1, 128),
+    (2, 300, 130, 4, 1, 128), (1, 5, 0, 4, 2, 128),
+    (1, 65, 97, 4, 4, 128), (2, 63, 65, 8, 4, 64), (3, 33, 33, 4, 2, 128),
 ]
 
 
+FLASH_EDGE_LAYOUTS = ["strided q", "misaligned k"]
+
+
 def flash_edge_inputs(gen, dt):
-    """(q, k, v) at every FLASH_EDGE_SHAPES entry, then two layouts the
-    tensor-core kernel reads through its plan: a q that is every other
-    head of a wider tensor (strided), and a k whose base is 2 bytes past
-    an allocation (TMA cannot read it; the wrapper copies it)."""
+    """(q, k, v) at every FLASH_EDGE_SHAPES entry, then, at D 64 and 128,
+    two layouts the tensor-core kernels read through their plan: a q that
+    is every other head of a wider tensor (strided), and a k whose base
+    is one element past an allocation (TMA cannot read it; the wrapper
+    copies it)."""
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=DEV).to(dt)
     for b, sq, sk, h, kh, d in FLASH_EDGE_SHAPES:
         yield randn(b, sq, h, d), randn(b, sk, kh, d), randn(b, sk, kh, d)
-    yield (randn(2, 200, 16, 64)[:, :, ::2], randn(2, 200, 2, 64),
-           randn(2, 200, 2, 64))
-    n = 1 * 150 * 2 * 64
-    yield (randn(1, 150, 8, 64), randn(n + 1)[1:].view(1, 150, 2, 64),
-           randn(1, 150, 2, 64))
+    for d in (64, 128):
+        yield (randn(2, 200, 16, d)[:, :, ::2], randn(2, 200, 2, d),
+               randn(2, 200, 2, d))
+        n = 1 * 150 * 2 * d
+        yield (randn(1, 150, 8, d), randn(n + 1)[1:].view(1, 150, 2, d),
+               randn(1, 150, 2, d))
 
 
 def phase_kernel_edges_serving(bench: KernelBench, rng) -> None:
@@ -1644,8 +1778,10 @@ def phase_kernel_edges_serving(bench: KernelBench, rng) -> None:
             cases.append(bench.flash(q, k, v, timed=False, quiet=True))
     n_flash = len(cases)
     designs = {d: fa.by_design[d] - by_design[d] for d in by_design}
-    check(designs["wgmma"] == sum(c["shape"]["design"] == "wgmma"
-                                  for c in cases),
+    # every case launched (an empty Sq launches nothing; none here) and
+    # took the design its plan names
+    check(designs == {d: sum(c["shape"]["design"] == d for c in cases)
+                      for d in by_design},
           f"flash edges: {designs} launches by design")
     for n in (1, 511, 512, 513):
         for w in range(1, 10):
@@ -1687,7 +1823,8 @@ def phase_kernel_edges_serving(bench: KernelBench, rng) -> None:
                  for dt in ("torch.float32", "torch.bfloat16")}
     merge_err = max(c["max_abs_diff"] for c in cases[n_flash:])
     emit({"phase": "kernel_edges_serving",
-          "flash_shapes": FLASH_EDGE_SHAPES + ["strided q", "misaligned k"],
+          "flash_shapes": FLASH_EDGE_SHAPES + [
+              f"{lay}, D {d}" for d in (64, 128) for lay in FLASH_EDGE_LAYOUTS],
           "flash_dtypes": ["float32", "bfloat16"],
           "flash_cases": n_flash, "flash_max_abs_diff": flash_err,
           "flash_designs": [c["shape"]["design"] for c in cases[:n_flash]],
@@ -1779,10 +1916,12 @@ def layer0_inputs(n_layers: int):
         A.flash_attention = orig
 
 
-def greedy_logits(kops, cfg, params, batch, dev, steps: int, ids=None):
+def greedy_logits(kops, cfg, params, batch, dev, steps: int, ids=None,
+                  flash: dict | None = None):
     """The logits of ``batch``'s prefill and of ``steps`` decode steps
     after it, fed ``ids`` (B, steps) or, without them, this run's own
-    greedy tokens: ((steps + 1, B, V) f32 on the host, the ids fed)."""
+    greedy tokens: ((steps + 1, B, V) f32 on the host, the ids fed).
+    ``flash``: as for :func:`uncounted`."""
     from repro_torch.models import build
 
     def run():
@@ -1799,14 +1938,15 @@ def greedy_logits(kops, cfg, params, batch, dev, steps: int, ids=None):
             out.append(logits[:, 0].cpu())
         return (torch.stack(out),
                 torch.cat(fed, 1) if fed else None)
-    return uncounted(kops, run)
+    return uncounted(kops, run, flash)
 
 
-def ring_decode_gap(kops, cfg, params, prompt, steps: int) -> float:
+def ring_decode_gap(kops, cfg, params, prompt, steps: int,
+                    flash: dict | None = None) -> float:
     """The card's decode over the long prompt's ring against a prefill of
     the same tokens: max |logit difference| at the last of ``steps``
     greedy decode steps (the ring holds prompt + ``steps`` + 1 slots, as
-    the served request's does)."""
+    the served request's does). ``flash``: as for :func:`uncounted`."""
     from repro_torch.models import build
 
     def run():
@@ -1822,7 +1962,7 @@ def ring_decode_gap(kops, cfg, params, prompt, steps: int) -> float:
         ref = bundle.prefill(params, {"tokens": torch.cat([toks, *fed],
                                                           1)})[0]
         return float((logits - ref).abs().max())
-    return uncounted(kops, run)
+    return uncounted(kops, run, flash)
 
 
 def phase_serving(kops, seed: int) -> dict:
@@ -1930,13 +2070,19 @@ def phase_serving(kops, seed: int) -> dict:
     rec["cpu_check_f32_s"] = time.perf_counter() - t1
     params32 = weights.from_jax_tree(cfg32, tree, device=DEV)
     del tree
+    # the f32 checks' flash launches, kept apart from the bf16 counts:
+    # every f32 prefill on the card takes the f32 tensor-core design
+    f32_flash = {"first_bucket": {}, "ring_check": {}}
     gpu32, _ = greedy_logits(kops, cfg32, params32, batch, DEV,
-                             SERVE_CHECK_STEPS, ids=fed)
+                             SERVE_CHECK_STEPS, ids=fed,
+                             flash=f32_flash["first_bucket"])
     # the 32k request's ring decode, in f32, against a fresh prefill
     t1 = time.perf_counter()
     ring_gap = ring_decode_gap(kops, cfg32, params32, long_prompt,
-                               SERVE_MAX_NEW - 1)
+                               SERVE_MAX_NEW - 1,
+                               flash=f32_flash["ring_check"])
     rec["ring_check_s"] = time.perf_counter() - t1
+    rec["f32_flash_launches_by_design"] = f32_flash
     del params32
     checks = {}
     for name, gpu, cpu, tol in (("bf16", gpu16, cpu16, SERVE_TOL_BF16),
@@ -1971,6 +2117,13 @@ def phase_serving(kops, seed: int) -> dict:
                                   f"differs between card and CPU")
     check(ring_gap <= SERVE_TOL, f"32k ring decode: logits {ring_gap} "
                                  f"from a prefill of the same tokens")
+    # one f32 prefill in the first bucket's check, two in the ring check
+    for name, prefills in (("first_bucket", 1), ("ring_check", 2)):
+        got = f32_flash[name]
+        check(got.get("wgmma_f32") == prefills * cfg.n_layers
+              and sum(got.values()) == got["wgmma_f32"],
+              f"{name}: f32 flash launches by design {got}, not "
+              f"{prefills * cfg.n_layers} on the f32 tensor cores")
     check(np.array_equal(first, gpu16[0].argmax(-1).numpy()),
           "first bucket: the scheduler's first tokens are not the prefill's")
     # where the serving time goes: one bucket's generate (prefill and 16
@@ -1985,16 +2138,16 @@ def phase_serving(kops, seed: int) -> dict:
                                                        device=DEV)}))}
     emit(rec_prof)
     del engine, sched, params
-    return {"launches": {**rec["launches"], "flash_attention_f32":
-                         by_design["cuda_core"]},
+    return {"launches": {**rec["launches"], "flash_attention_f32": sum(
+        f["wgmma_f32"] for f in f32_flash.values())},
             "long_qkv": qkv[-1], "short_qkv": qkv[0]}
 
 
 def phase_kernel_serving(bench: KernelBench, merge_out, serving_out) -> None:
     """The serving slice's kernels at the shapes their paths gave them,
-    timed: flash attention on layer 0's q/k/v of the 32k prompt (in bf16
-    on the tensor cores, and the same values in f32 on the CUDA cores)
-    and of the first bucket, the masked merge on the head table."""
+    timed: flash attention on layer 0's q/k/v of the 32k prompt (in bf16,
+    and the same values in f32, both on the tensor cores) and of the
+    first bucket, the masked merge on the head table."""
     long_qkv = serving_out.pop("long_qkv")
     bench.flash(*long_qkv, main=True, reps=3)
     bench.flash(*(x.float() for x in long_qkv), main=True, reps=3,

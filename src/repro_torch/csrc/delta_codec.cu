@@ -29,10 +29,37 @@
 //   kNone            0
 //
 // Bound on this card: bytes. It reads 2*N*W*s and writes N*W*s bytes plus
-// 4 bytes per tile, with one integer op per lane. Design: one block per
-// tile; thread i handles lanes i, i + blockDim, ... of the tile's flat
-// rows*W range, so each warp's loads and stores cover contiguous bytes; the
-// stat is a warp reduction plus one shared int per warp.
+// 4 bytes per tile, with one integer op per lane.
+//
+// Design. The grid is decoupled from the stat tile: a tile's flat range
+// (tile_rows * W lanes) is cut into blocks_per_tile chunks of `chunk`
+// lanes (at most 16 KB of each operand; the host plan,
+// kernels/delta_codec.py: codec_plan). A block alone has up to 1,024
+// threads, one 16-byte vector of each operand per thread, every load in
+// flight at once: at W = 8 int32 a 16 KB tile is one such block. A tile
+// with a stat over more chunks is a thread block cluster of at most 8
+// blocks of 256 threads (clusters of larger blocks streamed slower on the
+// card): at W = 64 int32, 8 blocks of 16 KB, where one block per 128 KB
+// tile left a partial last wave (1,434 blocks, at most 1,056 resident).
+// Blocks stream their chunk as 16-byte vectors, two per thread at a time
+// (__ldcs / __stcs, 32-bit offsets inside the chunk). A scalar head runs
+// up to the first 16-byte aligned lane and a scalar tail after the last
+// whole vector; a, b and out share their alignment mod 16 (the wrapper
+// allocates out so), else every lane goes scalar.
+//
+// The stat: a warp reduction plus one shared int per warp gives each
+// block's partial, which a block alone writes out. In a cluster the word
+// the blocks fold into lives in the shared memory of the cluster's first
+// block: it sets the word to the identity (INT32_MIN, or 0 for the count)
+// before a cluster barrier's arrive, every block waits on that barrier
+// after its streaming, folds its partial into the word with an atomicMax
+// (atomicAdd for the count) through distributed shared memory, and after
+// a second cluster barrier the first block writes the word out. Integer
+// max and sum do not depend on order, so the stats are exact, and no word
+// outside the launch needs a value beforehand: one launch per call, where
+// atomics into global words would need a fill first.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
@@ -47,20 +74,12 @@ template <> struct Unsigned<int32_t> { using type = uint32_t; };
 template <> struct Unsigned<int64_t> { using type = uint64_t; };
 
 template <typename T, int kOp, int kStat>
-__global__ void codec_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                             T* __restrict__ out, int32_t* __restrict__ stats,
-                             long long n_rows, long long width,
-                             long long tile_rows) {
+struct Lane {
   using U = typename Unsigned<T>::type;
-  __shared__ int scratch[32];
-  const long long row0 = static_cast<long long>(blockIdx.x) * tile_rows;
-  const long long rows = min(tile_rows, n_rows - row0);
-  const long long begin = row0 * width;
-  const long long end = begin + rows * width;
-  int acc = kStat == kNonZero ? 0 : INT32_MIN;
-  for (long long i = begin + threadIdx.x; i < end; i += blockDim.x) {
-    const U x = static_cast<U>(a[i]);
-    const U y = static_cast<U>(b[i]);
+  // a op b on one lane, folding its stat into `acc`
+  static __device__ __forceinline__ T run(T a, T b, int& acc) {
+    const U x = static_cast<U>(a);
+    const U y = static_cast<U>(b);
     U r;
     if constexpr (kOp == kSub) {
       r = static_cast<U>(x - y);
@@ -69,7 +88,6 @@ __global__ void codec_kernel(const T* __restrict__ a, const T* __restrict__ b,
     } else {
       r = static_cast<U>(x ^ y);
     }
-    out[i] = static_cast<T>(r);
     if constexpr (kStat == kNonZero) {
       acc += r != 0;
     } else if constexpr (kStat == kMaxAbs || kStat == kMaxAbsUnsigned) {
@@ -79,32 +97,140 @@ __global__ void codec_kernel(const T* __restrict__ a, const T* __restrict__ b,
       const uint32_t u = static_cast<uint32_t>(w);
       acc = max(acc, static_cast<int32_t>(w < 0 ? 0u - u : u));
     }
+    return static_cast<T>(r);
+  }
+};
+
+template <typename T>
+union Vec {
+  int4 v;
+  T lane[16 / sizeof(T)];
+};
+
+template <typename T, int kOp, int kStat>
+__device__ __forceinline__ int4 run_vec(int4 x, int4 y, int& acc) {
+  Vec<T> a, b, r;
+  a.v = x;
+  b.v = y;
+#pragma unroll
+  for (int i = 0; i < 16 / static_cast<int>(sizeof(T)); ++i) {
+    r.lane[i] = Lane<T, kOp, kStat>::run(a.lane[i], b.lane[i], acc);
+  }
+  return r.v;
+}
+
+template <typename T, int kOp, int kStat>
+__global__ void __launch_bounds__(1024)
+codec_kernel(const T* __restrict__ a, const T* __restrict__ b,
+             T* __restrict__ out, int32_t* __restrict__ stats,
+             int32_t identity, long long n_rows, long long width,
+             long long tile_rows, int blocks_per_tile, int chunk, int vec) {
+  using L = Lane<T, kOp, kStat>;
+  constexpr int kVec = 16 / sizeof(T);
+  __shared__ int scratch[32];
+  __shared__ int word;  // the tile's stat, in the cluster's first block
+  const int tile = static_cast<int>(blockIdx.x) / blocks_per_tile;
+  const int part = static_cast<int>(blockIdx.x) % blocks_per_tile;
+  const bool cluster = kStat != kNone && blocks_per_tile > 1;
+  if (cluster) {
+    if (part == 0 && threadIdx.x == 0) word = identity;
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  }
+  const long long row0 = static_cast<long long>(tile) * tile_rows;
+  const long long rows = min(tile_rows, n_rows - row0);
+  const long long lo = static_cast<long long>(part) * chunk;
+  const int n = static_cast<int>(
+      max(min(lo + chunk, rows * width) - lo, 0ll));
+  const long long begin = row0 * width + lo;
+  const T* pa = a + begin;
+  const T* pb = b + begin;
+  T* po = out + begin;
+  const int tid = threadIdx.x;
+  const int step = blockDim.x;
+  int acc = kStat == kNonZero ? 0 : INT32_MIN;
+  if (vec) {
+    // lanes before the first 16-byte boundary, whole vectors, the rest
+    const int head = min(
+        static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(po) & 15)) & 15) /
+                         sizeof(T)),
+        n);
+    const int n_vec = (n - head) / kVec;
+    for (int i = tid; i < head; i += step) po[i] = L::run(pa[i], pb[i], acc);
+    const int4* va = reinterpret_cast<const int4*>(pa + head);
+    const int4* vb = reinterpret_cast<const int4*>(pb + head);
+    int4* vo = reinterpret_cast<int4*>(po + head);
+    int i = tid;
+    for (; i + step < n_vec; i += 2 * step) {
+      const int4 x0 = __ldcs(va + i), x1 = __ldcs(va + i + step);
+      const int4 y0 = __ldcs(vb + i), y1 = __ldcs(vb + i + step);
+      __stcs(vo + i, run_vec<T, kOp, kStat>(x0, y0, acc));
+      __stcs(vo + i + step, run_vec<T, kOp, kStat>(x1, y1, acc));
+    }
+    for (; i < n_vec; i += step) {
+      __stcs(vo + i, run_vec<T, kOp, kStat>(__ldcs(va + i), __ldcs(vb + i),
+                                             acc));
+    }
+    for (int j = head + n_vec * kVec + tid; j < n; j += step) {
+      po[j] = L::run(pa[j], pb[j], acc);
+    }
+  } else {
+    for (int j = tid; j < n; j += step) po[j] = L::run(pa[j], pb[j], acc);
   }
   if constexpr (kStat == kNone) {
-    if (threadIdx.x == 0) stats[blockIdx.x] = 0;
-  } else if constexpr (kStat == kNonZero) {
-    const int total = repro::block_sum(acc, scratch);
-    if (threadIdx.x == 0) stats[blockIdx.x] = total;
+    if (part == 0 && tid == 0) stats[tile] = 0;
   } else {
-    int total = repro::block_max(acc, scratch);
-    if (rows < tile_rows) total = max(total, 0);  // the zero padding
-    if (threadIdx.x == 0) stats[blockIdx.x] = total;
+    int total = kStat == kNonZero ? repro::block_sum(acc, scratch)
+                                  : repro::block_max(acc, scratch);
+    if (kStat != kNonZero && rows < tile_rows) {
+      total = max(total, 0);  // the zero padding
+    }
+    if (!cluster) {
+      if (tid == 0) stats[tile] = total;
+      return;
+    }
+    // every block of the cluster has started and the word is set
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+    cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+    if (tid == 0) {
+      int* w = cl.map_shared_rank(&word, 0);
+      if constexpr (kStat == kNonZero) {
+        atomicAdd(w, total);
+      } else {
+        atomicMax(w, total);
+      }
+    }
+    cl.sync();  // every partial is in; the first block stays till now
+    if (part == 0 && tid == 0) stats[tile] = word;
   }
 }
 
 template <typename T, int kOp, int kStat>
-void launch(const void* a, const void* b, void* out, int32_t* stats,
-            long long n_rows, long long width, long long tile_rows,
-            unsigned n_tiles, int block, cudaStream_t stream) {
-  codec_kernel<T, kOp, kStat><<<n_tiles, block, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<T*>(out), stats, n_rows, width, tile_rows);
+cudaError_t launch(const void* a, const void* b, void* out, int32_t* stats,
+                   int32_t identity, long long n_rows, long long width,
+                   long long tile_rows, int n_tiles, int blocks_per_tile,
+                   int chunk, int vec, int block, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks_per_tile;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_tiles) * blocks_per_tile);
+  cfg.blockDim = dim3(block);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = kStat != kNone && blocks_per_tile > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(
+      &cfg, codec_kernel<T, kOp, kStat>, static_cast<const T*>(a),
+      static_cast<const T*>(b), static_cast<T*>(out), stats, identity,
+      n_rows, width, tile_rows, blocks_per_tile, chunk, vec);
 }
 
 #define REPRO_CODEC_CASE(T, OP, STAT)                                      \
   case OP * 4 + STAT:                                                      \
-    launch<T, OP, STAT>(a, b, out, stats, n_rows, width, tile_rows,       \
-                        n_tiles, block, stream);                          \
+    err = launch<T, OP, STAT>(a, b, out, stats, identity, n_rows, width, \
+                              tile_rows, n_tiles, blocks_per_tile, chunk, \
+                              vec, block, stream);                        \
     return true;
 
 #define REPRO_CODEC_NARROW(T)                                              \
@@ -117,9 +243,11 @@ void launch(const void* a, const void* b, void* out, int32_t* stats,
   }
 
 bool dispatch(const void* a, const void* b, void* out, int32_t* stats,
-              long long n_rows, long long width, int itemsize, int op,
-              int stat, long long tile_rows, unsigned n_tiles, int block,
-              cudaStream_t stream) {
+              int32_t identity, long long n_rows,
+              long long width, int itemsize,
+              int op, int stat, long long tile_rows, int n_tiles,
+              int blocks_per_tile, int chunk, int vec, int block,
+              cudaStream_t stream, cudaError_t& err) {
   switch (itemsize) {
     case 1: REPRO_CODEC_NARROW(int8_t)
     case 2: REPRO_CODEC_NARROW(int16_t)
@@ -138,22 +266,49 @@ bool dispatch(const void* a, const void* b, void* out, int32_t* stats,
 }  // namespace
 
 // a, b, out: (n_rows, width) lanes of `itemsize` bytes; stats: (n_tiles,)
-// int32 with n_tiles = ceil(n_rows / tile_rows). op: 0 sub, 1 add, 2 xor;
-// stat: 0 none, 1 max|d|, 2 max|d| zero-extended, 3 nonzero count (the
-// 8-byte ops take stat 0 only). Returns cudaErrorInvalidValue for any
-// other combination.
+// int32 with n_tiles = ceil(n_rows / tile_rows), every word written
+// (0 where there is no stat). `plan` (kernels/delta_codec.py:
+// _launch_args): n_rows, width, itemsize, op (0 sub, 1 add, 2 xor), stat
+// (0 none, 1 max|d|, 2 max|d| zero-extended, 3 nonzero count; the 8-byte
+// ops take stat 0 only), tile_rows, blocks_per_tile (with a stat at most
+// 8, the portable cluster size), chunk (lanes per block, a multiple of
+// 16 / itemsize; the blocks of a tile cover its tile_rows * width lanes),
+// the stat's identity (INT32_MIN for the max, else 0) and the threads per
+// block.
+// Returns cudaErrorInvalidValue for any other combination.
 extern "C" int delta_codec_launch(const void* a, const void* b, void* out,
-                                  int32_t* stats, long long n_rows,
-                                  long long width, int itemsize, int op,
-                                  int stat, int tile_rows, int block,
+                                  int32_t* stats, const long long* plan,
                                   void* stream) {
+  const long long n_rows = plan[0], width = plan[1], tile_rows = plan[5];
+  const int itemsize = static_cast<int>(plan[2]),
+            op = static_cast<int>(plan[3]), stat = static_cast<int>(plan[4]),
+            blocks_per_tile = static_cast<int>(plan[6]),
+            chunk = static_cast<int>(plan[7]),
+            block = static_cast<int>(plan[9]);
   if (n_rows <= 0 || width <= 0 || tile_rows <= 0)
     return static_cast<int>(cudaGetLastError());
-  const unsigned n_tiles =
-      static_cast<unsigned>((n_rows + tile_rows - 1) / tile_rows);
-  if (!dispatch(a, b, out, stats, n_rows, width, itemsize, op, stat,
-                tile_rows, n_tiles, block,
-                static_cast<cudaStream_t>(stream)))
+  const long long lanes = tile_rows * width;
+  const long long n_tiles = (n_rows + tile_rows - 1) / tile_rows;
+  const long long want =
+      stat == kMaxAbs || stat == kMaxAbsUnsigned ? INT32_MIN : 0;
+  if (itemsize <= 0 || itemsize > 16 || blocks_per_tile <= 0 ||
+      (stat != kNone && blocks_per_tile > 8) || block < 32 ||
+      block > 1024 || block % 32 != 0 || chunk <= 0 ||
+      chunk % (16 / itemsize) != 0 ||
+      static_cast<long long>(blocks_per_tile) * chunk < lanes ||
+      static_cast<long long>(blocks_per_tile - 1) * chunk >= lanes ||
+      n_tiles * blocks_per_tile > 0x7fffffffll || stats == nullptr ||
+      plan[8] != want) {
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  }
+  const uintptr_t o = reinterpret_cast<uintptr_t>(out);
+  const int vec = ((reinterpret_cast<uintptr_t>(a) ^ o) & 15) == 0 &&
+                  ((reinterpret_cast<uintptr_t>(b) ^ o) & 15) == 0;
+  cudaError_t err = cudaSuccess;
+  if (!dispatch(a, b, out, stats, static_cast<int32_t>(want), n_rows, width,
+                itemsize, op, stat, tile_rows, static_cast<int>(n_tiles),
+                blocks_per_tile, chunk, vec, block,
+                static_cast<cudaStream_t>(stream), err))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -16,9 +16,10 @@
 // query-key pair (two products): 4.40 TFLOP per layer for one 32k prompt
 // of llama3.2-1b (B 1, H 32, D 64), 4.45 ms at the dense bf16 tensor-core
 // rate of 989.4 TFLOP/s (launch/roofline.py), against 0.3 GB of q, k, v
-// and o (0.09 ms at 3.35 TB/s).
+// and o (0.09 ms at 3.35 TB/s). In f32 each product is three TF32
+// products (below): 26.67 ms at the dense TF32 rate of 494.7 TFLOP/s.
 //
-// Two kernels, chosen in flash_attention_launch by (dtype, D) alone; the
+// Three kernels, chosen in flash_attention_launch by (dtype, D) alone; the
 // Python plan (kernels/flash_attention.py: design) makes the same choice
 // and the launcher refuses a plan that disagrees:
 //
@@ -49,13 +50,49 @@
 //   boxes with the 128-byte swizzle that the wgmma descriptors name, and
 //   zero-fills rows past Sq and Sk; the epilogue writes rows < Sq from
 //   registers. Shared memory: 80 KB at D = 64, 160 KB at D = 128.
-// * f32 at every D, and bf16 at D = 16 and 32: flash_kernel, the products
-//   on the CUDA cores in f32 (67 TFLOP/s peak), so many times slower than
-//   the tensor cores' bound; the f32 checks of the serving path need f32
-//   products. One block of 4 warps per (64-row query tile, head, batch).
-//   The query tile, scaled by D^-0.5 before the product, and each 32-key
-//   K/V tile are staged in shared memory as f32 (dynamic shared memory:
-//   75 KB at D = 128, over the 48 KB static limit). Each warp owns 16
+// * f32 at D = 64 and 128: flash_wgmma_f32_kernel, on the tensor cores at
+//   f32 precision. wgmma reads f32 operands as TF32 (the top 19 bits), so
+//   each operand x is split into hi = tf32(x), rounded to nearest with
+//   cvt.rna, and lo = tf32(x - hi), and A B is taken as three products,
+//   A_lo B_hi + A_hi B_lo + A_hi B_hi (the small terms first), accumulated
+//   in f32; A_lo B_lo (2^-22 of A B) is dropped. One TF32 product would be
+//   2^-11 off, far outside the f32 checks. The skeleton is the bf16
+//   kernel's: one block per (query tile, head, batch), heaviest query tile
+//   first, warpgroup 0 the producer, 64-row consumer warpgroups, the
+//   softmax on the accumulator fragment, masks only on tiles that cross
+//   the diagonal or the end of the key axis. What differs:
+//   - TF32 wgmma reads both shared-memory operands K-major only. K is
+//     K-major as stored, V is not (its rows are D-contiguous), so V must
+//     be transposed in shared memory. The producer warpgroup does that in
+//     the pass that splits: one thread loads each raw f32 K and V tile by
+//     TMA (32-column boxes, the 128-byte swizzle row of f32) into a raw
+//     ring; all 128 producer threads then write K's hi and lo at the raw
+//     tile's own offsets and V's transposed (rows of D, keys contiguous),
+//     into a split ring that the consumers read. Both passes are free of
+//     bank conflicts: lanes take consecutive 16-byte chunks of K, and
+//     consecutive keys of one V column.
+//   - P, the A operand of P V, comes from the S accumulator in registers.
+//     The TF32 A fragment holds keys t and t + 4 of each 8-key step where
+//     the accumulator holds keys 2t and 2t + 1, so the transposed V stores
+//     the keys of each 8-key group in the order 0 2 4 6 1 3 5 7 and no
+//     register moves between lanes.
+//   - O is not the accumulator of P V. The tensor cores' f32 sums drop
+//     low bits of addends much smaller than the sum, so O accumulated in
+//     the tensor cores over thousands of keys drifted towards the f32
+//     tolerance; each tile's P V goes into a fresh accumulator and
+//     O = O alpha + P V is one f32 fma per element.
+//   - Shared memory. At D = 64 Q's hi and lo stay in registers as A
+//     fragments, and the block holds two 64-row consumers (128 query
+//     rows), 64-key tiles, two raw stages (32 KB each) and two split
+//     stages (64 KB each): 192 KB. At D = 128 the fragments would not fit
+//     in registers, so Q's parts go to shared memory (64 KB), with one
+//     consumer (64 rows), 32-key tiles, one raw and two split stages:
+//     224 KB.
+// * f32 and bf16 at D = 16 and 32: flash_kernel, the products on the CUDA
+//   cores in f32 (67 TFLOP/s peak). One block of 4 warps per (64-row
+//   query tile, head, batch). The query tile, scaled by D^-0.5 before the
+//   product, and each 32-key K/V tile are staged in shared memory as f32
+//   (dynamic shared memory, opted in above 48 KB). Each warp owns 16
 //   query rows; for the logits, lane j owns key j of the tile and reads q
 //   rows as broadcast float4s; K rows are padded to D + 4 floats so the
 //   lanes' float4 reads hit distinct banks. The running max is a warp
@@ -68,7 +105,6 @@
 
 #include <atomic>
 #include <cmath>
-#include <type_traits>
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -267,12 +303,11 @@ int launch_typed(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at D = 64 and 128 takes the tensor-core kernel instead (tc below)
+// D = 64 and 128 take the tensor-core kernels instead (tc and tf below)
 template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v, void* o,
              int batch, int sq, int sk, int n_heads, int group, Strides qst,
              Strides kst, Strides vst, float scale, cudaStream_t stream) {
-  constexpr bool kF32 = std::is_same_v<T, float>;
   switch (d) {
     case 16:
       return launch_typed<T, 16>(q, k, v, o, batch, sq, sk, n_heads, group,
@@ -280,18 +315,6 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
     case 32:
       return launch_typed<T, 32>(q, k, v, o, batch, sq, sk, n_heads, group,
                                  qst, kst, vst, scale, stream);
-    case 64:
-      if constexpr (kF32) {
-        return launch_typed<T, 64>(q, k, v, o, batch, sq, sk, n_heads, group,
-                                   qst, kst, vst, scale, stream);
-      }
-      break;
-    case 128:
-      if constexpr (kF32) {
-        return launch_typed<T, 128>(q, k, v, o, batch, sq, sk, n_heads,
-                                    group, qst, kst, vst, scale, stream);
-      }
-      break;
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -713,11 +736,13 @@ EncodeTiled encode_tiled() {
 }
 
 // g: the plan's map (kernels/flash_attention.py: TensorMap.packed): dims
-// (D, heads, S, B), byte strides of dims 1-3, box (64, 1, 128, 1).
-bool encode(CUtensorMap* map, const void* ptr, const long long* g, int d) {
+// (D, heads, S, B), byte strides of dims 1-3, box (cols, 1, rows, 1) with
+// `cols` one 128-byte swizzle row of the element type.
+bool encode(CUtensorMap* map, const void* ptr, const long long* g, int d,
+            CUtensorMapDataType type, int cols, int rows) {
   const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || g[0] != d || g[7] != kCols || g[8] != 1 ||
-      g[9] != kBQ || g[10] != 1) {
+  if (fn == nullptr || g[0] != d || g[7] != cols || g[8] != 1 ||
+      g[9] != rows || g[10] != 1) {
     return false;
   }
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(g[0]),
@@ -727,44 +752,54 @@ bool encode(CUtensorMap* map, const void* ptr, const long long* g, int d) {
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(g[4]),
                                  static_cast<cuuint64_t>(g[5]),
                                  static_cast<cuuint64_t>(g[6])};
-  const cuuint32_t box[4] = {kCols, 1, kBQ, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Above 48 KB a launch needs the opt-in, once per card per kernel (a bit
+// per device below 64; others opt in on every call).
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, int smem,
+                   std::atomic<unsigned long long>& opted) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (opted.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess) opted.fetch_or(bit, std::memory_order_relaxed);
+  return err;
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int sq, int sk, int n_heads, int group, const long long* maps,
            int n_q_tiles, float scale, cudaStream_t stream) {
+  constexpr auto kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap qm, km, vm;
-  if (n_q_tiles != (sq + kBQ - 1) / kBQ || !encode(&qm, q, maps, D)) {
+  if (n_q_tiles != (sq + kBQ - 1) / kBQ ||
+      !encode(&qm, q, maps, D, kBf16, kCols, kBQ)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // an empty key axis loads no key tile (every row gives 0): its maps
   // are never read, and an empty tensor may have no address to encode
   if (sk == 0) {
     km = vm = qm;
-  } else if (!encode(&km, k, maps + 11, D) || !encode(&vm, v, maps + 22, D)) {
+  } else if (!encode(&km, k, maps + 11, D, kBf16, kCols, kBK) ||
+             !encode(&vm, v, maps + 22, D, kBf16, kCols, kBK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // above 48 KB a launch needs the opt-in, once per card (a bit per
-  // device below 64; others opt in on every call)
   constexpr int smem = Layout<D>::kAlloc;
   static std::atomic<unsigned long long> opted{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = opt_in(flash_wgmma_kernel<D>, smem, opted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (!(opted.load(std::memory_order_relaxed) & bit)) {
-    err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted.fetch_or(bit, std::memory_order_relaxed);
-  }
   const long long blocks =
       static_cast<long long>(n_q_tiles) * n_heads * batch;
   flash_wgmma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem,
@@ -775,18 +810,501 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 }
 
 }  // namespace tc
+
+// ---------------------------------------------------------------------------
+// The f32 tensor-core kernel (D = 64 and 128): three TF32 products
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+using tc::desc_k_major;
+using tc::ex2;
+using tc::fence_regs;
+using tc::mbar_arrive;
+using tc::mbar_expect_tx;
+using tc::mbar_init;
+using tc::mbar_wait;
+using tc::smem_u32;
+using tc::tma_load;
+using tc::wgmma_commit;
+using tc::wgmma_fence;
+using tc::wgmma_wait_all;
+
+constexpr int kCols = 32;  // head-dim columns per TMA box: one 128-byte
+                           // swizzle row of f32
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Cfg {
+  static constexpr int kConsumers = D == 64 ? 2 : 1;  // 64-row warpgroups
+  static constexpr int kBQ = 64 * kConsumers;         // query rows per block
+  static constexpr int kBK = D == 64 ? 64 : 32;       // keys per K/V tile
+  static constexpr bool kQRegs = D == 64;  // Q's parts as A fragments
+  static constexpr int kRaw = D == 64 ? 2 : 1;        // raw K/V stages
+  static constexpr int kStages = 2;                   // split stages
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kTile = kBK * D * 4;           // one K or V tile
+  // Shared memory from a 1024-byte aligned base: Q's hi and lo tiles per
+  // consumer (64 rows x D, not at D = 64), the raw stages (K, then V), the
+  // split stages (K hi, K lo, V^T hi, V^T lo), then the mbarriers: raw
+  // full, split full, split empty.
+  static constexpr int kQPart = 64 * D * 4;
+  static constexpr int kRawOff = kQRegs ? 0 : kConsumers * 2 * kQPart;
+  static constexpr int kSplitOff = kRawOff + kRaw * 2 * kTile;
+  static constexpr int kBars = kSplitOff + kStages * 4 * kTile;
+  static constexpr int kAlloc = kBars + 8 * (kRaw + 2 * kStages) + 1024;
+  static_assert(kAlloc <= 232448, "over the block's shared memory");
+};
+
+// x rounded to TF32 (to nearest, ties away from zero), as f32 with the
+// low 13 bits clear: what wgmma reads of it is all of it.
+__device__ __forceinline__ float tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xffffe000u);
+}
+
+// Generic-proxy writes to shared memory made visible to wgmma's reads
+// (the async proxy), and the reads before a TMA overwrite ordered.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Byte offset of f32 element (row, col) in a K-major tile of `rows` rows
+// whose columns go in boxes of 32 (128 bytes a row), 128-byte swizzled:
+// the 16-byte chunk c of row r sits at chunk c ^ (r % 8).
+template <int kRows>
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  return (col >> 5) * (kRows * 128) + row * 128 +
+         ((((col & 31) >> 2) ^ (row & 7)) << 4) + ((col & 3) << 2);
+}
+
+// S (64 x 32, f32) (+)= A (64 x 8, smem) * B (32 x 8, smem)^T, TF32.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 64, f32) (+)= A (64 x 8, registers) * B (64 x 8, smem)^T, TF32.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D (64 x 128, f32) (+)= A (64 x 8, registers) * B (128 x 8, smem)^T, TF32.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// The producer's pass over one raw tile: K's hi and lo at the raw tile's
+// own offsets, V transposed (row d of D, keys contiguous, each 8-key group
+// in the order 0 2 4 6 1 3 5 7 that the P fragments take). `t`: the
+// thread in the producer warpgroup.
+template <int D>
+__device__ __forceinline__ void split_tile(const uint8_t* raw, uint8_t* dst,
+                                           int t) {
+  using C = Cfg<D>;
+  const float4* kr = reinterpret_cast<const float4*>(raw);
+  float4* khi = reinterpret_cast<float4*>(dst);
+  float4* klo = reinterpret_cast<float4*>(dst + C::kTile);
+#pragma unroll 4
+  for (int i = t; i < C::kTile / 16; i += 128) {
+    const float4 x = kr[i];
+    const float4 h = make_float4(tf32(x.x), tf32(x.y), tf32(x.z), tf32(x.w));
+    khi[i] = h;
+    klo[i] = make_float4(tf32(x.x - h.x), tf32(x.y - h.y), tf32(x.z - h.z),
+                         tf32(x.w - h.w));
+  }
+  const uint8_t* vr = raw + C::kTile;
+  uint8_t* vhi = dst + 2 * C::kTile;
+  uint8_t* vlo = dst + 3 * C::kTile;
+#pragma unroll 2
+  for (int f = t; f < C::kBK * D / 4; f += 128) {
+    const int key = f % C::kBK;  // a warp: 32 consecutive keys
+    const int d0 = 4 * (f / C::kBK);
+    const float4 x =
+        *reinterpret_cast<const float4*>(vr + swz<C::kBK>(key, d0));
+    // the key's column in V^T: its 32-key box, then its slot in its group
+    const int col = (key & ~7) | ((key & 1) << 2) | ((key & 7) >> 1);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint32_t off = swz<D>(d0 + c, col);
+      const float h = tf32(xs[c]);
+      *reinterpret_cast<float*>(vhi + off) = h;
+      *reinterpret_cast<float*>(vlo + off) = tf32(xs[c] - h);
+    }
+  }
+}
+
+// Raw K and V tile j into raw stage j % kRaw, by TMA; the bytes complete
+// on that stage's full barrier.
+template <int D>
+__device__ __forceinline__ void load_raw(uint32_t base, uint32_t raw_full0,
+                                         const CUtensorMap* kmap,
+                                         const CUtensorMap* vmap, int j,
+                                         int kvh, int b) {
+  using C = Cfg<D>;
+  const int r = j % C::kRaw;
+  const uint32_t bar = raw_full0 + 8 * r;
+  const uint32_t dst = base + C::kRawOff + 2 * r * C::kTile;
+  mbar_expect_tx(bar, 2 * C::kTile);
+  for (int c = 0; c < D / kCols; ++c) {
+    tma_load(dst + c * C::kBK * 128, kmap, bar, c * kCols, kvh, j * C::kBK,
+             b);
+    tma_load(dst + C::kTile + c * C::kBK * 128, vmap, bar, c * kCols, kvh,
+             j * C::kBK, b);
+  }
+}
+
+// blockIdx.x -> (query tile, head, batch) as in the bf16 kernel.
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+flash_wgmma_f32_kernel(const float* __restrict__ q, Strides qst,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       float* __restrict__ o, int sq, int sk, int n_heads,
+                       int batch, int group, int n_q_tiles, float scale) {
+  using C = Cfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* sbase = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t raw_full0 = base + C::kBars;            // + 8 r
+  const uint32_t full0 = raw_full0 + 8 * C::kRaw;        // + 8 s
+  const uint32_t empty0 = full0 + 8 * C::kStages;        // + 8 s
+
+  const int per = n_heads * batch;
+  const int q_tile = n_q_tiles - 1 - static_cast<int>(blockIdx.x) / per;
+  const int h = static_cast<int>(blockIdx.x) % per % n_heads;
+  const int b = static_cast<int>(blockIdx.x) % per / n_heads;
+  const int q0 = q_tile * C::kBQ;
+  const int offset = sk - sq;
+  // causal trip count: the key tiles up to the block's last query row
+  const int q_last = offset + min(q0 + C::kBQ, sq) - 1;
+  const int n_tiles =
+      q_last < 0 ? 0 : min(q_last / C::kBK + 1, (sk + C::kBK - 1) / C::kBK);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < C::kRaw; ++r) mbar_init(raw_full0 + 8 * r, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 128);
+      mbar_init(empty0 + 8 * s, 4 * C::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: thread 0 loads raw K/V tiles by TMA, all 128 split them
+    if constexpr (C::kConsumers == 2) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    }
+    const int t = threadIdx.x;
+    const int kvh = h / group;
+    if (t == 0) {
+      for (int j = 0; j < min(C::kRaw, n_tiles); ++j) {
+        load_raw<D>(base, raw_full0, &kmap, &vmap, j, kvh, b);
+      }
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int r = j % C::kRaw;
+      const int s = j % C::kStages;
+      mbar_wait(raw_full0 + 8 * r, (j / C::kRaw) & 1);
+      mbar_wait(empty0 + 8 * s, ((j / C::kStages) & 1) ^ 1);
+      split_tile<D>(sbase + C::kRawOff + 2 * r * C::kTile,
+                    sbase + C::kSplitOff + 4 * s * C::kTile, t);
+      fence_async_smem();
+      mbar_arrive(full0 + 8 * s);
+      if (j + C::kRaw < n_tiles) {
+        bar_sync(1, 128);  // every producer thread is done with raw r
+        if (t == 0) {
+          load_raw<D>(base, raw_full0, &kmap, &vmap, j + C::kRaw, kvh, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows q0 + 64 (wg - 1) + [0, 64)
+    if constexpr (C::kConsumers == 2) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    }
+    const int t = threadIdx.x - 128 * wg;
+    const int warp = t >> 5;
+    const int lane = t & 31;
+    const int row_wg = q0 + 64 * (wg - 1);
+    // accumulator fragment: element i of this thread is row
+    // r0 + 8 ((i >> 1) & 1), column 8 (i >> 2) + col0 + (i & 1)
+    const int r0 = row_wg + 16 * warp + (lane >> 2);
+    const int col0 = 2 * (lane & 3);
+    const float* qb = q + b * qst.b + h * qst.h;
+
+    // Q scaled by D^-0.5 (as the plain version does) and split. At D = 64
+    // as register A fragments: register e of k-step kk is row
+    // r0 + 8 (e & 1), column 8 kk + (lane & 3) + 4 (e >> 1). At D = 128
+    // as K-major hi and lo tiles of the warpgroup's 64 rows.
+    constexpr int kQF = C::kQRegs ? D / 8 : 1;
+    uint32_t qh[kQF][4], ql[kQF][4];
+    const uint32_t q_hi = base + (wg - 1) * 2 * C::kQPart;
+    const uint32_t q_lo = q_hi + C::kQPart;
+    if constexpr (C::kQRegs) {
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + 8 * (e & 1);
+          const int col = 8 * kk + (lane & 3) + 4 * (e >> 1);
+          const float x = row < sq ? qb[row * qst.s + col] * scale : 0.f;
+          const float hi = tf32(x);
+          qh[kk][e] = __float_as_uint(hi);
+          ql[kk][e] = __float_as_uint(tf32(x - hi));
+        }
+      }
+    } else {
+      uint8_t* qhi = sbase + (q_hi - base);
+      for (int i = t; i < 64 * D; i += 128) {
+        const int r = i / D;
+        const int c = i % D;
+        const int row = row_wg + r;
+        const float x = row < sq ? qb[row * qst.s + c] * scale : 0.f;
+        const float hi = tf32(x);
+        *reinterpret_cast<float*>(qhi + swz<64>(r, c)) = hi;
+        *reinterpret_cast<float*>(qhi + C::kQPart + swz<64>(r, c)) =
+            tf32(x - hi);
+      }
+      fence_async_smem();
+      bar_sync(1 + wg, 128);
+    }
+
+    float acc[D / 2], pv[D / 2];
+    float s[C::kBK / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = pv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < C::kBK / 2; ++i) s[i] = 0.f;
+    float m[2] = {-1e30f, -1e30f};
+    float l[2] = {0.f, 0.f};
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % C::kStages;
+      mbar_wait(full0 + 8 * st, (j / C::kStages) & 1);
+      const uint32_t khi = base + C::kSplitOff + 4 * st * C::kTile;
+      const uint32_t klo = khi + C::kTile;
+      const uint32_t vhi = klo + C::kTile;
+      const uint32_t vlo = vhi + C::kTile;
+
+      // S = Q K^T: D / 8 steps of 8 head-dim columns, three products each
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint32_t off = (kk / 4) * C::kBK * 128 + (kk % 4) * 32;
+        if constexpr (C::kQRegs) {
+          wgmma_rs_n64(s, ql[kk], desc_k_major(khi + off), kk > 0);
+          wgmma_rs_n64(s, qh[kk], desc_k_major(klo + off), 1);
+          wgmma_rs_n64(s, qh[kk], desc_k_major(khi + off), 1);
+        } else {
+          const uint32_t qo = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+          wgmma_ss_n32(s, desc_k_major(q_lo + qo), desc_k_major(khi + off),
+                       kk > 0);
+          wgmma_ss_n32(s, desc_k_major(q_hi + qo), desc_k_major(klo + off),
+                       1);
+          wgmma_ss_n32(s, desc_k_major(q_hi + qo), desc_k_major(khi + off),
+                       1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      const int k0 = j * C::kBK;
+      if (k0 + C::kBK - 1 > offset + row_wg || k0 + C::kBK > sk) {
+#pragma unroll
+        for (int i = 0; i < C::kBK / 2; ++i) {
+          const int key = k0 + 8 * (i >> 2) + col0 + (i & 1);
+          const int qpos = offset + r0 + 8 * ((i >> 1) & 1);
+          if (key > qpos || key >= sk) s[i] = -INFINITY;
+        }
+      }
+
+      // online softmax in log2 units: m is the running max of s log2(e)
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < C::kBK / 2; ++i) {
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(repro::kFullMask, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(repro::kFullMask, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * kLog2e);
+        alpha[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+      }
+      // p = 0 where masked (s = -inf); l sums the f32 p. The A fragment of
+      // k-step kk: registers (r0, key 2t), (r0 + 8, key 2t), (r0, key
+      // 2t + 1), (r0 + 8, key 2t + 1) of its 8 keys, t = lane & 3, which
+      // V^T holds in slots t and t + 4.
+      float psum[2] = {0.f, 0.f};
+      uint32_t ph[C::kBK / 8][4], pl[C::kBK / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < C::kBK / 8; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * kk + ((e & 1) << 1) + (e >> 1);
+          const int r = (i >> 1) & 1;
+          const float p = ex2(fmaf(s[i], kLog2e, -m[r]));
+          psum[r] += p;
+          const float hi = tf32(p);
+          ph[kk][e] = __float_as_uint(hi);
+          pl[kk][e] = __float_as_uint(tf32(p - hi));
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+
+      // pv = P V: kBK / 8 steps of 8 keys, three products each, into a
+      // fresh accumulator; then O = O alpha + pv on the CUDA cores. The
+      // tensor cores' f32 sums drop low bits of small addends, which over
+      // a 32k key axis of O (a thousand tiles) would add up.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::kBK / 8; ++kk) {
+        const uint32_t off = (kk / 4) * D * 128 + (kk % 4) * 32;
+        if constexpr (D == 64) {
+          wgmma_rs_n64(pv, pl[kk], desc_k_major(vhi + off), kk > 0);
+          wgmma_rs_n64(pv, ph[kk], desc_k_major(vlo + off), 1);
+          wgmma_rs_n64(pv, ph[kk], desc_k_major(vhi + off), 1);
+        } else {
+          wgmma_rs_n128(pv, pl[kk], desc_k_major(vhi + off), kk > 0);
+          wgmma_rs_n128(pv, ph[kk], desc_k_major(vlo + off), 1);
+          wgmma_rs_n128(pv, ph[kk], desc_k_major(vhi + off), 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(pv);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * st);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        acc[i] = fmaf(acc[i], alpha[(i >> 1) & 1], pv[i]);
+      }
+    }
+
+    // l over the 4 threads of each row, then acc / max(l, 1e-30)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(repro::kFullMask, l[r], 1);
+      l[r] += __shfl_xor_sync(repro::kFullMask, l[r], 2);
+      l[r] = fmaxf(l[r], 1e-30f);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= sq) continue;
+      float* orow =
+          o + ((static_cast<long long>(b) * sq + row) * n_heads + h) * D;
+#pragma unroll
+      for (int jb = 0; jb < D / 8; ++jb) {
+        *reinterpret_cast<float2*>(orow + 8 * jb + col0) = make_float2(
+            acc[4 * jb + 2 * r] / l[r], acc[4 * jb + 2 * r + 1] / l[r]);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch(const void* q, Strides qst, const void* k, const void* v, void* o,
+           int batch, int sq, int sk, int n_heads, int group,
+           const long long* maps, int n_q_tiles, float scale,
+           cudaStream_t stream) {
+  using C = Cfg<D>;
+  constexpr auto kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (n_q_tiles != (sq + C::kBQ - 1) / C::kBQ) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // q is read through its strides; an empty key axis loads no key tile
+  CUtensorMap km{}, vm{};
+  if (sk > 0 && (!tc::encode(&km, k, maps + 11, D, kF32, kCols, C::kBK) ||
+                 !tc::encode(&vm, v, maps + 22, D, kF32, kCols, C::kBK))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static std::atomic<unsigned long long> opted{0};
+  const cudaError_t err =
+      tc::opt_in(flash_wgmma_f32_kernel<D>, C::kAlloc, opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks =
+      static_cast<long long>(n_q_tiles) * n_heads * batch;
+  flash_wgmma_f32_kernel<D><<<static_cast<unsigned>(blocks), C::kThreads,
+                              C::kAlloc, stream>>>(
+      static_cast<const float*>(q), qst, km, vm, static_cast<float*>(o), sq,
+      sk, n_heads, batch, group, n_q_tiles, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tf
 }  // namespace
 
 // q: (batch, sq, n_heads, d) and k, v: (batch, sk, n_kv_heads, d), each
 // with a contiguous last dim; o: (batch, sq, n_heads, d) contiguous. `plan`
 // is the host's launch plan (kernels/flash_attention.py: FlashPlan.args),
 // 51 values: batch, sq, sk, n_heads, n_kv_heads, d, dtype (0 = float32,
-// 1 = bfloat16), design (0 = the tensor-core kernel, bf16 at d 64 and 128;
-// 1 = the CUDA-core kernel, every other case), query tiles per head (design
-// 0), the element strides (batch, seq, head) of q, k and v, then the q, k
-// and v tensor maps, 11 values each (design 0). Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for a shape, type or plan the kernels do not
-// take.
+// 1 = bfloat16), design (0 = the bf16 tensor-core kernel, d 64 and 128;
+// 1 = the CUDA-core kernel, d 16 and 32; 2 = the f32 tensor-core kernel,
+// d 64 and 128), query tiles per head (designs 0 and 2), the element
+// strides (batch, seq, head) of q, k and v, then the q, k and v tensor
+// maps, 11 values each (design 0; design 2: k and v). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a shape, type or plan
+// the kernels do not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const long long* plan, float scale,
@@ -802,8 +1320,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                                        dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool tensor_cores = dtype == 1 && (d == 64 || d == 128);
-  if (design != (tensor_cores ? 0 : 1)) {
+  const bool tensor_cores = d == 64 || d == 128;
+  if (design != (!tensor_cores ? 1 : dtype == 1 ? 0 : 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch <= 0 || sq <= 0 || n_heads <= 0) {
@@ -812,14 +1330,20 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const int group = n_heads / n_kv_heads;
   auto s = static_cast<cudaStream_t>(stream);
   const long long* maps = plan + 18;
-  if (tensor_cores) {
+  const Strides qst{plan[9], plan[10], plan[11]},
+      kst{plan[12], plan[13], plan[14]}, vst{plan[15], plan[16], plan[17]};
+  if (design == 0) {
     return d == 64 ? tc::launch<64>(q, k, v, o, batch, sq, sk, n_heads, group,
                                     maps, n_q_tiles, scale, s)
                    : tc::launch<128>(q, k, v, o, batch, sq, sk, n_heads,
                                      group, maps, n_q_tiles, scale, s);
   }
-  const Strides qst{plan[9], plan[10], plan[11]},
-      kst{plan[12], plan[13], plan[14]}, vst{plan[15], plan[16], plan[17]};
+  if (design == 2) {
+    return d == 64 ? tf::launch<64>(q, qst, k, v, o, batch, sq, sk, n_heads,
+                                    group, maps, n_q_tiles, scale, s)
+                   : tf::launch<128>(q, qst, k, v, o, batch, sq, sk, n_heads,
+                                     group, maps, n_q_tiles, scale, s);
+  }
   if (dtype == 0) {
     return launch_d<float>(d, q, k, v, o, batch, sq, sk, n_heads, group, qst,
                            kst, vst, scale, s);

@@ -96,10 +96,13 @@ def _build_locked() -> dict:
             "built": todo, "ptxas": ptxas}
 
 
-def sass_opcodes(source: str, opcode: str) -> int | None:
+def sass_opcodes_by_function(source: str, opcode: str) -> dict | None:
     """How many SASS instructions of ``lib<source>.so`` have the opcode
-    ``opcode`` (``HGMMA``: a tensor-core product), read with the toolkit's
-    ``cuobjdump``; None where the toolkit has none. Builds first."""
+    ``opcode`` (``HGMMA``: a tensor-core product), per kernel function
+    (its mangled name) and per variant of the opcode
+    (``HGMMA.64x64x8.F32.TF32`` without its shape: ``HGMMA.F32.TF32``):
+    {function: {variant: count}}, read with the toolkit's ``cuobjdump``;
+    None where the toolkit has none. Builds first."""
     path = build_dir() / f"lib{source}.so"
     if not path.exists():
         build_all()
@@ -109,7 +112,19 @@ def sass_opcodes(source: str, opcode: str) -> int | None:
         return None
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, check=True).stdout
-    return len(re.findall(rf"\b{opcode}[. ]", sass))
+    out: dict[str, dict[str, int]] = {}
+    fn = None
+    for line in sass.splitlines():
+        head = re.search(r"Function\s*:\s*(\S+)", line)
+        if head:
+            fn = head.group(1)
+            continue
+        hit = re.search(rf"\b({opcode}(?:\.\S+)?)\s", line)
+        if hit and fn is not None:
+            variant = re.sub(r"\.\d+x\d+x\d+", "", hit.group(1))
+            per = out.setdefault(fn, {})
+            per[variant] = per.get(variant, 0) + 1
+    return out
 
 
 def kernel_fn(source: str, symbol: str, argtypes: list):

@@ -42,6 +42,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -49,13 +50,18 @@ import torch
 from ..obs import kerneltel
 from . import _build, ref
 from ._compat import (bits_view, cdiv, check_tensor, count_launch,
-                      from_bits, resolve_device, stream_ptr, truncate_bits)
+                      from_bits, resolve_device, round_up, stream_ptr,
+                      truncate_bits)
 from .launch import tile_for
 
-_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-_BLOCK = 256  # threads per tile block
+# a, b, out, stats, the launch's static args, the stream
+_ARGS = [ctypes.c_void_p] * 6
+_BLOCK = 256  # threads per block (chain decode)
+CHUNK_BYTES = 16384  # bytes of each operand that one codec block streams
+VEC_BYTES = 16       # the codec kernel's vector loads and stores
+BLOCK_THREADS = 1024  # a codec block alone: one vector per thread
+CLUSTER_THREADS = 256  # a block of a cluster
+MAX_BLOCKS_PER_TILE = 8  # in a cluster (the portable cluster size)
 _OPS = {"sub": 0, "add": 1, "xor": 2}
 _STATS = {"none": 0, "maxabs": 1, "maxabs_unsigned": 2, "nonzero": 3}
 _NARROW = (torch.int8, torch.int16, torch.int32, torch.float16,
@@ -81,27 +87,101 @@ def _check_pair(a, b, names: str, dtypes) -> None:
                          f"{b.device}")
 
 
+INT32_MIN = -(2**31)
+#: each stat's identity, where a tile's word starts
+IDENTITY = {"maxabs": INT32_MIN, "maxabs_unsigned": INT32_MIN,
+            "nonzero": 0, "none": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class CodecPlan:
+    """The codec kernel's launch geometry for one (N, W, itemsize, stat):
+    ``blocks_per_tile`` blocks of ``chunk`` lanes and ``threads`` threads
+    cover each stat tile's flat range (tile rows * W lanes), the last
+    chunk of a ragged tile short or empty. Where a tile with a stat takes
+    several blocks (``cluster``), they form one thread block cluster and
+    each folds its partial stat into the tile's word (atomic max, or add
+    for the count), which starts at ``identity``."""
+    n_tiles: int
+    blocks_per_tile: int
+    chunk: int
+    threads: int
+    cluster: bool
+    identity: int
+
+    @property
+    def blocks(self) -> int:
+        return self.n_tiles * self.blocks_per_tile
+
+
+def codec_plan(n: int, w: int, itemsize: int, stat: str) -> CodecPlan:
+    """Chunks of at most ``CHUNK_BYTES`` of each operand, a whole number
+    of 16-byte vectors, as few per tile as cover it; a block alone has up
+    to ``BLOCK_THREADS`` threads, one vector of each operand per thread.
+    A tile with a stat that needs more than one chunk is a cluster of at
+    most ``MAX_BLOCKS_PER_TILE`` blocks of ``CLUSTER_THREADS``: at W = 64
+    int32 a 512-row tile is 8 blocks of 4,096 lanes, so the grid is many
+    waves of small blocks instead of one block per 128 KB tile. (Timed on
+    the card, clusters of larger blocks streamed slower.)"""
+    tile = tile_for("delta_codec")
+    lanes = tile * w
+    bpt = max(1, cdiv(lanes * itemsize, CHUNK_BYTES))
+    cluster = stat != "none" and bpt > 1
+    if cluster:
+        bpt = min(bpt, MAX_BLOCKS_PER_TILE)
+    chunk = round_up(cdiv(lanes, bpt), VEC_BYTES // itemsize)
+    threads = (CLUSTER_THREADS if cluster else
+               min(BLOCK_THREADS, round_up(cdiv(chunk * itemsize, VEC_BYTES),
+                                           32)))
+    return CodecPlan(cdiv(n, tile), cdiv(lanes, chunk), chunk, threads,
+                     cluster, IDENTITY[stat])
+
+
+def _aligned_like(a: torch.Tensor) -> torch.Tensor:
+    """An uninitialised contiguous tensor of ``a``'s shape and dtype whose
+    base has ``a``'s address mod 16, so that the kernel's 16-byte vectors
+    line up across a, b and out (a view into a slightly larger buffer)."""
+    shift = (a.data_ptr() % VEC_BYTES) // a.element_size()
+    if shift == 0:
+        return torch.empty_like(a)
+    buf = torch.empty(a.numel() + VEC_BYTES // a.element_size(),
+                      dtype=a.dtype, device=a.device)
+    return buf[shift:shift + a.numel()].view(a.shape)
+
+
 def _run(wrapper, a, b, op: str, stat: str, *, unsigned: bool = False):
     """(a op b, per-tile stat): the plain version for CPU tensors, the
     kernel for CUDA tensors (counted on ``wrapper.launches``)."""
     tile = tile_for("delta_codec")
-    if a.device.type == "cpu":
+    if a.is_cpu:
         out = ref.ref_codec(a, b, op)
         return out, ref.ref_tile_stat(out, tile, stat, unsigned=unsigned)
     n, w = a.shape
-    out = torch.empty_like(a)
+    out = _aligned_like(a)
     stats = torch.empty(cdiv(n, tile), dtype=torch.int32, device=a.device)
     if n == 0 or w == 0:
         return out, stats.zero_()
     kind = ("maxabs_unsigned" if stat == "maxabs" and unsigned else stat)
+    args = _launch_args(n, w, a.element_size(), op, kind)
     fn = _build.kernel_fn("delta_codec", "delta_codec_launch", _ARGS)
-    with torch.cuda.device(a.device):
+    here = a.get_device() == torch.cuda.current_device()
+    with contextlib.nullcontext() if here else torch.cuda.device(a.device):
         rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), stats.data_ptr(),
-                n, w, a.element_size(), _OPS[op], _STATS[kind], tile, _BLOCK,
-                stream_ptr(a))
+                args, stream_ptr(a))
     _build.check(rc, "delta_codec", "delta_codec_launch")
     count_launch(wrapper)
     return out, stats
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_args(n: int, w: int, itemsize: int, op: str, kind: str):
+    """The launcher's static args as one long long array: n, W, itemsize,
+    op, stat, tile rows, blocks per tile, chunk, identity, threads per
+    block (built once per shape)."""
+    plan = codec_plan(n, w, itemsize, kind)
+    vals = (n, w, itemsize, _OPS[op], _STATS[kind], tile_for("delta_codec"),
+            plan.blocks_per_tile, plan.chunk, plan.identity, plan.threads)
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def delta_pack(new: torch.Tensor, old: torch.Tensor, *,

@@ -11,23 +11,30 @@ The kernels are in ``csrc/flash_attention.cu``; their plain version is
 (B, S, K, D) for k and v, at the function: the kernels read through the
 strides, so nothing is transposed or padded first.
 
-Two designs, chosen by (dtype, D) alone (:func:`design`):
+Three designs, chosen by (dtype, D) alone (:func:`design`):
 
 * ``"wgmma"``, bf16 at D 64 and 128: Hopper's tensor cores. One block of
   three warpgroups per (128-row query tile, head, batch); a producer
   thread feeds Q once and K/V tiles of 128 keys through a ring in shared
   memory by TMA, and two consumer warpgroups of 64 rows each run both
   products with ``wgmma``. Blocks are launched heaviest query tile first.
-* ``"cuda_core"``, f32 at every D and bf16 at D 16 and 32: the products
-  on the CUDA cores in f32, which the f32 checks need.
+* ``"wgmma_f32"``, f32 at D 64 and 128: the same skeleton on the tensor
+  cores at f32 precision, each product taken as three TF32 products of
+  the operands' hi and lo parts. The producer warpgroup loads raw K/V
+  tiles by TMA and splits them (V transposed, since TF32 ``wgmma`` reads
+  only K-major operands); q is read through its strides. Tiles per D in
+  ``F32_TILES``.
+* ``"cuda_core"``, D 16 and 32 in either dtype: the products on the CUDA
+  cores in f32.
 
-The host side of the wgmma launch is computed here, so the CPU tests
-reach it: :func:`plan`, a pure function of the tensors' shapes, strides,
-dtype and base alignment, gives the design, the query tiles and the TMA
-tensor maps (dims, byte strides, boxes), and names the operands TMA
-cannot read as they lie; the C launcher only encodes the maps and checks
-them. :func:`launch_order` and :func:`trip_count` state the block order
-and the causal trip counts that the kernel computes from ``blockIdx``.
+The host side of the tensor-core launches is computed here, so the CPU
+tests reach it: :func:`plan`, a pure function of the tensors' shapes,
+strides, dtype and base alignment, gives the design, the query tiles and
+the TMA tensor maps (dims, byte strides, boxes), and names the operands
+TMA cannot read as they lie; the C launcher only encodes the maps and
+checks them. :func:`launch_order` and :func:`trip_count` state the block
+order and the causal trip counts that the kernels compute from
+``blockIdx``.
 """
 from __future__ import annotations
 
@@ -44,13 +51,18 @@ from ._compat import cdiv, count_launch
 #: head dims the kernels are built for (the JAX package's kernel tests and
 #: llama3.2-1b's 64)
 HEAD_DIMS = (16, 32, 64, 128)
-#: bf16 head dims that take the tensor-core kernel
+#: head dims that take the tensor-core kernels (in either dtype)
 WGMMA_HEAD_DIMS = (64, 128)
-DESIGNS = ("wgmma", "cuda_core")
+#: the launcher's design codes are the indices
+DESIGNS = ("wgmma", "cuda_core", "wgmma_f32")
 BLOCK_Q = 128    # query rows per block of the wgmma kernel (2 x 64)
 BLOCK_K = 128    # keys per K/V tile of the wgmma kernel
-BOX_COLS = 64    # head-dim columns per TMA box: 128 bytes of bf16, the
-                 # row of the 128-byte swizzle that wgmma reads
+#: the wgmma_f32 kernel's (query rows per block, keys per K/V tile) per D:
+#: two 64-row consumers and 64-key tiles at D 64, one consumer and 32-key
+#: tiles at D 128 (shared memory: 192 and 224 KB)
+F32_TILES = {64: (128, 64), 128: (64, 32)}
+SWIZZLE_BYTES = 128  # a TMA box row: the row of the 128-byte swizzle
+BOX_COLS = 64    # head-dim columns per bf16 TMA box (32 per f32 box)
 TMA_ALIGN = 16   # bytes: TMA's alignment of the base and of every stride
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # q, k, v, o, the plan's args, the scale, the stream
@@ -58,11 +70,20 @@ _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def design(dtype: torch.dtype, d: int) -> str:
-    """The kernel a (dtype, head dim) takes: ``"wgmma"`` for bf16 at D 64
-    and 128, ``"cuda_core"`` for everything else the wrapper accepts."""
-    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
-        return "wgmma"
-    return "cuda_core"
+    """The kernel a (dtype, head dim) takes: ``"wgmma"`` for bf16 and
+    ``"wgmma_f32"`` for f32 at D 64 and 128, ``"cuda_core"`` for D 16 and
+    32."""
+    if d not in WGMMA_HEAD_DIMS:
+        return "cuda_core"
+    return "wgmma" if dtype == torch.bfloat16 else "wgmma_f32"
+
+
+def block_shape(dtype: torch.dtype, d: int) -> tuple[int, int]:
+    """(query rows per block, keys per K/V tile) of a tensor-core design:
+    what :func:`trip_count` and :func:`launch_order` take as bq, bk."""
+    if design(dtype, d) == "wgmma_f32":
+        return F32_TILES[d]
+    return BLOCK_Q, BLOCK_K
 
 
 def trip_count(q_tile: int, sq: int, sk: int, bq: int = BLOCK_Q,
@@ -88,10 +109,11 @@ def launch_order(sq: int, n_heads: int, batch: int,
 
 @dataclasses.dataclass(frozen=True)
 class TensorMap:
-    """One TMA tensor map over a (B, S, heads, D) bf16 tensor, as
+    """One TMA tensor map over a (B, S, heads, D) bf16 or f32 tensor, as
     ``cuTensorMapEncodeTiled`` takes it: dims innermost first (D, heads,
-    S, B), the byte strides of dims 1-3, and the box one load copies
-    (``BOX_COLS`` columns of one head over ``BLOCK_Q`` rows)."""
+    S, B), the byte strides of dims 1-3, and the box one load copies (one
+    128-byte swizzle row of columns, 64 bf16 or 32 f32, of one head over
+    a tile's rows)."""
     dims: tuple[int, int, int, int]
     strides: tuple[int, int, int]
     box: tuple[int, int, int, int]
@@ -120,25 +142,26 @@ def _tensor_map(shape, stride, es, aligned, rows) -> TensorMap | None:
     # an empty key axis is never loaded (no key tile), but the map needs
     # a positive extent to encode
     return TensorMap((d, h, max(s, 1), b), tuple(strides),
-                     (BOX_COLS, 1, rows, 1))
+                     (SWIZZLE_BYTES // es, 1, rows, 1))
 
 
 @dataclasses.dataclass(frozen=True)
 class FlashPlan:
     """What the host hands the C launcher for one call."""
     design: str
-    n_q_tiles: int               # wgmma: blocks per (head, batch)
-    maps: tuple | None           # wgmma: TensorMap of q, k, v
+    n_q_tiles: int               # tensor cores: blocks per (head, batch)
+    maps: tuple | None           # TensorMap of q, k, v (wgmma_f32 reads
+                                 # q through its strides: None)
     copies: tuple[str, ...]      # operands TMA cannot read as they lie
     # the launcher's long long[51]: batch, sq, sk, heads, kv heads, D,
     # dtype, design, n_q_tiles, the (batch, seq, head) element strides of
-    # q, k and v, then the three maps (zeros for the CUDA-core design);
-    # None while an operand needs a copy
+    # q, k and v, then the three maps (zeros where there is none); None
+    # while an operand needs a copy
     args: object = dataclasses.field(default=None, compare=False)
 
 
 def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> FlashPlan:
-    """The launch plan of checked q, k, v. For the wgmma design,
+    """The launch plan of checked q, k, v. For the tensor-core designs,
     ``copies`` names each operand whose base or strides TMA cannot read;
     the wrapper copies those (``torch.contiguous_format``) and plans
     again. Nothing here touches the data. Plans are cached by shapes,
@@ -155,18 +178,22 @@ def _plan(dtype, *operands) -> FlashPlan:
     kind = design(dtype, d)
     head = [b, sq, sk, h, kh, d, _DTYPES[dtype], DESIGNS.index(kind)]
     strides = [st for _, stride, _ in operands for st in stride[:3]]
-    if kind != "wgmma":
+    if kind == "cuda_core":
         return FlashPlan(kind, 0, None, (), _longs(head + [0] + strides
                                                    + [0] * 33))
+    bq, bk = block_shape(dtype, d)
     es = torch.empty((), dtype=dtype).element_size()
-    maps = tuple(_tensor_map(shape, stride, es, aligned, BLOCK_Q)
-                 for shape, stride, aligned in operands)
-    copies = tuple(n for n, m in zip("qkv", maps) if m is None)
-    n_q = cdiv(sq, BLOCK_Q)
+    mapped = "kv" if kind == "wgmma_f32" else "qkv"
+    maps = tuple(_tensor_map(shape, stride, es, aligned,
+                             bq if n == "q" else bk) if n in mapped else None
+                 for n, (shape, stride, aligned) in zip("qkv", operands))
+    copies = tuple(n for n, m in zip("qkv", maps) if n in mapped and m is None)
+    n_q = cdiv(sq, bq)
     if copies:
         return FlashPlan(kind, n_q, None, copies)
     return FlashPlan(kind, n_q, maps, (), _longs(
-        head + [n_q] + strides + [x for m in maps for x in m.packed()]))
+        head + [n_q] + strides
+        + [x for m in maps for x in (m.packed() if m else [0] * 11)]))
 
 
 def _longs(vals):

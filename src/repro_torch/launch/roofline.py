@@ -12,13 +12,24 @@ PEAK_CUDA_CORE_OPS = 67e12   # float32 FLOP/s outside the tensor cores; the
                              # compare work is bounded by this one
 PEAK_TENSOR_BF16 = 989.4e12  # dense bf16 FLOP/s of the tensor cores (the
                              # data sheet's 1,979 TFLOP/s is with sparsity)
+PEAK_TENSOR_TF32 = 494.7e12  # dense TF32 FLOP/s of the tensor cores (the
+                             # data sheet's 989 TFLOP/s is with sparsity)
+#: TF32 products per f32-accurate product: each operand split into a TF32
+#: hi part and a TF32 lo part, a_lo b_hi + a_hi b_lo + a_hi b_hi
+F32_SPLIT_PRODUCTS = 3
 
 
 def compute_peak(dtype: str) -> float:
-    """The least-time compute rate for matrix-product work in ``dtype``
-    ("bfloat16" -> the tensor cores; anything else -> the CUDA cores, since
-    an f32 product at f32 precision does not run on the tensor cores)."""
-    return PEAK_TENSOR_BF16 if dtype == "bfloat16" else PEAK_CUDA_CORE_OPS
+    """The least-time compute rate for matrix-product work in ``dtype``.
+    "bfloat16": the tensor cores. "float32": the faster of the CUDA cores
+    and the tensor cores at f32 precision, which take an f32 product as
+    three TF32 products of split operands (494.7 / 3 = 164.9 TFLOP/s, the
+    faster). Anything else: the CUDA cores."""
+    if dtype == "bfloat16":
+        return PEAK_TENSOR_BF16
+    if dtype == "float32":
+        return max(PEAK_CUDA_CORE_OPS, PEAK_TENSOR_TF32 / F32_SPLIT_PRODUCTS)
+    return PEAK_CUDA_CORE_OPS
 
 
 def kernel_roofline(flops: float, nbytes: float, wall_s: float) -> dict:

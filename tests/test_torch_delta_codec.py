@@ -228,3 +228,138 @@ def test_codec_cpu_tensors_count_no_launches(rng):
     tdc.delta_unpack(tdc.delta_pack(a, a)[0], a)
     tdc.delta_unpack_wide(tdc.delta_pack_wide(w, w), w)
     assert {n: tops.KERNELS[n].launches for n in names} == before
+
+
+# -- the kernel's launch geometry (kernels/delta_codec.py: codec_plan) --------
+
+I32_MIN = int(np.iinfo(np.int32).min)
+
+
+def kernel_stats(delta: np.ndarray, itemsize: int, stat: str,
+                 plan) -> list[int]:
+    """The stat words the codec kernel leaves under ``plan``: each word
+    starts at the plan's identity, and each of the tile's blocks folds in
+    the stat of its chunk of the tile's flat lanes (the ragged tile's zero
+    padding counted by each of its blocks) with an atomic max, or add for
+    the count; folded in several block orders, which must not matter."""
+    n, w = delta.shape
+    v = delta.astype(np.int64)
+    if stat == "maxabs_unsigned":
+        v &= (1 << (8 * itemsize)) - 1
+    mag = np.abs(v)
+    mag = np.where(mag >= 2**31, mag - 2**32, mag)   # |INT32_MIN| wraps
+    words = []
+    for t in range(plan.n_tiles):
+        rows = min(TILE, n - t * TILE)
+        flat_nz = (delta[t * TILE:t * TILE + rows] != 0).reshape(-1)
+        flat_mag = mag[t * TILE:t * TILE + rows].reshape(-1)
+        parts = []
+        for p in range(plan.blocks_per_tile):
+            lo, hi = p * plan.chunk, (p + 1) * plan.chunk
+            if stat == "nonzero":
+                parts.append(int(flat_nz[lo:hi].sum()))
+            elif stat != "none":
+                m = int(flat_mag[lo:hi].max()) if flat_mag[lo:hi].size \
+                    else I32_MIN
+                parts.append(max(m, 0) if rows < TILE else m)
+        outcomes = set()
+        for order in (parts, parts[::-1], parts[1::2] + parts[::2]):
+            word = plan.identity
+            for x in order:
+                word = word + x if stat == "nonzero" else max(word, x)
+            outcomes.add(word)
+        assert len(outcomes) == 1
+        words.append(outcomes.pop())
+    return words
+
+
+@pytest.mark.parametrize("w", [1, 3, 9, 64])
+@pytest.mark.parametrize("n", [1, 511, 512, 513])
+def test_codec_plan_folds_to_the_tile_stats(n, w, rng):
+    """The launch geometry against ``ref_tile_stat``'s stat layout: chunks
+    of whole 16-byte vectors that cover each tile's lanes with no block
+    empty in a full tile, whole warps, a tile with a stat over several
+    blocks a cluster of at most 8, the identity the word starts at, and the stats the blocks' atomic
+    folds leave equal to the plain version's, for every lane width and
+    stat kind, with INT_MIN lanes, and at int32 a tile's first 256 rows
+    INT32_MIN (whole chunks of it beside others)."""
+    for dtype in ("int8", "int16", "uint16", "int32"):
+        new, old = extreme_pair(rng, dtype, (n, w))
+        tn, to = lanes(new), lanes(old)
+        d = tref.ref_codec(tn, to, "sub")
+        if dtype == "int32":  # whole chunks of |INT32_MIN| beside others
+            d[:256] = I32_MIN
+        s = d.element_size()
+        for stat in ("maxabs", "maxabs_unsigned", "nonzero", "none"):
+            if stat == "maxabs_unsigned" and s == 4:
+                continue
+            plan = tdc.codec_plan(n, w, s, stat)
+            lanes_per_tile = TILE * w
+            assert plan.n_tiles == -(-n // TILE)
+            assert plan.blocks == plan.n_tiles * plan.blocks_per_tile
+            assert plan.chunk % (16 // s) == 0
+            assert (plan.blocks_per_tile - 1) * plan.chunk < lanes_per_tile
+            assert plan.blocks_per_tile * plan.chunk >= lanes_per_tile
+            assert plan.cluster == (stat != "none"
+                                    and plan.blocks_per_tile > 1)
+            if plan.cluster:
+                assert plan.blocks_per_tile <= tdc.MAX_BLOCKS_PER_TILE
+                assert plan.threads == tdc.CLUSTER_THREADS
+            else:
+                assert plan.chunk * s <= tdc.CHUNK_BYTES + 16
+                assert plan.threads <= tdc.BLOCK_THREADS
+            assert plan.threads % 32 == 0
+            assert plan.identity == (I32_MIN if stat.startswith("maxabs")
+                                     else 0)
+            kind = "maxabs" if stat.startswith("maxabs") else stat
+            want = tref.ref_tile_stat(d, TILE, kind,
+                                      unsigned=stat == "maxabs_unsigned")
+            assert kernel_stats(d.numpy(), s, stat, plan) == want.tolist()
+
+
+def test_codec_plan_cuts_wide_tiles_into_a_cluster_of_blocks():
+    """At the sequence log's W = 64 int32 a tile is 128 KB of each operand:
+    a cluster of 8 blocks of 16 KB and 256 threads, so the grid is many
+    waves of small blocks; at W = 8 one block of 1,024 threads, a vector
+    of each operand per thread; a W = 1 int8 tile is one warp's block of
+    512 bytes; with no stat, a tile is cut into 16 KB blocks and no
+    cluster."""
+    p = tdc.codec_plan(733_845, 64, 4, "maxabs")
+    assert (p.n_tiles, p.blocks_per_tile, p.chunk, p.threads, p.cluster,
+            p.identity) == (1434, 8, 4096, 256, True, I32_MIN)
+    assert p.blocks == 11_472
+    p = tdc.codec_plan(4_706_255, 8, 4, "maxabs")
+    assert (p.blocks_per_tile, p.chunk, p.threads, p.cluster) == (
+        1, 4096, 1024, False)
+    p = tdc.codec_plan(1000, 1, 1, "maxabs")
+    assert (p.blocks_per_tile, p.chunk, p.threads) == (1, 512, 32)
+    assert tdc.codec_plan(733_845, 64, 4, "nonzero").identity == 0
+    p = tdc.codec_plan(733_845, 64, 8, "none")
+    assert (p.blocks_per_tile, p.chunk, p.threads, p.cluster) == (
+        16, 2048, 1024, False)
+
+
+def test_codec_output_shares_the_inputs_alignment():
+    """The wrapper's output starts at the input's address mod 16, so a,
+    b and out line up for the kernel's 16-byte vectors, with the same
+    shape and dtype and contiguous."""
+    for dtype, shift in ((torch.int32, 1), (torch.int32, 2),
+                         (torch.int8, 5), (torch.int16, 0)):
+        buf = torch.zeros(4096, dtype=dtype)
+        a = buf[shift:shift + 600].view(100, 6)
+        out = tdc._aligned_like(a)
+        assert out.shape == a.shape and out.dtype == a.dtype
+        assert out.is_contiguous()
+        assert out.data_ptr() % 16 == a.data_ptr() % 16
+
+
+def test_codec_plan_keeps_a_tile_of_int32_min_int32_min():
+    """A full tile whose every delta is INT32_MIN: each of its 8 blocks
+    has the partial INT32_MIN, and the word stays at the identity,
+    INT32_MIN (ref_tile_stat and jnp.abs agree); a ragged one counts its
+    padding."""
+    d = np.full((TILE + 7, 64), I32_MIN, np.int32)
+    plan = tdc.codec_plan(len(d), 64, 4, "maxabs")
+    assert plan.blocks_per_tile == 8
+    want = tref.ref_tile_stat(torch.as_tensor(d), TILE, "maxabs").tolist()
+    assert kernel_stats(d, 4, "maxabs", plan) == want == [I32_MIN, 0]

@@ -6,15 +6,22 @@ dim) takes, the heaviest-first order of the blocks and their causal trip
 counts, and the TMA tensor maps (dims, byte strides, boxes) with their
 alignment. It is a pure function of shapes, strides and addresses, so it
 is tested here; the kernel itself runs only on the card
-(``chip_smoke.py``). The kernel's numerics are emulated here instead: its
-P operand, split into two bf16 parts, gives the plain version's f32
-product within one bf16 ulp, where P rounded to bf16 once would not.
+(``chip_smoke.py``). The kernels' numerics are emulated here instead: the
+bf16 kernel's P operand, split into two bf16 parts, gives the plain
+version's f32 product within one bf16 ulp, where P rounded to bf16 once
+would not; the f32 kernel's three TF32 products of hi and lo parts hold
+the f32 tolerance against the plain version and the JAX package, where
+one TF32 product does not.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -26,7 +33,7 @@ BF16 = torch.bfloat16
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
     (torch.float32, 16, "cuda_core"), (torch.float32, 32, "cuda_core"),
-    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
+    (torch.float32, 64, "wgmma_f32"), (torch.float32, 128, "wgmma_f32"),
 ])
 def test_design_is_chosen_by_dtype_and_head_dim(dtype, d, want):
     assert fa.design(dtype, d) == want
@@ -34,14 +41,18 @@ def test_design_is_chosen_by_dtype_and_head_dim(dtype, d, want):
     kv = torch.zeros(1, 7, 2, d, dtype=dtype)
     p = fa.plan(q, kv, kv)
     assert p.design == want
-    assert (p.maps is not None) == (want == "wgmma")
-    assert p.n_q_tiles == (1 if want == "wgmma" else 0)
+    assert (p.maps is not None) == (want != "cuda_core")
+    assert p.n_q_tiles == (0 if want == "cuda_core" else 1)
     # the launcher's args: the same choice, the shapes and the strides
     args = list(p.args)
     assert args[:8] == [1, 5, 7, 4, 2, d, int(dtype == torch.bfloat16),
                         fa.DESIGNS.index(want)]
     assert args[9:18] == [*q.stride()[:3], *kv.stride()[:3], *kv.stride()[:3]]
-    assert len(args) == 51 and (want == "wgmma" or not any(args[18:]))
+    assert len(args) == 51
+    # maps: q, k and v for bf16; k and v for f32 (q is read through its
+    # strides); none on the CUDA cores
+    assert [any(args[18 + 11 * i:29 + 11 * i]) for i in range(3)] == [
+        want == "wgmma", want != "cuda_core", want != "cuda_core"]
 
 
 def visible_tiles(rows, sq, sk, bk):
@@ -132,7 +143,8 @@ def test_misaligned_operands_are_copied_not_refused():
     assert q2 is q and k2 is not k and v2 is not v
     assert torch.equal(k2, k) and torch.equal(v2, v)
     assert k2.data_ptr() % fa.TMA_ALIGN == 0
-    # f32 never needs TMA: nothing is copied
+    # fresh f32 copies (the f32 tensor-core design maps k and v) are
+    # aligned: nothing is copied
     assert fa.plan(q.float(), k.float(), v.float()).copies == ()
 
 
@@ -230,3 +242,205 @@ def test_split_p_keeps_the_plain_versions_f32_product(b, sq, sk, h, kh, d):
                        plain, 1)
     assert not within_ulps(full_logits_flash(q, k, v, 128, "bf16")
                            .to(BF16), plain, 2)
+
+
+# -- the f32 tensor-core design ("wgmma_f32") ---------------------------------
+
+F32 = torch.float32
+#: chip_smoke.py's FLASH_TOL[float32]: |kernel - plain| <= atol + rtol |plain|
+#: (sums in another order)
+F32_TOL = (2e-5, 1e-5)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk", [
+    (1, 1), (1, 300), (129, 200), (300, 1000), (257, 257), (300, 130),
+    (65, 97), (63, 65), (5, 0), (32768, 32768),
+])
+def test_f32_tiles_and_trip_counts_cover_the_visible_keys(d, sq, sk):
+    bq, bk = fa.block_shape(F32, d)
+    assert (bq, bk) == fa.F32_TILES[d] and bq % 64 == 0 and bk % 32 == 0
+    n_q = -(-sq // bq)
+    p = fa.plan(torch.zeros(1, sq, 4, d), *(torch.zeros(1, sk, 2, d),) * 2)
+    assert p.design == "wgmma_f32" and p.n_q_tiles == n_q
+    assert list(p.args)[8] == n_q
+    pairs = 0
+    for t in range(n_q):
+        rows = range(t * bq, min((t + 1) * bq, sq))
+        trips = fa.trip_count(t, sq, sk, bq, bk)
+        if sq <= 1024:
+            assert trips == visible_tiles(rows, sq, sk, bk)
+            pairs += sum(max(0, min(i + sk - sq + 1, sk, trips * bk))
+                         for i in rows)
+        assert trips * bk >= min(rows[-1] + sk - sq + 1, sk)
+        assert trips == 0 or (trips - 1) * bk < sk
+    if sq <= 1024:
+        assert pairs == fa.causal_pairs(sq, sk)
+    order = fa.launch_order(sq, 4, 2, bq)
+    trips = [fa.trip_count(t, sq, sk, bq, bk) for t, _, _ in order]
+    assert trips == sorted(trips, reverse=True) and len(order) == n_q * 8
+
+
+def test_f32_tensor_maps_use_32_column_boxes_of_128_bytes():
+    for d in (64, 128):
+        bq, bk = fa.F32_TILES[d]
+        q = torch.zeros(2, 300, 8, d)
+        k = torch.zeros(2, 300, 2, d)
+        m = fa.tensor_map(k, bk)
+        assert m.box == (32, 1, bk, 1) and m.box[0] * 4 == fa.SWIZZLE_BYTES
+        assert m.dims == (d, 2, 300, 2)
+        assert m.strides == (d * 4, 2 * d * 4, 300 * 2 * d * 4)
+        p = fa.plan(q, k, k)
+        args = list(p.args)
+        assert p.maps[0] is None and p.maps[1] == m and p.maps[2] == m
+        assert args[18:29] == [0] * 11
+        assert args[29:40] == m.packed() and args[40:51] == m.packed()
+        assert args[:9] == [2, 300, 300, 8, 2, d, 0, 2, -(-300 // bq)]
+        # every other head of a wider tensor: read through its strides
+        ks = torch.zeros(2, 300, 4, d)[:, :, ::2]
+        ms = fa.tensor_map(ks, bk)
+        assert ms.dims == (d, 2, 300, 2) and ms.box == (32, 1, bk, 1)
+        assert ms.strides == (2 * d * 4, 4 * d * 4, 300 * 4 * d * 4)
+        assert fa.plan(q, ks, ks).copies == ()
+        # a strided or misaligned q is read through its strides, as it lies
+        qs = torch.zeros(2, 300, 16, d)[:, :, ::2]
+        qm = torch.zeros(2 * 300 * 8 * d + 1)[1:].view(2, 300, 8, d)
+        assert qm.data_ptr() % fa.TMA_ALIGN != 0
+        for qq in (qs, qm):
+            p = fa.plan(qq, k, k)
+            assert p.copies == () and list(p.args)[9:12] == list(
+                qq.stride()[:3])
+        # a k whose base TMA cannot read, and a v whose rows are 4 bytes
+        # off 16, are copied
+        km = torch.zeros(2 * 300 * 2 * d + 1)[1:].view(2, 300, 2, d)
+        vm = torch.zeros(2, 300, 2, d + 1)[..., :d]
+        p = fa.plan(q, km, vm)
+        assert p.copies == ("k", "v") and p.args is None
+        q2, k2, v2, p2 = fa.tma_ready(q, km, vm)
+        assert p2.copies == () and q2 is q and torch.equal(k2, km)
+        assert k2.data_ptr() % fa.TMA_ALIGN == 0 and torch.equal(v2, vm)
+
+
+def tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does: by bit arithmetic on the
+    f32 pattern (the carry of the round bit may step the exponent)."""
+    b = x.contiguous().view(torch.int32).to(torch.int64)
+    b = (b + 0x1000) & ~0x1FFF
+    return b.to(torch.int32).view(torch.float32).reshape(x.shape)
+
+
+def tc_product(eq, a, b, products):
+    """einsum on the tensor cores' TF32 operands: one product of the
+    rounded operands, or the kernel's three of their hi and lo parts
+    (a_lo b_hi + a_hi b_lo + a_hi b_hi), each exact in f32 and summed in
+    f32."""
+    ah, bh = tf32(a), tf32(b)
+    if products == 1:
+        return torch.einsum(eq, ah, bh)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def emulated_f32_flash(q, k, v, bk, products):
+    """The f32 kernel's arithmetic on the host: q scaled by D^-0.5, S = Q
+    K^T on TF32 operands, the online softmax over bk-key tiles written in
+    closed form (each p against its tile's running max, rescaled to the
+    final max), l summing the f32 p, P V on TF32 operands."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qf = (q * d ** -0.5).reshape(b, sq, kh, g, d)
+    logits = tc_product("bqkgd,bskd->bkgqs", qf, k, products)
+    qpos = torch.arange(sq)[:, None] + (sk - sq)
+    mask = qpos >= torch.arange(sk)[None, :]
+    logits = torch.where(mask, logits, tref.NEG)
+    n_t = -(-sk // bk)
+    tiles = torch.nn.functional.pad(logits, (0, n_t * bk - sk),
+                                    value=tref.NEG)
+    run_max = torch.cummax(tiles.unflatten(-1, (n_t, bk)).amax(-1), -1).values
+    m_of = run_max.repeat_interleave(bk, -1)[..., :sk]
+    p = torch.where(mask, torch.exp(logits - m_of), 0.0)
+    scale = torch.exp(m_of - run_max[..., -1:])
+    l = (p * scale).sum(-1)
+    ph = tf32(p)
+    parts = [(ph, tf32(v))] if products == 1 else [
+        (tf32(p - ph), tf32(v)), (ph, tf32(v - tf32(v))), (ph, tf32(v))]
+    acc = sum(torch.einsum("bkgqs,bskd->bkgqd", pp * scale, vv)
+              for pp, vv in parts)
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+
+
+def within_f32_tol(got, want):
+    got, want = (torch.as_tensor(np.array(x, np.float32)) for x in (got, want))
+    return bool(((got - want).abs()
+                 <= F32_TOL[0] + F32_TOL[1] * want.abs()).all())
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10                   # TF32's ulp at 1
+    x = torch.tensor([one, one + ulp / 2, one + ulp / 2 - 2 ** -23,
+                      -(one + ulp / 2), one + 3 * ulp / 2, 3.0e38, 0.0,
+                      -0.0, 1e-40])
+    got = tf32(x)
+    want = torch.tensor([one, one + ulp, one, -(one + ulp), one + 2 * ulp,
+                         float(tf32(torch.tensor([3.0e38]))), 0.0, -0.0,
+                         float(tf32(torch.tensor([1e-40])))])
+    assert torch.equal(got, want)
+    assert not bool((got.view(torch.int32) & 0x1FFF).any())
+    # hi + lo is x to 2^-22 of it
+    y = torch.as_tensor(np.random.default_rng(0).normal(size=4096)
+                        .astype(np.float32))
+    hi = tf32(y)
+    lo = tf32(y - hi)
+    assert float(((hi + lo - y).abs() / y.abs()).max()) <= 2.0 ** -21
+    assert float(((hi - y).abs() / y.abs()).max()) > 2.0 ** -13
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,d", [
+    (1, 129, 200, 8, 2, 64), (2, 70, 70, 4, 1, 128),
+    (1, 45, 130, 8, 2, 64), (1, 100, 40, 4, 4, 128),
+])
+def test_split_tf32_products_hold_the_f32_tolerance(b, sq, sk, h, kh, d):
+    """The f32 kernel's three TF32 products stay within FLASH_TOL[f32] of
+    the plain version, of the JAX package's ref_attention and of its
+    Pallas body (interpret); one TF32 product does not."""
+    rng = np.random.default_rng(7 * sq + sk + d)
+    q, k, v = (rng.normal(size=s).astype(np.float32)
+               for s in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d)))
+    tq, tk, tv = (torch.as_tensor(x) for x in (q, k, v))
+    plain = tref.ref_flash_attention(tq, tk, tv)
+    assert torch.equal(tops.flash_attention(tq, tk, tv), plain)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    jax_ref = np.asarray(jref.ref_attention(jq, jk, jv))
+    pallas = np.asarray(jops.flash_attention(jq, jk, jv, interpret=True))
+    bk = fa.F32_TILES[d][1]
+    split = emulated_f32_flash(tq, tk, tv, bk, 3)
+    single = emulated_f32_flash(tq, tk, tv, bk, 1)
+    # the rows before every key (Sq > Sk) are 0 in the kernel, the plain
+    # version and the Pallas body, NaN in ref_attention: compared on the
+    # rest
+    blind = max(sq - sk, 0)
+    assert not split[:, :blind].any() and np.isnan(jax_ref[:, :blind]).all()
+    for want in (plain, pallas, jax_ref):
+        assert within_f32_tol(split[:, blind:], np.asarray(want)[:, blind:])
+        assert not within_f32_tol(single[:, blind:],
+                                  np.asarray(want)[:, blind:])
+
+
+def test_f32_bound_is_three_tf32_products():
+    """The f32 flash bound: three TF32 products at the dense TF32 rate
+    (494.7 / 3 TFLOP/s), faster than the CUDA cores' 67: 26.67 ms at the
+    32k layer of llama3.2-1b, where the CUDA cores' bound was 65.64."""
+    from repro_torch.launch import roofline
+    flops = 4 * 1 * 32 * 64 * fa.causal_pairs(32768, 32768)
+    peak = roofline.compute_peak("float32")
+    assert peak == roofline.PEAK_TENSOR_TF32 / roofline.F32_SPLIT_PRODUCTS
+    assert peak > roofline.PEAK_CUDA_CORE_OPS
+    assert round(flops / peak * 1e3, 2) == 26.67
+    assert round(flops / roofline.PEAK_CUDA_CORE_OPS * 1e3, 2) == 65.64
+    assert roofline.compute_peak("bfloat16") == roofline.PEAK_TENSOR_BF16
+    assert roofline.compute_peak("int32") == roofline.PEAK_CUDA_CORE_OPS
