@@ -26,7 +26,10 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
   kernel_edges_decode  chain_decode_at at packed int8/16/32 into stored
                   1/2/4-byte ints, W 1/3/8/64, a misaligned field, the XOR
                   path, int32/int64 indices at 0 and C - 1, an empty index
-                  and a 10,000-cell chain, bit for bit
+                  and a 10,000-cell chain; on the 16-byte path, chains of
+                  7/8/9/15/16/17 cells across the 8-byte words of head
+                  flags, with and without a head at cell 0, flags at
+                  bases 0/1/5 bytes past alignment; bit for bit
   main_path       one store at UniProtKB/Swiss-Prot scale (570,000 entries,
                   sequence 64 x int32, length 1 x int32, annotation
                   8 x int32; 8 full releases at ts 10..80 with 3% sequence
@@ -35,9 +38,12 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   get_increments over the 7 release windows, a cold
                   get_version and compact(30), every row checked against
                   the release that produced it; the device memory a
-                  Q = 1 query adds
+                  Q = 1 query adds; chain decode's launches by the gather
+                  size of the call that made them
   chain_decode_memory  the device memory the Q = 1 gather's decode adds,
-                  kernel beside its plain version (the full decode)
+                  kernel beside its plain version (the full decode); the
+                  Q = 1, 8 and 64 gathers' outputs checked against the
+                  sequence values
   sharding        the same 8 releases into a ShardedStore of 4 shards
                   (ts 10..40 through update, ts 50..80 through threaded
                   ShardedReleaseSession waves of 4 chunks), get_versions at
@@ -73,6 +79,12 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   version, with the design each case took; the masked
                   merge at N 1/511/512/513, W 1-9, every element size,
                   int32 and int64 timestamps, bit for bit
+  kernel_edges_merge  the masked merge at rows of W * s bytes on and off
+                  a multiple of 16 (every unit: 16, 8, 4, 2 bytes, one
+                  element), bases 0/4/8 bytes past a 16-byte boundary,
+                  row masks all false/all true/mixed, field masks
+                  none/all/mixed, one and several blocks, W 64 int32 at
+                  N 511/512/513, bit for bit
   merge           kops.masked_merge on the first release's sequence table
                   (570,000 x 64 int32) with the second release's rows for
                   the entries whose sequence changed, checked against a
@@ -109,7 +121,11 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   and f32 on the tensor cores as three TF32 products, its
                   launches those of the serving phase's f32 checks; the
                   scan twice: Q = 64, and Q = 1 with its single-query
-                  launches; chain_decode at the main path's Q = 1 gather;
+                  launches; chain decode at the main path's Q = 1, 8 and
+                  64 gathers, each with its gathers' launches; the masked
+                  merge in alternating rounds with the torch.where pair,
+                  bound by the bytes its masks need and, beside it, by
+                  both operands read;
                   the codec's rows timed in alternating rounds with their
                   library calls, and the int32 packs' device time per
                   call with no host time in it, beside torch.sub's)
@@ -152,6 +168,7 @@ TIMED_REPS = 20  # back-to-back calls per kernel time
 # the medians of the rounds
 TIMED_ROUNDS = 9
 SPIN_CYCLES = 20_000_000  # about 10 ms of a spin kernel, ahead of queued calls
+GATHER_CHUNK = 1 << 22  # cells per chunk when a gather is checked
 # kernel -> (its CUDA source, the TPU kernel of the JAX package it replaces)
 SOURCES = {
     "fingerprint": ("src/repro_torch/csrc/fingerprint.cu",
@@ -182,10 +199,14 @@ SOURCES = {
     # the same wrapper at f32: the f32 tensor-core kernel of the source
     "flash_attention_f32": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:33"),
-    "chain_decode": ("src/repro_torch/csrc/chain_decode.cu",
-                     "src/repro/kernels/delta_codec.py:261 (chain_decode, "
-                     "a jax.lax.associative_scan, not Pallas)"),
 }
+# the packed gather's decode, one row per gather size of the main path
+# (Q = 1, 8 and 64 timestamps a get_versions call)
+DECODE_ROWS = {1: "chain_decode", 8: "chain_decode_q8", 64: "chain_decode_q64"}
+SOURCES.update(dict.fromkeys(DECODE_ROWS.values(), (
+    "src/repro_torch/csrc/chain_decode.cu",
+    "src/repro/kernels/delta_codec.py:261 (chain_decode, a "
+    "jax.lax.associative_scan, not Pallas)")))
 # the kernels each driven path must launch at least once
 PATH_KERNELS = {
     "main_path": ("fingerprint", "masked_cumsum", "keep_mask",
@@ -507,11 +528,13 @@ class KernelBench:
             library=None, *, timed: bool, main: bool = False,
             quiet: bool = False, tol: tuple | None = None,
             peak: float | None = None, reps: int | None = None,
-            rounds: int = 1) -> dict:
+            rounds: int = 1, extra: dict | None = None) -> dict:
         """``tol`` (atol, rtol): compare values within it instead of bits;
         ``peak``: the compute rate of the bound (default: CUDA cores);
         ``rounds``: time kernel and library in that many alternating
-        rounds, report the medians and keep every round."""
+        rounds, report the medians, keep every round and count those the
+        kernel won; ``extra``: more keys for the record. Both outputs are
+        freed before the timing (a Q = 64 gather's are 9 GB each)."""
         got = kernel()
         want = plain()
         sync()
@@ -533,9 +556,9 @@ class KernelBench:
             if g.is_floating_point():
                 g, w = int_lanes(g), int_lanes(w)
             if g.numel() and not torch.equal(g, w):
-                err = max(err, float((g.double() - w.double()).abs().max()),
-                          1)
+                err = max(err, max_abs_diff(g, w), 1)
                 ok = False
+        del got, want, g, w
         bound_ms, bound_by = self.bound(nbytes, ops, peak)
         rec = {"phase": "kernel", "name": name, "shape": shape,
                "max_abs_diff": err, "bound_ms": bound_ms,
@@ -556,6 +579,9 @@ class KernelBench:
             rec["reps"] = n
             if rounds > 1:
                 rec["rounds"] = {"kernel_ms": ks, "library_ms": ls}
+                if ls:
+                    rec["rounds_won"] = sum(k < lib for k, lib in zip(ks, ls))
+        rec.update(extra or {})
         if not quiet:
             emit(rec)
         check(ok, f"{name} {shape}: kernel differs from plain by {err}")
@@ -647,21 +673,35 @@ class KernelBench:
             rounds=rounds)
 
     def masked_merge(self, base, upd, rm, fm, ts, ts_new, *, timed=True,
-                     main=False, quiet=False) -> dict:
+                     main=False, quiet=False, rounds=1) -> dict:
+        """The merge bit for bit against its plain version, with the
+        kernel's plan in the shape. Its bound counts the bytes these masks
+        need (``merge_nbytes``: one operand element per output element,
+        the timestamps only of the rows that keep theirs); the count with
+        both operands read stays beside it as ``bound_both_operands_ms``,
+        the bound of a kernel that reads both."""
+        from repro_torch.kernels import masked_merge as mm
         n, w = base.shape
         sel = rm[:, None] & fm[None, :]
         ts_new_t = torch.tensor(ts_new, dtype=ts.dtype, device=ts.device)
+        plan = mm.merge_plan(base, upd)
+        nb = mm.merge_nbytes(rm, fm, base.element_size(), ts.element_size())
         return self.run(
             "masked_merge", {"N": n, "W": w, "dtype": str(base.dtype),
-                             "ts": str(ts.dtype)},
+                             "ts": str(ts.dtype),
+                             "rows_merged": int(rm.sum()),
+                             "fields_taken": int(fm.sum()),
+                             "vec_bytes": plan.vec_bytes,
+                             "rows_per_block": plan.rows_per_block},
             lambda: self.kops.masked_merge(base, upd, rm, fm, ts, ts_new),
             lambda: self.kops.ref.ref_masked_merge(base, upd, rm, fm, ts,
                                                    ts_new),
-            nbytes=3 * base.numel() * base.element_size() + n + w
-            + 2 * n * ts.element_size(), ops=n * w + n,
+            nbytes=nb["mask_aware"], ops=n * w + n,
             library=lambda: (torch.where(sel, upd, base),
                              torch.where(rm, ts_new_t, ts)),
-            timed=timed, main=main, quiet=quiet)
+            timed=timed, main=main, quiet=quiet, rounds=rounds,
+            extra={"bound_both_operands_ms": self.bound(
+                nb["both_operands"], n * w + n)[0]})
 
     def flash(self, q, k, v, *, timed=True, main=False, quiet=False,
               reps=None, name="flash_attention") -> dict:
@@ -707,8 +747,8 @@ class KernelBench:
             reps=reps)
 
     def chain_decode(self, deltas, heads, idx, itemsize, *, xor=False,
-                     timed=True, main=False, quiet=False,
-                     label=None) -> dict:
+                     timed=True, main=False, quiet=False, label=None,
+                     name="chain_decode") -> dict:
         """The decode-at-index gather against its plain version (the full
         torch-ops decode, the take and the truncation), bit for bit. Its
         bound counts what these inputs need: every cell on a taken cell's
@@ -716,15 +756,18 @@ class KernelBench:
         many taken cells share it, and each taken cell's index and W
         output lanes. No single PyTorch call computes a segmented scan,
         so it has no library time."""
+        from repro_torch.kernels import delta_codec as dc
         c, w = deltas.shape
         n = idx.shape[0]
         covered = covered_cells(heads.cpu().numpy(), idx.cpu().numpy())
         s_in = deltas.element_size()
+        plan = dc.decode_at_plan(deltas)
         return self.run(
-            "chain_decode", {"C": c, "W": w, "n": n, "packed": str(
-                deltas.dtype), "itemsize": itemsize, "xor": xor,
-                "covered_cells": covered, **({"label": label} if label
-                                             else {})},
+            name, {"C": c, "W": w, "n": n, "packed": str(deltas.dtype),
+                   "itemsize": itemsize, "xor": xor,
+                   "covered_cells": covered, "vec_bytes": plan.vec_bytes,
+                   "threads_per_cell": plan.threads_per_cell,
+                   **({"label": label} if label else {})},
             lambda: self.kops.chain_decode_at(deltas, heads, idx,
                                               itemsize=itemsize, xor=xor),
             lambda: self.kops.ref_chain_decode_at(deltas, heads, idx,
@@ -758,6 +801,15 @@ def covered_cells(heads: np.ndarray, idx: np.ndarray) -> int:
     h = head_at[u]
     last = np.append(h[1:] != h[:-1], True)  # the last taken cell a chain
     return int((u[last] - h[last] + 1).sum())
+
+
+def max_abs_diff(g: torch.Tensor, w: torch.Tensor,
+                 chunk: int = 1 << 26) -> float:
+    """max |g - w| of two int tensors, in chunks of ``chunk`` elements (no
+    full-size difference tensor)."""
+    g, w = g.reshape(-1), w.reshape(-1)
+    return max(float((g[i:i + chunk].double() - w[i:i + chunk].double())
+                     .abs().max()) for i in range(0, g.numel(), chunk))
 
 
 def int_lanes(t: torch.Tensor) -> torch.Tensor:
@@ -913,7 +965,11 @@ def phase_kernel_edges_decode(bench: KernelBench, rng) -> None:
     1/2/4-byte ints, W 1/3/8/64 (whole 4-byte chunks and single lanes), a
     misaligned field, the XOR path, int32 and int64 indices at 0, C - 1,
     repeated and unsorted, an empty index, cells before the first head,
-    and one 10,000-cell chain."""
+    and one 10,000-cell chain; then on the 16-byte path (packed int8 W 64,
+    int16 W 8 and 64, int32 W 4 and 64) chains of 7, 8, 9, 15, 16 and 17
+    cells across the 8-byte words of head flags, with and without a head
+    at cell 0, the flags at bases 0, 1 and 5 bytes past a 16-byte
+    boundary, every cell taken (0 first, repeated, unsorted)."""
     cases = []
     c = 5001
     for packed in (np.int8, np.int16, np.int32):
@@ -959,9 +1015,41 @@ def phase_kernel_edges_decode(bench: KernelBench, rng) -> None:
                                         quiet=True))
         cases.append(bench.chain_decode(chain, heads, idx, 1, xor=True,
                                         timed=False, quiet=True))
+    n_old = len(cases)
+    c2, lengths, h_offsets = 1000, (7, 8, 9, 15, 16, 17), (0, 1, 5)
+    fields = ((np.int8, 64), (np.int16, 8), (np.int16, 64), (np.int32, 4),
+              (np.int32, 64))
+    idx = torch.as_tensor(np.concatenate([[0, 0, c2 - 1],
+                                          rng.permutation(c2), [0, 5, 5]]),
+                          device=DEV)
+    for length in lengths:
+        for first in (0, 3):  # 3: cells 0-2 chain from cell 0, no head
+            heads = np.zeros(c2, bool)
+            heads[first::length] = True
+            for h_off in h_offsets:
+                h = at_offset(torch.as_tensor(heads, device=DEV), h_off)
+                for packed, w in fields:
+                    info = np.iinfo(packed)
+                    d = torch.as_tensor(rng.integers(
+                        info.min, info.max, (c2, w), endpoint=True,
+                        dtype=packed), device=DEV)
+                    cases.append(bench.chain_decode(d, h, idx, 4,
+                                                    timed=False, quiet=True))
+                    if h_off == 0:
+                        cases.append(bench.chain_decode(
+                            d, h, idx, d.element_size(), xor=True,
+                            timed=False, quiet=True))
+    window = cases[n_old:]
+    check(all(x["shape"]["vec_bytes"] == 16 for x in window),
+          "a window case left the 16-byte path")
     emit({"phase": "kernel_edges_decode", "C": c, "W": [1, 3, 8, 64],
           "packed": ["int8", "int16", "int32"], "itemsize": [1, 2, 4],
-          "chain_cells": 10_000, "cases": len(cases),
+          "chain_cells": 10_000, "cases": n_old,
+          "window_C": c2, "window_chain_lengths": list(lengths),
+          "window_fields": [[np.dtype(p).name, w] for p, w in fields],
+          "window_heads_offsets": list(h_offsets),
+          "window_cases": len(window),
+          "vec_bytes": sorted({x["shape"]["vec_bytes"] for x in cases}),
           "max_abs_diff": max(x["max_abs_diff"] for x in cases),
           "gpu": bench.smi})
 
@@ -1053,11 +1141,24 @@ def phase_main_path(VersionedStore, FieldSchema, kops, releases) -> dict:
     rec["fused_cells"] = sl.n_cells
     seq = sl.fields["sequence"]
     check(seq.packed_host is not None, "the sequence field is not packed")
-    _, rec["first_query_s"] = wall(lambda: st.get_versions([RELEASE_TS[-1]]))
+    # chain decode's launches by the gather size of the call that made
+    # them: the timestamps of a get_versions or get_version call (1, 8 or
+    # 64), or get_increments
+    decode_launches = dict.fromkeys(("1", "8", "64", "increments"), 0)
+
+    def counted(q, fn):
+        before = kops.chain_decode_at.launches
+        try:
+            return fn()
+        finally:
+            decode_launches[q] += kops.chain_decode_at.launches - before
+
+    _, rec["first_query_s"] = counted("1", lambda: wall(
+        lambda: st.get_versions([RELEASE_TS[-1]])))
     queries = {1: [RELEASE_TS[-1]], 8: RELEASE_TS,
                64: sorted(set(np.linspace(5, 85, 64).astype(int).tolist()))}
     check(len(queries[64]) == 64, "64 distinct query timestamps")
-    # the cells the Q = 1 and Q = 8 gathers take from the packed sequence
+    # the cells the Q = 1, 8 and 64 gathers take from the packed sequence
     # field, for timing its decode at the path's shapes, recorded in
     # untimed calls; the Q = 1 call also gives the device memory a Q = 1
     # query adds once the superlog is on the card (the packed gather
@@ -1077,36 +1178,43 @@ def phase_main_path(VersionedStore, FieldSchema, kops, releases) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     with recording(1):
-        st.get_versions(queries[1])
+        counted("1", lambda: st.get_versions(queries[1]))
     sync()
     rec["get_versions_1_peak_added_bytes"] = (
         torch.cuda.max_memory_allocated() - base)
-    with recording(8):
-        st.get_versions(queries[8])
+    for q in (8, 64):
+        with recording(q):
+            counted(str(q), lambda: st.get_versions(queries[q]))
     rec["get_versions_s"], rec["get_versions_stages_s"] = {}, {}
     for q, tss in queries.items():
         stages = {}
-        views, s = wall(lambda: st.get_versions(tss, trace=stages))
+        views, s = counted(str(q), lambda: wall(
+            lambda: st.get_versions(tss, trace=stages)))
         rec["get_versions_s"][str(q)] = s
         rec["get_versions_stages_s"][str(q)] = stages
         for t, v in zip(tss, views):
             check_view(v, releases, t, fields)
         del views
-    rec["profile_get_versions_64"] = device_profile(
-        lambda: st.get_versions(queries[64]))
+    rec["profile_get_versions_64"] = counted("64", lambda: device_profile(
+        lambda: st.get_versions(queries[64])))
     pairs = list(zip(RELEASE_TS[:-1], RELEASE_TS[1:len(releases)]))
-    incs, rec["get_increments_s"] = wall(
-        lambda: st.get_increments(pairs, significant_fields=["sequence"]))
+
+    def increments():
+        return st.get_increments(pairs, significant_fields=["sequence"])
+
+    incs, rec["get_increments_s"] = counted("increments",
+                                            lambda: wall(increments))
     for (t0, t1), inc in zip(pairs, incs):
         check_increment(inc, release_at(releases, t0),
                         release_at(releases, t1))
     rec["increment_sizes"] = [len(i) for i in incs]
     del incs
-    rec["profile_get_increments"] = device_profile(
-        lambda: st.get_increments(pairs, significant_fields=["sequence"]))
+    rec["profile_get_increments"] = counted(
+        "increments", lambda: device_profile(increments))
     scan_ts = sl.ts[: sl.n_cells].clone()  # the scan's input, for timing
     st.drop_superlog()
-    view, rec["cold_get_version_s"] = wall(lambda: st.get_version(50))
+    view, rec["cold_get_version_s"] = counted("1", lambda: wall(
+        lambda: st.get_version(50)))
     check_view(view, releases, 50, fields)
     # the largest log compact() masks, for timing
     compact_ts = max((c.log.csr(st.n_rows)[1] for c in st.fields.values()),
@@ -1116,14 +1224,24 @@ def phase_main_path(VersionedStore, FieldSchema, kops, releases) -> dict:
     check(st.versions[0].ts == COMPACT_TS and stats["cells_dropped"] > 0,
           "compact did not fold the history")
     after = [t for t in RELEASE_TS if t >= COMPACT_TS] + [55, 85]
-    for t, v in zip(after, st.get_versions(after)):
+    check(len(after) == 8, "8 timestamps after the compaction")
+    for t, v in zip(after, counted("8", lambda: st.get_versions(after))):
         check_view(v, releases, t, fields)
     rec["launches"] = read_counts(kops)
+    rec["chain_decode_launches_by_gather"] = decode_launches
     emit(rec)
     for name in PATH_KERNELS["main_path"]:
         check(rec["launches"][name] > 0,
               f"kernel {name} never launched on the main path")
-    return {"launches": rec["launches"], "scan_ts": scan_ts,
+    check(sum(decode_launches.values()) == rec["launches"]["chain_decode"],
+          f"chain decode launches {decode_launches} do not add up to "
+          f"{rec['launches']['chain_decode']}")
+    for q in ("1", "8", "64"):
+        check(decode_launches[q] > 0, f"no chain decode at Q = {q}")
+    # the kernels line's decode rows count the launches of their gathers
+    launches = {**rec["launches"], **{DECODE_ROWS[int(q)]: decode_launches[q]
+                                      for q in ("1", "8", "64")}}
+    return {"launches": launches, "scan_ts": scan_ts,
             "compact_ts": compact_ts, "gathers": gathers,
             "packed_seq": (seq.packed_host, seq.heads_host, seq.vals_host)}
 
@@ -1134,9 +1252,11 @@ def phase_kernel_main(bench: KernelBench, kops, compat, releases,
     release's field tables (570,000 entries), the fused ts that
     get_versions scanned (at Q = 8 and 64, and at Q = 1 in alternating
     rounds against torch.cumsum), the largest log that compact()
-    masked, and the packed sequence field's decode at the cells its Q = 1
-    and Q = 8 gathers took, with the device memory the Q = 1 decode adds
-    beside its plain version's."""
+    masked, and the packed sequence field's decode at the cells its Q = 1,
+    8 and 64 gathers took (one row each; every output checked against the
+    sequence values on the card, in chunks, and freed before the next),
+    with the device memory the Q = 1 decode adds beside its plain
+    version's."""
     r = releases[0]
     for f in ("length", "annotation", "sequence"):
         lanes = kops.to_int_lanes(r["table"][f], DEV)
@@ -1172,15 +1292,18 @@ def phase_kernel_main(bench: KernelBench, kops, compat, releases,
     d = torch.as_tensor(packed, device=DEV)
     h = torch.as_tensor(heads, device=DEV)
     size = vals.dtype.itemsize
+    seq = torch.as_tensor(compat.bits_view(vals), device=DEV)
     for q, idx in sorted(main_out.pop("gathers").items()):
         idx_t = torch.as_tensor(idx, device=DEV)
-        rec = bench.chain_decode(d, h, idx_t, size, main=(q == 1),
-                                 label=f"Q = {q} gather")
+        rec = bench.chain_decode(d, h, idx_t, size, main=True,
+                                 name=DECODE_ROWS[q], label=f"Q = {q} gather")
         got = kops.chain_decode_at(d, h, idx_t, itemsize=size)
-        check(np.array_equal(got.cpu().numpy(),
-                             compat.bits_view(vals)[idx]),
+        check(all(torch.equal(got[i:i + GATHER_CHUNK],
+                              seq.index_select(0, idx_t[i:i + GATHER_CHUNK]))
+                  for i in range(0, len(idx), GATHER_CHUNK)),
               f"the Q = {q} decode does not give back the sequence values")
         if q != 1:
+            del got, idx_t
             continue
         added = {}
         for name, fn in (("kernel", kops.chain_decode_at),
@@ -1194,7 +1317,7 @@ def phase_kernel_main(bench: KernelBench, kops, compat, releases,
             added[name] = torch.cuda.max_memory_allocated() - base
         emit({"phase": "chain_decode_memory", "shape": rec["shape"],
               "peak_added_bytes": added, "gpu": bench.smi})
-        del got
+        del got, idx_t
 
 
 def tree_bytes(path: str) -> dict:
@@ -1839,6 +1962,71 @@ def phase_kernel_edges_serving(bench: KernelBench, rng) -> None:
           "unsupported_inputs_raised": refused, "gpu": bench.smi})
 
 
+def phase_kernel_edges_merge(bench: KernelBench, rng) -> None:
+    """The masked merge's units, bit for bit, summarized in one line:
+    rows of W * s bytes on and off a multiple of 16 (16-, 8-, 4-, 2-byte
+    and one-element units), bases 0, 4 and 8 bytes past a 16-byte
+    boundary (base and upd at the same and at different offsets), row
+    masks all false, all true and mixed, field masks none, all and mixed
+    (units with some lanes taken), over one and several blocks, and W 64
+    int32 at N 511/512/513."""
+    cases = []
+    shapes = [("int32", 4), ("int32", 64), ("int32", 3), ("int32", 5),
+              ("int8", 16), ("int8", 48), ("int8", 3), ("int8", 2),
+              ("float16", 8), ("float16", 12), ("float64", 2),
+              ("float64", 3), ("int64", 1)]
+    offsets = [(0, 0), (4, 4), (8, 8), (4, 8)]
+    masks = [(rk, fk) for rk in ("none", "all", "mixed")
+             for fk in ("none", "all", "mixed")]
+    for k, (dtype, w) in enumerate(shapes):
+        size = np.dtype(dtype).itemsize
+        for n in (1, 300, 3001):
+            base0, upd0, _ = codec_pair(rng, dtype, n, w)
+            for off_b, off_u in offsets:
+                if off_b % size or off_u % size:
+                    continue
+                base, upd = at_offset(base0, off_b), at_offset(upd0, off_u)
+                for j, (rk, fk) in enumerate(masks):
+                    rm = torch.as_tensor({"none": np.zeros(n, bool),
+                                          "all": np.ones(n, bool),
+                                          "mixed": rng.random(n) < 0.4}[rk],
+                                         device=DEV)
+                    fm = torch.as_tensor({"none": np.zeros(w, bool),
+                                          "all": np.ones(w, bool),
+                                          "mixed": np.arange(w) % 2 == 0}[fk],
+                                         device=DEV)
+                    ts_dt = (np.int32, np.int64)[(k + j) % 2]
+                    top = np.iinfo(ts_dt).max
+                    ts = torch.as_tensor(rng.integers(0, top, n, dtype=ts_dt),
+                                         device=DEV)
+                    cases.append(bench.masked_merge(base, upd, rm, fm, ts,
+                                                    top, timed=False,
+                                                    quiet=True))
+    for n in (511, 512, 513):
+        base, upd, _ = codec_pair(rng, "int32", n, 64)
+        for rk, fk in masks:
+            rm = torch.as_tensor({"none": np.zeros(n, bool),
+                                  "all": np.ones(n, bool),
+                                  "mixed": rng.random(n) < 0.03}[rk],
+                                 device=DEV)
+            fm = torch.as_tensor({"none": np.zeros(64, bool),
+                                  "all": np.ones(64, bool),
+                                  "mixed": rng.random(64) < 0.5}[fk],
+                                 device=DEV)
+            ts = torch.as_tensor(rng.integers(0, 90, n), device=DEV)
+            cases.append(bench.masked_merge(base, upd, rm, fm, ts, 99,
+                                            timed=False, quiet=True))
+    units = sorted({c["shape"]["vec_bytes"] for c in cases})
+    check(units == [1, 2, 4, 8, 16], f"merge edges took units {units}")
+    emit({"phase": "kernel_edges_merge",
+          "shapes": [[d, w] for d, w in shapes], "N": [1, 300, 3001],
+          "offsets_bytes": offsets, "masks": masks,
+          "w64_int32_N": [511, 512, 513], "unit_bytes": units,
+          "cases": len(cases),
+          "max_abs_diff": max(c["max_abs_diff"] for c in cases),
+          "gpu": bench.smi})
+
+
 def phase_merge(kops, releases) -> dict:
     """masked_merge on the head table: the first release's sequence field
     (570,000 x 64 int32) takes the second release's rows where the
@@ -2147,7 +2335,8 @@ def phase_kernel_serving(bench: KernelBench, merge_out, serving_out) -> None:
     """The serving slice's kernels at the shapes their paths gave them,
     timed: flash attention on layer 0's q/k/v of the 32k prompt (in bf16,
     and the same values in f32, both on the tensor cores) and of the
-    first bucket, the masked merge on the head table."""
+    first bucket, the masked merge on the head table (in alternating
+    rounds with the torch.where pair)."""
     long_qkv = serving_out.pop("long_qkv")
     bench.flash(*long_qkv, main=True, reps=3)
     bench.flash(*(x.float() for x in long_qkv), main=True, reps=3,
@@ -2156,7 +2345,7 @@ def phase_kernel_serving(bench: KernelBench, merge_out, serving_out) -> None:
     bench.flash(*serving_out.pop("short_qkv"))
     torch.cuda.empty_cache()
     bench.masked_merge(*merge_out.pop("args"), merge_out["ts_new"],
-                       main=True)
+                       main=True, rounds=TIMED_ROUNDS)
 
 
 def phase_serving_parity(seed: int) -> None:
@@ -2223,6 +2412,7 @@ def main() -> int:
     phase_kernel_edges(bench, rng)
     phase_kernel_edges_sharding(bench, rng)
     phase_kernel_edges_serving(bench, rng)
+    phase_kernel_edges_merge(bench, rng)
     releases = make_releases(N_ENTRIES, len(RELEASE_TS), args.seed)
     main_out = phase_main_path(VersionedStore, FieldSchema, kops, releases)
     merge_out = phase_merge(kops, releases)
@@ -2250,7 +2440,7 @@ def main() -> int:
     # each kernel's launches come from the path that runs it: the codec
     # from persistence, the route and the stacked scan from sharding, the
     # merge from its phase, flash attention from serving, the rest from
-    # the main path
+    # the main path (chain decode's rows: the launches of their gathers)
     path_of = {k: (pers_out if k.startswith("delta_")
                    else shard_out if k in ("shard_route",
                                            "stacked_masked_cumsum")
@@ -2266,7 +2456,9 @@ def main() -> int:
                      "max_abs_err": m["max_abs_diff"], "ms": m["kernel_ms"],
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"],
-                     "library_ms": m["library_ms"], "shape": m["shape"]})
+                     "library_ms": m["library_ms"], "shape": m["shape"],
+                     **{k: m[k] for k in ("bound_both_operands_ms",
+                                          "rounds_won") if k in m}})
     emit({"kernels": rows, "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

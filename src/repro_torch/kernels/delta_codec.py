@@ -56,7 +56,7 @@ from .launch import tile_for
 
 # a, b, out, stats, the launch's static args, the stream
 _ARGS = [ctypes.c_void_p] * 6
-_BLOCK = 256  # threads per block (chain decode)
+_BLOCK = 128  # threads per block (chain decode)
 CHUNK_BYTES = 16384  # bytes of each operand that one codec block streams
 VEC_BYTES = 16       # the codec kernel's vector loads and stores
 BLOCK_THREADS = 1024  # a codec block alone: one vector per thread
@@ -370,7 +370,7 @@ def chain_decode_at(deltas: torch.Tensor, heads: torch.Tensor,
             deltas.device):
         rc = fn(deltas.data_ptr(), heads.data_ptr(), idx.data_ptr(),
                 idx.element_size(), idx.shape[0], c, w,
-                deltas.element_size(), itemsize, int(xor), int(plan.vec),
+                deltas.element_size(), itemsize, int(xor), plan.vec_bytes,
                 plan.group_log2, out.data_ptr(), _BLOCK,
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "chain_decode", "chain_decode_at_launch")
@@ -383,22 +383,29 @@ chain_decode_at.launches = 0
 
 @dataclasses.dataclass(frozen=True)
 class DecodePlan:
-    """How the kernel lays out a gather: ``vec`` takes 4-byte chunks of
-    4 / itemsize packed lanes, ``group_log2`` the threads per cell."""
-    vec: bool
+    """How the kernel lays out a gather: each thread takes ``vec_bytes``
+    of a row's packed deltas (``lanes`` lanes) per chain cell, and
+    ``2 ** group_log2`` threads share one cell."""
+    vec_bytes: int
+    lanes: int
     group_log2: int
+
+    @property
+    def threads_per_cell(self) -> int:
+        return 1 << self.group_log2
 
 
 def decode_at_plan(deltas: torch.Tensor) -> DecodePlan:
-    """Chunks of 4 / itemsize lanes where every row starts 4-byte aligned
-    (W a multiple of the chunk and an aligned base), else single lanes;
-    the smallest power-of-two group of threads, at most a warp, that
-    covers a row's chunks."""
+    """16-byte chunks where every row starts 16-byte aligned (W * itemsize
+    a multiple of 16 and an aligned base), else 4-byte chunks where rows
+    start 4-byte aligned, else single lanes; the smallest power-of-two
+    group of threads, at most a warp, that covers a row's chunks."""
     s = deltas.element_size()
     w = deltas.shape[1]
-    vec = s < 4 and w % (4 // s) == 0 and deltas.data_ptr() % 4 == 0
-    chunks = w // (4 // s) if vec else w
-    return DecodePlan(vec, min(max(chunks - 1, 0).bit_length(), 5))
+    vec = next(v for v in (16, 4, s)
+               if v >= s and (w * s) % v == 0 and deltas.data_ptr() % v == 0)
+    lanes = vec // s
+    return DecodePlan(vec, lanes, min(max(w // lanes - 1, 0).bit_length(), 5))
 
 
 def narrow_dtype(maxabs: int, base=np.int32) -> type:

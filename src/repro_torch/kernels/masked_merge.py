@@ -10,23 +10,78 @@ The kernel is ``csrc/masked_merge.cu``; its plain version is
 ``ref.ref_masked_merge``. Both move bits, so every dtype of 1, 2, 4 or 8
 bytes merges exactly. The JAX package runs without 64-bit types, so its
 int64 ``ts_base`` silently becomes int32; the port keeps ``ts_base``'s
-dtype (int32 or int64) and returns it.
+dtype (int32 or int64) and returns it. :func:`merge_plan` is the
+kernel's launch geometry and :func:`merge_nbytes` the bytes its bound
+counts; both are plain functions the CPU tests check.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from . import _build, ref
 from ._compat import count_launch, stream_ptr
-from .launch import tile_for
 
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p,
                                  ctypes.c_void_p, ctypes.c_longlong,
+                                 ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_void_p]
 _TS_DTYPES = (torch.int32, torch.int64)
+THREADS = 256  # per block
+UNITS_PER_BLOCK = 2048  # a block's units: 8 per thread
+MAX_ROWS_PER_BLOCK = 8192  # the kernel's shared row-mask bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class MergePlan:
+    """How the kernel cuts an (N, W) merge: each thread moves
+    ``vec_bytes`` of a row at once (16 on rows of whole 16-byte vectors,
+    down to one element), and a block of ``threads`` threads owns
+    ``rows_per_block`` rows."""
+    vec_bytes: int
+    threads: int
+    rows_per_block: int
+
+
+def merge_plan(base: torch.Tensor, upd: torch.Tensor) -> MergePlan:
+    """The widest unit of 16, 8, 4 or 2 bytes (or one element) that
+    divides a row's W * s bytes and to which ``base`` and ``upd`` are
+    aligned (the output is a fresh allocation, aligned to more), so that
+    no unit crosses a row; and as many rows per block as make
+    ``UNITS_PER_BLOCK`` units (at least one row, at most
+    ``MAX_ROWS_PER_BLOCK``)."""
+    s = base.element_size()
+    row = base.shape[1] * s
+    vec = next(v for v in (16, 8, 4, 2, s)
+               if v >= s and row % v == 0 and base.data_ptr() % v == 0
+               and upd.data_ptr() % v == 0)
+    units = row // vec
+    rows = min(MAX_ROWS_PER_BLOCK, max(1, UNITS_PER_BLOCK // max(units, 1)))
+    return MergePlan(vec, THREADS, rows)
+
+
+def merge_nbytes(row_mask: torch.Tensor, field_mask: torch.Tensor,
+                 elem_size: int, ts_size: int) -> dict:
+    """Bytes a merge at these masks must move, for its bound.
+
+    ``"mask_aware"``: each output element needs the one operand element
+    the masks select (N * W * s bytes read however the masks fall), the
+    N * W * s bytes written, the N + W mask bytes, ``ts_base`` only for
+    the rows that keep their timestamp, and the N timestamps written.
+    Where the field mask is all true or all false (the head-table
+    merge's: all true), that is ``base`` for every row not wholly taken
+    and ``upd`` for every merged row that takes a field, which is what
+    the kernel reads. ``"both_operands"``: both operands and every
+    timestamp read, as a select that reads both (``torch.where``)
+    moves."""
+    n, w = row_mask.shape[0], field_mask.shape[0]
+    merged = int(row_mask.sum())
+    values = n * w * elem_size
+    return {"mask_aware": 2 * values + n + w + (2 * n - merged) * ts_size,
+            "both_operands": 3 * values + n + w + 2 * n * ts_size}
 
 
 def _check(base, upd, row_mask, field_mask, ts_base, ts_new) -> None:
@@ -76,10 +131,11 @@ def masked_merge(base: torch.Tensor, upd: torch.Tensor,
         return ref.ref_masked_merge(base, upd, row_mask, field_mask, ts_base,
                                     int(ts_new))
     n, w = base.shape
-    tile = tile_for("masked_merge")
-    if tile * w >= 2**31:
+    plan = merge_plan(base, upd)
+    units = w * base.element_size() // plan.vec_bytes
+    if plan.rows_per_block * units >= 2**31:
         raise ValueError(f"W = {w} is too wide for the kernel's 32-bit "
-                         f"in-tile index")
+                         f"in-block index")
     out = torch.empty_like(base)
     ts_out = torch.empty_like(ts_base)
     if n == 0:
@@ -89,7 +145,8 @@ def masked_merge(base: torch.Tensor, upd: torch.Tensor,
         rc = fn(base.data_ptr(), upd.data_ptr(), row_mask.data_ptr(),
                 field_mask.data_ptr(), ts_base.data_ptr(), int(ts_new),
                 out.data_ptr(), ts_out.data_ptr(), n, w, base.element_size(),
-                ts_base.element_size(), tile, stream_ptr(base))
+                ts_base.element_size(), plan.vec_bytes, plan.rows_per_block,
+                plan.threads, stream_ptr(base))
     _build.check(rc, "masked_merge", "masked_merge_launch")
     count_launch(masked_merge)
     return out, ts_out

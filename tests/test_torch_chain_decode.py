@@ -9,6 +9,9 @@ generators with fixed seeds. The scan's host-side plan (workspace and
 tiles) is pinned here too: the single-pass kernel itself runs only on the
 card.
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 
@@ -24,6 +27,10 @@ from repro_torch.kernels import _compat  # noqa: E402
 from repro_torch.kernels import batched_select as tbs  # noqa: E402
 from repro_torch.kernels import delta_codec as tdc  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+from chip_smoke import at_offset, covered_cells  # noqa: E402
 
 # one log shape for the add-path parity cases: the JAX package compiles
 # its scan (in int32 whatever the packed width) once per shape, and that
@@ -161,25 +168,137 @@ def test_decode_at_plain_is_the_full_decode_then_take(rng):
     assert tops.KERNELS["chain_decode"] is tops.chain_decode_at
 
 
-@pytest.mark.parametrize("dtype,w,vec,group_log2", [
-    (torch.int8, 64, True, 4),    # the sequence field: 16 chunks of 4
-    (torch.int8, 8, True, 1),
-    (torch.int16, 8, True, 2),    # the annotation field at int16
-    (torch.int8, 1, False, 0),    # the length field
-    (torch.int8, 3, False, 2),
-    (torch.int32, 64, False, 5),  # capped at a warp
-    (torch.int32, 0, False, 0),
+@pytest.mark.parametrize("dtype,w,off,vec_bytes,lanes,group_log2", [
+    (torch.int8, 64, 0, 16, 16, 2),   # the sequence field: 4 chunks of 16
+    (torch.int8, 8, 0, 4, 4, 1),      # rows of 8 bytes: 4-byte chunks
+    (torch.int8, 3, 0, 1, 1, 2),
+    (torch.int8, 1, 0, 1, 1, 0),      # the length field
+    (torch.int16, 8, 0, 16, 8, 0),    # the annotation field at int16
+    (torch.int16, 64, 0, 16, 8, 3),
+    (torch.int16, 3, 0, 2, 1, 2),
+    (torch.int16, 1, 0, 2, 1, 0),
+    (torch.int32, 64, 0, 16, 4, 4),
+    (torch.int32, 8, 0, 16, 4, 1),
+    (torch.int32, 3, 0, 4, 1, 2),
+    (torch.int32, 1, 0, 4, 1, 0),
+    (torch.int32, 0, 0, 16, 4, 0),
+    # rows whole 16-byte vectors but the base 4 or 8 bytes past one
+    (torch.int8, 64, 4, 4, 4, 4),
+    (torch.int8, 64, 8, 4, 4, 4),
+    (torch.int16, 64, 4, 4, 2, 5),    # 32 chunks: a warp
+    (torch.int16, 8, 2, 2, 1, 3),
+    (torch.int32, 64, 4, 4, 1, 5),    # 64 single lanes: capped at a warp
+    (torch.int32, 8, 8, 4, 1, 3),
 ])
-def test_decode_plan(dtype, w, vec, group_log2):
-    plan = tdc.decode_at_plan(torch.zeros((5, w), dtype=dtype))
-    assert (plan.vec, plan.group_log2) == (vec, group_log2)
+def test_decode_plan(dtype, w, off, vec_bytes, lanes, group_log2):
+    """Packed bytes a thread loads per chain cell (16 on rows of whole
+    16-byte vectors at an aligned base, else 4, else one lane), its lanes
+    and the threads per cell, at int8/16/32 and W 1/3/8/64."""
+    deltas = at_offset(torch.zeros((5, w), dtype=dtype), off)
+    plan = tdc.decode_at_plan(deltas)
+    assert (plan.vec_bytes, plan.lanes, plan.group_log2) == (
+        vec_bytes, lanes, group_log2)
+    assert plan.vec_bytes == plan.lanes * deltas.element_size()
+    assert deltas.data_ptr() % plan.vec_bytes == 0
+    assert w % plan.lanes == 0
+    chunks = w // plan.lanes
+    assert plan.threads_per_cell == 1 << group_log2 <= 32
+    assert plan.threads_per_cell >= min(chunks, 32)
 
 
 def test_decode_plan_misaligned_rows_take_single_lanes():
     base = torch.zeros(1 + 5 * 64, dtype=torch.int8)
     rows = base[1:].view(5, 64)  # contiguous, one byte past alignment
     assert rows.is_contiguous() and rows.data_ptr() % 4 == 1
-    assert tdc.decode_at_plan(rows) == tdc.DecodePlan(False, 5)
+    assert tdc.decode_at_plan(rows) == tdc.DecodePlan(1, 1, 5)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's head-window chain-start search, emulated on the host
+# ---------------------------------------------------------------------------
+
+MASK64 = (1 << 64) - 1
+LOW7 = 0x7F7F7F7F7F7F7F7F
+HIGH = 0x8080808080808080
+
+
+def window_start(mem: np.ndarray, first: int, i: int) -> tuple[int, int]:
+    """csrc/chain_decode.cu's chain_start on a byte ``mem`` whose address
+    0 is 8-byte aligned and whose cell 0 is at byte ``first``: load the
+    aligned 8-byte word that holds cell i, keep the flags at or below i
+    and at or after cell 0, take the highest nonzero byte (63 - clzll on
+    the bytes' bit 7), else step back a word. Returns (start, words
+    loaded)."""
+    at = first + i
+    word = at & ~7
+    keep = MASK64 >> (8 * (7 - (at & 7)))
+    loads = 0
+    while True:
+        if word < first:
+            keep &= (MASK64 << (8 * (first - word))) & MASK64
+        x = int.from_bytes(mem[word:word + 8].tobytes(), "little") & keep
+        loads += 1
+        flags = (((x & LOW7) + LOW7) | x) & HIGH
+        if flags:
+            return word + ((flags.bit_length() - 1) >> 3) - first, loads
+        if word <= first:
+            return 0, loads
+        word -= 8
+        keep = MASK64
+
+
+def random_heads(rng, c, first_head):
+    """Chains of 1-20 cells (so they cross the 8-byte words of flags),
+    with or without a head at cell 0."""
+    heads = np.zeros(c, bool)
+    at = 0 if first_head else int(rng.integers(1, 12))
+    while at < c:
+        heads[at] = True
+        at += int(rng.integers(1, 21))
+    return heads
+
+
+@pytest.mark.parametrize("first_head", [True, False])
+@pytest.mark.parametrize("first", [0, 1, 5, 7, 8, 13])
+def test_window_search_finds_chain_starts(first, first_head, rng):
+    """The emulated search against the JAX package's host decode, whose
+    decode of unit deltas counts each cell's place in its chain, and the
+    chain prefixes it covers against chip_smoke.covered_cells (the
+    decode's bound). The bytes around the flags are nonzero, as a view's
+    neighbours may be."""
+    c = 700
+    heads = random_heads(rng, c, first_head)
+    mem = rng.integers(1, 256, first + c + 16).astype(np.uint8)
+    mem[first:first + c] = heads
+    rank = jref.ref_chain_decode(np.ones((c, 1), np.int32), heads)[:, 0]
+    want = np.arange(c) + 1 - rank
+    got = [window_start(mem, first, i) for i in range(c)]
+    assert [g for g, _ in got] == want.tolist()
+    # a cell at most 7 past its chain's head costs at most two word loads
+    assert all(n <= 2 for i, (s, n) in enumerate(got)
+               if i - s < 8 and (s > 0 or heads[0]))
+    idx = np.concatenate([[0, c - 1, 0], rng.integers(0, c, 300)])
+    ends = {}
+    for i in idx:
+        s, _ = got[i]
+        ends[s] = max(ends.get(s, s), i)
+    assert sum(e - s + 1 for s, e in ends.items()) == covered_cells(heads,
+                                                                    idx)
+
+
+def test_window_search_long_chain_and_no_head():
+    """A chain far longer than a word (the 10,000-cell edge case) steps
+    back a word at a time to its head; with no head anywhere it starts at
+    cell 0."""
+    c = 10_000
+    for first in (0, 3):
+        mem = np.zeros(first + c + 16, np.uint8)
+        mem[:first] = 1  # flags of another field before cell 0
+        assert window_start(mem, first, c - 1) == (0, (first + c - 1) // 8
+                                                   + 1)
+        mem[first + 1] = 1
+        assert window_start(mem, first, c - 1)[0] == 1
+        assert window_start(mem, first, 0)[0] == 0
 
 
 # ---------------------------------------------------------------------------

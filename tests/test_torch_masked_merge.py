@@ -7,17 +7,24 @@ plain torch version for CPU tensors (the CUDA kernel is held against it
 on the card by ``chip_smoke.py``). A select moves bits, so every result
 must be equal bit for bit, NaN payloads included.
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import masked_merge as tmm  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+
+from chip_smoke import at_offset  # noqa: E402
 
 DTYPES = ("int8", "int16", "int32", "float32")
 
@@ -134,3 +141,81 @@ def test_masked_merge_cpu_counts_no_launch_and_checks_inputs():
         tops.masked_merge(base, base, rm, fm, ts.to(torch.int16), 9)
     assert tref.ref_masked_merge(base, base, rm, fm, ts, 3)[1].dtype == \
         torch.int32
+
+
+@pytest.mark.parametrize("dtype,w,off_base,off_upd,vec_bytes", [
+    (torch.int32, 64, 0, 0, 16),    # the head-table merge: 16 units a row
+    (torch.int32, 4, 0, 0, 16),
+    (torch.int32, 2, 0, 0, 8),      # rows of 8 bytes
+    (torch.int32, 3, 0, 0, 4),      # 12 bytes: no 8- or 16-byte unit
+    (torch.int32, 64, 4, 4, 4),     # 4 bytes past a 16-byte boundary
+    (torch.int32, 64, 8, 8, 8),
+    (torch.int32, 64, 0, 8, 8),     # the less aligned operand decides
+    (torch.int8, 16, 0, 0, 16),
+    (torch.int8, 48, 0, 0, 16),
+    (torch.int8, 6, 0, 0, 2),
+    (torch.int8, 3, 0, 0, 1),       # one element
+    (torch.int8, 64, 1, 1, 1),
+    (torch.float16, 12, 0, 0, 8),
+    (torch.float64, 2, 0, 0, 16),
+    (torch.float64, 3, 0, 0, 8),
+    (torch.float64, 2, 8, 8, 8),
+    (torch.int64, 1, 0, 0, 8),
+])
+def test_merge_plan(dtype, w, off_base, off_upd, vec_bytes):
+    """Each thread's unit: the widest of 16/8/4/2 bytes (or one element)
+    that divides a row's W * s bytes and to which both operands are
+    aligned; a block's rows make UNITS_PER_BLOCK units."""
+    base = at_offset(torch.zeros((7, w), dtype=dtype), off_base)
+    upd = at_offset(torch.zeros((7, w), dtype=dtype), off_upd)
+    plan = tmm.merge_plan(base, upd)
+    assert plan.vec_bytes == vec_bytes
+    assert plan.threads == tmm.THREADS and plan.threads % 32 == 0
+    units = w * base.element_size() // vec_bytes
+    assert plan.rows_per_block == max(1, tmm.UNITS_PER_BLOCK // units)
+    assert (w * base.element_size()) % plan.vec_bytes == 0
+    assert base.data_ptr() % vec_bytes == upd.data_ptr() % vec_bytes == 0
+
+
+def test_merge_plan_edges():
+    """The head-table merge's plan (570,000 x 64 int32: 128 rows a block
+    of 256 threads), a row wider than a block's units, and W = 0."""
+    head = torch.zeros((570_000, 64), dtype=torch.int32)
+    assert tmm.merge_plan(head, head) == tmm.MergePlan(16, 256, 128)
+    wide = torch.zeros((2, 9000), dtype=torch.int32)
+    plan = tmm.merge_plan(wide, wide)
+    assert plan.vec_bytes == 16 and plan.rows_per_block == 1
+    none = torch.zeros((3, 0), dtype=torch.int8)
+    empty = tmm.merge_plan(none, none)
+    assert empty.rows_per_block <= tmm.MAX_ROWS_PER_BLOCK
+
+
+@pytest.mark.parametrize("row_kind", ["none", "all", "mixed"])
+@pytest.mark.parametrize("field_kind", ["none", "all", "mixed"])
+def test_merge_nbytes_matches_a_brute_force_count(row_kind, field_kind):
+    """The mask-aware count (one operand element read per output element,
+    ts_base only for rows that keep theirs) and the both-operands count,
+    element by element."""
+    rng = np.random.default_rng(3)
+    n, w = 37, 9
+    rm = {"none": np.zeros(n, bool), "all": np.ones(n, bool),
+          "mixed": rng.random(n) < 0.3}[row_kind]
+    fm = {"none": np.zeros(w, bool), "all": np.ones(w, bool),
+          "mixed": rng.random(w) < 0.5}[field_kind]
+    for s, t_size in ((1, 4), (4, 8), (8, 8)):
+        aware = both = n + w  # the masks
+        for r in range(n):
+            for f in range(w):
+                aware += s + s  # the selected operand's element, the output
+                both += 3 * s
+            aware += (0 if rm[r] else t_size) + t_size
+            both += 2 * t_size
+        got = tmm.merge_nbytes(t(rm), t(fm), s, t_size)
+        assert got == {"mask_aware": aware, "both_operands": both}
+    # the head-table merge: about 3% of 570,000 rows merged, W 64 int32,
+    # int64 timestamps
+    rm = np.zeros(570_000, bool)
+    rm[::33] = True
+    got = tmm.merge_nbytes(t(rm), t(np.ones(64, bool)), 4, 8)
+    assert got["both_operands"] - got["mask_aware"] == (
+        570_000 * 64 * 4 + int(rm.sum()) * 8)
