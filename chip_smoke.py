@@ -12,13 +12,19 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   instructions (HGMMA, BF16 and TF32) per kernel
   kernel          each CUDA kernel at ragged edge shapes (the delta codec
                   at every lane dtype, with extreme values, and on bases 4
-                  and 8 bytes past a 16-byte boundary; the route at
-                  the empty key, trailing-zero and 125+ byte keys; the
-                  stacked scan at S = 1/3/4, ragged C, boundaries at 0 and
-                  C), then at the shapes its path gives it: max |kernel -
-                  plain version| (must be 0; the codec compares bits and
-                  per-tile stats), kernel / plain / library times, and its
-                  bound
+                  and 8 bytes past a 16-byte boundary; the route's two
+                  entry points at the empty key, trailing-zero and 125+
+                  byte keys; the stacked scan at S = 1/3/4, ragged C,
+                  boundaries at 0 and C), then at the shapes its path
+                  gives it: max |kernel - plain version| (must be 0; the
+                  codec compares bits and per-tile stats), kernel / plain /
+                  library times, its bound, and for the fingerprint, the
+                  route and the keep mask the card's time alone per call
+                  (device_ms: calls queued behind a spin kernel)
+  kernel_edges_fingerprint  the fingerprint at W 1/2/3/4/5/7/8/9/12/16/17/
+                  63/64/65/128/300, N 1/513/200,003 (a ragged last tile), on
+                  bases 0/4/8 bytes past a 16-byte boundary (a row slice
+                  of a larger buffer), bit for bit, with each case's plan
   kernel_edges_scan  the single-pass scan at C = 1, a tile - 1, a tile, a
                   tile + 1 and 2^24 + 3, Q = 1/2/8/64, timestamps on the
                   card and (Q <= 8) by value from the host, and two calls
@@ -44,7 +50,9 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   kernel beside its plain version (the full decode); the
                   Q = 1, 8 and 64 gathers' outputs checked against the
                   sequence values
-  sharding        the same 8 releases into a ShardedStore of 4 shards
+  sharding        route_keys on the last release's keys (and its host
+                  packing, key_bytes; key_lanes, off the path, beside it),
+                  then the same 8 releases into a ShardedStore of 4 shards
                   (ts 10..40 through update, ts 50..80 through threaded
                   ShardedReleaseSession waves of 4 chunks), get_versions at
                   Q = 1/8/64 (serial: Q = 1/8) and get_increments over the
@@ -128,7 +136,10 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   both operands read;
                   the codec's rows timed in alternating rounds with their
                   library calls, and the int32 packs' device time per
-                  call with no host time in it, beside torch.sub's)
+                  call with no host time in it, beside torch.sub's; the
+                  route twice: from flat key bytes, the sharding path's,
+                  and from padded lanes, launched by no path; device_ms
+                  for the fingerprint, both routes and the keep mask)
 
 then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any mismatch or error ends the run with a
@@ -173,6 +184,9 @@ GATHER_CHUNK = 1 << 22  # cells per chunk when a gather is checked
 SOURCES = {
     "fingerprint": ("src/repro_torch/csrc/fingerprint.cu",
                     "src/repro/kernels/fingerprint.py:29"),
+    # the route of the store's path: flat key bytes + offsets
+    "shard_route_bytes": ("src/repro_torch/csrc/shard_route.cu",
+                          "src/repro/kernels/shard_route.py:40"),
     "masked_cumsum": ("src/repro_torch/csrc/masked_cumsum.cu",
                       "src/repro/kernels/batched_select.py:50"),
     # the same wrapper at one query (its launches: the Q = 1 calls)
@@ -213,8 +227,9 @@ PATH_KERNELS = {
                   "chain_decode"),
     "persistence": ("fingerprint", "masked_cumsum", "keep_mask",
                     "delta_pack"),
-    "sharding": ("fingerprint", "shard_route", "stacked_masked_cumsum",
-                 "masked_cumsum", "keep_mask", "delta_pack"),
+    "sharding": ("fingerprint", "shard_route_bytes",
+                 "stacked_masked_cumsum", "masked_cumsum", "keep_mask",
+                 "delta_pack"),
     "merge": ("masked_merge",),
     "serving": ("flash_attention",),
 }
@@ -237,6 +252,12 @@ SMOKE_TOL = 1e-4  # f32 logits, card against CPU (sums in another order)
 FLASH_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-5, 2**-7)}
 PLAIN_FLASH_TILE = 1024  # the plain version's (bq, bk) tiles on the card
 N_SHARDS = 4  # the JAX package's default shard count
+# the fingerprint's edge cases: widths on every path of its plan (rows,
+# 16-byte and 4-byte tiles, chunks past 128 lanes), row counts (200,003: a
+# ragged last tile and several tiles a block), bases past 16-byte alignment
+FP_EDGE_W = (1, 2, 3, 4, 5, 7, 8, 9, 12, 16, 17, 63, 64, 65, 128, 300)
+FP_EDGE_N = (1, 513, 200_003)
+FP_EDGE_OFFSETS = (0, 4, 8)
 CODEC_DTYPES = ("int8", "int16", "uint16", "int32", "uint32", "float16",
                 "float32", "int64", "float64")
 INT32 = np.iinfo(np.int32)
@@ -528,13 +549,18 @@ class KernelBench:
             library=None, *, timed: bool, main: bool = False,
             quiet: bool = False, tol: tuple | None = None,
             peak: float | None = None, reps: int | None = None,
-            rounds: int = 1, extra: dict | None = None) -> dict:
+            rounds: int = 1, extra: dict | None = None,
+            device: bool = False) -> dict:
         """``tol`` (atol, rtol): compare values within it instead of bits;
         ``peak``: the compute rate of the bound (default: CUDA cores);
         ``rounds``: time kernel and library in that many alternating
         rounds, report the medians, keep every round and count those the
-        kernel won; ``extra``: more keys for the record. Both outputs are
-        freed before the timing (a Q = 64 gather's are 9 GB each)."""
+        kernel won; ``extra``: more keys for the record; ``device``: also
+        time the kernel's calls queued behind a spin kernel
+        (``device_ms``: the card's time per call, with no host time in it,
+        for kernels whose calls take longer on the host than on the card).
+        Both outputs are freed before the timing (a Q = 64 gather's are 9
+        GB each)."""
         got = kernel()
         want = plain()
         sync()
@@ -577,6 +603,8 @@ class KernelBench:
             rec["plain_ms"] = cuda_ms(plain, n)
             rec["library_ms"] = float(np.median(ls)) if ls else None
             rec["reps"] = n
+            if device:
+                rec["device_ms"] = queued_ms(kernel, n)
             if rounds > 1:
                 rec["rounds"] = {"kernel_ms": ks, "library_ms": ls}
                 if ls:
@@ -590,13 +618,24 @@ class KernelBench:
         return rec
 
     # -- the three kernels --------------------------------------------------
-    def fingerprint(self, lanes, *, timed=True, main=False):
+    def fingerprint(self, lanes, *, timed=True, main=False,
+                    quiet=False) -> dict:
+        """The fingerprint bit for bit, with the kernel's plan in the
+        shape, and its device time alone where timed."""
+        from repro_torch.kernels.fingerprint import fingerprint_plan
         n, w = lanes.shape
-        self.run("fingerprint", {"N": n, "W": w},
-                 lambda: self.kops.fingerprint(lanes),
-                 lambda: self.kops.ref.ref_fingerprint(lanes),
-                 nbytes=n * w * 4 + n * 8, ops=5 * n * w + 4 * n,
-                 timed=timed, main=main)
+        align = lanes.data_ptr() % 16
+        plan = fingerprint_plan(w, align)
+        return self.run(
+            "fingerprint", {"N": n, "W": w, "base_align": align,
+                            "path": plan.path,
+                            "rows_per_tile": plan.rows_per_tile,
+                            "stages": plan.stages, "threads": plan.threads,
+                            "lanes_per_chunk": plan.lanes_per_chunk},
+            lambda: self.kops.fingerprint(lanes),
+            lambda: self.kops.ref.ref_fingerprint(lanes),
+            nbytes=n * w * 4 + n * 8, ops=5 * n * w + 4 * n,
+            timed=timed, main=main, quiet=quiet, device=True)
 
     def masked_cumsum(self, ts, tq, *, timed=True, main=False,
                       quiet=False, rounds=1) -> dict:
@@ -632,7 +671,24 @@ class KernelBench:
             lambda: self.kops.shard_route(lanes, lens, n_shards),
             lambda: self.kops.ref.ref_shard_route(lanes, lens, n_shards),
             nbytes=n * w * 4 + 2 * n * 4, ops=n * (8 * w + 5),
-            timed=timed, main=main, quiet=quiet)
+            timed=timed, main=main, quiet=quiet, device=True)
+
+    def shard_route_bytes(self, flat, offsets, n_shards, *, timed=True,
+                          main=False, quiet=False) -> dict:
+        """The route from flat key bytes against its plain version. Its
+        bound: the key bytes, the offsets and the ids moved once, and the
+        fold of each key's ceil(len / 4) lanes."""
+        n = offsets.shape[0] - 1
+        lanes = int(((offsets[1:] - offsets[:-1] + 3) // 4).sum())
+        return self.run(
+            "shard_route_bytes", {"N": n, "bytes": flat.shape[0],
+                                  "lanes": lanes, "shards": n_shards,
+                                  "base_align": flat.data_ptr() % 16},
+            lambda: self.kops.shard_route_bytes(flat, offsets, n_shards),
+            lambda: self.kops.ref.ref_shard_route_bytes(flat, offsets,
+                                                        n_shards),
+            nbytes=flat.shape[0] + 8 * (n + 1) + 4 * n, ops=8 * lanes + 5 * n,
+            timed=timed, main=main, quiet=quiet, device=True)
 
     def codec(self, name, a, b, *, unsigned=False, timed=True, main=False,
               label=None, quiet=False, rounds=1) -> dict:
@@ -785,7 +841,7 @@ class KernelBench:
                  lambda: self.kops.keep_mask(ts, cutoff),
                  lambda: self.kops.ref.ref_keep_mask(ts, cutoff, tile),
                  nbytes=8 * c + 4 * n_tiles, ops=2 * c,
-                 timed=timed, main=main)
+                 timed=timed, main=main, device=True)
 
 
 def covered_cells(heads: np.ndarray, idx: np.ndarray) -> int:
@@ -842,16 +898,44 @@ def codec_pair(rng, dtype: str, n: int, w: int):
             dt.kind == "u")
 
 
-def phase_kernel_edges(bench: KernelBench, rng) -> None:
-    """Ragged and extreme shapes, compared only (they time launch cost)."""
-    dev = DEV
-    for n in (1, 513):
-        for w in (1, 8, 64):
+def phase_kernel_edges_fingerprint(bench: KernelBench, rng) -> None:
+    """The fingerprint at every path of its plan (rows, 16-byte and 4-byte
+    tiles, rows staged in chunks past 128 lanes), at N 1, 513 and 200,003
+    (a ragged last tile, several tiles a block), on bases 0, 4 and 8 bytes
+    past a 16-byte boundary (a row slice of a larger buffer), bit for
+    bit, summarized in one line with each case's plan."""
+    cases = []
+    for n in FP_EDGE_N:
+        for w in FP_EDGE_W:
             lanes = rng.integers(INT32.min, INT32.max, (n, w),
                                  dtype=np.int32, endpoint=True)
             lanes[0, 0] = INT32.min
             lanes[-1, -1] = INT32.max
-            bench.fingerprint(torch.as_tensor(lanes, device=dev), timed=False)
+            t = torch.as_tensor(lanes, device=DEV)
+            for off in FP_EDGE_OFFSETS:
+                x = t if off == 0 else at_offset(t, off)
+                if off:  # a contiguous row slice with a storage offset
+                    check(x.storage_offset() > 0 and x.is_contiguous(),
+                          "the offset case is no contiguous view")
+                cases.append(bench.fingerprint(x, timed=False, quiet=True))
+    shapes = [c["shape"] for c in cases]
+    emit({"phase": "kernel_edges_fingerprint", "W": list(FP_EDGE_W),
+          "N": list(FP_EDGE_N), "offsets_bytes": list(FP_EDGE_OFFSETS),
+          "cases": len(cases),
+          "paths": sorted({sh["path"] for sh in shapes}),
+          "plans": [[sh[k] for k in ("W", "N", "base_align", "path",
+                                     "rows_per_tile", "stages", "threads",
+                                     "lanes_per_chunk")] for sh in shapes],
+          "max_abs_diff": max(c["max_abs_diff"] for c in cases),
+          "gpu": bench.smi})
+    check({sh["path"] for sh in shapes} == {"rows", "tile16", "tile4"},
+          "the fingerprint edges missed a path of the plan")
+
+
+def phase_kernel_edges(bench: KernelBench, rng) -> None:
+    """Ragged and extreme shapes, compared only (they time launch cost)."""
+    dev = DEV
+    phase_kernel_edges_fingerprint(bench, rng)
     phase_kernel_edges_scan(bench, rng)
     phase_kernel_edges_decode(bench, rng)
     ts_max = 2**31 - 2
@@ -1056,11 +1140,13 @@ def phase_kernel_edges_decode(bench: KernelBench, rng) -> None:
 
 def phase_kernel_edges_sharding(bench: KernelBench, rng) -> None:
     """The sharding slice's kernels at edge shapes, compared only and
-    summarized in one line: the route at the empty key, keys whose real
-    bytes end in zeros and keys of 125+ bytes (the rotation wraps past 31
-    lanes), for 1, 2, 5 and 7 shards; the stacked scan at S = 1/3/4, ragged
-    C with int32-max padding, Q = 1/8/64, and its boundary sample at
-    boundaries 0 and C."""
+    summarized in one line: the route's two entry points (padded lanes,
+    and flat key bytes, also from a buffer whose keys start 3 bytes in) at
+    the empty key, keys whose real bytes end in zeros and keys of 125+
+    bytes (the rotation wraps past 31 lanes), for 1, 2, 5 and 7 shards,
+    each against its plain version and against the other; the stacked
+    scan at S = 1/3/4, ragged C with int32-max padding, Q = 1/8/64, and its
+    boundary sample at boundaries 0 and C."""
     kops, ref = bench.kops, bench.kops.ref
     edge = [b"", b"\x00", b"a", b"a\x00", b"a\x00\x00\x00\x00", b"x" * 125,
             b"y" * 200 + b"\x00",
@@ -1070,9 +1156,22 @@ def phase_kernel_edges_sharding(bench: KernelBench, rng) -> None:
         keys = (edge + keys_of(np.arange(n)))[:n]
         lanes, lens = (torch.as_tensor(a, device=DEV)
                        for a in kops.key_lanes(keys))
-        for n_shards in (1, 2, 5, 7):
-            cases.append(bench.shard_route(lanes, lens, n_shards,
-                                           timed=False, quiet=True))
+        flat, offsets = kops.key_bytes(keys)
+        for pre in (0, 3):
+            f = torch.as_tensor(np.concatenate([np.full(pre, 0xAB, np.uint8),
+                                                flat]), device=DEV)[pre:]
+            o = torch.as_tensor(offsets, device=DEV)
+            for n_shards in (1, 2, 5, 7):
+                if pre == 0:
+                    cases.append(bench.shard_route(lanes, lens, n_shards,
+                                                   timed=False, quiet=True))
+                cases.append(bench.shard_route_bytes(
+                    f, o, n_shards, timed=False, quiet=True))
+                got = kops.shard_route_bytes(f, o, n_shards)
+                want = kops.shard_route(lanes, lens, n_shards)
+                sync()
+                check(torch.equal(got, want), f"the route's entry points "
+                      f"differ at N {n}, {n_shards} shards")
     from repro_torch.kernels.batched_select import TILE as tile
     stacked_c = (1, 2047, 2049, tile - 1, tile, tile + 1, 5001)
     for s in (1, 3, 4):
@@ -1099,6 +1198,7 @@ def phase_kernel_edges_sharding(bench: KernelBench, rng) -> None:
     emit({"phase": "kernel_edges_sharding",
           "kernels": sorted({c["name"] for c in cases}),
           "route_N": [1, 513, 100_003], "route_shards": [1, 2, 5, 7],
+          "route_bytes_pre": [0, 3],
           "stacked_S": [1, 3, 4], "stacked_C": list(stacked_c),
           "stacked_Q": [1, 2, 8, 64], "cases": len(cases),
           "boundary_selects_compared": 3 * len(stacked_c) * 4,
@@ -1583,12 +1683,15 @@ def phase_sharding(core, placement, kops, releases, root: str) -> dict:
                                              r["table"]))
     rec = {"phase": "sharding", "shards": N_SHARDS,
            "entries": len(releases[0]["ids"]), "releases": len(releases)}
-    # route_keys alone on the last release's keys: the host packing of the
-    # key bytes (key_lanes) and the whole call
+    # route_keys alone on the last release's keys: its host packing of the
+    # key bytes (key_bytes) and the whole call; beside them the padded
+    # lanes' packing (key_lanes), which the store's path no longer runs
     last_keys = keys_of(releases[-1]["ids"])
-    _, rec["key_lanes_s"] = wall(lambda: kops.key_lanes(last_keys))
+    _, rec["key_bytes_s"] = wall(lambda: kops.key_bytes(last_keys))
     _, rec["route_keys_s"] = wall(lambda: uncounted(
         kops, lambda: kops.route_keys(last_keys, N_SHARDS, DEV)))
+    _, rec["key_lanes_s"] = wall(lambda: kops.key_lanes(last_keys))
+    rec["off_path"] = ["key_lanes_s"]
     reset_counts(kops)
     st = core.ShardedStore("uniprot_sprot", schema, n_shards=N_SHARDS,
                            capacity=N_ENTRIES)
@@ -1711,18 +1814,24 @@ def phase_sharding(core, placement, kops, releases, root: str) -> dict:
     for name in PATH_KERNELS["sharding"]:
         check(rec["launches"][name] > 0,
               f"kernel {name} never launched on the sharding path")
-    lanes, lens = kops.key_lanes(last_keys)
     return {"launches": rec["launches"],
             "stack": (placed._blocks[0][2], placed._blocks[0][3]),
-            "shard_ts": shard_ts, "route_in": (lanes, lens)}
+            "shard_ts": shard_ts,
+            "route_in": (*kops.key_bytes(last_keys),
+                         *kops.key_lanes(last_keys))}
 
 
 def phase_kernel_sharding(bench: KernelBench, sharding_out) -> None:
     """The sharding slice's kernels at the shapes the sharding phase gave
-    them: the route of the last release's keys over 4 shards, the stacked
-    scan of the 4 shards' (S, Cmax) ts stack at Q = 1/8/64, and beside it
-    the four per-shard scans the serial placement runs at Q = 64."""
-    lanes, lens = sharding_out.pop("route_in")
+    them: the route of the last release's keys over 4 shards from their
+    flat bytes (the path's entry point) and, beside it, from padded lanes,
+    the stacked scan of the 4 shards' (S, Cmax) ts stack at Q = 1/8/64,
+    and beside it the four per-shard scans the serial placement runs at
+    Q = 64."""
+    flat, offsets, lanes, lens = sharding_out.pop("route_in")
+    bench.shard_route_bytes(torch.as_tensor(flat, device=DEV),
+                            torch.as_tensor(offsets, device=DEV), N_SHARDS,
+                            main=True)
     bench.shard_route(torch.as_tensor(lanes, device=DEV),
                       torch.as_tensor(lens, device=DEV), N_SHARDS, main=True)
     ts, _bnd = sharding_out.pop("stack")
@@ -2442,7 +2551,7 @@ def main() -> int:
     # merge from its phase, flash attention from serving, the rest from
     # the main path (chain decode's rows: the launches of their gathers)
     path_of = {k: (pers_out if k.startswith("delta_")
-                   else shard_out if k in ("shard_route",
+                   else shard_out if k in ("shard_route", "shard_route_bytes",
                                            "stacked_masked_cumsum")
                    else merge_out if k == "masked_merge"
                    else serving_out if k.startswith("flash_attention")
@@ -2458,7 +2567,8 @@ def main() -> int:
                      "bound_by": m["bound_by"],
                      "library_ms": m["library_ms"], "shape": m["shape"],
                      **{k: m[k] for k in ("bound_both_operands_ms",
-                                          "rounds_won") if k in m}})
+                                          "rounds_won", "device_ms")
+                        if k in m}})
     emit({"kernels": rows, "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,16 +8,15 @@ pads inputs to a tile multiple.
 """
 from __future__ import annotations
 
-#: elements per block (fingerprint, shard_route: rows per block;
-#: delta_codec: rows per stat tile, which ``codec_plan`` cuts into
-#: blocks). Each is a multiple of the kernel's items per thread and at
-#: most 1024 threads' worth. The scan's and the flash attention kernel's
-#: tiles are compile-time constants of their sources (the scan's:
-#: ``batched_select.TILE``); the masked merge and chain decode size their
-#: blocks by their plans (``merge_plan``, ``decode_at_plan``).
+#: elements per block (shard_route: keys per block; delta_codec: rows per
+#: stat tile, which ``codec_plan`` cuts into blocks). Each is a multiple
+#: of the kernel's items per thread and at most 1024 threads' worth. The
+#: scan's and the flash attention kernel's tiles are compile-time
+#: constants of their sources (the scan's: ``batched_select.TILE``); the
+#: fingerprint, the masked merge and chain decode size their blocks by
+#: their plans (``fingerprint_plan``, ``merge_plan``, ``decode_at_plan``).
 DEFAULT_TILES = {
     "keep_mask": 1024,      # 256 threads x 4 cells
-    "fingerprint": 256,     # one thread per row
     "shard_route": 512,     # one thread per key; the JAX package's tile
     "delta_codec": 512,     # rows per stat tile; the JAX package's tile,
                             # so the per-tile stats match

@@ -4,7 +4,9 @@
 carries a ``launches`` count of the times it launched its kernel (CPU
 tensors take the plain version and count nothing). ``batched_masked_cumsum``
 and ``stacked_masked_cumsum`` launch the same CUDA kernel with one row and
-with S rows, and count apart, so a run shows which form its path took.
+with S rows, and count apart, so a run shows which form its path took;
+so do ``shard_route`` (padded lanes) and ``shard_route_bytes`` (flat key
+bytes, the sharded store's route).
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from .delta_codec import (chain_decode, chain_decode_at, chain_pack,
 from .fingerprint import fingerprint
 from .flash_attention import flash_attention
 from .masked_merge import masked_merge
-from .shard_route import key_lanes, merge_shard_rows, route_keys, shard_route
+from .shard_route import (key_bytes, key_lanes, merge_shard_rows, route_keys,
+                          shard_route, shard_route_bytes)
 from .version_select import masked_cumsum, version_select
 
 __all__ = [
@@ -32,11 +35,11 @@ __all__ = [
     "compact_rewrite",
     "delta_pack", "delta_pack_wide", "delta_unpack", "delta_unpack_wide",
     "fingerprint", "fingerprint_rows", "flash_attention", "keep_mask",
-    "key_lanes", "launch", "masked_cumsum", "masked_merge",
+    "key_bytes", "key_lanes", "launch", "masked_cumsum", "masked_merge",
     "merge_shard_rows", "narrow_dtype", "ref", "ref_chain_decode_at",
     "ref_compact_rewrite", "route_keys", "scan_bucket", "shard_route",
-    "stacked_boundary_select", "stacked_masked_cumsum", "to_int_lanes",
-    "version_select",
+    "shard_route_bytes", "stacked_boundary_select", "stacked_masked_cumsum",
+    "to_int_lanes", "version_select",
 ]
 
 #: kernel name -> the wrapper that launches it (and counts its launches)
@@ -45,6 +48,7 @@ KERNELS = {
     "masked_cumsum": batched_masked_cumsum,
     "stacked_masked_cumsum": stacked_masked_cumsum,
     "shard_route": shard_route,
+    "shard_route_bytes": shard_route_bytes,
     "keep_mask": keep_mask,
     "delta_pack": delta_pack,
     "delta_unpack": delta_unpack,

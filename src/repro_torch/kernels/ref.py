@@ -176,6 +176,28 @@ def ref_shard_route(lanes: torch.Tensor, lengths: torch.Tensor,
     return ((h & 0x7FFFFFFF) % int(n_shards)).to(torch.int32)
 
 
+def ref_shard_route_bytes(flat: torch.Tensor, offsets: torch.Tensor,
+                          n_shards: int) -> torch.Tensor:
+    """flat: (B,) uint8, every key's bytes end to end; offsets: (N + 1,)
+    int64, key i = flat[offsets[i]:offsets[i + 1]] -> (N,) int32 shard ids,
+    ``ref_shard_route`` of the keys' zero-padded little-endian lanes (the
+    batch's widest key sets W). The lanes are built by indexing, with no
+    loop over keys: byte b of key i is flat[offsets[i] + b] where b < its
+    length, else a zero byte appended to ``flat``."""
+    start = offsets[:-1]
+    lens = offsets[1:] - start
+    n = lens.shape[0]
+    w = max((int(lens.max()) + 3) // 4, 1) if n else 1
+    pos = torch.arange(4 * w, device=flat.device)
+    padded = torch.cat([flat, flat.new_zeros(1)]).to(torch.int64)
+    idx = torch.where(pos[None, :] < lens[:, None],
+                      start[:, None] + pos[None, :], flat.shape[0])
+    b = padded[idx].view(n, w, 4)
+    lanes = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
+    return ref_shard_route(_wrap32(lanes).to(torch.int32),
+                           lens.to(torch.int32), n_shards)
+
+
 # ---------------------------------------------------------------------------
 # keep mask: the compaction horizon mask plus survivor counts per tile.
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import compact_rewrite as jcompact  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import _build, _compat  # noqa: E402
+from repro_torch.kernels import fingerprint as tfp  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
@@ -57,6 +58,159 @@ def test_fingerprint_empty_and_constants():
     assert tops.fingerprint(torch.zeros((0, 3), dtype=torch.int32)).shape == (0, 2)
     for name in ("FNV1_INIT", "FNV1_MUL", "FNV2_INIT", "FNV2_MUL"):
         assert getattr(tref, name) == getattr(jref, name)
+
+
+@pytest.mark.parametrize("w", [3, 4, 5, 8, 9, 12, 16, 17, 63, 65, 128, 300])
+def test_fingerprint_matches_jax_at_edge_widths(w, rng):
+    """The widths around the kernel's paths: rows (W <= 8), 16-byte tiles
+    (W % 4 == 0), 4-byte tiles, and rows staged in chunks (W > 128)."""
+    lanes = extreme_lanes(rng, 257, w)
+    got = tops.fingerprint(t(lanes)).numpy()
+    assert np.array_equal(got, np.asarray(jops.fingerprint(jnp.asarray(lanes))))
+
+
+@pytest.mark.parametrize("w", [1, 8, 12, 64, 65])
+def test_fingerprint_on_a_view_with_storage_offset(w, rng):
+    """A contiguous row slice of a larger buffer: its base lies 4 bytes
+    past a 16-byte boundary whenever the buffer's does not, and the plan
+    then takes the 4-byte tile copy (or the rows path)."""
+    lanes = extreme_lanes(rng, 130, w)
+    buf = torch.zeros(lanes.size + 8, dtype=torch.int32)
+    view = buf[1:1 + lanes.size].view(130, w)
+    view.copy_(t(lanes))
+    assert view.storage_offset() == 1 and view.is_contiguous()
+    got = tops.fingerprint(view).numpy()
+    assert np.array_equal(got, np.asarray(jops.fingerprint(jnp.asarray(lanes))))
+    plan = tfp.fingerprint_plan(w, view.data_ptr() % 16)
+    assert plan.path == ("rows" if w <= 8 else "tile4"
+                         if view.data_ptr() % 16 else "tile16" if w % 4 == 0
+                         else "tile4")
+
+
+@pytest.mark.parametrize("align", [0, 4, 8, 12])
+def test_fingerprint_plan(align):
+    for w in list(range(0, 70)) + [127, 128, 129, 255, 256, 300, 1000, 4097]:
+        p = tfp.fingerprint_plan(w, align)
+        if w <= 8:
+            assert p.path == "rows" and p.threads == tfp.ROWS_THREADS
+            assert p.rows_per_tile == 4 * p.threads and p.smem_bytes == 0
+            continue
+        vec16 = w % 4 == 0 and align == 0
+        assert p.path == ("tile16" if vec16 else "tile4")
+        assert p.threads == p.rows_per_tile
+        assert p.threads % 32 == 0 and 32 <= p.threads <= 256
+        assert p.lanes_per_chunk == min(w, 128) and p.stages == 2
+        assert p.smem_bytes == p.stages * p.rows_per_tile * p.row_stride * 4
+        assert p.smem_bytes <= 227 * 1024
+        r = np.arange(32)
+        if vec16:
+            assert p.lanes_per_chunk % 4 == 0 and p.row_stride % 4 == 0
+            pieces = p.row_stride // 4
+            assert pieces % 2 == 1 and pieces >= p.lanes_per_chunk // 4
+            # a quarter-warp's 16-byte reads of one piece of eight rows
+            # fall in eight distinct 16-byte bank groups
+            for c in range(p.lanes_per_chunk // 4):
+                for q0 in range(0, 32, 8):
+                    groups = (r[q0:q0 + 8] * pieces + c) % 8
+                    assert len(set(groups.tolist())) == 8
+        else:
+            assert p.row_stride % 2 == 1
+            assert p.row_stride >= p.lanes_per_chunk
+            # a warp's 4-byte reads of one word of 32 rows: 32 banks
+            for c in range(p.lanes_per_chunk):
+                assert len(set(((r * p.row_stride + c) % 32).tolist())) == 32
+    # a tile of whole rows holds about TILE_BYTES
+    assert tfp.fingerprint_plan(64, 0).rows_per_tile == 128
+    assert tfp.fingerprint_plan(16, 0).rows_per_tile == 256
+
+
+def emulate_fingerprint(lanes: np.ndarray, plan, grid: int) -> np.ndarray:
+    """The kernel's schedule and addressing in numpy, at a grid of
+    ``grid`` blocks. Rows path: warp v folds rows r0 + lane + 32 k for
+    r0 = 128 v, 128 (v + warps), ... Tile paths: block b walks items i =
+    0, 1, ... (tile b + (i // chunks) * grid, chunk i % chunks), copies
+    the item's lanes into stage i % 2 (unit by unit as the threads do, row
+    r at r * row_stride words; the rest of the stage holds garbage), then
+    each row folds its lanes from the stage, keeping its hash across
+    chunks. Returns the (N, 2) int32 fingerprints; raises if a row is
+    folded twice or never."""
+    n, w = lanes.shape
+    m32 = np.uint64(0xFFFFFFFF)
+    x = lanes.reshape(-1).view(np.uint32).astype(np.uint64)
+    init = (int(tref.FNV1_INIT) & 0xFFFFFFFF, int(tref.FNV2_INIT) & 0xFFFFFFFF)
+    mul1, mul2 = np.uint64(int(tref.FNV1_MUL)), np.uint64(int(tref.FNV2_MUL))
+    out = np.zeros((n, 2), np.int64)
+    folded = np.zeros(n, np.int64)
+
+    def fold(h1, h2, xs, j1):
+        return ((h1 ^ xs) * mul1) & m32, (((h2 * mul2) & m32)
+                                          ^ ((xs + np.uint64(j1)) & m32))
+
+    def finish(rows, h1, h2):
+        a = h1 ^ ((h2 << np.uint64(13)) & m32)
+        # >> 7 on the int32 value: an arithmetic shift
+        a_signed = a.astype(np.uint32).view(np.int32).astype(np.int64)
+        out[rows, 0] = a
+        out[rows, 1] = h2 ^ ((a_signed >> 7).astype(np.uint64) & m32)
+        folded[rows] += 1
+
+    if plan.path == "rows":
+        warps = grid * plan.threads // 32
+        for v in range(warps):
+            for r0 in range(128 * v, n, 128 * warps):
+                rows = (r0 + np.arange(32)[None, :]
+                        + 32 * np.arange(4)[:, None]).reshape(-1)
+                rows = rows[rows < n]
+                h1 = np.full(rows.size, init[0], np.uint64)
+                h2 = np.full(rows.size, init[1], np.uint64)
+                for j in range(w):
+                    h1, h2 = fold(h1, h2, x[rows * w + j], j + 1)
+                finish(rows, h1, h2)
+    else:
+        rows_t, k = plan.rows_per_tile, plan.lanes_per_chunk
+        stride = plan.row_stride
+        unit = 4 if plan.path == "tile16" else 1
+        n_tiles, chunks = -(-n // rows_t), -(-w // k)
+        for b in range(min(grid, n_tiles)):
+            stages = np.zeros((2, rows_t * stride), np.uint64)
+            items = -(-(n_tiles - b) // grid) * chunks
+            for i in range(items):
+                r0 = (b + i // chunks * grid) * rows_t
+                k0, nr = i % chunks * k, min(rows_t, n - r0)
+                kc = min(k, w - k0)
+                stage = stages[i % 2]
+                stage[:] = 0xDEADBEEF
+                u = np.arange(nr * (kc // unit))
+                r, q = u // (kc // unit), u % (kc // unit)
+                for e in range(unit):
+                    stage[r * stride + unit * q + e] = x[
+                        (r0 + r) * w + k0 + unit * q + e]
+                t_ = np.arange(nr)
+                if k0 == 0:
+                    h1 = np.full(rows_t, init[0], np.uint64)
+                    h2 = np.full(rows_t, init[1], np.uint64)
+                for j in range(kc):
+                    h1[:nr], h2[:nr] = fold(h1[:nr], h2[:nr],
+                                            stage[t_ * stride + j], k0 + j + 1)
+                if k0 + kc == w:
+                    finish(r0 + t_, h1[:nr], h2[:nr])
+    if not (folded == 1).all():
+        raise AssertionError(f"rows folded {np.unique(folded)} times")
+    return (out & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("w,align,n,grid", [
+    (1, 0, 1000, 2), (3, 4, 517, 1), (8, 0, 1000, 3), (12, 0, 600, 2),
+    (16, 4, 700, 2), (17, 0, 600, 2), (64, 0, 1000, 3), (65, 8, 300, 2),
+    (300, 0, 130, 2), (257, 4, 70, 1)])
+def test_fingerprint_kernel_schedule_emulated(w, align, n, grid, rng):
+    """The kernel's persistent schedule, double-buffered stages and padded
+    row addressing, emulated in numpy from its plan, give the JAX
+    package's fingerprints, each row folded once (ragged last tiles,
+    several tiles per block, rows staged in chunks)."""
+    lanes = extreme_lanes(rng, n, w)
+    got = emulate_fingerprint(lanes, tfp.fingerprint_plan(w, align), grid)
+    assert np.array_equal(got, np.asarray(jops.fingerprint(jnp.asarray(lanes))))
 
 
 @pytest.mark.parametrize("dtype", ["int8", "uint8", "int16", "uint16",

@@ -135,6 +135,107 @@ def test_merge_shard_rows_matches_jax(parts):
 
 
 # ---------------------------------------------------------------------------
+# the ragged-key route: flat key bytes + offsets (the store's route)
+# ---------------------------------------------------------------------------
+
+def ragged_keys_set():
+    """The edge keys (empty, one zero byte, real trailing zero bytes, 125,
+    201 and 257 bytes, random non-ASCII) and ordinary accessions."""
+    rng = np.random.default_rng(11)
+    keys = [b"", b"\x00", b"a\x00", b"a\x00\x00\x00\x00", b"P12345\x00",
+            b"x" * 125, b"y" * 200 + b"\x00",
+            bytes(rng.integers(0, 256, 257, dtype=np.uint8)),
+            bytes(rng.integers(128, 256, 13, dtype=np.uint8)), b""]
+    return keys + [b"P%08d" % i for i in range(700)]
+
+
+@pytest.mark.parametrize("n_shards", SHARD_NS)
+def test_route_bytes_matches_jax_route_keys(n_shards):
+    keys = ragged_keys_set()
+    want = jroute.route_keys(keys, n_shards)
+    flat, offsets = troute.key_bytes(keys)
+    got = tref.ref_shard_route_bytes(t(flat), t(offsets), n_shards).numpy()
+    assert got.dtype == np.int32 and np.array_equal(got, want)
+    assert np.array_equal(tops.shard_route_bytes(t(flat), t(offsets),
+                                                 n_shards).numpy(), want)
+    assert np.array_equal(troute.route_keys(keys, n_shards, "cpu"), want)
+    # the lanes entry point on the same keys
+    lanes, lens = troute.key_lanes(keys)
+    assert np.array_equal(
+        tops.shard_route(t(lanes), t(lens), n_shards).numpy(), got)
+
+
+def test_key_bytes_lay_keys_end_to_end():
+    keys = ragged_keys_set()
+    flat, offsets = troute.key_bytes(keys)
+    assert flat.dtype == np.uint8 and offsets.dtype == np.int64
+    assert flat.flags.writeable  # torch takes it without a copy or warning
+    assert offsets.shape == (len(keys) + 1,) and offsets[0] == 0
+    assert offsets[-1] == flat.size == sum(map(len, keys))
+    assert np.array_equal(np.diff(offsets), [len(k) for k in keys])
+    assert all(flat[offsets[i]:offsets[i + 1]].tobytes() == k
+               for i, k in enumerate(keys))
+    flat, offsets = troute.key_bytes([])
+    assert flat.shape == (0,) and offsets.tolist() == [0]
+    flat, offsets = troute.key_bytes([b"", b""])
+    assert flat.shape == (0,) and offsets.tolist() == [0, 0, 0]
+
+
+@pytest.mark.parametrize("pre", [1, 2, 3, 5])
+def test_route_bytes_on_a_view_with_storage_offset(pre):
+    """Keys in a slice of a larger buffer, offsets that do not start at
+    0: the kernel builds lanes from words at any byte alignment, and the
+    plain version indexes the same bytes."""
+    keys = ragged_keys_set()[:40]
+    flat, offsets = troute.key_bytes(keys)
+    big = torch.full((flat.size + pre + 7,), 0xAB, dtype=torch.uint8)
+    big[pre:pre + flat.size] = t(flat)
+    view = big[1:]  # a storage offset; keys at pre - 1 bytes into it
+    got = tops.shard_route_bytes(view, t(offsets + (pre - 1)), 5).numpy()
+    assert np.array_equal(got, jroute.route_keys(keys, 5))
+
+
+def test_route_keys_builds_no_padded_lanes(monkeypatch):
+    """route_keys hands the kernel flat key bytes: key_lanes (the per-key
+    packing loop) is not on its path."""
+    def refuse(keys):
+        raise AssertionError("route_keys packed padded lanes")
+    seen = []
+    real = troute.shard_route_bytes
+
+    def spy(flat, offsets, n_shards):
+        seen.append((flat.shape[0], offsets.shape[0], n_shards))
+        return real(flat, offsets, n_shards)
+    monkeypatch.setattr(troute, "key_lanes", refuse)
+    monkeypatch.setattr(troute, "shard_route_bytes", spy)
+    keys = ragged_keys_set()
+    got = troute.route_keys(keys, 7, "cpu")
+    assert np.array_equal(got, jroute.route_keys(keys, 7))
+    assert seen == [(sum(map(len, keys)), len(keys) + 1, 7)]
+
+
+def test_route_bytes_guards_and_counts_no_cpu_launches():
+    flat = t(np.frombuffer(b"abcdef", np.uint8).copy())
+    off = t(np.array([0, 2, 6], np.int64))
+    before = tops.shard_route_bytes.launches
+    assert tops.shard_route_bytes(flat, off, 3).shape == (2,)
+    assert tops.shard_route_bytes.launches == before
+    assert tops.KERNELS["shard_route_bytes"] is tops.shard_route_bytes
+    with pytest.raises(ValueError):  # offsets must be int64
+        tops.shard_route_bytes(flat, off.to(torch.int32), 3)
+    with pytest.raises(ValueError):  # the keys' bytes must be uint8
+        tops.shard_route_bytes(flat.to(torch.int32), off, 3)
+    with pytest.raises(ValueError):  # N + 1 offsets, at least one
+        tops.shard_route_bytes(flat, off[:0], 3)
+    for bad in (0, 2**31):
+        with pytest.raises(ValueError):
+            tops.shard_route_bytes(flat, off, bad)
+    with pytest.raises(TypeError):
+        tops.shard_route_bytes(b"abcdef", off, 3)
+    assert tops.shard_route_bytes(flat[:0], off[:1], 3).shape == (0,)
+
+
+# ---------------------------------------------------------------------------
 # stacked masked cumsum and boundary select
 # ---------------------------------------------------------------------------
 
