@@ -22,7 +22,8 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   route and the keep mask the card's time alone per call
                   (device_ms: calls queued behind a spin kernel)
   kernel_edges_fingerprint  the fingerprint at W 1/2/3/4/5/7/8/9/12/16/17/
-                  63/64/65/128/300, N 1/513/200,003 (a ragged last tile), on
+                  63/64/65/128/256/300/512, N 1/513/200,003 (a ragged last
+                  tile), on
                   bases 0/4/8 bytes past a 16-byte boundary (a row slice
                   of a larger buffer), bit for bit, with each case's plan
   kernel_edges_scan  the single-pass scan at C = 1, a tile - 1, a tile, a
@@ -97,6 +98,34 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   (570,000 x 64 int32) with the second release's rows for
                   the entries whose sequence changed, checked against a
                   numpy select
+  gestore         the GeStore facade at UniProtKB/Swiss-Prot scale: two
+                  releases from write_synth_uniprot (570,000 entries; then
+                  575,700, 1% new, churn 0.03) parsed by UniProtParser at
+                  its widths (sequence 512 x int8, annotation 256 x int8,
+                  length and taxid int32), streamed into a 4-shard store by
+                  add_release_stream (journal, pre- and post-release saves;
+                  a thread reads version 10 while the second streams, and
+                  every read must equal the one before) and given whole to
+                  a one-shard store by add_release; per store one
+                  generate_files_batch (full versions 10 and 20, the
+                  blastp and annot increments, a key filter), every file
+                  checked against FASTA written from the release text by
+                  a regex, the increments' keys against the releases'
+                  changed and new entries; the batch again (all cached),
+                  merge_files, flush; a new GeStore over the root, cache
+                  evicted, the batches again (the same sha256, the first
+                  under torch.profiler). Walls (parse and update inside
+                  add_release, each stream's entries/s, each batch split
+                  into increments, size context, full versions and format
+                  + cache put), the launches of every kernel, the
+                  fingerprint's by row width
+  gestore_parity  a 20,000-entry history through GeStore(device="cpu")
+                  and GeStore(device="cuda"): identical generated files
+                  and store directories after flush; an ingest into a
+                  4-shard store on the card killed at half its chunks,
+                  reloaded and resumed (journaled chunks replayed), ending
+                  at an uninterrupted run's digests; a WorkflowManager
+                  incremental run equal to a full run on both devices
   serving         llama3.2-1b at full width and depth (weights drawn from
                   a numpy generator seeded with --seed, loaded through
                   models/weights.py): a Scheduler run of 16 requests of
@@ -139,7 +168,10 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   call with no host time in it, beside torch.sub's; the
                   route twice: from flat key bytes, the sharding path's,
                   and from padded lanes, launched by no path; device_ms
-                  for the fingerprint, both routes and the keep mask)
+                  for the fingerprint, both routes and the keep mask;
+                  the fingerprint also at UniProt's int8 rows, W 512 and
+                  256 lanes at N 570,000, with the gestore path's
+                  launches at each width)
 
 then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any mismatch or error ends the run with a
@@ -153,6 +185,7 @@ import contextlib
 import cProfile
 import dataclasses
 import json
+import math
 import os
 import pstats
 import re
@@ -184,6 +217,12 @@ GATHER_CHUNK = 1 << 22  # cells per chunk when a gather is checked
 SOURCES = {
     "fingerprint": ("src/repro_torch/csrc/fingerprint.cu",
                     "src/repro/kernels/fingerprint.py:29"),
+    # the same wrapper at UniProt's int8 rows, one lane an int8 (the
+    # gestore phase's sequence and annotation fields)
+    "fingerprint_w512": ("src/repro_torch/csrc/fingerprint.cu",
+                         "src/repro/kernels/fingerprint.py:29"),
+    "fingerprint_w256": ("src/repro_torch/csrc/fingerprint.cu",
+                         "src/repro/kernels/fingerprint.py:29"),
     # the route of the store's path: flat key bytes + offsets
     "shard_route_bytes": ("src/repro_torch/csrc/shard_route.cu",
                           "src/repro/kernels/shard_route.py:40"),
@@ -232,6 +271,8 @@ PATH_KERNELS = {
                  "delta_pack"),
     "merge": ("masked_merge",),
     "serving": ("flash_attention",),
+    "gestore": ("fingerprint", "masked_cumsum", "shard_route_bytes",
+                "delta_pack"),
 }
 ARCH = "llama3.2-1b"
 SERVE_REQUESTS, SERVE_MAX_NEW, SERVE_MAX_BATCH = 16, 16, 8
@@ -255,7 +296,8 @@ N_SHARDS = 4  # the JAX package's default shard count
 # the fingerprint's edge cases: widths on every path of its plan (rows,
 # 16-byte and 4-byte tiles, chunks past 128 lanes), row counts (200,003: a
 # ragged last tile and several tiles a block), bases past 16-byte alignment
-FP_EDGE_W = (1, 2, 3, 4, 5, 7, 8, 9, 12, 16, 17, 63, 64, 65, 128, 300)
+FP_EDGE_W = (1, 2, 3, 4, 5, 7, 8, 9, 12, 16, 17, 63, 64, 65, 128, 256, 300,
+             512)
 FP_EDGE_N = (1, 513, 200_003)
 FP_EDGE_OFFSETS = (0, 4, 8)
 CODEC_DTYPES = ("int8", "int16", "uint16", "int32", "uint32", "float16",
@@ -619,15 +661,16 @@ class KernelBench:
 
     # -- the three kernels --------------------------------------------------
     def fingerprint(self, lanes, *, timed=True, main=False,
-                    quiet=False) -> dict:
+                    quiet=False, name="fingerprint") -> dict:
         """The fingerprint bit for bit, with the kernel's plan in the
-        shape, and its device time alone where timed."""
+        shape, and its device time alone where timed; ``name``: its row
+        in the kernels line."""
         from repro_torch.kernels.fingerprint import fingerprint_plan
         n, w = lanes.shape
         align = lanes.data_ptr() % 16
         plan = fingerprint_plan(w, align)
         return self.run(
-            "fingerprint", {"N": n, "W": w, "base_align": align,
+            name, {"N": n, "W": w, "base_align": align,
                             "path": plan.path,
                             "rows_per_tile": plan.rows_per_tile,
                             "stages": plan.stages, "threads": plan.threads,
@@ -1955,6 +1998,490 @@ def phase_parity(VersionedStore, FieldSchema, seed: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the facade slice: GeStore, the streaming ingest, WorkflowManager
+# ---------------------------------------------------------------------------
+
+# the first release's entries (UniProtKB/Swiss-Prot scale) and the second's:
+# 1% new entries, 3% of the sequences changed (synth_uniprot_chunks' churn)
+GS_ENTRIES, GS_NEW, GS_CHURN = 570_000, 0.01, 0.03
+GS_TS = (10, 20)
+GS_PARITY_ENTRIES = 20_000
+# 1,000 entries of the first release and 1,000 of the second's new ones
+GS_KEY_FILTER = r"^P005(69|70)"
+# the first accession and the sequence lines of a UniProtKB entry
+_AC_SQ = re.compile(r"^AC   ([^;\s]+);.*?^SQ   [^\n]*\n(.*?)^//$",
+                    re.M | re.S)
+
+
+def gestore_registry(core, parser):
+    """The facade's plugins: ``blastp`` writes FASTA of the sequences and
+    merges with the e-value merger (every hit kept), ``annot`` writes the
+    same FASTA but changes only with the annotation."""
+    from repro_torch.core.parsers.uniprot import BLAST_SIGNIFICANT
+    reg = core.PluginRegistry()
+    reg.register_parser(parser)
+    reg.register_tool(core.ToolPlugin(
+        "blastp", core.FileGenerator(
+            parser="uniprot_dat", output_fields=["sequence", "length"],
+            significant_fields=list(BLAST_SIGNIFICANT)),
+        merger=core.BlastEvalueMerger(),
+        params={"max_hits_per_query": 10**9}))
+    reg.register_tool(core.ToolPlugin("annot", core.FileGenerator(
+        parser="uniprot_dat", output_fields=["sequence"],
+        significant_fields=["annotation"])))
+    return reg
+
+
+def gestore_requests(store: str) -> list[dict]:
+    """One batch: both full versions, both tools' increments, a filter."""
+    t0, t1 = GS_TS
+    return [{"tool": "blastp", "store": store, "t_version": t0},
+            {"tool": "blastp", "store": store, "t_version": t1},
+            {"tool": "blastp", "store": store, "t_version": t1, "t_last": t0},
+            {"tool": "annot", "store": store, "t_version": t1, "t_last": t0},
+            {"tool": "blastp", "store": store, "t_version": t1,
+             "key_filter": GS_KEY_FILTER}]
+
+
+def release_fasta(path: str, width: int) -> dict[bytes, str]:
+    """Accession -> the FASTA entry an unmodified BLAST reads, in release
+    order, from a release file's AC and SQ lines by a regex (not the
+    parser), the sequence cut to the store's ``width``."""
+    with open(path, encoding="latin-1") as f:
+        text = f.read()
+    out = {}
+    for m in _AC_SQ.finditer(text):
+        seq = "".join(m.group(2).split())[:width]
+        lines = [seq[i:i + 60] for i in range(0, len(seq), 60)] or [""]
+        out[m.group(1).encode()] = (f">{m.group(1)}\n" + "\n".join(lines)
+                                    + "\n")
+    return out
+
+
+@contextlib.contextmanager
+def timed_calls(obj, name: str, acc: dict, key=None):
+    """Add the seconds of every call of ``obj.name`` during the block to
+    ``acc[key(args, kwargs)]`` (``acc[name]`` without ``key``)."""
+    orig, own = getattr(obj, name), name in vars(obj)
+
+    def wrapper(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **k)
+        finally:
+            slot = key(a, k) if key else name
+            acc[slot] = acc.get(slot, 0.0) + time.perf_counter() - t0
+    setattr(obj, name, wrapper)
+    try:
+        yield acc
+    finally:
+        if own:
+            setattr(obj, name, orig)
+        else:
+            delattr(obj, name)
+
+
+@contextlib.contextmanager
+def fingerprint_by_width(kops):
+    """Fingerprint launches during the block by row width in lanes (every
+    store path fingerprints through ``kops.fingerprint``)."""
+    import threading
+    real, by_w, lock = kops.fingerprint, {}, threading.Lock()
+
+    def counting(lanes):
+        out = real(lanes)
+        if lanes.is_cuda and lanes.shape[0]:  # the wrapper launched
+            with lock:
+                by_w[lanes.shape[1]] = by_w.get(lanes.shape[1], 0) + 1
+        return out
+    kops.fingerprint = counting
+    try:
+        yield by_w
+    finally:
+        kops.fingerprint = real
+
+
+def gestore_batch(gs, store: str, profile: bool = False):
+    """One ``generate_files_batch`` of ``gestore_requests(store)``: its
+    results and its wall split into increments, the size context, full
+    versions and format + cache put (with ``profile``, its device
+    profile too)."""
+    st, parser = gs.open_store(store), gs.registry.parsers["uniprot_dat"]
+    acc = dict.fromkeys(("increments_s", "size_context_s",
+                         "full_versions_s", "format_put_s"), 0.0)
+    box = []
+
+    def run():
+        box.append(gs.generate_files_batch(gestore_requests(store)))
+    with contextlib.ExitStack() as es:
+        es.enter_context(timed_calls(st, "get_increments", acc,
+                                     lambda a, k: "increments_s"))
+        es.enter_context(timed_calls(
+            st, "get_versions", acc, lambda a, k: (
+                "size_context_s" if k.get("fields") == ["length"]
+                else "full_versions_s")))
+        for obj, name in ((parser, "format_view"), (gs.cache, "put")):
+            es.enter_context(timed_calls(obj, name, acc,
+                                         lambda a, k: "format_put_s"))
+        if profile:
+            prof = device_profile(run)
+            acc["wall_s"] = prof["wall_s"]
+            acc["profile"] = prof
+        else:
+            _, acc["wall_s"] = wall(run)
+    return box[0], acc
+
+
+def file_sha(path: str) -> str:
+    import hashlib
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def fasta_entries(text: str) -> dict[str, str]:
+    """FASTA text -> {accession: entry}."""
+    return {e.split("\n", 1)[0]: e for e in text.split(">")[1:]}
+
+
+def check_generated(gens, want: list[str], store: str) -> list[str]:
+    """Each generated file byte for byte against its expected text (where
+    they differ, how many entries and the first); the files' sha256."""
+    for g, w, r in zip(gens, want, gestore_requests(store)):
+        with open(g.path, encoding="latin-1") as f:
+            got = f.read()
+        if got != w:
+            a, b = fasta_entries(got), fasta_entries(w)
+            bad = [k for k in b if a.get(k) != b[k]]
+            check(False, f"{store} {r}: generated file differs from the "
+                  f"FASTA of the release text: {len(a)} entries against "
+                  f"{len(b)}, {len(bad)} differ or are missing, "
+                  f"{len(set(a) - set(b))} extra, same order: "
+                  f"{list(a) == list(b)}; first: {bad[:1]} "
+                  f"{a.get(bad[0], '')[:80]!r} for {b[bad[0]][:80]!r}"
+                  if bad else f"{store} {r}: entries reordered")
+        check(g.n_entries == w.count(">"), f"{store} {r}: entry count")
+    return [file_sha(g.path) for g in gens]
+
+
+def phase_gestore(core, kops, seed: int, root: str) -> dict:
+    """The GeStore facade at UniProtKB/Swiss-Prot scale on the card: two
+    releases written by ``write_synth_uniprot``, streamed into a 4-shard
+    store (journal, saves; a reader of version 10 on another thread while
+    the second streams) and given whole to a one-shard store; one
+    generate_files_batch per store, again from the cache, merge_files,
+    flush; a new GeStore over the root, cache evicted, the batch again.
+    Every generated file is checked against FASTA written from the release
+    text, and the stores' and the reopened GeStore's files against each
+    other."""
+    import threading
+    from repro_torch.core.ingest import write_synth_uniprot
+    from repro_torch.core.parsers import UniProtParser
+    parser = UniProtParser()
+    rec = {"phase": "gestore", "entries": [GS_ENTRIES,
+                                           int(GS_ENTRIES * (1 + GS_NEW))],
+           "churn": GS_CHURN, "shards": N_SHARDS,
+           "widths": {f.name: [f.width, f.dtype] for f in parser.schema()},
+           "write_release_s": []}
+    paths, fasta = [], []
+    for ts, n, churn in zip(GS_TS, rec["entries"], (0.0, GS_CHURN)):
+        p = os.path.join(root, f"uniprot_{ts}.dat")
+        _, s = wall(lambda: write_synth_uniprot(p, n, seed=seed, churn=churn))
+        paths.append(p)
+        rec["write_release_s"].append(s)
+        fasta.append(release_fasta(p, parser.seq_width))
+    r0, r1 = fasta
+    check([len(r0), len(r1)] == rec["entries"], "release entry counts")
+    new = [k for k in r1 if k not in r0]
+    changed = [k for k in r1 if k in r0 and r0[k] != r1[k]]
+    rec["new_entries"], rec["changed_sequences"] = len(new), len(changed)
+    check(new and changed, "the second release has no new or changed entry")
+    new_set, changed_set = set(new), set(changed)
+    filt = re.compile(GS_KEY_FILTER.encode())
+    want = ["".join(r0.values()), "".join(r1.values()),
+            "".join(v for k, v in r1.items()
+                    if k in new_set or k in changed_set),
+            "".join(r1[k] for k in new),
+            "".join(v for k, v in r1.items() if filt.search(k))]
+
+    reset_counts(kops)
+    gs_root = os.path.join(root, "gestore")
+    reg = gestore_registry(core, parser)
+    with fingerprint_by_width(kops) as fp_by_w:
+        gs = core.GeStore(gs_root, reg)
+        check(gs.device.type == torch.device(DEV).type,
+              f"GeStore without device= is on {gs.device}")
+        # -- the 4-shard store through the streaming ingest --------------
+        rec["add_release_stream"] = []
+        errs, reads, stop = [], [0], threading.Event()
+        for ts, p in zip(GS_TS, paths):
+            reader = None
+            if ts == GS_TS[1]:
+                st = gs.stores["uniprot"]
+                v10 = st.get_versions([GS_TS[0]])[0]
+
+                def read():
+                    try:
+                        while not stop.is_set():
+                            same_rows(st.get_versions([GS_TS[0]])[0], v10,
+                                      "version 10 during the ingest")
+                            reads[0] += 1
+                    except Exception as e:  # noqa: BLE001 — checked below
+                        errs.append(repr(e))
+                reader = threading.Thread(target=read, name="v10-reader")
+                reader.start()
+            try:
+                rep, s = wall(lambda: gs.add_release_stream(
+                    "uniprot", ts, p, parser_name="uniprot_dat",
+                    shards=N_SHARDS))
+            finally:
+                if reader is not None:
+                    stop.set()
+                    reader.join(timeout=600)
+                    check(not reader.is_alive(), "the reader did not stop")
+            rec["add_release_stream"].append({
+                "ts": ts, "wall_s": s, "entries": rep.n_entries,
+                "entries_per_s": rep.entries_per_s, "chunks": rep.n_chunks,
+                "checkpoint_writes": rep.checkpoint_writes,
+                "ingest_wall_s": rep.wall_s})
+        check(not errs, f"reader of version 10: {errs}")
+        check(reads[0] > 0, "the reader made no read during the ingest")
+        rec["reader_reads"] = reads[0]
+        del v10
+        # -- the one-shard store through add_release of the whole text ---
+        rec["add_release"] = []
+        for ts, p in zip(GS_TS, paths):
+            with open(p, encoding="latin-1") as f:
+                text = f.read()
+            acc = {}
+            with timed_calls(parser, "parse_text", acc), \
+                    timed_calls(core.VersionedStore, "update", acc):
+                _, s = wall(lambda: gs.add_release(
+                    "uniprot1", ts, text, parser_name="uniprot_dat"))
+            del text
+            rec["add_release"].append({"ts": ts, "wall_s": s,
+                                       "parse_s": acc["parse_text"],
+                                       "update_s": acc["update"]})
+        for name in ("uniprot", "uniprot1"):
+            infos = [(v.n_new, v.n_updated, v.n_deleted)
+                     for v in gs.open_store(name).versions]
+            check(infos == [(len(r0), 0, 0), (len(new), len(changed), 0)],
+                  f"{name}: VersionInfo {infos}")
+        check(isinstance(gs.stores["uniprot"], core.ShardedStore)
+              and gs.stores["uniprot"].n_shards == N_SHARDS,
+              "the streamed store is not a 4-shard store")
+        # -- generated files ----------------------------------------------
+        shas, gens = {}, {}
+        rec["generate_files_batch"], rec["cached_batch_s"] = {}, {}
+        for name in ("uniprot", "uniprot1"):
+            gens[name], rec["generate_files_batch"][name] = gestore_batch(
+                gs, name)
+            check([g.mode for g in gens[name]] ==
+                  ["full", "full", "increment", "increment", "full"],
+                  f"{name}: modes {[g.mode for g in gens[name]]}")
+            shas[name] = check_generated(gens[name], want, name)
+            again, rec["cached_batch_s"][name] = wall(
+                lambda: gs.generate_files_batch(gestore_requests(name)))
+            check({g.mode for g in again} == {"cached"},
+                  f"{name}: the second batch was not all cached")
+            check([g.path for g in again] == [g.path for g in gens[name]],
+                  f"{name}: cached paths differ")
+        check(shas["uniprot"] == shas["uniprot1"],
+              "the two stores generated different files")
+        # -- merge_files with a toy BLAST output ---------------------------
+        ctx = gens["uniprot"][2].context
+        check(ctx["db_size_old"] == sum(len(v) - v.count("\n") - len(k) - 1
+                                        for k, v in r0.items()),
+              "db_size_old is not the first release's residues")
+        old = [k for k in list(r0)[:200] if k not in changed_set][:50]
+        prev = "".join(f"q0\t{k.decode()}\t90.0\t180\t0\t0\t1\t180\t1\t180\t"
+                       f"1.0e-10\t50.0\n" for k in changed[:50] + old)
+        part = "".join(f"q0\t{k.decode()}\t95.0\t180\t0\t0\t1\t180\t1\t180\t"
+                       f"1.0e-20\t80.0\n" for k in changed[:50] + new[:50])
+        merged, rec["merge_files_s"] = wall(lambda: gs.merge_files(
+            "blastp", prev, part, context=ctx))
+        scale = math.log10(ctx["db_size_new"] / ctx["db_size_old"])
+        rescaled = f"{10 ** (math.log10(1.0e-10) + scale):.2e}"
+        rows = [ln.split("\t") for ln in merged.splitlines()]
+        check(len(rows) == len(old) + len(changed[:50]) + len(new[:50])
+              and all(r[10] == ("1.00e-20" if r[2] == "95.0" else rescaled)
+                      for r in rows)
+              and {r[1] for r in rows if r[2] == "90.0"}
+              == {k.decode() for k in old},
+              "merge_files: a stale hit or a wrong e-value")
+        flushed, rec["flush_s"] = wall(gs.flush)
+        rec["flush"] = flushed
+        # -- a new GeStore over the root ----------------------------------
+        gs2, rec["reopen_s"] = wall(lambda: core.GeStore(gs_root, reg))
+        check(sorted(gs2.stores) == ["uniprot", "uniprot1"]
+              and not gs2.load_errors, f"reopen: {gs2.load_errors}")
+        check(gs2.device.type == torch.device(DEV).type, "reopen device")
+        rec["evicted_files"] = gs2.cache.evict(0)
+        check(rec["evicted_files"] == 10, "the cache held other files")
+        rec["reopened_batch"] = {}
+        for name in ("uniprot", "uniprot1"):
+            got, rec["reopened_batch"][name] = gestore_batch(
+                gs2, name, profile=(name == "uniprot"))
+            check({g.mode for g in got} == {"full", "increment"},
+                  f"reopened {name}: not materialized again")
+            check([file_sha(g.path) for g in got] == shas[name],
+                  f"reopened {name}: files differ")
+    rec["launches"] = read_counts(kops)
+    rec["fingerprint_launches_by_width"] = {
+        str(w): n for w, n in sorted(fp_by_w.items())}
+    emit(rec)
+    for name in PATH_KERNELS["gestore"]:
+        check(rec["launches"][name] > 0,
+              f"kernel {name} never launched on the gestore path")
+    check(sum(fp_by_w.values()) == rec["launches"]["fingerprint"],
+          "fingerprint launches by width do not add up")
+    launches = {**rec["launches"], **{
+        f"fingerprint_w{w}": fp_by_w.get(w, 0) for w in (512, 256)}}
+    for w in (512, 256):
+        check(launches[f"fingerprint_w{w}"] > 0, f"no fingerprint at W {w}")
+    view = uncounted(kops, lambda: gs2.open_store("uniprot1").get_versions(
+        [GS_TS[0]], fields=["sequence", "annotation"])[0])
+    return {"launches": launches, "rows": {
+        512: view.values["sequence"], 256: view.values["annotation"]}}
+
+
+def phase_kernel_gestore(bench: KernelBench, kops, gestore_out) -> None:
+    """The fingerprint at the facade's widths: the first release's
+    UniProt sequence (512 x int8) and annotation (256 x int8) rows as the
+    store fingerprints them, one int32 lane an int8."""
+    for w, rows in sorted(gestore_out.pop("rows").items(), reverse=True):
+        lanes = kops.to_int_lanes(rows, DEV)
+        check(tuple(lanes.shape) == (GS_ENTRIES, w),
+              f"lanes {tuple(lanes.shape)}")
+        bench.fingerprint(lanes, main=True, name=f"fingerprint_w{w}")
+        del lanes
+
+
+def phase_gestore_parity(core, seed: int, root: str) -> None:
+    """A 20,000-entry history through GeStore(device="cpu") and
+    GeStore(device="cuda"): a 4-shard store streamed and a one-shard store
+    given whole, the same generated files and store directories after
+    flush; an ingest into a 4-shard store on the card killed at half its
+    chunks, reloaded and resumed, ending at the uninterrupted digests;
+    and a WorkflowManager incremental run equal to a full one."""
+    from repro_torch.core.ingest import (IngestConfig, ingest_release,
+                                         write_synth_uniprot)
+    from repro_torch.core.parsers import UniProtParser
+    from repro_torch.workflow import Tool, WorkflowManager
+    parser = UniProtParser()
+    ns = [GS_PARITY_ENTRIES, int(GS_PARITY_ENTRIES * (1 + GS_NEW))]
+    paths = [os.path.join(root, f"parity_{ts}.dat") for ts in GS_TS]
+    for p, n, churn in zip(paths, ns, (0.0, GS_CHURN)):
+        write_synth_uniprot(p, n, seed=seed + 7, churn=churn)
+    roots = [os.path.join(root, f"gestore_parity_{i}") for i in range(2)]
+    gss = [core.GeStore(r, gestore_registry(core, UniProtParser()), device=d)
+           for r, d in zip(roots, ("cpu", DEV))]
+    for ts, p in zip(GS_TS, paths):
+        with open(p, encoding="latin-1") as f:
+            text = f.read()
+        for gs in gss:
+            gs.add_release_stream("stream", ts, p, parser_name="uniprot_dat",
+                                  shards=N_SHARDS)
+            gs.add_release("whole", ts, text, parser_name="uniprot_dat")
+    files = 0
+    for name in ("stream", "whole"):
+        a, b = (gs.generate_files_batch(gestore_requests(name)) for gs in gss)
+        for x, y in zip(a, b):
+            check((x.mode, x.n_entries, x.context) ==
+                  (y.mode, y.n_entries, y.context)
+                  and os.path.relpath(x.path, roots[0]) ==
+                  os.path.relpath(y.path, roots[1])
+                  and file_sha(x.path) == file_sha(y.path),
+                  f"{name}: generated file differs between cpu and cuda")
+            files += 1
+    stats = [gs.flush() for gs in gss]
+    check(stats[0] == stats[1], "flush stats differ between cpu and cuda")
+    dirs = 0
+    for name in ("stream", "whole"):
+        a, b = (tree_bytes(gs.store_path(name)) for gs in gss)
+        check(a == b, f"{name}: store directories differ")
+        dirs += len(a)
+    # -- killed at half its chunks, reloaded, resumed (on the card) -------
+    cfg = IngestConfig(batch_entries=1024)
+    n_chunks = -(-ns[0] // cfg.batch_entries)
+    kill_at = n_chunks // 2 - 1
+
+    class Killed(Exception):
+        pass
+
+    def killer(idx, _n, _replayed):
+        if idx == kill_at:
+            raise Killed
+
+    sdir, jdir = (os.path.join(root, d) for d in ("resume_store",
+                                                  "resume_journal"))
+    st = core.ShardedStore("resume", parser.schema(), n_shards=N_SHARDS,
+                           device=DEV)
+    st.save(sdir)
+    try:
+        ingest_release(st, paths[0], parser, GS_TS[0], config=cfg,
+                       journal_dir=jdir, store_dir=sdir, on_batch=killer)
+        check(False, "the ingest was not killed")
+    except Killed:
+        pass
+    st2 = core.ShardedStore.load(sdir, device=DEV)
+    rep = ingest_release(st2, paths[0], parser, GS_TS[0], config=cfg,
+                         journal_dir=jdir, store_dir=sdir)
+    ref = core.ShardedStore("resume", parser.schema(), n_shards=N_SHARDS,
+                            device=DEV)
+    ingest_release(ref, paths[0], parser, GS_TS[0], config=cfg)
+
+    def digests(s):
+        return [s.shard(i)._history_digest for i in range(s.n_shards)]
+    check(rep.chunks_replayed == kill_at + 1
+          and rep.entries_replayed == (kill_at + 1) * cfg.batch_entries
+          and rep.entries_parsed == ns[0] - rep.entries_replayed,
+          f"resume: {rep}")
+    check(digests(st2) == digests(ref)
+          == digests(core.ShardedStore.load(sdir, device=DEV)),
+          "the resumed store differs from an uninterrupted ingest")
+    check(not os.path.exists(os.path.join(jdir, "JOURNAL.json")),
+          "the journal was not cleared")
+
+    # -- WorkflowManager: incremental equals full -------------------------
+    def toy_blast(args):
+        path = next(p for k, p in args.items() if k.startswith("store:"))
+        with open(path) as f:
+            text = f.read()
+        out = []
+        for entry in text.split(">")[1:]:
+            sid = entry.splitlines()[0].split()[0]
+            score = sum(map(ord, "".join(entry.splitlines()[1:]))) % 97
+            out.append(f"q0\t{sid}\t90.0\t24\t0\t0\t1\t24\t1\t24\t"
+                       f"{10 ** -(score % 20):.1e}\t{50 + score % 30}.0")
+        return "\n".join(out) + "\n"
+
+    def by_subject(text):
+        return {c[1]: (c[2], c[11]) for c in
+                (ln.split("\t") for ln in text.strip().splitlines())}
+
+    outs = []
+    for gs in gss:
+        tools = [Tool("blastp", toy_blast, ["store:whole"])]
+        wf = WorkflowManager(gs, tools)
+        wf.run(db_version=GS_TS[0])
+        inc = wf.run(db_version=GS_TS[1], last_version=GS_TS[0])
+        full = WorkflowManager(gs, tools).run(db_version=GS_TS[1])
+        check(inc.mode == "incremental"
+              and by_subject(inc.outputs["blastp"])
+              == by_subject(full.outputs["blastp"]),
+              "workflow: the incremental run differs from the full run")
+        outs.append((inc.outputs, full.outputs))
+    check(outs[0] == outs[1], "workflow outputs differ between cpu and cuda")
+    emit({"phase": "gestore_parity", "entries": ns, "shards": N_SHARDS,
+          "files_compared": files, "store_files_compared": dirs,
+          "resume": {"chunks": n_chunks, "killed_after": kill_at + 1,
+                     "chunks_replayed": rep.chunks_replayed,
+                     "entries_parsed": rep.entries_parsed},
+          "workflow_subjects": len(by_subject(outs[1][1]["blastp"])),
+          "identical": True})
+
+
+# ---------------------------------------------------------------------------
 # the serving slice: masked merge, flash attention, llama3.2-1b
 # ---------------------------------------------------------------------------
 
@@ -2543,14 +3070,25 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     phase_parity(VersionedStore, FieldSchema, args.seed)
     del releases
+    # the facade's releases, stores and cache, in the build tree too
+    root = tempfile.mkdtemp(prefix="chip_smoke_gestore_",
+                            dir=os.path.join(HERE, "build"))
+    try:
+        gestore_out = phase_gestore(core, kops, args.seed, root)
+        phase_kernel_gestore(bench, kops, gestore_out)
+        phase_gestore_parity(core, args.seed, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     serving_out = phase_serving(kops, args.seed)
     phase_kernel_serving(bench, merge_out, serving_out)
     phase_serving_parity(args.seed)
     # each kernel's launches come from the path that runs it: the codec
     # from persistence, the route and the stacked scan from sharding, the
-    # merge from its phase, flash attention from serving, the rest from
-    # the main path (chain decode's rows: the launches of their gathers)
+    # merge from its phase, flash attention from serving, the fingerprint
+    # at UniProt's widths from gestore, the rest from the main path (chain
+    # decode's rows: the launches of their gathers)
     path_of = {k: (pers_out if k.startswith("delta_")
+                   else gestore_out if k.startswith("fingerprint_w")
                    else shard_out if k in ("shard_route", "shard_route_bytes",
                                            "stacked_masked_cumsum")
                    else merge_out if k == "masked_merge"

@@ -41,6 +41,7 @@ import dataclasses
 import hashlib
 import os
 import re
+import threading
 from typing import Callable, Mapping, Sequence
 
 import numpy as np
@@ -191,12 +192,18 @@ class _CellLog:
     Pending segments are materialized only when a caller's timestamp bound
     reaches their range, so a pinned old version reads only the segments
     at or below that version. ``device`` is where the log's scans run.
+
+    One lock guards the three sources: a release session's worker threads
+    append while readers consolidate (``csr``), and a consolidation that
+    cleared ``_chunks`` after an append it had not copied would drop that
+    append's cells. (The JAX package's log has no lock and can drop them.)
     """
 
     def __init__(self, width: int, dtype: np.dtype, device: torch.device):
         self.width = width
         self.dtype = dtype
         self.device = device
+        self._lock = threading.RLock()
         self._chunks: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
         self._csr: tuple[np.ndarray, np.ndarray, np.ndarray] | None = None  # vals, ts, order-rows
         self._row_ptr: np.ndarray | None = None
@@ -213,45 +220,50 @@ class _CellLog:
         if len(rows) == 0:
             return
         assert vals.shape == (len(rows), self.width)
-        self._chunks.append((rows.astype(np.int32),
-                             np.full(len(rows), ts, np.int64),
-                             np.ascontiguousarray(vals, dtype=self.dtype)))
-        self._row_ptr = None  # CSR dirty
+        chunk = (rows.astype(np.int32), np.full(len(rows), ts, np.int64),
+                 np.ascontiguousarray(vals, dtype=self.dtype))
+        with self._lock:
+            self._chunks.append(chunk)
+            self._row_ptr = None  # CSR dirty
 
     # -- lazy on-disk segments ------------------------------------------------
     def attach_segments(self, handles) -> None:
         """Register on-disk segment handles (from a lazy load) without
         reading them."""
         if handles:
-            self._pending = sorted(self._pending + list(handles),
-                                   key=lambda h: h.ts0)
+            with self._lock:
+                self._pending = sorted(self._pending + list(handles),
+                                       key=lambda h: h.ts0)
 
     def _materialize(self, handle) -> None:
         rows, tss, vals = handle.materialize()
-        self._chunks.append((rows.astype(np.int32), tss.astype(np.int64),
-                             np.ascontiguousarray(vals, dtype=self.dtype)))
-        self._row_ptr = None
+        with self._lock:
+            self._chunks.append((rows.astype(np.int32), tss.astype(np.int64),
+                                 np.ascontiguousarray(vals, dtype=self.dtype)))
+            self._row_ptr = None
 
     def _ensure(self, through_ts) -> None:
         """Splice every pending segment with ts0 <= through_ts into the log
         (cells strictly above the bound cannot affect a query at it)."""
-        if not self._pending:
-            return
-        keep = []
-        for h in self._pending:
-            if h.ts0 <= through_ts:
-                self._materialize(h)
-            else:
-                keep.append(h)
-        self._pending = keep
+        with self._lock:
+            if not self._pending:
+                return
+            keep = []
+            for h in self._pending:
+                if h.ts0 <= through_ts:
+                    self._materialize(h)
+                else:
+                    keep.append(h)
+            self._pending = keep
 
     def splice_csr(self, vals: np.ndarray, tss: np.ndarray, rows: np.ndarray,
                    ptr: np.ndarray, n_rows: int) -> None:
         """Install a fully consolidated CSR directly (loader fast path)."""
-        self._csr = (vals, tss, rows)
-        self._chunks = []
-        self._row_ptr = np.asarray(ptr)
-        self._n_rows_at_build = n_rows
+        with self._lock:
+            self._csr = (vals, tss, rows)
+            self._chunks = []
+            self._row_ptr = np.asarray(ptr)
+            self._n_rows_at_build = n_rows
 
     def cells_after(self, cutoff: Timestamp):
         """All cells with ts > cutoff as (rows, ts, vals) sorted by
@@ -259,64 +271,72 @@ class _CellLog:
         that could hold such cells (ts1 > cutoff) are read; for a store
         loaded from ``cutoff``'s own manifest that is none of them, so the
         cost is O(cells appended since the last save)."""
-        keep = []
-        for h in self._pending:
-            if h.ts1 > cutoff:
-                self._materialize(h)
-            else:
-                keep.append(h)
-        self._pending = keep
-        parts = list(self._chunks)
-        if self._csr is not None:
-            vals0, tss0, rows0 = self._csr
-            parts.insert(0, (rows0, tss0, vals0))
-        # mask per part BEFORE concatenating: a consolidated history with
-        # nothing past the cutoff contributes one comparison pass, not a
-        # full copy + lexsort — incremental save stays O(new cells)
-        kept = []
-        for rows, tss, vals in parts:
-            m = tss > cutoff
-            if m.any():
-                kept.append((rows[m], tss[m], vals[m]))
-        if not kept:
-            return (np.zeros(0, np.int32), np.zeros(0, np.int64),
-                    np.zeros((0, self.width), self.dtype))
-        rows = np.concatenate([c[0] for c in kept])
-        tss = np.concatenate([c[1] for c in kept])
-        vals = np.concatenate([c[2] for c in kept])
-        order = np.lexsort((tss, rows))
-        return rows[order], tss[order], vals[order]
+        with self._lock:
+            keep = []
+            for h in self._pending:
+                if h.ts1 > cutoff:
+                    self._materialize(h)
+                else:
+                    keep.append(h)
+            self._pending = keep
+            parts = list(self._chunks)
+            if self._csr is not None:
+                vals0, tss0, rows0 = self._csr
+                parts.insert(0, (rows0, tss0, vals0))
+            # mask per part BEFORE concatenating: a consolidated history with
+            # nothing past the cutoff contributes one comparison pass, not a
+            # full copy + lexsort — incremental save stays O(new cells)
+            kept = []
+            for rows, tss, vals in parts:
+                m = tss > cutoff
+                if m.any():
+                    kept.append((rows[m], tss[m], vals[m]))
+            if not kept:
+                return (np.zeros(0, np.int32), np.zeros(0, np.int64),
+                        np.zeros((0, self.width), self.dtype))
+            rows = np.concatenate([c[0] for c in kept])
+            tss = np.concatenate([c[1] for c in kept])
+            vals = np.concatenate([c[2] for c in kept])
+            order = np.lexsort((tss, rows))
+            return rows[order], tss[order], vals[order]
 
     def csr(self, n_rows: int, *, through_ts: Timestamp | None = None):
         """Returns (vals (C,W), ts (C,), row_ptr (n_rows+1,)) sorted by (row, ts).
 
         ``through_ts`` bounds which pending on-disk segments must be
         spliced in first: the returned CSR is complete for any query at
-        t <= through_ts (None = materialize everything).
+        t <= through_ts (None = materialize everything). Cells of rows at
+        or past ``n_rows`` (a release session's new rows, appended since
+        the caller read ``n_rows``) stay in the log, after the returned
+        ones.
         """
-        self._ensure(np.inf if through_ts is None else through_ts)
-        if self._row_ptr is not None and self._n_rows_at_build == n_rows:
-            return self._csr[0], self._csr[1], self._row_ptr
-        parts = list(self._chunks)  # each: (rows, ts, vals)
-        if self._csr is not None:
-            vals0, tss0, rows0 = self._csr
-            parts.insert(0, (rows0, tss0, vals0))
-        rows = (np.concatenate([c[0] for c in parts]) if parts
-                else np.zeros(0, np.int32))
-        tss = (np.concatenate([c[1] for c in parts]) if parts
-               else np.zeros(0, np.int64))
-        vals = (np.concatenate([c[2] for c in parts]) if parts
-                else np.zeros((0, self.width), self.dtype))
-        order = np.lexsort((tss, rows))
-        rows, tss, vals = rows[order], tss[order], vals[order]
-        ptr = np.zeros(n_rows + 1, np.int32)
-        np.add.at(ptr, rows + 1, 1)
-        ptr = np.cumsum(ptr).astype(np.int32)
-        self._csr = (vals, tss, rows)
-        self._chunks = []
-        self._row_ptr = ptr
-        self._n_rows_at_build = n_rows
-        return vals, tss, ptr
+        with self._lock:
+            self._ensure(np.inf if through_ts is None else through_ts)
+            if self._row_ptr is not None and self._n_rows_at_build == n_rows:
+                c = self._row_ptr[-1]
+                return self._csr[0][:c], self._csr[1][:c], self._row_ptr
+            parts = list(self._chunks)  # each: (rows, ts, vals)
+            if self._csr is not None:
+                vals0, tss0, rows0 = self._csr
+                parts.insert(0, (rows0, tss0, vals0))
+            rows = (np.concatenate([c[0] for c in parts]) if parts
+                    else np.zeros(0, np.int32))
+            tss = (np.concatenate([c[1] for c in parts]) if parts
+                   else np.zeros(0, np.int64))
+            vals = (np.concatenate([c[2] for c in parts]) if parts
+                    else np.zeros((0, self.width), self.dtype))
+            order = np.lexsort((tss, rows))
+            rows, tss, vals = rows[order], tss[order], vals[order]
+            ptr = np.zeros(n_rows + 1, np.int32)
+            np.add.at(ptr, np.minimum(rows + 1, n_rows), 1)
+            ptr = np.cumsum(ptr).astype(np.int32)
+            c = int(np.searchsorted(rows, n_rows))  # cells of rows < n_rows
+            ptr[-1] = c
+            self._csr = (vals, tss, rows)
+            self._chunks = []
+            self._row_ptr = ptr
+            self._n_rows_at_build = n_rows
+            return vals[:c], tss[:c], ptr
 
     def select_at(self, n_rows: int, t: Timestamp):
         """(vals_at_t (n_rows, W), found (n_rows,)) via the masked-cumsum
