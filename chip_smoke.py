@@ -153,6 +153,47 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
   serving_parity  the smoke config (f32) through device="cpu" and
                   device="cuda": the same greedy ids from a Scheduler
                   run, prefill logits within SMOKE_TOL
+  frontdoor       the serving tier over two stores of its own built from
+                  the main path's releases (a VersionedStore and a
+                  4-shard ShardedStore, stacked on the card by
+                  shard_placement="parallel"): table9_serving's traffic
+                  open loop from one thread per tenant through started
+                  FrontDoors (4 reader tenants over both stores at
+                  versions 40/60/80, the sequence and length fields or
+                  every field; an update of 1% of the keys every 50th
+                  request by each store's writer in turn; a
+                  compact(30) per store midway), first all at once (the
+                  rate the door sustains), then paced at FD_RATE_SHARE
+                  of that rate; then the same stores behind a door whose
+                  pool has a memory budget between the larger store's
+                  host bytes and both stores' resident bytes, with reads
+                  in blocks that keep one store hot at a time. Every read
+                  equals the store's answer after the drains byte for
+                  byte (and the release), no request fails or is shed,
+                  each store's mutations resolve in submission order; the
+                  budgeted pool demotes, spills (shard by shard too) and
+                  reloads; every demotion the pool counts is watched
+                  where it is made, one of a store the pool reloaded, and
+                  each frees at least FD_DEMOTION_FREED of the device
+                  bytes nbytes() counted. p50/p99 latency, achieved
+                  against target rate, waves, riders, serial degrades,
+                  pool stats and pressure, the device over one read wave
+                  of each store (torch.profiler and CUDA-event spans of
+                  every device operation), launches
+  search          table4_application at Swiss-Prot scale: 570,000
+                  sequences (32 x int32) and a release at 3.1% churn, the
+                  Meta-pipe encoder at its published widths in bf16
+                  (seeded random weights, the CUDA-core flash kernel at D
+                  32) mean-pooled in batches of 4,096, EmbeddingSearchDB
+                  (seg_size 64, tau 4, 8 queries, k 10): a full refresh
+                  and query, the incremental query to version 2 equal to
+                  a full recompute bit for bit, only the changed rows
+                  embedded; the encoder's chunked hidden states against
+                  xla within bf16's own rounding; a VersionedCorpus of
+                  20,000 documents released twice (only changed and new
+                  documents tokenized, token streams equal to a full
+                  release's). Walls, rows embedded, flash launches by
+                  design, the device over the full query
   kernels         per kernel: launches during the path that runs it,
                   error, times, bound (flash attention twice at 32k: bf16,
                   and f32 on the tensor cores as three TF32 products, its
@@ -171,7 +212,12 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   for the fingerprint, both routes and the keep mask;
                   the fingerprint also at UniProt's int8 rows, W 512 and
                   256 lanes at N 570,000, with the gestore path's
-                  launches at each width)
+                  launches at each width; flash attention at D 32 on the
+                  CUDA cores at the Meta-pipe encoder's shape, B 4,096 x
+                  S 32, in alternating rounds with SDPA and with its
+                  device time alone, its launches the search path's),
+                  and the frontdoor phase's launches, and the seconds
+                  since the start at which each phase's line was printed
 
 then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any mismatch or error ends the run with a
@@ -193,6 +239,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -252,6 +299,10 @@ SOURCES = {
     # the same wrapper at f32: the f32 tensor-core kernel of the source
     "flash_attention_f32": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:33"),
+    # the same wrapper at D 32: the CUDA-core kernel of the source (the
+    # Meta-pipe encoder's shape)
+    "flash_attention_d32": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:33"),
 }
 # the packed gather's decode, one row per gather size of the main path
 # (Q = 1, 8 and 64 timestamps a get_versions call)
@@ -273,6 +324,10 @@ PATH_KERNELS = {
     "serving": ("flash_attention",),
     "gestore": ("fingerprint", "masked_cumsum", "shard_route_bytes",
                 "delta_pack"),
+    "frontdoor": ("fingerprint", "masked_cumsum", "stacked_masked_cumsum",
+                  "keep_mask", "shard_route_bytes", "chain_decode",
+                  "delta_pack"),
+    "search": ("flash_attention", "masked_cumsum", "fingerprint"),
 }
 ARCH = "llama3.2-1b"
 SERVE_REQUESTS, SERVE_MAX_NEW, SERVE_MAX_BATCH = 16, 16, 8
@@ -306,7 +361,15 @@ INT32 = np.iinfo(np.int32)
 DEV = "cuda"
 
 
+T_START = time.perf_counter()
+# [phase, seconds since start] as each phase's line is printed (the kernel
+# rows' lines aside): the kernels line carries it, the script's breakdown
+PHASE_ENDS: list = []
+
+
 def emit(obj) -> None:
+    if obj.get("phase", "kernel") != "kernel":
+        PHASE_ENDS.append([obj["phase"], time.perf_counter() - T_START])
     print(json.dumps(obj), flush=True)
 
 
@@ -361,14 +424,98 @@ def queued_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(fn) -> dict:
+# the host calls that put a kernel, a copy or a memset on the card
+ENQUEUE_CALL = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|"
+                          r"Memcpy|Memset)")
+
+
+@contextlib.contextmanager
+def device_spans():
+    """Bracket every device operation enqueued from this thread by a pair
+    of CUDA events on the current stream: each aten op with a tensor on
+    the card among its arguments or results (a TorchDispatchMode), and
+    each call of a port kernel's launcher (the ctypes entry points that
+    ``_build.kernel_fn`` hands out). Yields a dict that holds, after the
+    block, ``busy_s``, the summed spans on the card's own clock, and
+    ``spans``. Ops on one stream run in order, so the spans do not
+    overlap; a span also holds its op's host dispatch time when the card
+    waits on the host (on an H100 about 70 us: the 44,873 spans of the
+    search phase's full query summed 3.34 s where torch.profiler kept
+    0.151 s of device time with 99.9% of the events), so ``busy_s`` is an
+    upper bound, close only for calls of few large operations."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.kernels import _build
+    pairs, out = [], {}
+
+    def bracket(call):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = call()
+        b.record()
+        return a, b, res
+
+    class Spans(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            a, b, res = bracket(lambda: func(*args, **(kwargs or {})))
+            if any(isinstance(x, torch.Tensor) and x.is_cuda
+                   for x in tree_leaves((args, kwargs, res))):
+                pairs.append((a, b))
+            return res
+
+    kernel_fn = _build.kernel_fn
+
+    def bracketed_kernel_fn(*key):
+        fn = kernel_fn(*key)
+
+        def launch(*args):
+            a, b, rc = bracket(lambda: fn(*args))
+            pairs.append((a, b))
+            return rc
+        return launch
+
+    _build.kernel_fn = bracketed_kernel_fn
+    try:
+        with Spans():
+            yield out
+    finally:
+        _build.kernel_fn = kernel_fn
+    sync()
+    out["busy_s"] = sum(a.elapsed_time(b) for a, b in pairs) / 1e3
+    out["spans"] = len(pairs)
+
+
+def device_profile(fn, spans: bool = False,
+                   plain_wall_s: float | None = None) -> dict:
     """One run of ``fn`` under torch.profiler: host wall, summed device
-    time of every kernel and copy, the device's idle share of the wall,
-    and the largest device consumers (ms)."""
+    time of every kernel and copy the profiler kept, the device's idle
+    share of the wall, the largest device consumers (ms), and the kernels,
+    copies and memsets the host enqueued (``enqueued``) beside the device
+    events the profiler kept (``device_events``).
+
+    On the H100 machines kineto drops device events whose timestamps it
+    places outside its trace window (its log counts them as
+    "Out-of-range"), erratically, from about a minute into a process, for
+    short and long windows alike: where ``complete`` is false, device_s is
+    a lower bound and the idle share an upper bound.
+
+    Idle shares are taken over ``plain_wall_s``, the wall of the same
+    call run alone, when it is given (the instruments lengthen only the
+    gaps between device operations), else over this run's wall.
+    With ``spans``, the same run is also bracketed by :func:`device_spans`:
+    ``busy_s`` is the card's busy time on its own clock, which no trace
+    window drops, and ``busy_idle_share`` is 1 - busy_s over that wall. It
+    fails if the profiler kept more device time than the spans hold (a
+    device operation outside every span). ``post_s`` is the profiler's
+    own time after the run."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with contextlib.ExitStack() as es:
+        prof = es.enter_context(profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA]))
+        busy = es.enter_context(device_spans()) if spans else None
         _, s = wall(fn)
+        t_end = time.perf_counter()
     rows = []
     for e in prof.key_averages():
         # device-side events only (kernels, copies): the host ops that
@@ -382,9 +529,21 @@ def device_profile(fn) -> dict:
             rows.append((e.key, us / 1e3))
     rows.sort(key=lambda r: -r[1])
     dev_s = sum(ms for _, ms in rows) / 1e3
-    return {"wall_s": s, "device_s": dev_s,
-            "idle_share": 1 - dev_s / s if s > 0 else None,
-            "top_ms": rows[:8]}
+    evs = prof.events()
+    enqueued = sum("CPU" in str(e.device_type) and bool(ENQUEUE_CALL.match(
+        e.name)) for e in evs)
+    kept = sum("CUDA" in str(e.device_type) for e in evs)
+    base = plain_wall_s or s
+    out = {"wall_s": s, "plain_wall_s": plain_wall_s, "device_s": dev_s,
+           "idle_share": 1 - dev_s / base if base > 0 else None,
+           "enqueued": enqueued, "device_events": kept,
+           "complete": kept >= enqueued, "top_ms": rows[:8]}
+    if busy is not None:
+        out.update(busy, busy_idle_share=1 - busy["busy_s"] / base)
+        check(busy["spans"] > 0 and busy["busy_s"] >= 0.99 * dev_s,
+              f"device spans hold less than the profiler kept: {out}")
+    out["post_s"] = time.perf_counter() - t_end
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -803,7 +962,8 @@ class KernelBench:
                 nb["both_operands"], n * w + n)[0]})
 
     def flash(self, q, k, v, *, timed=True, main=False, quiet=False,
-              reps=None, name="flash_attention") -> dict:
+              reps=None, name="flash_attention", rounds=1,
+              device=False) -> dict:
         """Flash attention against its plain version within FLASH_TOL,
         bound by its causal FLOPs at the dtype's peak (f32: three TF32
         products each, ``roofline.compute_peak``), with the design the
@@ -843,7 +1003,7 @@ class KernelBench:
             library=library, timed=timed, main=main, quiet=quiet,
             tol=FLASH_TOL[q.dtype],
             peak=self.roof.compute_peak(str(q.dtype).split(".")[-1]),
-            reps=reps)
+            reps=reps, rounds=rounds, device=device)
 
     def chain_decode(self, deltas, heads, idx, itemsize, *, xor=False,
                      timed=True, main=False, quiet=False, label=None,
@@ -1998,6 +2158,415 @@ def phase_parity(VersionedStore, FieldSchema, seed: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the serving tier: TieredStorePool, GeStoreService, FrontDoor
+# ---------------------------------------------------------------------------
+
+FD_STORES = ("uniprot", "uniprot4")  # one VersionedStore, one of 4 shards
+FD_READERS = 4
+FD_READ_TS = (40, 60, 80)  # pinned released versions, above FD_COMPACT_TS
+FD_FIELDS = (("sequence", "length"), None)  # None: every field
+FD_UPDATE_EVERY = 50  # table9_serving's mix: one ingest per 50 requests
+FD_COMPACT_TS = 30
+# the saturated drain (every request submitted at once) measures the rate
+# the door sustains; the paced drain then runs open loop at FD_RATE_SHARE
+# of it. Each drain lands 3 or more updates per store
+FD_SAT_REQUESTS, FD_PACED_REQUESTS = 320, 320
+FD_RATE_SHARE = 0.5
+# the budgeted drain: four blocks of (store, reads, whether an update of
+# the store lands first), one store hot in each, so the pool demotes,
+# spills and reloads without thrashing: the third reloads the plain store
+# from its spill, and the fourth (its update a plan miss) makes the pool
+# demote that reloaded store
+FD_BUDGET_BLOCKS = (("uniprot", 48, True), ("uniprot4", 48, True),
+                    ("uniprot", 32, False), ("uniprot4", 32, True))
+FD_DEMOTION_FREED = 0.9  # a demotion frees this share of its counted bytes
+
+
+def fd_update(i: int, store: str, rng, releases, next_ts: dict) -> dict:
+    """An update of the first 1% of the last release's keys (new sequence
+    and length values) at ``store``'s next fresh timestamp, by its writer
+    tenant (table9_serving's ``N // 100`` keys, patch semantics)."""
+    keys = keys_of(releases[-1]["ids"][:len(releases[-1]["ids"]) // 100])
+    ts = next_ts[store]
+    next_ts[store] += 10
+    return {"i": i, "kind": "update", "store": store,
+            "tenant": f"writer-{store}", "ts": ts, "keys": keys, "table": {
+                "sequence": rng.integers(0, 25, (len(keys), SEQ_W),
+                                         dtype=np.int32),
+                "length": rng.integers(50, 400, (len(keys), 1),
+                                       dtype=np.int32)}}
+
+
+def fd_schedule(n: int, rng, releases, next_ts: dict) -> list[dict]:
+    """table9_serving's open-loop traffic over the two stores: request i
+    goes to store i % 2 and is a read by tenant ``reader-(i // 2 % 4)``
+    (each reader reads both stores) at a pinned version, with the
+    sequence and length fields or every field; every 50th is an update
+    (:func:`fd_update`), the stores in turn; at the middle, each writer
+    also submits compact(FD_COMPACT_TS)."""
+    out, n_upd = [], 0
+    for i in range(n):
+        if i == n // 2:
+            for s in FD_STORES:
+                out.append({"i": i, "kind": "compact", "store": s,
+                            "tenant": f"writer-{s}"})
+        if i and i % FD_UPDATE_EVERY == 0:
+            out.append(fd_update(i, FD_STORES[n_upd % 2], rng, releases,
+                                 next_ts))
+            n_upd += 1
+            continue
+        f = FD_FIELDS[int(rng.integers(0, len(FD_FIELDS)))]
+        out.append({"i": i, "kind": "read", "store": FD_STORES[i % 2],
+                    "tenant": f"reader-{(i // 2) % FD_READERS}",
+                    "ts": FD_READ_TS[int(rng.integers(0, len(FD_READ_TS)))],
+                    "fields": f})
+    return out
+
+
+def fd_submit(fd, r: dict):
+    if r["kind"] == "read":
+        return fd.submit(r["tenant"], r["store"], r["ts"], fields=r["fields"])
+    if r["kind"] == "update":
+        return fd.submit_update(r["tenant"], r["store"], r["ts"], r["keys"],
+                                r["table"], full_release=False)
+    return fd.submit_compact(r["tenant"], r["store"], FD_COMPACT_TS)
+
+
+def fd_drain(fd, schedule: list[dict], rate: float | None) -> dict:
+    """Submit ``schedule`` to a started door from one thread per tenant,
+    open loop: request i at t0 + i / rate (all at once without a rate).
+    Waits for every future, then for the door to count every request (it
+    counts after it resolves a future); an exception in a submitting
+    thread, or a future that carries one, fails the run. Returns the
+    futures aligned with the schedule, the order in which each store's
+    mutations resolved, the door's stats with this drain's counters alone
+    and the walls."""
+    import threading
+    before = fd.stats()["counters"]
+    settled = ("completed", "failed", "cancelled", "shed_deadline")
+    by_tenant: dict[str, list[int]] = {}
+    for j, r in enumerate(schedule):
+        by_tenant.setdefault(r["tenant"], []).append(j)
+    futs: list = [None] * len(schedule)
+    resolved: dict[str, list] = {s: [] for s in FD_STORES}
+    lock, errs = threading.Lock(), []
+
+    def done_cb(r):
+        def cb(f):
+            with lock:
+                resolved[r["store"]].append(r.get("ts", "compact"))
+        return cb
+
+    def submitter(idx: list[int]):
+        try:
+            for j in idx:
+                if rate is not None:
+                    delay = t0 + schedule[j]["i"] / rate - time.perf_counter()
+                    if delay > 0:
+                        time.sleep(delay)
+                f = fd_submit(fd, schedule[j])
+                if schedule[j]["kind"] != "read":
+                    f.add_done_callback(done_cb(schedule[j]))
+                futs[j] = f
+        except Exception as e:  # noqa: BLE001 — fails the run below
+            errs.append(repr(e))
+
+    threads = [threading.Thread(target=submitter, args=(idx,),
+                                name=f"submit-{t}")
+               for t, idx in by_tenant.items()]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    submit_s = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a submitter hung")
+    check(not errs, f"submitting threads raised: {errs}")
+    for f in futs:
+        f.exception(timeout=900)  # waits; raises only on a timeout
+    span = time.perf_counter() - t0
+    failed = [(r["kind"], r["store"], repr(f.exception()))
+              for r, f in zip(schedule, futs) if f.exception() is not None]
+    check(not failed, f"futures carry exceptions: {failed[:4]}")
+    while True:
+        stats = fd.stats()
+        c = stats["counters"]
+        if sum(c[k] - before[k] for k in settled) >= len(schedule):
+            break
+        check(time.perf_counter() - t0 < span + 900, "the door never "
+              "counted its last requests")
+        time.sleep(0.001)
+    for k, v in before.items():
+        c[k] -= v
+    return {"futures": futs, "resolved": resolved, "stats": stats,
+            "submit_s": submit_s, "span_s": span}
+
+
+def fd_report(out: dict, target: float | None) -> dict:
+    s, c = out["stats"], out["stats"]["counters"]
+    lat = s["latency"]
+    return {"requests": c["admitted"], "span_s": out["span_s"],
+            "submit_s": out["submit_s"], "target_rate": target,
+            "achieved_rate": c["completed"] / out["span_s"],
+            "p50_ms": lat["total"]["p50_ms"], "p99_ms": lat["total"]["p99_ms"],
+            "exec_p50_ms": lat["exec"]["p50_ms"],
+            "exec_p99_ms": lat["exec"]["p99_ms"],
+            "stages_p50_ms": {k: lat[k]["p50_ms"] for k in
+                              ("queue", "scan", "gather", "materialize")},
+            "waves": c["waves"], "read_waves": c["read_waves"],
+            "mutation_waves": c["mutation_waves"], "riders": c["riders"],
+            "serial_degrades": c["serial_degrades"],
+            "plan_hits": s["service"]["plan_hits"],
+            "plan_misses": s["service"]["plan_misses"],
+            "batches": s["service"]["batches"], "pool": s.get("pool"),
+            "pool_pressure": s["pool_pressure"]}
+
+
+def fd_check(out: dict, schedule: list[dict], want, what: str) -> None:
+    """No failure and no shed request; every read equal to the store's
+    answer after the drain (``want``), byte for byte; each store's
+    mutations resolved in their submission order, each update at its
+    timestamp."""
+    c = out["stats"]["counters"]
+    check(c["failed"] == 0 and c["cancelled"] == 0,
+          f"{what}: {c['failed']} failed, {c['cancelled']} cancelled")
+    check(c["rejected_queue_full"] == c["rejected_pressure"]
+          == c["shed_deadline"] == 0, f"{what}: requests shed: {c}")
+    check(c["completed"] == len(schedule), f"{what}: {c['completed']} of "
+          f"{len(schedule)} completed")
+    seen = set()
+    for r, f in zip(schedule, out["futures"]):
+        got = f.result(0)
+        if r["kind"] == "update":
+            check(got.ts == r["ts"], f"{what}: update resolved at {got.ts}")
+        if r["kind"] != "read" or id(got) in seen:
+            continue
+        seen.add(id(got))
+        same_rows(got, want(r["store"], r["ts"], r["fields"]),
+                  f"{what}: {r['store']}@{r['ts']} {r['fields']}")
+    for s in FD_STORES:
+        sub = [r.get("ts", "compact") for r in schedule
+               if r["kind"] != "read" and r["store"] == s]
+        check(out["resolved"][s] == sub,
+              f"{what}: {s}'s mutations resolved as {out['resolved'][s]}, "
+              f"submitted as {sub}")
+
+
+def phase_frontdoor(core, kops, releases, root: str) -> dict:
+    """The serving tier on the card at UniProtKB/Swiss-Prot scale: two
+    stores of its own from the main path's releases behind a FrontDoor
+    (shard_placement="parallel": the 4-shard store stacked on one card),
+    driven open loop from threads, then behind a second door with a
+    memory budget that makes its pool demote, spill and reload."""
+    from concurrent.futures import Future
+    from repro_torch.serve import (FrontDoor, FrontDoorConfig,
+                                   GeStoreService, VersionRequest)
+    schema = [core.FieldSchema("sequence", SEQ_W, "int32"),
+              core.FieldSchema("length", 1, "int32"),
+              core.FieldSchema("annotation", ANN_W, "int32")]
+    rec = {"phase": "frontdoor", "stores": {}, "readers": FD_READERS,
+           "read_ts": list(FD_READ_TS), "update_every": FD_UPDATE_EVERY,
+           "update_keys": len(releases[-1]["ids"]) // 100,
+           "fields": [list(f) if f else "all" for f in FD_FIELDS]}
+    reset_counts(kops)
+    stores = {"uniprot": core.VersionedStore("uniprot", schema,
+                                             capacity=N_ENTRIES),
+              "uniprot4": core.ShardedStore("uniprot4", schema,
+                                            n_shards=N_SHARDS,
+                                            capacity=N_ENTRIES)}
+    for name, st in stores.items():
+        _, s = wall(lambda: [st.update(r["ts"], keys_of(r["ids"]), r["table"])
+                             for r in releases])
+        rec["stores"][name] = {"build_s": s, "rows": st.n_rows,
+                               **({"shards": st.n_shards}
+                                  if name == "uniprot4" else {})}
+    rng = np.random.default_rng(int(releases[0]["ids"][-1]))
+    next_ts = dict.fromkeys(FD_STORES, RELEASE_TS[-1] + 10)
+
+    cfg = FrontDoorConfig(max_queue_per_tenant=1 << 16)
+    # one service (plan cache, pool with the pinned placement) behind a
+    # door per drain, so each drain's counters and latencies are its own
+    svc = GeStoreService(stores, shard_placement="parallel")
+    check(svc.store("uniprot4").placement.mode == "stacked",
+          "the 4-shard store is not stacked on one card")
+    drains = []
+    for share in (None, FD_RATE_SHARE):
+        sched = fd_schedule(FD_SAT_REQUESTS if share is None
+                            else FD_PACED_REQUESTS, rng, releases, next_ts)
+        rate = None if share is None else share * drains[0][2][
+            "achieved_rate"]
+        svc_before = dict(svc.stats)
+        with FrontDoor(svc, config=cfg) as fd:
+            out = fd_drain(fd, sched, rate)
+        for k, v in svc_before.items():  # this drain's service stats
+            out["stats"]["service"][k] -= v
+        drains.append((sched, out, fd_report(out, rate)))
+    # the pinned versions after both drains, from the same stores
+    want_cache = {}
+
+    def want(store, ts, fields):
+        key = (store, fields)
+        if key not in want_cache:
+            want_cache[key] = dict(zip(FD_READ_TS, svc.store(store)
+                                       .get_versions(list(FD_READ_TS),
+                                                     fields=fields)))
+        return want_cache[key][ts]
+
+    for name in FD_STORES:
+        for fields in FD_FIELDS:
+            for t in FD_READ_TS:
+                check_view(want(name, t, fields), releases, t,
+                           list(fields) if fields else
+                           [f.name for f in schema])
+    for label, (sched, out, rep) in zip(("saturated", "paced"), drains):
+        fd_check(out, sched, want, label)
+        rec[label] = rep
+        rec[label]["updates_per_store"] = {
+            s: sum(r["kind"] == "update" and r["store"] == s for r in sched)
+            for s in FD_STORES}
+        check(min(rec[label]["updates_per_store"].values()) >= 3,
+              f"{label}: fewer than 3 updates a store")
+    del drains
+    # the device over one read wave of each store (plan cache cleared):
+    # its wall alone, then under the profiler with every device operation
+    # bracketed by CUDA events (device_profile)
+    rec["wave_profile"] = {}
+    for name in FD_STORES:
+        def wave():
+            svc._plans.clear()
+            items = [(VersionRequest(name, t, ("sequence", "length")),
+                      Future()) for t in FD_READ_TS]
+            return lambda: svc.serve_wave(items), items
+        run, _ = wave()
+        _, plain = wall(run)
+        run, items = wave()
+        rec["wave_profile"][name] = device_profile(run, spans=True,
+                                                   plain_wall_s=plain)
+        for _, f in items:
+            same_rows(f.result(0), want(name, f.result(0).ts,
+                                        ("sequence", "length")),
+                      f"profiled wave of {name}")
+    svc._plans.clear()
+    rec["budgeted"] = phase_frontdoor_budget(core, stores, cfg, want, rng,
+                                             releases, next_ts, root)
+    rec["launches"] = read_counts(kops)
+    emit(rec)
+    for k in PATH_KERNELS["frontdoor"]:
+        check(rec["launches"][k] > 0,
+              f"kernel {k} never launched on the frontdoor path")
+    return {"launches": rec["launches"]}
+
+
+@contextlib.contextmanager
+def watched_demotions(classes, demotions: list):
+    """Record every device -> host demotion (``drop_superlog``) of a store
+    of ``classes`` while the block runs, whichever object the pool holds
+    (a store it reloaded from a spill included): the store, whether it is
+    one of the stores the block started with, the device bytes its
+    ``nbytes()`` counted and the bytes ``torch.cuda.memory_allocated()``
+    fell by. A sharded store's drop of its own shards is part of its one
+    demotion."""
+    depth = threading.local()
+    saved = {cls: cls.drop_superlog for cls in classes}
+
+    def wrap(drop):
+        def watched(st):
+            if getattr(depth, "n", 0):
+                return drop(st)
+            sync()
+            counted = st.nbytes()["device"]
+            before = torch.cuda.memory_allocated()
+            depth.n = 1
+            try:
+                drop(st)
+            finally:
+                depth.n = 0
+            sync()
+            demotions.append({"store": st.name, "id": id(st),
+                              "counted_bytes": counted,
+                              "freed_bytes":
+                              before - torch.cuda.memory_allocated()})
+        return watched
+
+    for cls, drop in saved.items():
+        cls.drop_superlog = wrap(drop)
+    try:
+        yield demotions
+    finally:
+        for cls, drop in saved.items():
+            cls.drop_superlog = drop
+
+
+def phase_frontdoor_budget(core, stores, cfg, want, rng, releases, next_ts,
+                           root: str) -> dict:
+    """The same stores behind a door whose pool holds a budget between
+    the larger store's host bytes and both stores' resident bytes: reads
+    in blocks that keep one store hot at a time (FD_BUDGET_BLOCKS), the
+    last after the pool has spilled and reloaded the plain store.
+    Every answer must equal the unbounded door's; every demotion the pool
+    counts is watched where the pool makes it, one of them of a store it
+    reloaded, and each must free at least FD_DEMOTION_FREED of the device
+    bytes ``nbytes()`` counted for its store."""
+    from repro_torch.serve import FrontDoor
+    nb = {n: st.nbytes() for n, st in stores.items()}
+    host = max(v["host"] for v in nb.values())
+    resident = sum(sum(v.values()) for v in nb.values())
+    budget = (host + resident) // 2
+    first = {id(st) for st in stores.values()}
+    spill_root = os.path.join(root, "spill")
+    blocks, outs = [], []
+
+    def served(fd, sched, what):
+        out = fd_drain(fd, sched, None)
+        fd_check(out, sched, want, what)
+        outs.append(out)
+        return out
+
+    t0 = time.perf_counter()
+    with watched_demotions((core.VersionedStore, core.ShardedStore),
+                           []) as demotions, \
+            FrontDoor(stores, config=cfg, memory_budget_bytes=budget,
+                      spill_root=spill_root,
+                      shard_placement="parallel") as fd:
+        for b, (name, n, update_first) in enumerate(FD_BUDGET_BLOCKS):
+            span = 0.0
+            if update_first:
+                upd = [fd_update(0, name, rng, releases, next_ts)]
+                span += served(fd, upd, f"budgeted update {b}")["span_s"]
+            reads = [{"i": i, "kind": "read", "store": name,
+                      "tenant": f"reader-{i % FD_READERS}",
+                      "ts": FD_READ_TS[int(rng.integers(0, len(FD_READ_TS)))],
+                      "fields": FD_FIELDS[i % len(FD_FIELDS)]}
+                     for i in range(n)]
+            out = served(fd, reads, f"budgeted block {b}")
+            blocks.append({"store": name, "reads": n,
+                           "updates": int(update_first),
+                           "span_s": span + out["span_s"],
+                           "pool": out["stats"]["pool"]})
+        span = time.perf_counter() - t0
+        final = fd.stats()
+    rep = {"budget_bytes": budget, "larger_host_bytes": host,
+           "resident_bytes": resident, "nbytes": nb, "blocks": blocks,
+           **fd_report({"stats": final, "span_s": span,
+                        "submit_s": sum(o["submit_s"] for o in outs)}, None),
+           "final_pressure": final["pool_pressure"], "demotions": demotions}
+    for d in demotions:
+        d["reloaded"] = d.pop("id") not in first
+    pool = final["pool"]
+    for k in ("demotions", "spills", "shard_spills", "reloads"):
+        check(pool[k] >= 1, f"budgeted drain: no {k}: {pool}")
+    check(len(demotions) == pool["demotions"],
+          f"{len(demotions)} demotions watched, the pool counts "
+          f"{pool['demotions']}")
+    check(any(d["reloaded"] and d["counted_bytes"] > 0 for d in demotions),
+          f"no demotion of a reloaded store held device bytes: {demotions}")
+    check(all(d["freed_bytes"] >= FD_DEMOTION_FREED * d["counted_bytes"]
+              for d in demotions),
+          f"a demotion freed less than it counted: {demotions}")
+    return rep
+
+
+# ---------------------------------------------------------------------------
 # the facade slice: GeStore, the streaming ingest, WorkflowManager
 # ---------------------------------------------------------------------------
 
@@ -2501,6 +3070,13 @@ FLASH_EDGE_SHAPES = [  # (B, Sq, Sk, H, K, D)
     (1, 129, 200, 8, 2, 128), (2, 257, 257, 8, 1, 128),
     (2, 300, 130, 4, 1, 128), (1, 5, 0, 4, 2, 128),
     (1, 65, 97, 4, 4, 128), (2, 63, 65, 8, 4, 64), (3, 33, 33, 4, 2, 128),
+    # the CUDA-core kernel (64 query rows a block, 32-key tiles) at D 16
+    # and 32: Sq and Sk on and off its tiles, GQA groups 1/2/4/8, Sq = 1,
+    # Sq > Sk, an empty key axis, and the Meta-pipe encoder's shape at a
+    # few sequences
+    (2, 65, 97, 8, 2, 32), (3, 31, 33, 8, 1, 16), (1, 129, 257, 4, 2, 32),
+    (6, 32, 32, 8, 8, 32), (1, 1, 65, 4, 1, 16), (2, 70, 20, 4, 4, 16),
+    (1, 64, 64, 6, 3, 32), (2, 33, 0, 4, 2, 16),
 ]
 
 
@@ -3017,6 +3593,261 @@ def phase_serving_parity(seed: int) -> None:
     check(err <= SMOKE_TOL, f"smoke serving: logits differ by {err}")
 
 
+# ---------------------------------------------------------------------------
+# versioned search: the Meta-pipe application (table4_application)
+# ---------------------------------------------------------------------------
+
+SEARCH_ROWS = 570_000  # UniProtKB/Swiss-Prot's entries
+SEARCH_SEQ_W = 32      # table4_application's SEQ_W, alphabet 0-24
+SEARCH_CHURN = 0.031   # table4_application's CHURN
+SEARCH_BATCH = 4096    # sequences per encoder call, the last one padded
+SEARCH_QUERIES, SEARCH_K, SEARCH_SEG, SEARCH_TAU = 8, 10, 64, 4.0
+CORPUS_DOCS = 20_000
+CORPUS_CHURN = 0.031
+
+
+def metapipe_encoder(params, cfg, impl: str):
+    """table4_application's encoder on the card: tokens mod the vocab
+    through ``forward_train`` (under inference mode), the hidden states
+    mean-pooled over the sequence, in batches of SEARCH_BATCH rows with
+    the last padded by zero rows. Every call has one shape, so a row's
+    embedding does not depend on the rows batched with it, and the
+    incremental refresh embeds a changed row to the same bits as the full
+    one."""
+    from repro_torch.models.transformer import FwdOpts, forward_train
+    opts = FwdOpts(attn_impl=impl)
+
+    @torch.inference_mode()
+    def enc(tokens: np.ndarray) -> np.ndarray:
+        out = []
+        for i in range(0, len(tokens), SEARCH_BATCH):
+            chunk = tokens[i:i + SEARCH_BATCH]
+            pad = SEARCH_BATCH - len(chunk)
+            if pad:
+                chunk = np.concatenate([chunk, np.zeros(
+                    (pad, chunk.shape[1]), chunk.dtype)])
+            t = torch.as_tensor(chunk, device=DEV) % cfg.vocab
+            x, _ = forward_train(params, cfg, {"tokens": t}, opts)
+            out.append(x.mean(dim=1).float().cpu().numpy()[:len(chunk) - pad])
+        return (np.concatenate(out) if out
+                else np.zeros((0, cfg.d_model), np.float32))
+    return enc
+
+
+def encoder_check(kops, params, cfg, tokens: np.ndarray) -> dict:
+    """The encoder's hidden states on one batch through ``chunked`` (the
+    flash kernel) and ``xla`` (torch ops), both in bf16, and through
+    ``xla`` in f32 with the same weights. The two bf16 paths differ only
+    in how attention rounds to bf16 (flash: once from its f32 online
+    softmax; xla: f32 logits and probabilities, rounded at the output),
+    and four layers carry each rounding through the residual stream and
+    the MLP. The tolerance is the model's own bf16 rounding: chunked must
+    be as close to xla as xla is to the f32 model (max and RMS), and no
+    further from the f32 model than xla is (within 5%). Returns the
+    errors and the layer-0 q, k, v the flash kernel was handed."""
+    from repro_torch.models.transformer import FwdOpts, forward_train
+    t = torch.as_tensor(tokens, device=DEV) % cfg.vocab
+    p32 = weights_like(params, torch.float32)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+
+    def run():
+        with torch.inference_mode(), layer0_inputs(cfg.n_layers) as kept:
+            xc = forward_train(params, cfg, {"tokens": t},
+                               FwdOpts("chunked"))[0].float()
+            xx = forward_train(params, cfg, {"tokens": t},
+                               FwdOpts("xla"))[0].float()
+            xf = forward_train(p32, c32, {"tokens": t}, FwdOpts("xla"))[0]
+        return xc, xx, xf, kept[0]
+    xc, xx, xf, qkv = uncounted(kops, run)
+
+    def err(a, b):
+        d = a - b
+        return float(d.abs().max()), float(d.pow(2).mean().sqrt())
+    rec = {"rows": len(tokens), "max_abs_hidden": float(xx.abs().max()),
+           "chunked_vs_xla": err(xc, xx), "xla_vs_f32": err(xx, xf),
+           "chunked_vs_f32": err(xc, xf)}
+    (cx_max, cx_rms), (xf_max, xf_rms) = (rec["chunked_vs_xla"],
+                                          rec["xla_vs_f32"])
+    rec["ok"] = (cx_max <= xf_max and cx_rms <= xf_rms
+                 and rec["chunked_vs_f32"][0] <= 1.05 * xf_max)
+    return rec, qkv
+
+
+def weights_like(tree, dtype):
+    """The parameter tree with every tensor cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: weights_like(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [weights_like(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def search_same(a, b) -> bool:
+    """Two search results bit for bit: global and per-segment top-k,
+    scores, log-sum-exps, and z."""
+    return all(np.array_equal(x, y) for x, y in (
+        (a.topk_idx, b.topk_idx), (a.topk_score, b.topk_score),
+        (a.z, b.z), (a.seg_topk_idx, b.seg_topk_idx),
+        (a.seg_topk_score, b.seg_topk_score), (a.seg_lse, b.seg_lse)))
+
+
+def phase_search(core, kops, seed: int) -> dict:
+    """table4_application at Swiss-Prot scale on the card: a corpus of
+    570,000 sequences (32 x int32) and a second release at 3.1% churn,
+    the Meta-pipe encoder at its published widths (bf16, seeded random
+    weights, flash attention), EmbeddingSearchDB with a full refresh and
+    query, the incremental query to version 2 and a full recompute there;
+    then a VersionedCorpus of 20,000 documents released twice."""
+    from repro_torch.configs.metapipe import ENCODER
+    from repro_torch.models import build
+    rng = np.random.default_rng(seed + 21)
+    rec = {"phase": "search", "rows": SEARCH_ROWS, "seq_w": SEARCH_SEQ_W,
+           "churn": SEARCH_CHURN, "encoder": dataclasses.asdict(ENCODER),
+           "batch": SEARCH_BATCH, "queries": SEARCH_QUERIES, "k": SEARCH_K,
+           "seg_size": SEARCH_SEG, "tau": SEARCH_TAU}
+    reset_counts(kops)
+    store = core.VersionedStore(
+        "metapipe", [core.FieldSchema("sequence", SEARCH_SEQ_W, "int32")],
+        capacity=SEARCH_ROWS + 64)
+    keys = [b"d%d" % i for i in range(SEARCH_ROWS)]
+    seqs = rng.integers(0, 25, (SEARCH_ROWS, SEARCH_SEQ_W), dtype=np.int32)
+    _, rec["release_1_s"] = wall(lambda: store.update(
+        1, keys, {"sequence": seqs}))
+    seqs2 = seqs.copy()
+    n_mut = int(SEARCH_CHURN * SEARCH_ROWS)
+    seqs2[rng.choice(SEARCH_ROWS, n_mut, replace=False)] = rng.integers(
+        0, 25, (n_mut, SEARCH_SEQ_W))
+    _, rec["release_2_s"] = wall(lambda: store.update(
+        2, keys, {"sequence": seqs2}))
+    n_changed = int((seqs != seqs2).any(axis=1).sum())
+    t0 = time.perf_counter()
+    params = build(ENCODER).init(seed, DEV)
+    rec["encoder_check"], qkv = encoder_check(kops, params, ENCODER,
+                                              seqs[:SEARCH_BATCH])
+    rec["encoder_check_s"] = time.perf_counter() - t0
+    check(rec["encoder_check"]["ok"],
+          f"encoder: chunked differs from xla beyond bf16's own rounding: "
+          f"{rec['encoder_check']}")
+    enc = metapipe_encoder(params, ENCODER, "chunked")
+    q = rng.integers(0, 25, (SEARCH_QUERIES, SEARCH_SEQ_W), dtype=np.int32)
+    qids = [b"q%d" % i for i in range(SEARCH_QUERIES)]
+
+    db = core.EmbeddingSearchDB(store, enc, seg_size=SEARCH_SEG,
+                                tau=SEARCH_TAU)
+    rec["full_embedded"], rec["full_embed_s"] = wall(lambda: db.refresh(1))
+    r1, rec["full_query_s"] = wall(lambda: db.query(qids, q, ts=1,
+                                                    k=SEARCH_K))
+    prof = device_profile(lambda: db.query(qids, q, ts=1, k=SEARCH_K),
+                          plain_wall_s=rec["full_query_s"])
+    rec["full_query_profile"] = prof
+    acc = {}
+    with timed_calls(db, "refresh", acc), timed_calls(db, "query", acc):
+        r2, rec["incremental_s"] = wall(lambda: db.incremental_query(
+            r1, qids, q, t_last=1, ts=2, k=SEARCH_K))
+    rec["incremental_refresh_s"] = acc["refresh"]
+    rec["incremental_query_s"] = acc["query"]
+    rec["incremental_embedded"] = r2.n_embedded
+    rec["changed_segments"] = int(len(db.changed_segments(1, 2)))
+    rec["segments"] = db.n_segments()
+    full = core.EmbeddingSearchDB(store, enc, seg_size=SEARCH_SEG,
+                                  tau=SEARCH_TAU)
+    _, rec["recompute_embed_s"] = wall(lambda: full.refresh(2))
+    rf, rec["recompute_query_s"] = wall(lambda: full.query(
+        qids, q, ts=2, k=SEARCH_K))
+    check(search_same(r2, rf), "search: the incremental result differs "
+          "from the full recompute")
+    check(rec["full_embedded"] == SEARCH_ROWS, "full embed rows")
+    check(r2.n_embedded == n_changed, f"search: embedded {r2.n_embedded} "
+          f"rows, {n_changed} changed")
+    check(np.isfinite(r1.z).all() and np.isfinite(rf.z).all()
+          and (r1.topk_idx >= 0).all(), "search: a non-finite z or empty "
+          "top-k")
+    rec["n_changed"] = n_changed
+    rec["topk_changed_queries"] = int((r1.topk_idx != rf.topk_idx)
+                                      .any(axis=1).sum())
+    rec["corpus"], rec["corpus_s"] = wall(lambda: corpus_check(rng))
+    rec["launches"] = read_counts(kops)
+    rec["flash_launches_by_design"] = dict(kops.flash_attention.by_design)
+    emit(rec)
+    for k in PATH_KERNELS["search"]:
+        check(rec["launches"][k] > 0,
+              f"kernel {k} never launched on the search path")
+    check(rec["flash_launches_by_design"]["cuda_core"]
+          == rec["launches"]["flash_attention"],
+          "search: a flash launch took another design than cuda_core")
+    del db, full, store
+    return {"launches": {**rec["launches"], "flash_attention_d32":
+                         rec["flash_launches_by_design"]["cuda_core"]},
+            "qkv": qkv}
+
+
+def corpus_check(rng) -> dict:
+    """A VersionedCorpus on the card: two releases of CORPUS_DOCS
+    documents, the second with CORPUS_CHURN of them edited, 1% deleted and
+    1% new, through ``incremental_release``; only the changed and new
+    documents are tokenized, and each version's token stream equals that
+    of a corpus given both releases whole."""
+    from repro_torch.data.versioned_dataset import VersionedCorpus
+    words = np.array(["sequence", "protein", "kinase", "domain", "binding",
+                      "membrane", "transport", "GeStore", "release", "meta"])
+
+    def doc(n):
+        return " ".join(words[rng.integers(0, len(words), n)])
+    docs = {f"doc{i:06d}": doc(int(rng.integers(5, 100)))
+            for i in range(CORPUS_DOCS)}
+    names = list(docs)
+    docs2 = dict(docs)
+    for i in rng.choice(CORPUS_DOCS, int(CORPUS_CHURN * CORPUS_DOCS),
+                        replace=False):
+        docs2[names[i]] = doc(int(rng.integers(5, 100)))
+    for i in rng.choice(CORPUS_DOCS, CORPUS_DOCS // 100, replace=False):
+        docs2.pop(names[i], None)
+    for i in range(CORPUS_DOCS // 100):
+        docs2[f"new{i:06d}"] = doc(int(rng.integers(5, 100)))
+    changed = sum(k not in docs or docs[k] != v for k, v in docs2.items())
+    inc, full = VersionedCorpus("inc"), VersionedCorpus("full")
+    check(inc.store.device.type == torch.device(DEV).type,
+          f"VersionedCorpus without device= is on {inc.store.device}")
+    rec = {"docs": [len(docs), len(docs2)], "changed_or_new": changed}
+    _, rec["add_release_s"] = wall(lambda: inc.add_release(10, docs))
+    n0 = inc.tokens_encoded_total
+    _, rec["incremental_release_s"] = wall(lambda: inc.incremental_release(
+        10, 20, docs2))
+    rec["tokenized"] = inc.tokens_encoded_total - n0
+    check(rec["tokenized"] == changed, f"corpus: tokenized {rec['tokenized']}"
+          f" documents, {changed} changed or new")
+    full.add_release(10, docs)
+    full.add_release(20, docs2)
+    for t in (10, 20):
+        check(same_bytes(inc.token_stream(t), full.token_stream(t)),
+              f"corpus: token stream of version {t} differs")
+    rec["tokens_v20"] = int(len(inc.token_stream(20)))
+    return rec
+
+
+def phase_kernel_search(bench: KernelBench, search_out) -> None:
+    """The CUDA-core flash design at the encoder's shape: layer 0's q, k,
+    v of one batch of the search path (B 4096 x S 32, 8 heads, D 32,
+    bf16), timed in alternating rounds with SDPA, with its device time
+    alone."""
+    q, k, v = search_out.pop("qkv")
+    bench.flash(q, k, v, main=True, name="flash_attention_d32",
+                rounds=TIMED_ROUNDS, device=True)
+
+
+def kernel_row(name: str, m: dict, launches: int) -> dict:
+    """One row of the kernels line from the kernel's record ``m``."""
+    source, replaces = SOURCES[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": m["max_abs_diff"], "ms": m["kernel_ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "shape": m["shape"],
+            **{k: m[k] for k in ("bound_both_operands_ms", "rounds_won",
+                                 "device_ms") if k in m}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3069,6 +3900,14 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_parity(VersionedStore, FieldSchema, args.seed)
+    # the serving tier over stores of the same releases; spills in the
+    # build tree
+    root = tempfile.mkdtemp(prefix="chip_smoke_frontdoor_",
+                            dir=os.path.join(HERE, "build"))
+    try:
+        frontdoor_out = phase_frontdoor(core, kops, releases, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     del releases
     # the facade's releases, stores and cache, in the build tree too
     root = tempfile.mkdtemp(prefix="chip_smoke_gestore_",
@@ -3082,32 +3921,28 @@ def main() -> int:
     serving_out = phase_serving(kops, args.seed)
     phase_kernel_serving(bench, merge_out, serving_out)
     phase_serving_parity(args.seed)
+    search_out = phase_search(core, kops, args.seed)
+    phase_kernel_search(bench, search_out)
     # each kernel's launches come from the path that runs it: the codec
     # from persistence, the route and the stacked scan from sharding, the
-    # merge from its phase, flash attention from serving, the fingerprint
-    # at UniProt's widths from gestore, the rest from the main path (chain
-    # decode's rows: the launches of their gathers)
+    # merge from its phase, flash attention from serving (at D 32, the
+    # CUDA-core design, from search), the fingerprint at UniProt's widths
+    # from gestore, the rest from the main path (chain decode's rows: the
+    # launches of their gathers); the frontdoor phase's launches are on
+    # its own line
     path_of = {k: (pers_out if k.startswith("delta_")
                    else gestore_out if k.startswith("fingerprint_w")
                    else shard_out if k in ("shard_route", "shard_route_bytes",
                                            "stacked_masked_cumsum")
                    else merge_out if k == "masked_merge"
+                   else search_out if k == "flash_attention_d32"
                    else serving_out if k.startswith("flash_attention")
                    else main_out) for k in SOURCES}
-    rows = []
-    for name, (source, replaces) in SOURCES.items():
-        m = bench.main[name]
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces,
-                     "launches": path_of[name]["launches"][name],
-                     "max_abs_err": m["max_abs_diff"], "ms": m["kernel_ms"],
-                     "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                     "bound_by": m["bound_by"],
-                     "library_ms": m["library_ms"], "shape": m["shape"],
-                     **{k: m[k] for k in ("bound_both_operands_ms",
-                                          "rounds_won", "device_ms")
-                        if k in m}})
-    emit({"kernels": rows, "seconds": time.perf_counter() - t_start})
+    rows = [kernel_row(name, bench.main[name],
+                       path_of[name]["launches"][name]) for name in SOURCES]
+    emit({"kernels": rows, "frontdoor_launches": frontdoor_out["launches"],
+          "seconds": time.perf_counter() - t_start,
+          "phase_ends_s": PHASE_ENDS})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@ shapes), RunConfig (parallelism/optimizer/runtime). The port's own copy of
 ``repro.configs.base``: one module per ported architecture lives next to
 this file, and `get_config(arch_id)` resolves them. Only llama3.2-1b has
 a module so far; the other assigned architectures raise, naming the
-roadmap.
+roadmap. The Meta-pipe encoder (``metapipe.py``) is no assigned
+architecture and is imported by module.
 """
 from __future__ import annotations
 

@@ -5,8 +5,8 @@ on-disk layout, ``segments``; carried across in memory, ``state``; spread
 over shards, ``shard``, with its shard->device placement, ``placement``)
 -> change detection (``change``) -> increment engine (``increment``:
 ``GeStore``, generate/merge around unmodified tools) -> plugins/parsers
--> cache + system tables; and the streaming release ingest (``ingest``).
-Search comes with a later slice of the port.
+-> cache + system tables; the streaming release ingest (``ingest``); and
+versioned embedding search with an exact incremental merge (``search``).
 """
 from .store import (FieldSchema, Increment, VersionedStore, VersionInfo,
                     VersionView, KIND_DELETED, KIND_NEW, KIND_UPDATED, TS_MAX)
@@ -18,6 +18,7 @@ from .plugins import (FileGenerator, FileParser, OutputMerger, PluginRegistry,
 from .mergers import AppendMerger, BlastEvalueMerger
 from .increment import GeneratedInput, GeStore
 from .change import SignificanceProfile, classify
+from .search import EmbeddingSearchDB, SearchResult
 
 __all__ = [
     "FieldSchema", "Increment", "VersionedStore", "VersionInfo", "VersionView",
@@ -26,5 +27,5 @@ __all__ = [
     "VersionCache", "descriptor", "FileGenerator", "FileParser", "OutputMerger",
     "PluginRegistry", "REGISTRY", "ToolPlugin", "AppendMerger",
     "BlastEvalueMerger", "GeneratedInput", "GeStore", "SignificanceProfile",
-    "classify",
+    "classify", "EmbeddingSearchDB", "SearchResult",
 ]

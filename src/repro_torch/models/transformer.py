@@ -8,8 +8,11 @@ with its stacked layer axis unstacked (``models/weights.py`` converts
 between the two). The layer loop is a Python loop; the JAX package's
 ``lax.scan`` over stacked layers has no counterpart the port needs.
 
-Two entry points: ``prefill`` (build the KV caches + last-position
-logits) and ``decode_step`` (one token for the whole stack).
+Three entry points: ``forward_train`` (the final-normed hidden states of
+every position, no cache: the encoder's forward, and the training
+forward the loss will take), ``prefill`` (build the KV caches +
+last-position logits) and ``decode_step`` (one token for the whole
+stack).
 """
 from __future__ import annotations
 
@@ -83,6 +86,28 @@ def _layer(p: dict, x: torch.Tensor, cfg, attn_fn):
     x = x + y
     h = apply_norm(p["norm2"], x, cfg.norm)
     return x + apply_mlp(p["mlp"], h, cfg), cache
+
+
+def forward_train(params: dict, cfg, batch: dict,
+                  opts: FwdOpts = FwdOpts()):
+    """batch: ``{"tokens": (B, S) int}``, optionally ``"positions"`` (B,
+    S). Returns the final-normed hidden states (B, S, d) and the MoE aux
+    loss, a 0-d f32 zero for the dense family.
+
+    Not under ``torch.inference_mode``, so gradients can flow through it;
+    callers that only embed wrap it themselves."""
+    check_dense(cfg)
+    x = apply_embed(params["embed"], batch["tokens"])
+    b, s = x.shape[:2]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+    for p in params["layers"]:
+        x, _ = _layer(p, x, cfg, lambda pa, h: attn.attention_prefill(
+            pa, h, cfg, positions=positions, impl=opts.attn_impl))
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 @torch.inference_mode()
