@@ -8,8 +8,9 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
 ``build/repro_torch/`` on first use. It prints one JSON object per line:
 
   env             card, power limit, torch/CUDA versions, kernel build time,
-                  ptxas reports and the flash kernels' tensor-core
-                  instructions (HGMMA, BF16 and TF32) per kernel
+                  ptxas reports (registers and spills per flash kernel)
+                  and the flash kernels' tensor-core instructions per
+                  kernel (HGMMA, BF16 and TF32; HMMA in flash_mma_kernel)
   kernel          each CUDA kernel at ragged edge shapes (the delta codec
                   at every lane dtype, with extreme values, and on bases 4
                   and 8 bytes past a 16-byte boundary; the route's two
@@ -183,9 +184,10 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
   search          table4_application at Swiss-Prot scale: 570,000
                   sequences (32 x int32) and a release at 3.1% churn, the
                   Meta-pipe encoder at its published widths in bf16
-                  (seeded random weights, the CUDA-core flash kernel at D
-                  32) mean-pooled in batches of 4,096, EmbeddingSearchDB
-                  (seg_size 64, tau 4, 8 queries, k 10): a full refresh
+                  (seeded random weights, flash_mma_kernel at D 32, on
+                  the tensor cores by mma.sync) mean-pooled in batches
+                  of 4,096, EmbeddingSearchDB (seg_size 64, tau 4, 8
+                  queries, k 10): a full refresh
                   and query, the incremental query to version 2 equal to
                   a full recompute bit for bit, only the changed rows
                   embedded; the encoder's chunked hidden states against
@@ -212,10 +214,13 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   for the fingerprint, both routes and the keep mask;
                   the fingerprint also at UniProt's int8 rows, W 512 and
                   256 lanes at N 570,000, with the gestore path's
-                  launches at each width; flash attention at D 32 on the
-                  CUDA cores at the Meta-pipe encoder's shape, B 4,096 x
-                  S 32, in alternating rounds with SDPA and with its
-                  device time alone, its launches the search path's),
+                  launches at each width; flash attention at the
+                  Meta-pipe encoder's shape, B 4,096 x S 32 x H 8, in
+                  alternating rounds with SDPA and with its device time
+                  alone: bf16 at D 32 (flash_mma_kernel, its launches the
+                  search path's), and two shapes no path launches: bf16
+                  at D 16 (flash_mma_kernel) and f32 at D 32 (the
+                  CUDA-core flash_kernel)),
                   and the frontdoor phase's launches, and the seconds
                   since the start at which each phase's line was printed
 
@@ -299,10 +304,14 @@ SOURCES = {
     # the same wrapper at f32: the f32 tensor-core kernel of the source
     "flash_attention_f32": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:33"),
-    # the same wrapper at D 32: the CUDA-core kernel of the source (the
-    # Meta-pipe encoder's shape)
+    # the same wrapper at the Meta-pipe encoder's shape: bf16 at D 32 and
+    # 16 (the mma kernel of the source), f32 at D 32 (its CUDA-core kernel)
     "flash_attention_d32": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:33"),
+    "flash_attention_d16": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:33"),
+    "flash_attention_d32_f32": ("src/repro_torch/csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:33"),
 }
 # the packed gather's decode, one row per gather size of the main path
 # (Q = 1, 8 and 64 timestamps a get_versions call)
@@ -696,18 +705,41 @@ def kernel_label(mangled: str) -> str:
     return f"{m.group(1)}<{','.join(args)}>"
 
 
+def ptxas_by_kernel(log: str) -> dict:
+    """Registers and spill bytes of each kernel in a ``ptxas -v`` report,
+    by :func:`kernel_label`."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = out.setdefault(kernel_label(m.group(1)), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and fn is not None:
+            fn.update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn is not None:
+            fn["registers"] = int(m[1])
+    return out
+
+
 def phase_env(build_info: dict, smi: str) -> None:
     """The card, the toolchain and the kernels' build: ptxas's registers
     and spills per kernel; for flash attention its whole report (shared
-    memory, setmaxnreg, wgmma warnings) and the count of tensor-core
-    product instructions (HGMMA) in its SASS, in all and per kernel and
-    variant (BF16, TF32), where cuobjdump exists: each tensor-core kernel,
-    the f32 ones with TF32 products, must have some."""
+    memory, setmaxnreg, wgmma warnings), registers and spills per kernel,
+    and the count of tensor-core product instructions in its SASS, in
+    all and per kernel and variant, where cuobjdump exists: HGMMA (BF16,
+    TF32) in each wgmma kernel, the f32 ones with TF32 products, and HMMA
+    (mma.sync, BF16) in flash_mma_kernel, which must not spill."""
     from repro_torch.kernels import _build
     ptxas = build_info["ptxas"]
     by_fn = _build.sass_opcodes_by_function("flash_attention", "HGMMA")
     by_kernel = (None if by_fn is None else
                  {kernel_label(k): v for k, v in sorted(by_fn.items())})
+    mma_fn = _build.sass_opcodes_by_function("flash_attention", "HMMA")
+    mma_by_kernel = (None if mma_fn is None else
+                     {kernel_label(k): v for k, v in sorted(mma_fn.items())})
+    flash_regs = ptxas_by_kernel(ptxas.get("flash_attention", ""))
     emit({"phase": "env", "gpu": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
@@ -720,7 +752,17 @@ def phase_env(build_info: dict, smi: str) -> None:
               "flash_attention", "").splitlines() if ln.strip()],
           "flash_hgmma": (None if by_fn is None else
                           sum(sum(v.values()) for v in by_fn.values())),
-          "flash_hgmma_by_kernel": by_kernel})
+          "flash_hgmma_by_kernel": by_kernel,
+          "flash_hmma_by_kernel": mma_by_kernel,
+          "flash_registers_by_kernel": flash_regs})
+    for name in ("flash_mma_kernel<16>", "flash_mma_kernel<32>"):
+        if "flash_attention" in ptxas:
+            got = flash_regs.get(name, {})
+            check(got.get("spill_stores") == 0 and got.get("spill_loads") == 0,
+                  f"{name}: spills or no ptxas report: {got}")
+        if mma_by_kernel is not None:
+            check(mma_by_kernel.get(name, {}).get("HMMA.16816.F32.BF16", 0)
+                  > 0, f"{name}: no HMMA.16816.F32.BF16 in its SASS")
     if by_kernel is not None:
         for name, variant in (("flash_wgmma_kernel<64>", "HGMMA.F32.BF16"),
                               ("flash_wgmma_kernel<128>", "HGMMA.F32.BF16"),
@@ -995,7 +1037,8 @@ class KernelBench:
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         return self.run(
             name, {"B": b, "Sq": sq, "Sk": sk, "H": h, "K": kh, "D": d,
-                   "dtype": str(q.dtype), "design": fa.design(q.dtype, d)},
+                   "dtype": str(q.dtype), "design": fa.design(q.dtype, d),
+                   "copies": list(fa.plan(q, k, v).copies)},
             lambda: self.kops.flash_attention(q, k, v),
             lambda: self.kops.ref.ref_flash_attention(
                 q, k, v, bq=PLAIN_FLASH_TILE, bk=PLAIN_FLASH_TILE),
@@ -3070,35 +3113,60 @@ FLASH_EDGE_SHAPES = [  # (B, Sq, Sk, H, K, D)
     (1, 129, 200, 8, 2, 128), (2, 257, 257, 8, 1, 128),
     (2, 300, 130, 4, 1, 128), (1, 5, 0, 4, 2, 128),
     (1, 65, 97, 4, 4, 128), (2, 63, 65, 8, 4, 64), (3, 33, 33, 4, 2, 128),
-    # the CUDA-core kernel (64 query rows a block, 32-key tiles) at D 16
-    # and 32: Sq and Sk on and off its tiles, GQA groups 1/2/4/8, Sq = 1,
-    # Sq > Sk, an empty key axis, and the Meta-pipe encoder's shape at a
-    # few sequences
+    # D 16 and 32 (bf16: the mma kernel, 16-row strips, 32-key tiles,
+    # strips and heads packed a block; f32: the CUDA-core kernel, 64 query
+    # rows a block): Sq and Sk on and off the tiles, GQA groups 1/2/4/8,
+    # Sq = 1, Sq > Sk, an empty key axis, and the Meta-pipe encoder's
+    # shape at a few sequences
     (2, 65, 97, 8, 2, 32), (3, 31, 33, 8, 1, 16), (1, 129, 257, 4, 2, 32),
     (6, 32, 32, 8, 8, 32), (1, 1, 65, 4, 1, 16), (2, 70, 20, 4, 4, 16),
     (1, 64, 64, 6, 3, 32), (2, 33, 0, 4, 2, 16),
+    # across the mma kernel's packing: Sq 1, 16, 17, 33 and 65, each with
+    # Sk >= Sq and Sk < Sq; GQA groups 1/2/4; head counts 6, 7 and 10,
+    # whose heads a block (a divisor of H) are 6, 7, 2 or 1; a last strip
+    # group short of strips (Sq 129 and 300 above)
+    (2, 1, 40, 8, 2, 32), (1, 1, 1, 7, 7, 16), (3, 16, 16, 6, 3, 32),
+    (2, 16, 9, 8, 8, 16), (2, 17, 50, 10, 5, 32), (1, 17, 5, 10, 5, 16),
+    (2, 33, 33, 7, 7, 32), (1, 33, 20, 8, 4, 16), (1, 65, 100, 6, 3, 32),
+    (2, 65, 40, 8, 2, 16),
 ]
 
 
-FLASH_EDGE_LAYOUTS = ["strided q", "misaligned k"]
+#: layouts the kernels read through their plan, by head dim: at D 64
+#: and 128 a q that is every other head of a wider tensor and a k whose
+#: base is one element past an allocation (TMA cannot read it: copied);
+#: at D 16 and 32 q, k and v as views of one fused projection, and a k
+#: whose base is 8 bytes past a 16-byte boundary (the mma kernel's
+#: 16-byte copies cannot read it: copied, then launched)
+FLASH_EDGE_LAYOUTS = [(lay, d) for d in (64, 128)
+                      for lay in ("strided q", "misaligned k")] + [
+    (lay, d) for d in (16, 32) for lay in ("fused qkv", "k 8 bytes past 16")]
 
 
 def flash_edge_inputs(gen, dt):
-    """(q, k, v) at every FLASH_EDGE_SHAPES entry, then, at D 64 and 128,
-    two layouts the tensor-core kernels read through their plan: a q that
-    is every other head of a wider tensor (strided), and a k whose base
-    is one element past an allocation (TMA cannot read it; the wrapper
-    copies it)."""
+    """(q, k, v) at every FLASH_EDGE_SHAPES entry, then at every
+    FLASH_EDGE_LAYOUTS entry."""
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=DEV).to(dt)
     for b, sq, sk, h, kh, d in FLASH_EDGE_SHAPES:
         yield randn(b, sq, h, d), randn(b, sk, kh, d), randn(b, sk, kh, d)
-    for d in (64, 128):
-        yield (randn(2, 200, 16, d)[:, :, ::2], randn(2, 200, 2, d),
-               randn(2, 200, 2, d))
-        n = 1 * 150 * 2 * d
-        yield (randn(1, 150, 8, d), randn(n + 1)[1:].view(1, 150, 2, d),
-               randn(1, 150, 2, d))
+    for lay, d in FLASH_EDGE_LAYOUTS:
+        if lay == "strided q":
+            yield (randn(2, 200, 16, d)[:, :, ::2], randn(2, 200, 2, d),
+                   randn(2, 200, 2, d))
+        elif lay == "misaligned k":
+            n = 1 * 150 * 2 * d
+            yield (randn(1, 150, 8, d), randn(n + 1)[1:].view(1, 150, 2, d),
+                   randn(1, 150, 2, d))
+        elif lay == "fused qkv":
+            x = randn(2, 48, (8 + 2 * 2) * d)
+            yield (x[..., :8 * d].view(2, 48, 8, d),
+                   x[..., 8 * d:10 * d].view(2, 48, 2, d),
+                   x[..., 10 * d:].view(2, 48, 2, d))
+        else:
+            off, n = 8 // torch.empty((), dtype=dt).element_size(), 40 * 2 * d
+            yield (randn(1, 40, 8, d), randn(n + off)[off:].view(1, 40, 2, d),
+                   randn(1, 40, 2, d))
 
 
 def phase_kernel_edges_serving(bench: KernelBench, rng) -> None:
@@ -3112,6 +3180,13 @@ def phase_kernel_edges_serving(bench: KernelBench, rng) -> None:
         for q, k, v in flash_edge_inputs(gen, dt):
             cases.append(bench.flash(q, k, v, timed=False, quiet=True))
     n_flash = len(cases)
+    # the bf16 layouts (the last cases): a strided q or a fused qkv read
+    # as it lies, a k off its boundary copied first
+    copied = {"strided q": [], "misaligned k": ["k"], "fused qkv": [],
+              "k 8 bytes past 16": ["k"]}
+    check([c["shape"]["copies"] for c in cases[-len(FLASH_EDGE_LAYOUTS):]]
+          == [copied[lay] for lay, _ in FLASH_EDGE_LAYOUTS],
+          "flash edges: the bf16 layouts' copies differ from their plans'")
     designs = {d: fa.by_design[d] - by_design[d] for d in by_design}
     # every case launched (an empty Sq launches nothing; none here) and
     # took the design its plan names
@@ -3159,10 +3234,11 @@ def phase_kernel_edges_serving(bench: KernelBench, rng) -> None:
     merge_err = max(c["max_abs_diff"] for c in cases[n_flash:])
     emit({"phase": "kernel_edges_serving",
           "flash_shapes": FLASH_EDGE_SHAPES + [
-              f"{lay}, D {d}" for d in (64, 128) for lay in FLASH_EDGE_LAYOUTS],
+              f"{lay}, D {d}" for lay, d in FLASH_EDGE_LAYOUTS],
           "flash_dtypes": ["float32", "bfloat16"],
           "flash_cases": n_flash, "flash_max_abs_diff": flash_err,
           "flash_designs": [c["shape"]["design"] for c in cases[:n_flash]],
+          "flash_copies": [c["shape"]["copies"] for c in cases[:n_flash]],
           "flash_launches_by_design": designs,
           "flash_worst": {c["shape"]["dtype"]: [c["shape"], c["max_abs_diff"]]
                           for c in sorted(cases[:n_flash],
@@ -3772,12 +3848,15 @@ def phase_search(core, kops, seed: int) -> dict:
     for k in PATH_KERNELS["search"]:
         check(rec["launches"][k] > 0,
               f"kernel {k} never launched on the search path")
-    check(rec["flash_launches_by_design"]["cuda_core"]
+    check(rec["flash_launches_by_design"]["mma"]
           == rec["launches"]["flash_attention"],
-          "search: a flash launch took another design than cuda_core")
+          "search: a flash launch took another design than mma")
     del db, full, store
+    # the kernels line's D 16 and f32 rows time shapes no path launches
     return {"launches": {**rec["launches"], "flash_attention_d32":
-                         rec["flash_launches_by_design"]["cuda_core"]},
+                         rec["flash_launches_by_design"]["mma"],
+                         "flash_attention_d16": 0,
+                         "flash_attention_d32_f32": 0},
             "qkv": qkv}
 
 
@@ -3825,14 +3904,23 @@ def corpus_check(rng) -> dict:
     return rec
 
 
-def phase_kernel_search(bench: KernelBench, search_out) -> None:
-    """The CUDA-core flash design at the encoder's shape: layer 0's q, k,
-    v of one batch of the search path (B 4096 x S 32, 8 heads, D 32,
-    bf16), timed in alternating rounds with SDPA, with its device time
-    alone."""
+def phase_kernel_search(bench: KernelBench, search_out, seed: int) -> None:
+    """Flash attention at the encoder's shape, each timed in alternating
+    rounds with SDPA and with its device time alone: layer 0's q, k, v of
+    one batch of the search path (B 4096 x S 32, 8 heads, D 32, bf16: the
+    mma design); the same shape at D 16 in bf16 (the mma design, from
+    the seed); layer 0's q, k, v in f32 (the CUDA-core design)."""
     q, k, v = search_out.pop("qkv")
     bench.flash(q, k, v, main=True, name="flash_attention_d32",
                 rounds=TIMED_ROUNDS, device=True)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 22)
+    q16, k16, v16 = (torch.randn(*x.shape[:3], 16, generator=gen,
+                                 device=DEV).to(x.dtype) for x in (q, k, v))
+    bench.flash(q16, k16, v16, main=True, name="flash_attention_d16",
+                rounds=TIMED_ROUNDS, device=True)
+    bench.flash(q.float(), k.float(), v.float(), main=True,
+                name="flash_attention_d32_f32", rounds=TIMED_ROUNDS,
+                device=True)
 
 
 def kernel_row(name: str, m: dict, launches: int) -> dict:
@@ -3922,11 +4010,11 @@ def main() -> int:
     phase_kernel_serving(bench, merge_out, serving_out)
     phase_serving_parity(args.seed)
     search_out = phase_search(core, kops, args.seed)
-    phase_kernel_search(bench, search_out)
+    phase_kernel_search(bench, search_out, args.seed)
     # each kernel's launches come from the path that runs it: the codec
     # from persistence, the route and the stacked scan from sharding, the
-    # merge from its phase, flash attention from serving (at D 32, the
-    # CUDA-core design, from search), the fingerprint at UniProt's widths
+    # merge from its phase, flash attention from serving (at the encoder's
+    # shape, from search), the fingerprint at UniProt's widths
     # from gestore, the rest from the main path (chain decode's rows: the
     # launches of their gathers); the frontdoor phase's launches are on
     # its own line
@@ -3935,7 +4023,7 @@ def main() -> int:
                    else shard_out if k in ("shard_route", "shard_route_bytes",
                                            "stacked_masked_cumsum")
                    else merge_out if k == "masked_merge"
-                   else search_out if k == "flash_attention_d32"
+                   else search_out if k.startswith("flash_attention_d")
                    else serving_out if k.startswith("flash_attention")
                    else main_out) for k in SOURCES}
     rows = [kernel_row(name, bench.main[name],

@@ -19,7 +19,7 @@
 // and o (0.09 ms at 3.35 TB/s). In f32 each product is three TF32
 // products (below): 26.67 ms at the dense TF32 rate of 494.7 TFLOP/s.
 //
-// Three kernels, chosen in flash_attention_launch by (dtype, D) alone; the
+// Four kernels, chosen in flash_attention_launch by (dtype, D) alone; the
 // Python plan (kernels/flash_attention.py: design) makes the same choice
 // and the launcher refuses a plan that disagrees:
 //
@@ -88,19 +88,59 @@
 //     in registers, so Q's parts go to shared memory (64 KB), with one
 //     consumer (64 rows), 32-key tiles, one raw and two split stages:
 //     224 KB.
-// * f32 and bf16 at D = 16 and 32: flash_kernel, the products on the CUDA
-//   cores in f32 (67 TFLOP/s peak). One block of 4 warps per (64-row
-//   query tile, head, batch). The query tile, scaled by D^-0.5 before the
-//   product, and each 32-key K/V tile are staged in shared memory as f32
-//   (dynamic shared memory, opted in above 48 KB). Each warp owns 16
-//   query rows; for the logits, lane j owns key j of the tile and reads q
-//   rows as broadcast float4s; K rows are padded to D + 4 floats so the
-//   lanes' float4 reads hit distinct banks. The running max is a warp
-//   reduction per row; each lane keeps a partial row sum l and the final l
-//   is one reduction at the end. p goes through a per-warp shared strip so
-//   that, for p @ v, lane d owns output dims d, d + 32, ... and reads p as
-//   broadcast float4s. acc stays in registers. Tiles past the block's last
-//   query row are never loaded.
+// * bf16 at D = 16 and 32: flash_mma_kernel, on the tensor cores by
+//   warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate). Written for
+//   the Meta-pipe encoder's 32-token sequences (B 4,096 x S 32 x H 8,
+//   D 32: 2.2 GFLOP against 268 MB of q, k, v and o), which are bound by
+//   bytes (0.080 ms at 3.35 TB/s) 36 times over, so what counts is bytes
+//   in flight and full blocks, not the product's rate; wgmma's 64-row
+//   tiles would leave half of each tile empty at S 32, and rows of two
+//   heads cannot share one wgmma. A warp owns a 16-row query strip of one
+//   (head, batch); a block packs `sb` consecutive strips of `hb`
+//   consecutive heads of one batch element (kernels/flash_attention.py:
+//   mma_plan; 2 strips x 4 heads = 8 warps at S 32, H 8), the strip group
+//   with the most key tiles first. The block copies its query rows, and
+//   each 32-key K and V tile of the KV heads its heads read (once for
+//   all the query heads of a KV head), as bf16 into shared memory by
+//   16-byte cp.async, neighbouring threads on neighbouring 16-byte
+//   pieces of a row's heads; all of the first tile's copies are issued
+//   before the first product, and each next tile's while the current
+//   one is in use (two stages where a strip visits more than one tile).
+//   Rows past Sq and Sk are zero-filled. Rows are padded by 16 bytes and
+//   each head's region is skewed by 16 bytes, so the 8 rows of an
+//   ldmatrix fall in 8 distinct 16-byte bank groups. The arithmetic is
+//   the plain version's: q scaled by D^-0.5 in f32 before the product,
+//   exp, f32 m, l and P. The operands that are f32 (scaled q, P) enter
+//   the bf16 products as three bf16 parts that sum to them exactly, so
+//   every product is exact and only the order of the f32 sums differs.
+//   Two parts (P to 2^-17, as flash_wgmma_kernel takes it) hold one bf16
+//   ulp per call, but round more outputs to the other neighbour than the
+//   plain version does, and the Meta-pipe encoder's four layers carried
+//   those flips past its bf16 check (chip_smoke.py: encoder_check); the
+//   extra products cost nothing here, since the kernel waits on bytes. Per key tile a warp runs S as D/16 x 4 x 3 mma (its
+//   Q fragment by ldmatrix, scaled and split in registers; K by
+//   ldmatrix as stored); the online softmax runs on the accumulator
+//   fragment (row max over the 4 threads of a row); P goes from the
+//   accumulator to the A fragments in registers, and P V takes V by
+//   ldmatrix.trans. Tiles past a strip's diagonal are not computed, and
+//   past the block's last row not loaded. The
+//   epilogue writes O, normalized, over the warp's own query rows in
+//   shared memory; the block then stores whole rows of its heads as
+//   16-byte vectors. Every base and stride must be a multiple of 16
+//   bytes; the wrapper copies an operand that is not.
+// * f32 at D = 16 and 32: flash_kernel, the products on the CUDA cores in
+//   f32 (67 TFLOP/s peak). One block of 4 warps per (64-row query tile,
+//   head, batch). The query tile, scaled by D^-0.5 before the product,
+//   and each 32-key K/V tile are staged in shared memory (dynamic shared
+//   memory, opted in above 48 KB). Each warp owns 16 query rows; for the
+//   logits, lane j owns key j of the tile and reads q rows as broadcast
+//   float4s; K rows are padded to D + 4 floats so the lanes' float4 reads
+//   hit distinct banks. The running max is a warp reduction per row; each
+//   lane keeps a partial row sum l and the final l is one reduction at
+//   the end. p goes through a per-warp shared strip so that, for p @ v,
+//   lane d owns output dims d, d + 32, ... and reads p as broadcast
+//   float4s. acc stays in registers. Tiles past the block's last query
+//   row are never loaded.
 #include <cuda.h>
 
 #include <atomic>
@@ -121,27 +161,18 @@ struct Strides {
   long long b, s, h;  // elements; the head dim is contiguous
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (kBQ * (D + 4) + kBK * (D + 4) + kBK * D +
                           kWarps * kRows * kBK);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-             int n_heads, int group, Strides qst, Strides kst, Strides vst,
-             float scale) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int sq,
+             int sk, int n_heads, int group, Strides qst, Strides kst,
+             Strides vst, float scale) {
   constexpr int kP = D + 4;            // padded row, float4-aligned
   constexpr int kT = (D + 31) / 32;    // output dims per lane
   extern __shared__ float4 smem4[];
@@ -157,15 +188,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int offset = sk - sq;
-  const T* qb = q + b * qst.b + h * qst.h;
-  const T* kb = k + b * kst.b + (h / group) * kst.h;
-  const T* vb = v + b * vst.b + (h / group) * vst.h;
+  const float* qb = q + b * qst.b + h * qst.h;
+  const float* kb = k + b * kst.b + (h / group) * kst.h;
+  const float* vb = v + b * vst.b + (h / group) * vst.h;
 
   for (int i = tid; i < kBQ * D; i += blockDim.x) {
     const int r = i / D;
     const int c = i % D;
     const int qi = q0 + r;
-    qs[r * kP + c] = qi < sq ? to_f32(qb[qi * qst.s + c]) * scale : 0.f;
+    qs[r * kP + c] = qi < sq ? qb[qi * qst.s + c] * scale : 0.f;
   }
 
   // causal trip count: the tiles holding keys up to the block's last query
@@ -192,8 +223,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = i % D;
       const int kj = k0 + r;
       const bool ok = kj < sk;
-      ks[r * kP + c] = ok ? to_f32(kb[kj * kst.s + c]) : 0.f;
-      vs[r * D + c] = ok ? to_f32(vb[kj * vst.s + c]) : 0.f;
+      ks[r * kP + c] = ok ? kb[kj * kst.s + c] : 0.f;
+      vs[r * D + c] = ok ? vb[kj * vst.s + c] : 0.f;
     }
     __syncthreads();
 
@@ -275,16 +306,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + row0 + r;
     if (qi >= sq) continue;
     const float denom = fmaxf(lt, 1e-30f);
-    T* orow = o + ((static_cast<long long>(b) * sq + qi) * n_heads + h) * D;
+    float* orow =
+        o + ((static_cast<long long>(b) * sq + qi) * n_heads + h) * D;
 #pragma unroll
     for (int t = 0; t < kT; ++t) {
       const int d = lane + 32 * t;
-      if (d < D) store(orow + d, acc[r][t] / denom);
+      if (d < D) orow[d] = acc[r][t] / denom;
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch_typed(const void* q, const void* k, const void* v, void* o,
                  int batch, int sq, int sk, int n_heads, int group,
                  Strides qst, Strides kst, Strides vst, float scale,
@@ -292,29 +324,29 @@ int launch_typed(const void* q, const void* k, const void* v, void* o,
   constexpr size_t smem = smem_bytes<D>();
   // above 48 KB a launch needs the opt-in, on the current card
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, n_heads, batch);
-  flash_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, n_heads, group,
-      qst, kst, vst, scale);
+  flash_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, n_heads,
+      group, qst, kst, vst, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// D = 64 and 128 take the tensor-core kernels instead (tc and tf below)
-template <typename T>
+// f32 at D = 16 and 32 (bf16 takes the mma kernel, D = 64 and 128 the
+// tensor-core kernels below)
 int launch_d(int d, const void* q, const void* k, const void* v, void* o,
              int batch, int sq, int sk, int n_heads, int group, Strides qst,
              Strides kst, Strides vst, float scale, cudaStream_t stream) {
   switch (d) {
     case 16:
-      return launch_typed<T, 16>(q, k, v, o, batch, sq, sk, n_heads, group,
-                                 qst, kst, vst, scale, stream);
+      return launch_typed<16>(q, k, v, o, batch, sq, sk, n_heads, group, qst,
+                              kst, vst, scale, stream);
     case 32:
-      return launch_typed<T, 32>(q, k, v, o, batch, sq, sk, n_heads, group,
-                                 qst, kst, vst, scale, stream);
+      return launch_typed<32>(q, k, v, o, batch, sq, sk, n_heads, group, qst,
+                              kst, vst, scale, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1292,6 +1324,393 @@ int launch(const void* q, Strides qst, const void* k, const void* v, void* o,
 }
 
 }  // namespace tf
+
+// ---------------------------------------------------------------------------
+// The short-sequence tensor-core kernel (bf16, D = 16 and 32): mma.sync
+// ---------------------------------------------------------------------------
+
+namespace mk {
+
+using tc::bits;
+using tc::smem_u32;
+
+constexpr int kRows = 16;      // query rows a warp owns: one m16 strip
+constexpr int kBK = 32;        // keys per K/V tile
+constexpr int kMaxWarps = 8;
+constexpr int kPad = 8;        // bf16 elements past each shared row
+
+// The plan's packing (kernels/flash_attention.py: MmaPlan): strips and
+// heads a block, the most KV heads a block reads, K/V stages, strip and
+// head groups.
+struct Pack {
+  int sb, hb, nkv, stages, n_sg, n_hg;
+};
+
+// Shared memory in bf16 elements, rows of D + kPad: the block's query
+// rows (warp w = hw * sb + sw at rows 16 w, head hw's rows skewed by
+// hw * kPad), then per stage the K tiles of the KV heads, then their V
+// tiles (KV head i skewed by i * kPad).
+__host__ __device__ constexpr int q_elems(int rs, int warps, int hb) {
+  return warps * kRows * rs + hb * kPad;
+}
+__host__ __device__ constexpr int tile_elems(int rs) {
+  return kBK * rs + kPad;
+}
+__host__ __device__ constexpr int smem_bytes(int d, int warps, int hb,
+                                             int nkv, int stages) {
+  return 2 * (q_elems(d + kPad, warps, hb) +
+              stages * 2 * nkv * tile_elems(d + kPad));
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes where !ok
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
+                                     bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices; lanes 8 i .. 8 i + 7 give the row addresses of
+// matrix i, which lands in r[i].
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// C (16 x 8, f32) += A (16 x 16, bf16, row) * B (16 x 8, bf16, col).
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Register e of three A fragments (part 0 the largest): two f32 values
+// each as three bf16 parts, hi = bf16(x), mid = bf16(x - hi) and lo =
+// bf16(x - hi - mid), whose sum is x exactly (8 significant bits each;
+// both differences are exact in f32) but near f32's smallest normals. Operands split so make every
+// product exact and the sums f32: the logits and P V of the plain version
+// up to the order of the sums.
+__device__ __forceinline__ void split3(float x0, float x1,
+                                       uint32_t (&parts)[3][4], int e) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    parts[i][e] = bits(h);
+    x0 -= __low2float(h);
+    x1 -= __high2float(h);
+  }
+}
+
+// Key tiles that the query rows up to `last` (past Sq: up to the last
+// row) visit: those holding keys up to its position, none when it
+// precedes every key.
+__device__ __forceinline__ int trips(int last, int sq, int sk) {
+  const int q_last = sk - sq + min(last, sq - 1);
+  return q_last < 0 ? 0 : min(q_last / kBK + 1, (sk + kBK - 1) / kBK);
+}
+
+// Fragments: g = lane / 4 and t = lane % 4. An accumulator c of an n8
+// tile holds row g in c[0..1] (columns 2t, 2t + 1) and row g + 8 in
+// c[2..3]; an A fragment a[0..3] holds (row g, k 2t..), (g + 8, 2t..),
+// (g, 2t + 8..), (g + 8, 2t + 8..). Three blocks of 8 warps an SM (up
+// to 85 registers a thread): the more blocks in flight, the more bytes,
+// but at four (64 registers) D = 32 spills.
+template <int D>
+__global__ void __launch_bounds__(kMaxWarps * 32, 3)
+flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 __nv_bfloat16* __restrict__ o, int sq, int sk, int n_heads,
+                 int batch, int group, Pack pk, Strides qst, Strides kst,
+                 Strides vst, float scale) {
+  constexpr int kRS = D + kPad;  // shared row: 80 or 48 bytes
+  constexpr int kCh = D / 8;     // 16-byte pieces of a head's row
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem4);
+  const uint32_t sbase = smem_u32(sm);
+
+  const int warps = pk.sb * pk.hb;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // blockIdx.x -> (strip group, head group, batch), as mma_units
+  const int per = pk.n_hg * batch;
+  const int bid = static_cast<int>(blockIdx.x);
+  const int sg = pk.n_sg - 1 - bid / per;
+  const int h0 = bid % per % pk.n_hg * pk.hb;
+  const int b = bid % per / pk.n_hg;
+  const int kv0 = h0 / group;
+  const int nkv = (h0 + pk.hb - 1) / group - kv0 + 1;
+  const int rows = pk.sb * kRows;  // the block's query rows
+  const int row_blk = sg * rows;
+  const int offset = sk - sq;
+  // this warp's unit: strip sw, head hw of the block
+  const int hw = warp / pk.sb;
+  const int row0 = row_blk + (warp % pk.sb) * kRows;
+  const int kvi = (h0 + hw) / group - kv0;
+  const int my_trips = row0 < sq ? trips(row0 + kRows - 1, sq, sk) : 0;
+  const int n_tiles = trips(row_blk + rows - 1, sq, sk);
+
+  const int q_sz = q_elems(kRS, warps, pk.hb);
+  const int tile_sz = tile_elems(kRS);
+  const int stage_sz = 2 * pk.nkv * tile_sz;
+  const uint32_t q_warp = sbase + 2 * (warp * kRows * kRS + hw * kPad);
+
+  // the block's query rows, piece ch of head hh of row r
+  const int n_q = rows * pk.hb * kCh;
+  for (int c = tid; c < n_q; c += blockDim.x) {
+    const int ch = c % kCh;
+    const int hh = c / kCh % pk.hb;
+    const int r = c / (kCh * pk.hb);
+    const int qi = row_blk + r;
+    const bool ok = qi < sq;
+    cp16(sbase + 2 * ((hh * rows + r) * kRS + hh * kPad + ch * 8),
+         q + b * qst.b + (ok ? qi : 0) * qst.s + (h0 + hh) * qst.h + ch * 8,
+         ok);
+  }
+  // key tile j of the block's KV heads into stage st
+  auto load_kv = [&](int j, int st) {
+    const uint32_t kt = sbase + 2 * (q_sz + st * stage_sz);
+    const uint32_t vt = kt + 2 * pk.nkv * tile_sz;
+    const int n = kBK * nkv * kCh;
+    for (int c = tid; c < n; c += blockDim.x) {
+      const int ch = c % kCh;
+      const int i = c / kCh % nkv;
+      const int r = c / (kCh * nkv);
+      const int kj = j * kBK + r;
+      const bool ok = kj < sk;
+      const long long row = ok ? kj : 0;
+      const uint32_t dst = 2 * (i * tile_sz + r * kRS + ch * 8);
+      cp16(kt + dst, k + b * kst.b + row * kst.s + (kv0 + i) * kst.h + ch * 8,
+           ok);
+      cp16(vt + dst, v + b * vst.b + row * vst.s + (kv0 + i) * vst.h + ch * 8,
+           ok);
+    }
+  };
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_commit();
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  }
+  float m[2] = {-1e30f, -1e30f};
+  float l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) load_kv(j + 1, (j + 1) & 1);
+    cp_commit();
+    cp_wait<1>();     // every group but the newest: tile j (and q)
+    __syncthreads();
+    if (j < my_trips) {
+      const uint32_t kt = sbase + 2 * (q_sz + (j & 1) * stage_sz +
+                                       kvi * tile_sz);
+      const uint32_t vt = kt + 2 * pk.nkv * tile_sz;
+
+      // S = (Q D^-0.5) K^T: per k-step the strip's A fragment, scaled in
+      // f32 and split into three parts, then 4 n8 tiles of keys, the
+      // smallest part first
+      float s[kBK / 8][4];
+#pragma unroll
+      for (int i = 0; i < kBK / 8; ++i) {
+        s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qa[4], qp[3][4];
+        const int r = (lane & 7) + (((lane >> 3) & 1) << 3);
+        ldsm_x4(qa, q_warp + 2 * (r * kRS + kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat162 x = *reinterpret_cast<__nv_bfloat162*>(&qa[e]);
+          split3(__low2float(x) * scale, __high2float(x) * scale, qp, e);
+        }
+#pragma unroll
+        for (int np = 0; np < kBK / 16; ++np) {
+          uint32_t kb[4];
+          const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+          const int col = kk * 16 + (((lane >> 3) & 1) << 3);
+          ldsm_x4(kb, kt + 2 * (key * kRS + col));
+#pragma unroll
+          for (int part = 2; part >= 0; --part) {
+            mma(s[2 * np], qp[part], kb[0], kb[1]);
+            mma(s[2 * np + 1], qp[part], kb[2], kb[3]);
+          }
+        }
+      }
+
+      const int k0 = j * kBK;
+      if (k0 + kBK - 1 > offset + row0 || k0 + kBK > sk) {
+#pragma unroll
+        for (int nt = 0; nt < kBK / 8; ++nt) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = k0 + 8 * nt + 2 * t + (i & 1);
+            const int qpos = offset + row0 + g + 8 * (i >> 1);
+            if (key > qpos || key >= sk) s[nt][i] = -INFINITY;
+          }
+        }
+      }
+
+      // online softmax: m is the running max of the logits
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < kBK / 8; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(repro::kFullMask, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(repro::kFullMask, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = __expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[dt][i] *= alpha[i >> 1];
+      }
+
+      // O += P V, 16 keys a k-step: p = 0 where masked (s = -inf), l sums
+      // the f32 p, and P's A fragment of k-step kk, from the accumulators
+      // of n8 tiles 2 kk and 2 kk + 1, is split into three parts
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        uint32_t pp[3][4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* c = s[2 * kk + (e >> 1)];
+          const int r = e & 1;
+          const float p0 = __expf(c[2 * r] - m[r]);
+          const float p1 = __expf(c[2 * r + 1] - m[r]);
+          psum[r] += p0 + p1;
+          split3(p0, p1, pp, e);
+        }
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t vb[4];
+          const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+          const int col = dp * 16 + ((lane >> 4) << 3);
+          ldsm_x4_t(vb, vt + 2 * (key * kRS + col));
+#pragma unroll
+          for (int part = 2; part >= 0; --part) {
+            mma(acc[2 * dp], pp[part], vb[0], vb[1]);
+            mma(acc[2 * dp + 1], pp[part], vb[2], vb[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+    }
+    if (j + 1 < n_tiles) __syncthreads();  // stage j & 1 read by all
+  }
+  cp_wait<0>();
+  __syncthreads();  // every copy landed and every tile read
+
+  // l over the 4 threads of each row, then acc / max(l, 1e-30) over the
+  // warp's own query rows in shared memory
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(repro::kFullMask, l[r], 1);
+    l[r] += __shfl_xor_sync(repro::kFullMask, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  __nv_bfloat16* ow = sm + warp * kRows * kRS + hw * kPad;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      *reinterpret_cast<__nv_bfloat162*>(ow + (g + 8 * r) * kRS + 8 * dt +
+                                         2 * t) =
+          __floats2bfloat162_rn(acc[dt][2 * r] / l[r],
+                                acc[dt][2 * r + 1] / l[r]);
+    }
+  }
+  __syncthreads();
+  // whole rows of the block's heads, 16 bytes a thread
+  for (int c = tid; c < n_q; c += blockDim.x) {
+    const int ch = c % kCh;
+    const int hh = c / kCh % pk.hb;
+    const int r = c / (kCh * pk.hb);
+    const int qi = row_blk + r;
+    if (qi >= sq) continue;
+    *reinterpret_cast<uint4*>(
+        o + ((static_cast<long long>(b) * sq + qi) * n_heads + h0 + hh) * D +
+        ch * 8) = *reinterpret_cast<const uint4*>(
+        sm + (hh * rows + r) * kRS + hh * kPad + ch * 8);
+  }
+}
+
+// `mp`: the plan's strips and heads a block, KV heads a block, stages and
+// shared-memory bytes, checked against the packing they imply.
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int batch,
+           int sq, int sk, int n_heads, int group, Strides qst, Strides kst,
+           Strides vst, const long long* mp, long long blocks, float scale,
+           cudaStream_t stream) {
+  Pack pk{static_cast<int>(mp[0]), static_cast<int>(mp[1]),
+          static_cast<int>(mp[2]), static_cast<int>(mp[3]), 0, 0};
+  const auto bad = static_cast<int>(cudaErrorInvalidValue);
+  if (pk.sb < 1 || pk.hb < 1 || pk.sb * pk.hb > kMaxWarps ||
+      n_heads % pk.hb != 0) {
+    return bad;
+  }
+  int nkv = 0;
+  for (int h0 = 0; h0 < n_heads; h0 += pk.hb) {
+    const int n = (h0 + pk.hb - 1) / group - h0 / group + 1;
+    nkv = n > nkv ? n : nkv;
+  }
+  pk.n_sg = ((sq + kRows - 1) / kRows + pk.sb - 1) / pk.sb;
+  pk.n_hg = n_heads / pk.hb;
+  const int stages = (sk + kBK - 1) / kBK > 1 ? 2 : 1;
+  const int warps = pk.sb * pk.hb;
+  const int smem = smem_bytes(D, warps, pk.hb, nkv, stages);
+  if (pk.nkv != nkv || pk.stages != stages || mp[4] != smem ||
+      static_cast<long long>(pk.n_sg) * pk.n_hg * batch != blocks) {
+    return bad;
+  }
+  static std::atomic<unsigned long long> opted{0};
+  const cudaError_t err = tc::opt_in(
+      flash_mma_kernel<D>, smem_bytes(D, kMaxWarps, kMaxWarps, kMaxWarps, 2),
+      opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_mma_kernel<D><<<static_cast<unsigned>(blocks), warps * 32, smem,
+                        stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      sq, sk, n_heads, batch, group, pk, qst, kst, vst, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mk
 }  // namespace
 
 // q: (batch, sq, n_heads, d) and k, v: (batch, sk, n_kv_heads, d), each
@@ -1299,12 +1718,14 @@ int launch(const void* q, Strides qst, const void* k, const void* v, void* o,
 // is the host's launch plan (kernels/flash_attention.py: FlashPlan.args),
 // 51 values: batch, sq, sk, n_heads, n_kv_heads, d, dtype (0 = float32,
 // 1 = bfloat16), design (0 = the bf16 tensor-core kernel, d 64 and 128;
-// 1 = the CUDA-core kernel, d 16 and 32; 2 = the f32 tensor-core kernel,
-// d 64 and 128), query tiles per head (designs 0 and 2), the element
-// strides (batch, seq, head) of q, k and v, then the q, k and v tensor
-// maps, 11 values each (design 0; design 2: k and v). Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a shape, type or plan
-// the kernels do not take.
+// 1 = the CUDA-core kernel, f32 at d 16 and 32; 2 = the f32 tensor-core
+// kernel, d 64 and 128; 3 = the mma kernel, bf16 at d 16 and 32), query
+// tiles per head (designs 0 and 2; design 3: its block count), the
+// element strides (batch, seq, head) of q, k and v, then the q, k and v
+// tensor maps, 11 values each (design 0; design 2: k and v); design 3
+// appends 5 values, its packing (mk::launch). Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a shape, type or plan the kernels do not
+// take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const long long* plan, float scale,
@@ -1320,8 +1741,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                                        dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool tensor_cores = d == 64 || d == 128;
-  if (design != (!tensor_cores ? 1 : dtype == 1 ? 0 : 2)) {
+  const bool wide = d == 64 || d == 128;
+  if (design != (wide ? (dtype == 1 ? 0 : 2) : (dtype == 1 ? 3 : 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch <= 0 || sq <= 0 || n_heads <= 0) {
@@ -1344,10 +1765,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                    : tf::launch<128>(q, qst, k, v, o, batch, sq, sk, n_heads,
                                      group, maps, n_q_tiles, scale, s);
   }
-  if (dtype == 0) {
-    return launch_d<float>(d, q, k, v, o, batch, sq, sk, n_heads, group, qst,
-                           kst, vst, scale, s);
+  if (design == 3) {
+    const long long* mp = plan + 51;
+    switch (d) {
+      case 16:
+        return mk::launch<16>(q, k, v, o, batch, sq, sk, n_heads, group, qst,
+                              kst, vst, mp, plan[8], scale, s);
+      case 32:
+        return mk::launch<32>(q, k, v, o, batch, sq, sk, n_heads, group, qst,
+                              kst, vst, mp, plan[8], scale, s);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_d<__nv_bfloat16>(d, q, k, v, o, batch, sq, sk, n_heads, group,
-                                 qst, kst, vst, scale, s);
+  return launch_d(d, q, k, v, o, batch, sq, sk, n_heads, group, qst, kst,
+                  vst, scale, s);
 }

@@ -11,7 +11,7 @@ The kernels are in ``csrc/flash_attention.cu``; their plain version is
 (B, S, K, D) for k and v, at the function: the kernels read through the
 strides, so nothing is transposed or padded first.
 
-Three designs, chosen by (dtype, D) alone (:func:`design`):
+Four designs, chosen by (dtype, D) alone (:func:`design`):
 
 * ``"wgmma"``, bf16 at D 64 and 128: Hopper's tensor cores. One block of
   three warpgroups per (128-row query tile, head, batch); a producer
@@ -24,17 +24,23 @@ Three designs, chosen by (dtype, D) alone (:func:`design`):
   tiles by TMA and splits them (V transposed, since TF32 ``wgmma`` reads
   only K-major operands); q is read through its strides. Tiles per D in
   ``F32_TILES``.
-* ``"cuda_core"``, D 16 and 32 in either dtype: the products on the CUDA
-  cores in f32.
+* ``"mma"``, bf16 at D 16 and 32 (the Meta-pipe encoder's 32-token
+  sequences): warp-level ``mma.sync`` on the tensor cores. A warp owns a
+  16-row query strip of one (head, batch), and a block packs several
+  strips and heads (:func:`mma_plan`), so a 32-token sequence fills its
+  block; q, k and v come into shared memory as bf16 in 16-byte
+  ``cp.async`` copies.
+* ``"cuda_core"``, f32 at D 16 and 32: the products on the CUDA cores in
+  f32.
 
 The host side of the tensor-core launches is computed here, so the CPU
 tests reach it: :func:`plan`, a pure function of the tensors' shapes,
-strides, dtype and base alignment, gives the design, the query tiles and
-the TMA tensor maps (dims, byte strides, boxes), and names the operands
-TMA cannot read as they lie; the C launcher only encodes the maps and
-checks them. :func:`launch_order` and :func:`trip_count` state the block
-order and the causal trip counts that the kernels compute from
-``blockIdx``.
+strides, dtype and base alignment, gives the design, the query tiles,
+the TMA tensor maps (dims, byte strides, boxes) or the ``mma`` packing,
+and names the operands the kernel cannot read as they lie; the C
+launcher only encodes the maps and checks the plan. :func:`launch_order`,
+:func:`mma_units` and :func:`trip_count` state the block order and the
+causal trip counts that the kernels compute from ``blockIdx``.
 """
 from __future__ import annotations
 
@@ -51,10 +57,10 @@ from ._compat import cdiv, count_launch
 #: head dims the kernels are built for (the JAX package's kernel tests and
 #: llama3.2-1b's 64)
 HEAD_DIMS = (16, 32, 64, 128)
-#: head dims that take the tensor-core kernels (in either dtype)
+#: head dims that take the wgmma kernels (in either dtype)
 WGMMA_HEAD_DIMS = (64, 128)
 #: the launcher's design codes are the indices
-DESIGNS = ("wgmma", "cuda_core", "wgmma_f32")
+DESIGNS = ("wgmma", "cuda_core", "wgmma_f32", "mma")
 BLOCK_Q = 128    # query rows per block of the wgmma kernel (2 x 64)
 BLOCK_K = 128    # keys per K/V tile of the wgmma kernel
 #: the wgmma_f32 kernel's (query rows per block, keys per K/V tile) per D:
@@ -64,6 +70,12 @@ F32_TILES = {64: (128, 64), 128: (64, 32)}
 SWIZZLE_BYTES = 128  # a TMA box row: the row of the 128-byte swizzle
 BOX_COLS = 64    # head-dim columns per bf16 TMA box (32 per f32 box)
 TMA_ALIGN = 16   # bytes: TMA's alignment of the base and of every stride
+#: the mma design: query rows a warp owns (one m16 strip), keys per K/V
+#: tile, most warps a block
+MMA_ROWS = 16
+MMA_BK = 32
+MMA_WARPS = 8
+MMA_PAD = 8      # bf16 elements past each shared-memory row (16 bytes)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # q, k, v, o, the plan's args, the scale, the stream
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
@@ -71,11 +83,12 @@ _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
 
 def design(dtype: torch.dtype, d: int) -> str:
     """The kernel a (dtype, head dim) takes: ``"wgmma"`` for bf16 and
-    ``"wgmma_f32"`` for f32 at D 64 and 128, ``"cuda_core"`` for D 16 and
-    32."""
+    ``"wgmma_f32"`` for f32 at D 64 and 128, ``"mma"`` for bf16 and
+    ``"cuda_core"`` for f32 at D 16 and 32."""
+    bf16 = dtype == torch.bfloat16
     if d not in WGMMA_HEAD_DIMS:
-        return "cuda_core"
-    return "wgmma" if dtype == torch.bfloat16 else "wgmma_f32"
+        return "mma" if bf16 else "cuda_core"
+    return "wgmma" if bf16 else "wgmma_f32"
 
 
 def block_shape(dtype: torch.dtype, d: int) -> tuple[int, int]:
@@ -108,6 +121,77 @@ def launch_order(sq: int, n_heads: int, batch: int,
 
 
 @dataclasses.dataclass(frozen=True)
+class MmaPlan:
+    """The ``mma`` design's packing. A unit is one 16-row query strip of
+    one (head, batch), owned by one warp; a block holds
+    ``strips_per_block`` consecutive strips of ``heads_per_block``
+    consecutive heads of one batch element (a divisor of the head count,
+    so no block spans two batch elements and none has a missing head).
+    Block ``x`` is (strip group ``strip_groups - 1 - x // (head_groups *
+    B)``, head group ``x % (head_groups * B) % head_groups``, batch
+    ``x % (head_groups * B) // head_groups``): the strip group with the
+    most key tiles first. Warp ``w`` takes strip ``w % strips_per_block``
+    and head ``w // strips_per_block`` of its block."""
+    strips: int              # 16-row strips per head: cdiv(Sq, 16)
+    strips_per_block: int
+    heads_per_block: int
+    kv_heads_per_block: int  # most KV heads one block's heads read
+    stages: int              # K/V tiles in flight: 2 where a strip visits
+                             # more than one, else 1
+    strip_groups: int
+    head_groups: int
+    blocks: int
+    smem: int                # dynamic shared memory of a block, bytes
+
+    @property
+    def warps(self) -> int:
+        return self.strips_per_block * self.heads_per_block
+
+
+def mma_plan(sq: int, sk: int, n_heads: int, n_kv_heads: int, batch: int,
+             d: int) -> MmaPlan:
+    """The ``mma`` design's packing (see :class:`MmaPlan`): as many strips
+    of a head as fit in ``MMA_WARPS`` warps, then as many heads as the
+    rest allows, the largest divisor of the head count that fits. At the
+    Meta-pipe encoder's S 32 with 8 heads: 2 strips x 4 heads, 8 warps.
+    Shared memory: the block's query rows, then ``stages`` K and V tiles
+    per KV head, each row padded by ``MMA_PAD`` elements and each head's
+    region skewed by 16 bytes (no bank conflict for ``ldmatrix``)."""
+    strips = cdiv(sq, MMA_ROWS)
+    sb = max(min(strips, MMA_WARPS), 1)
+    hb = max(x for x in range(1, n_heads + 1)
+             if n_heads % x == 0 and x * sb <= MMA_WARPS)
+    group = n_heads // n_kv_heads
+    nkv = max((h0 + hb - 1) // group - h0 // group + 1
+              for h0 in range(0, n_heads, hb))
+    stages = 2 if trip_count(strips - 1, sq, sk, MMA_ROWS, MMA_BK) > 1 else 1
+    n_sg, n_hg = cdiv(strips, sb), n_heads // hb
+    rs = d + MMA_PAD
+    smem = 2 * (sb * hb * MMA_ROWS * rs + hb * MMA_PAD
+                + stages * 2 * (nkv * MMA_BK * rs + nkv * MMA_PAD))
+    return MmaPlan(strips, sb, hb, nkv, stages, n_sg, n_hg,
+                   n_sg * n_hg * batch, smem)
+
+
+def mma_units(p: MmaPlan, batch: int) -> list[list[tuple | None]]:
+    """(strip, head, batch) of each warp of each block, by ``blockIdx.x``
+    and warp, or None for a warp past the last strip. The kernel maps
+    ``blockIdx.x`` and its warps the same way."""
+    per = p.head_groups * batch
+    out = []
+    for x in range(p.blocks):
+        sg = p.strip_groups - 1 - x // per
+        hg, b = x % per % p.head_groups, x % per // p.head_groups
+        warps = []
+        for w in range(p.warps):
+            strip = sg * p.strips_per_block + w % p.strips_per_block
+            head = hg * p.heads_per_block + w // p.strips_per_block
+            warps.append((strip, head, b) if strip < p.strips else None)
+        out.append(warps)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
 class TensorMap:
     """One TMA tensor map over a (B, S, heads, D) bf16 or f32 tensor, as
     ``cuTensorMapEncodeTiled`` takes it: dims innermost first (D, heads,
@@ -131,7 +215,11 @@ def tensor_map(t: torch.Tensor, rows: int = BLOCK_Q) -> TensorMap | None:
                        t.data_ptr() % TMA_ALIGN == 0, rows)
 
 
-def _tensor_map(shape, stride, es, aligned, rows) -> TensorMap | None:
+def _strides(shape, stride, es, aligned) -> list[int] | None:
+    """The byte strides of dims (heads, S, B) of a (B, S, heads, D)
+    tensor, or None where the base or a stride is not a multiple of
+    ``TMA_ALIGN`` bytes. A dim of size 1 is never stepped over, so its
+    stride is taken as the contiguous one."""
     b, s, h, d = shape
     strides, inner = [], d * es
     for size, st in zip((h, s, b), (stride[2], stride[1], stride[0])):
@@ -139,6 +227,14 @@ def _tensor_map(shape, stride, es, aligned, rows) -> TensorMap | None:
         inner *= max(size, 1)
     if not aligned or any(st % TMA_ALIGN for st in strides):
         return None
+    return strides
+
+
+def _tensor_map(shape, stride, es, aligned, rows) -> TensorMap | None:
+    strides = _strides(shape, stride, es, aligned)
+    if strides is None:
+        return None
+    b, s, h, d = shape
     # an empty key axis is never loaded (no key tile), but the map needs
     # a positive extent to encode
     return TensorMap((d, h, max(s, 1), b), tuple(strides),
@@ -149,24 +245,30 @@ def _tensor_map(shape, stride, es, aligned, rows) -> TensorMap | None:
 class FlashPlan:
     """What the host hands the C launcher for one call."""
     design: str
-    n_q_tiles: int               # tensor cores: blocks per (head, batch)
+    n_q_tiles: int               # tensor cores: query tiles per (head,
+                                 # batch); mma: strip groups
     maps: tuple | None           # TensorMap of q, k, v (wgmma_f32 reads
                                  # q through its strides: None)
-    copies: tuple[str, ...]      # operands TMA cannot read as they lie
+    copies: tuple[str, ...]      # operands the kernel cannot read as they
+                                 # lie
     # the launcher's long long[51]: batch, sq, sk, heads, kv heads, D,
-    # dtype, design, n_q_tiles, the (batch, seq, head) element strides of
-    # q, k and v, then the three maps (zeros where there is none); None
-    # while an operand needs a copy
+    # dtype, design, n_q_tiles (mma: its block count), the (batch, seq,
+    # head) element strides of q, k and v, then the three maps (zeros
+    # where there is none); mma appends its strips, heads and KV heads a
+    # block, stages and shared-memory bytes (56 values); None while an
+    # operand needs a copy
     args: object = dataclasses.field(default=None, compare=False)
+    mma: MmaPlan | None = None
 
 
 def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> FlashPlan:
     """The launch plan of checked q, k, v. For the tensor-core designs,
-    ``copies`` names each operand whose base or strides TMA cannot read;
-    the wrapper copies those (``torch.contiguous_format``) and plans
-    again. Nothing here touches the data. Plans are cached by shapes,
-    strides and base alignment: a prefill calls with the same layout in
-    every layer, and the first bucket's call is launch-bound."""
+    ``copies`` names each operand whose base or strides the kernel cannot
+    read (TMA's, or ``mma``'s 16-byte copies: base and strides a multiple
+    of 16 bytes); the wrapper copies those (``torch.contiguous_format``)
+    and plans again. Nothing here touches the data. Plans are cached by
+    shapes, strides and base alignment: a prefill calls with the same
+    layout in every layer, and the first bucket's call is launch-bound."""
     return _plan(q.dtype, *((tuple(t.shape), t.stride(),
                              t.data_ptr() % TMA_ALIGN == 0)
                             for t in (q, k, v)))
@@ -181,8 +283,19 @@ def _plan(dtype, *operands) -> FlashPlan:
     if kind == "cuda_core":
         return FlashPlan(kind, 0, None, (), _longs(head + [0] + strides
                                                    + [0] * 33))
-    bq, bk = block_shape(dtype, d)
     es = torch.empty((), dtype=dtype).element_size()
+    if kind == "mma":
+        copies = tuple(n for n, (shape, stride, aligned)
+                       in zip("qkv", operands)
+                       if _strides(shape, stride, es, aligned) is None)
+        mp = mma_plan(sq, sk, h, kh, b, d)
+        if copies:
+            return FlashPlan(kind, mp.strip_groups, None, copies, mma=mp)
+        return FlashPlan(kind, mp.strip_groups, None, (), _longs(
+            head + [mp.blocks] + strides + [0] * 33
+            + [mp.strips_per_block, mp.heads_per_block,
+               mp.kv_heads_per_block, mp.stages, mp.smem]), mp)
+    bq, bk = block_shape(dtype, d)
     mapped = "kv" if kind == "wgmma_f32" else "qkv"
     maps = tuple(_tensor_map(shape, stride, es, aligned,
                              bq if n == "q" else bk) if n in mapped else None
@@ -230,7 +343,8 @@ def _check(q, k, v, causal: bool) -> None:
 
 
 def tma_ready(q, k, v):
-    """(q, k, v, plan) with each operand TMA cannot read copied into a
+    """(q, k, v, plan) with each operand the kernel cannot read as it
+    lies (TMA's, or the ``mma`` design's 16-byte copies) copied into a
     fresh contiguous tensor, and the plan of what is launched."""
     p = plan(q, k, v)
     if p.copies:

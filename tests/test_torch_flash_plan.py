@@ -1,17 +1,21 @@
 """The flash wrapper's host-side launch plan, on the CPU.
 
 ``repro_torch.kernels.flash_attention.plan`` decides everything the
-tensor-core kernel is told from the host: which design a (dtype, head
+tensor-core kernels are told from the host: which design a (dtype, head
 dim) takes, the heaviest-first order of the blocks and their causal trip
-counts, and the TMA tensor maps (dims, byte strides, boxes) with their
-alignment. It is a pure function of shapes, strides and addresses, so it
-is tested here; the kernel itself runs only on the card
-(``chip_smoke.py``). The kernels' numerics are emulated here instead: the
-bf16 kernel's P operand, split into two bf16 parts, gives the plain
-version's f32 product within one bf16 ulp, where P rounded to bf16 once
-would not; the f32 kernel's three TF32 products of hi and lo parts hold
-the f32 tolerance against the plain version and the JAX package, where
-one TF32 product does not.
+counts, the TMA tensor maps (dims, byte strides, boxes) with their
+alignment, and the ``mma`` design's packing of 16-row query strips and
+heads into blocks (``mma_plan``, ``mma_units``). It is a pure function of
+shapes, strides and addresses, so it is tested here; the kernels
+themselves run only on the card (``chip_smoke.py``). The kernels'
+numerics are emulated here instead: the bf16 kernels' P operand, split
+into two bf16 parts, gives the plain version's f32 product within one
+bf16 ulp, where P rounded to bf16 once would not; the ``mma`` kernel's
+arithmetic (q scaled in f32, q and P each as three bf16 parts that sum
+to them exactly, 32-key tiles) holds one bf16 ulp against the plain
+version and the JAX package's Pallas body; the f32 kernel's three TF32
+products of hi and lo parts hold the f32 tolerance against the plain
+version and the JAX package, where one TF32 product does not.
 """
 import numpy as np
 import pytest
@@ -31,7 +35,7 @@ BF16 = torch.bfloat16
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"),
     (torch.float32, 16, "cuda_core"), (torch.float32, 32, "cuda_core"),
     (torch.float32, 64, "wgmma_f32"), (torch.float32, 128, "wgmma_f32"),
 ])
@@ -41,18 +45,26 @@ def test_design_is_chosen_by_dtype_and_head_dim(dtype, d, want):
     kv = torch.zeros(1, 7, 2, d, dtype=dtype)
     p = fa.plan(q, kv, kv)
     assert p.design == want
-    assert (p.maps is not None) == (want != "cuda_core")
+    tma = want in ("wgmma", "wgmma_f32")
+    assert (p.maps is not None) == tma
+    assert (p.mma is not None) == (want == "mma")
     assert p.n_q_tiles == (0 if want == "cuda_core" else 1)
     # the launcher's args: the same choice, the shapes and the strides
     args = list(p.args)
     assert args[:8] == [1, 5, 7, 4, 2, d, int(dtype == torch.bfloat16),
                         fa.DESIGNS.index(want)]
     assert args[9:18] == [*q.stride()[:3], *kv.stride()[:3], *kv.stride()[:3]]
-    assert len(args) == 51
-    # maps: q, k and v for bf16; k and v for f32 (q is read through its
-    # strides); none on the CUDA cores
+    # the mma design: its block count (one strip of all 4 heads, which
+    # read 2 KV heads) and its packing after the 51 shared values
+    if want == "mma":
+        mp = fa.mma_plan(5, 7, 4, 2, 1, d)
+        assert p.mma == mp and args[8] == mp.blocks == 1
+        assert args[51:] == [1, 4, 2, 1, mp.smem]
+    assert len(args) == (56 if want == "mma" else 51)
+    # maps: q, k and v for bf16 at D 64/128; k and v for f32 there (q is
+    # read through its strides); none at D 16/32
     assert [any(args[18 + 11 * i:29 + 11 * i]) for i in range(3)] == [
-        want == "wgmma", want != "cuda_core", want != "cuda_core"]
+        want == "wgmma", tma, tma]
 
 
 def visible_tiles(rows, sq, sk, bk):
@@ -217,15 +229,66 @@ def within_ulps(got, want, n):
                  <= 1e-5 + n * 2 ** -7 * want.abs()).all())
 
 
+def split3(x):
+    """x (f32) as the mma kernel's three bf16 parts, largest first:
+    bf16(x), then bf16 of each remainder; their sum is x exactly, but
+    near f32's smallest normals."""
+    parts = []
+    for _ in range(3):
+        parts.append(x.to(BF16).float())
+        x = x - parts[-1]
+    return parts
+
+
+def emulated_mma_flash(q, k, v):
+    """The ``mma`` kernel's arithmetic on the host: q scaled by D^-0.5
+    in f32 and split into three bf16 parts, S the sum of the parts'
+    products with K (each exact in f32), the smallest first; the online
+    softmax over 32-key tiles written in closed form (each p = exp(s - m)
+    against its tile's running max m, which starts at -1e30, rescaled to
+    the final max), l summing the f32 p, and P split into three parts for
+    the product with V."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g, bk = h // kh, fa.MMA_BK
+    qs = q.float() * d ** -0.5
+    parts = split3(qs)
+    assert torch.equal(parts[0] + parts[1] + parts[2], qs)
+    s = sum(torch.einsum("bqkgd,bskd->bkgqs", part.reshape(b, sq, kh, g, d),
+                         k.float()) for part in reversed(parts))
+    qpos = torch.arange(sq)[:, None] + (sk - sq)
+    mask = qpos >= torch.arange(sk)[None, :]
+    s = torch.where(mask, s, -torch.inf)
+    n_t = -(-sk // bk)
+    tiles = torch.nn.functional.pad(s, (0, n_t * bk - sk), value=-torch.inf)
+    run_max = torch.clamp(torch.cummax(tiles.unflatten(-1, (n_t, bk))
+                                       .amax(-1), -1).values, min=tref.NEG)
+    m_of = run_max.repeat_interleave(bk, -1)[..., :sk]
+    p = torch.where(mask, torch.exp(s - m_of), 0.0)
+    rescale = torch.exp(m_of - run_max[..., -1:])
+    l = (p * rescale).sum(-1)
+    acc = sum(torch.einsum("bkgqs,bskd->bkgqd", part * rescale, v.float())
+              for part in reversed(split3(p)))
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+
+
 @pytest.mark.parametrize("b,sq,sk,h,kh,d", [
     (1, 129, 200, 8, 2, 64), (2, 257, 257, 4, 1, 64),
     (1, 300, 700, 4, 4, 128), (2, 100, 40, 4, 2, 64),
+    # the mma design: the Meta-pipe encoder's S 32 x 8 heads at D 32,
+    # D 16 with GQA, and Sk > Sq, Sq > Sk across its strips and tiles
+    (4, 32, 32, 8, 8, 32), (2, 32, 32, 8, 2, 16), (1, 65, 100, 6, 3, 32),
+    (2, 17, 5, 10, 5, 16),
 ])
 def test_split_p_keeps_the_plain_versions_f32_product(b, sq, sk, h, kh, d):
     """The plain version keeps P in f32 and is unchanged: it equals the
-    closed form. The tensor-core kernel's hi + lo split of P gives the same
+    closed form. The tensor-core kernels' hi + lo split of P gives the same
     bf16 outputs within one ulp; P rounded to bf16 once, as FlashAttention
-    does, would not hold even within two."""
+    does, would not hold even within two. At D 16 and 32 the mma kernel's
+    own arithmetic (q scaled in f32, q and P each as three bf16 parts)
+    holds FLASH_TOL[bf16] against the plain version and the JAX package's
+    Pallas body (interpret)."""
     rng = np.random.default_rng(sq + sk)
     q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32))
                for s in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d)))
@@ -242,6 +305,127 @@ def test_split_p_keeps_the_plain_versions_f32_product(b, sq, sk, h, kh, d):
                        plain, 1)
     assert not within_ulps(full_logits_flash(q, k, v, 128, "bf16")
                            .to(BF16), plain, 2)
+    if fa.design(BF16, d) == "mma":
+        mma = emulated_mma_flash(q, k, v).to(BF16)
+        pallas = jops.flash_attention(
+            *(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+              for x in (q, k, v)), interpret=True)
+        assert within_ulps(mma, plain, 1)
+        assert within_ulps(mma, torch.as_tensor(
+            np.array(pallas.astype(jnp.float32))), 1)
+
+
+# -- the short-sequence design ("mma") ----------------------------------------
+
+def check_mma_cover(b, sq, sk, h, kh, d=32):
+    """mma_plan and mma_units: every (16-row strip, head, batch) on
+    exactly one warp; a block one batch element, its KV heads within its
+    shared memory; idle warps only past the last strip."""
+    p = fa.mma_plan(sq, sk, h, kh, b, d)
+    units = fa.mma_units(p, b)
+    strips = -(-sq // fa.MMA_ROWS)
+    assert p.strips == strips and len(units) == p.blocks
+    assert p.blocks == p.strip_groups * p.head_groups * b
+    assert 1 <= p.warps <= fa.MMA_WARPS and h % p.heads_per_block == 0
+    assert p.strips_per_block == min(strips, fa.MMA_WARPS)
+    live = [u for blk in units for u in blk if u is not None]
+    assert len(live) == len(set(live)) == strips * h * b
+    assert set(live) == {(s, hh, bb) for s in range(strips)
+                         for hh in range(h) for bb in range(b)}
+    g = h // kh
+    for blk in units:
+        mine = [u for u in blk if u is not None]
+        assert mine and len({bb for _, _, bb in mine}) == 1
+        assert len({hh // g for _, hh, _ in mine}) <= p.kv_heads_per_block
+    idle = sum(u is None for blk in units for u in blk)
+    assert idle == ((p.strip_groups * p.strips_per_block - strips)
+                    * p.heads_per_block * p.head_groups * b)
+    # the strip group with the most key tiles first
+    firsts = [min(u[0] for u in blk if u is not None) for blk in units]
+    assert firsts == sorted(firsts, reverse=True)
+    assert p.stages == (2 if -(-sk // fa.MMA_BK) > 1 else 1)
+    rs = d + fa.MMA_PAD
+    assert p.smem == 2 * (p.warps * fa.MMA_ROWS * rs
+                          + p.heads_per_block * fa.MMA_PAD + p.stages * 2
+                          * p.kv_heads_per_block * (fa.MMA_BK * rs
+                                                    + fa.MMA_PAD))
+    assert p.smem <= 232448
+    return p
+
+
+@pytest.mark.parametrize("h,kh", [(8, 8), (8, 2), (6, 3)])
+@pytest.mark.parametrize("sq", [1, 15, 16, 17, 31, 32, 33, 64, 65])
+def test_mma_plan_covers_every_strip_head_and_batch_once(sq, h, kh):
+    for sk in (sq, sq + 40, max(sq - 10, 0)):
+        p = check_mma_cover(3, sq, sk, h, kh)
+        # at S 32 the block is full: 2 strips of 4 heads (8 heads) or of
+        # 3 heads (6 heads: 3 divides 6, 4 does not)
+        if sq == 32:
+            assert (p.strips_per_block, p.heads_per_block) == (
+                2, 4 if h == 8 else 3)
+            assert p.warps == 2 * p.heads_per_block and p.head_groups == 2
+
+
+def test_mma_plan_at_the_encoders_shape():
+    """B 4,096 x S 32 x H 8 / K 8, D 32: 8,192 blocks of 2 strips x 4
+    heads, 8 warps and none idle, each block reading its 4 KV heads once,
+    one K/V stage."""
+    p = check_mma_cover(4096, 32, 32, 8, 8, 32)
+    assert (p.blocks, p.warps, p.strips_per_block, p.heads_per_block,
+            p.kv_heads_per_block, p.stages) == (8192, 8, 2, 4, 4, 1)
+    q = torch.zeros(4096, 32, 8, 32, dtype=BF16)
+    fp = fa.plan(q, q, q)
+    assert fp.design == "mma" and fp.mma == p and fp.copies == ()
+    assert list(fp.args)[8] == 8192
+
+
+@pytest.mark.parametrize("sq,sk", [
+    (1, 1), (1, 40), (16, 9), (17, 5), (32, 32), (33, 33), (33, 20),
+    (65, 100), (65, 40), (129, 257), (300, 1000), (5, 0),
+])
+def test_mma_trip_counts_cover_exactly_the_visible_key_tiles(sq, sk):
+    """Each warp's 16-row strip visits the 32-key tiles that hold a key
+    visible to one of its rows; its block loads those of its last strip;
+    the visited pairs are the causal pairs."""
+    p = fa.mma_plan(sq, sk, 4, 2, 1, 32)
+    pairs = 0
+    for blk in fa.mma_units(p, 1):
+        mine = [u for u in blk if u is not None]
+        trips = {s: fa.trip_count(s, sq, sk, fa.MMA_ROWS, fa.MMA_BK)
+                 for s, _, _ in mine}
+        assert max(trips.values()) == trips[max(trips)]
+        assert max(trips.values()) <= 1 or p.stages == 2
+        for s, hh, _ in mine:
+            rows = range(s * fa.MMA_ROWS, min((s + 1) * fa.MMA_ROWS, sq))
+            assert trips[s] == visible_tiles(rows, sq, sk, fa.MMA_BK)
+            if hh == 0:
+                pairs += sum(max(0, min(i + sk - sq + 1, sk,
+                                        trips[s] * fa.MMA_BK)) for i in rows)
+    assert pairs == fa.causal_pairs(sq, sk)
+
+
+def test_mma_operands_off_16_bytes_are_copied():
+    """The mma kernel's 16-byte copies: a q that is a view of a fused qkv
+    projection (row stride (H + 2K) D) is read as it lies; a k whose base
+    is 8 bytes past a 16-byte boundary, or a v whose rows are not a
+    multiple of 16 bytes apart, is copied first."""
+    x = torch.zeros(2, 48, (8 + 2 * 2) * 32, dtype=BF16)
+    q = x[..., :256].view(2, 48, 8, 32)
+    k = x[..., 256:320].view(2, 48, 2, 32)
+    v = x[..., 320:].view(2, 48, 2, 32)
+    p = fa.plan(q, k, v)
+    assert p.copies == () and list(p.args)[9:12] == list(q.stride()[:3])
+    km = torch.zeros(48 * 2 * 32 + 4, dtype=BF16)[4:].view(1, 48, 2, 32)
+    assert km.data_ptr() % fa.TMA_ALIGN == 8
+    vm = torch.zeros(1, 48, 2, 36, dtype=BF16)[..., :32]
+    qq = torch.zeros(1, 48, 8, 32, dtype=BF16)
+    p = fa.plan(qq, km, vm)
+    assert p.copies == ("k", "v") and p.args is None and p.mma is not None
+    q2, k2, v2, p2 = fa.tma_ready(qq, km, vm)
+    assert p2.copies == () and q2 is qq and torch.equal(k2, km)
+    assert k2.data_ptr() % fa.TMA_ALIGN == 0 and torch.equal(v2, vm)
+    # f32 on the CUDA cores reads any strides: nothing is copied
+    assert fa.plan(qq.float(), km.float(), vm.float()).copies == ()
 
 
 # -- the f32 tensor-core design ("wgmma_f32") ---------------------------------
