@@ -191,7 +191,10 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   and query, the incremental query to version 2 equal to
                   a full recompute bit for bit, only the changed rows
                   embedded; the encoder's chunked hidden states against
-                  xla within bf16's own rounding; a VersionedCorpus of
+                  xla within bf16's own rounding, and in f32 (its flash
+                  launches all flash_mma_f32_kernel, three TF32 products
+                  by mma.sync) within ENCODER_F32_TOL of f32 xla; a
+                  VersionedCorpus of
                   20,000 documents released twice (only changed and new
                   documents tokenized, token streams equal to a full
                   release's). Walls, rows embedded, flash launches by
@@ -218,9 +221,10 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   Meta-pipe encoder's shape, B 4,096 x S 32 x H 8, in
                   alternating rounds with SDPA and with its device time
                   alone: bf16 at D 32 (flash_mma_kernel, its launches the
-                  search path's), and two shapes no path launches: bf16
-                  at D 16 (flash_mma_kernel) and f32 at D 32 (the
-                  CUDA-core flash_kernel)),
+                  search path's), f32 at D 32 (flash_mma_f32_kernel, its
+                  launches the encoder check's f32 run), and two shapes
+                  no path launches: D 16 in bf16 (flash_mma_kernel) and
+                  in f32 (flash_mma_f32_kernel)),
                   and the frontdoor phase's launches, and the seconds
                   since the start at which each phase's line was printed
 
@@ -305,12 +309,15 @@ SOURCES = {
     "flash_attention_f32": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:33"),
     # the same wrapper at the Meta-pipe encoder's shape: bf16 at D 32 and
-    # 16 (the mma kernel of the source), f32 at D 32 (its CUDA-core kernel)
+    # 16 (the mma kernel of the source), f32 at D 32 and 16 (its mma_f32
+    # kernel)
     "flash_attention_d32": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:33"),
     "flash_attention_d16": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:33"),
     "flash_attention_d32_f32": ("src/repro_torch/csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:33"),
+    "flash_attention_d16_f32": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:33"),
 }
 # the packed gather's decode, one row per gather size of the main path
@@ -350,6 +357,11 @@ SERVE_TOL = 1e-3
 SERVE_TOL_BF16 = 0.25
 SERVE_CHECK_STEPS = 4  # f32 decode steps of the first bucket on both sides
 SMOKE_TOL = 1e-4  # f32 logits, card against CPU (sums in another order)
+# the Meta-pipe encoder in f32 on the card, chunked (the mma_f32 flash
+# kernel) against xla (torch ops), relative to max(1, max |xla|): the
+# same f32 arithmetic with attention's sums in another order, carried
+# through four layers
+ENCODER_F32_TOL = 1e-4
 # flash kernel against its plain version: |got - want| <= atol + rtol *
 # |want|. f32: sums in another order. bf16: both round the same f32
 # result, which may straddle a rounding boundary: one bf16 ulp (2^-7 of
@@ -730,7 +742,8 @@ def phase_env(build_info: dict, smi: str) -> None:
     and the count of tensor-core product instructions in its SASS, in
     all and per kernel and variant, where cuobjdump exists: HGMMA (BF16,
     TF32) in each wgmma kernel, the f32 ones with TF32 products, and HMMA
-    (mma.sync, BF16) in flash_mma_kernel, which must not spill."""
+    (mma.sync) in flash_mma_kernel (BF16) and flash_mma_f32_kernel
+    (TF32), which must not spill."""
     from repro_torch.kernels import _build
     ptxas = build_info["ptxas"]
     by_fn = _build.sass_opcodes_by_function("flash_attention", "HGMMA")
@@ -755,14 +768,17 @@ def phase_env(build_info: dict, smi: str) -> None:
           "flash_hgmma_by_kernel": by_kernel,
           "flash_hmma_by_kernel": mma_by_kernel,
           "flash_registers_by_kernel": flash_regs})
-    for name in ("flash_mma_kernel<16>", "flash_mma_kernel<32>"):
+    for name, variant in (("flash_mma_kernel<16>", "HMMA.16816.F32.BF16"),
+                          ("flash_mma_kernel<32>", "HMMA.16816.F32.BF16"),
+                          ("flash_mma_f32_kernel<16>", "HMMA.1688.F32.TF32"),
+                          ("flash_mma_f32_kernel<32>", "HMMA.1688.F32.TF32")):
         if "flash_attention" in ptxas:
             got = flash_regs.get(name, {})
             check(got.get("spill_stores") == 0 and got.get("spill_loads") == 0,
                   f"{name}: spills or no ptxas report: {got}")
         if mma_by_kernel is not None:
-            check(mma_by_kernel.get(name, {}).get("HMMA.16816.F32.BF16", 0)
-                  > 0, f"{name}: no HMMA.16816.F32.BF16 in its SASS")
+            check(mma_by_kernel.get(name, {}).get(variant, 0) > 0,
+                  f"{name}: no {variant} in its SASS")
     if by_kernel is not None:
         for name, variant in (("flash_wgmma_kernel<64>", "HGMMA.F32.BF16"),
                               ("flash_wgmma_kernel<128>", "HGMMA.F32.BF16"),
@@ -3113,15 +3129,15 @@ FLASH_EDGE_SHAPES = [  # (B, Sq, Sk, H, K, D)
     (1, 129, 200, 8, 2, 128), (2, 257, 257, 8, 1, 128),
     (2, 300, 130, 4, 1, 128), (1, 5, 0, 4, 2, 128),
     (1, 65, 97, 4, 4, 128), (2, 63, 65, 8, 4, 64), (3, 33, 33, 4, 2, 128),
-    # D 16 and 32 (bf16: the mma kernel, 16-row strips, 32-key tiles,
-    # strips and heads packed a block; f32: the CUDA-core kernel, 64 query
-    # rows a block): Sq and Sk on and off the tiles, GQA groups 1/2/4/8,
+    # D 16 and 32 (the mma kernels, 16-row strips, 32-key tiles, strips
+    # and heads packed a block; bf16: mma, f32: mma_f32, three TF32
+    # products): Sq and Sk on and off the tiles, GQA groups 1/2/4/8,
     # Sq = 1, Sq > Sk, an empty key axis, and the Meta-pipe encoder's
     # shape at a few sequences
     (2, 65, 97, 8, 2, 32), (3, 31, 33, 8, 1, 16), (1, 129, 257, 4, 2, 32),
     (6, 32, 32, 8, 8, 32), (1, 1, 65, 4, 1, 16), (2, 70, 20, 4, 4, 16),
     (1, 64, 64, 6, 3, 32), (2, 33, 0, 4, 2, 16),
-    # across the mma kernel's packing: Sq 1, 16, 17, 33 and 65, each with
+    # across the mma kernels' packing: Sq 1, 16, 17, 33 and 65, each with
     # Sk >= Sq and Sk < Sq; GQA groups 1/2/4; head counts 6, 7 and 10,
     # whose heads a block (a divisor of H) are 6, 7, 2 or 1; a last strip
     # group short of strips (Sq 129 and 300 above)
@@ -3713,14 +3729,17 @@ def metapipe_encoder(params, cfg, impl: str):
 def encoder_check(kops, params, cfg, tokens: np.ndarray) -> dict:
     """The encoder's hidden states on one batch through ``chunked`` (the
     flash kernel) and ``xla`` (torch ops), both in bf16, and through
-    ``xla`` in f32 with the same weights. The two bf16 paths differ only
-    in how attention rounds to bf16 (flash: once from its f32 online
-    softmax; xla: f32 logits and probabilities, rounded at the output),
-    and four layers carry each rounding through the residual stream and
-    the MLP. The tolerance is the model's own bf16 rounding: chunked must
-    be as close to xla as xla is to the f32 model (max and RMS), and no
-    further from the f32 model than xla is (within 5%). Returns the
-    errors and the layer-0 q, k, v the flash kernel was handed."""
+    ``xla`` and ``chunked`` in f32 with the same weights. The two bf16
+    paths differ only in how attention rounds to bf16 (flash: once from
+    its f32 online softmax; xla: f32 logits and probabilities, rounded at
+    the output), and four layers carry each rounding through the residual
+    stream and the MLP. The tolerance is the model's own bf16 rounding:
+    chunked must be as close to xla as xla is to the f32 model (max and
+    RMS), and no further from the f32 model than xla is (within 5%). In
+    f32 chunked (the ``mma_f32`` flash kernel) must be within
+    ENCODER_F32_TOL * max(1, max |xla|) of xla. Returns the record (the
+    f32 run's flash launches by design under ``f32_flash_launches``) and
+    the layer-0 q, k, v the flash kernel was handed in bf16 and in f32."""
     from repro_torch.models.transformer import FwdOpts, forward_train
     t = torch.as_tensor(tokens, device=DEV) % cfg.vocab
     p32 = weights_like(params, torch.float32)
@@ -3734,19 +3753,31 @@ def encoder_check(kops, params, cfg, tokens: np.ndarray) -> dict:
                                FwdOpts("xla"))[0].float()
             xf = forward_train(p32, c32, {"tokens": t}, FwdOpts("xla"))[0]
         return xc, xx, xf, kept[0]
+
+    def run_f32():
+        with torch.inference_mode(), layer0_inputs(cfg.n_layers) as kept:
+            xcf = forward_train(p32, c32, {"tokens": t},
+                                FwdOpts("chunked"))[0]
+        return xcf, kept[0]
     xc, xx, xf, qkv = uncounted(kops, run)
+    f32_flash = {}
+    xcf, qkv32 = uncounted(kops, run_f32, f32_flash)
 
     def err(a, b):
         d = a - b
         return float(d.abs().max()), float(d.pow(2).mean().sqrt())
     rec = {"rows": len(tokens), "max_abs_hidden": float(xx.abs().max()),
            "chunked_vs_xla": err(xc, xx), "xla_vs_f32": err(xx, xf),
-           "chunked_vs_f32": err(xc, xf)}
+           "chunked_vs_f32": err(xc, xf),
+           "f32_chunked_vs_xla": err(xcf, xf),
+           "f32_tol": ENCODER_F32_TOL * max(1.0, float(xf.abs().max())),
+           "f32_flash_launches": f32_flash}
     (cx_max, cx_rms), (xf_max, xf_rms) = (rec["chunked_vs_xla"],
                                           rec["xla_vs_f32"])
     rec["ok"] = (cx_max <= xf_max and cx_rms <= xf_rms
                  and rec["chunked_vs_f32"][0] <= 1.05 * xf_max)
-    return rec, qkv
+    rec["f32_ok"] = rec["f32_chunked_vs_xla"][0] <= rec["f32_tol"]
+    return rec, qkv, qkv32
 
 
 def weights_like(tree, dtype):
@@ -3798,12 +3829,21 @@ def phase_search(core, kops, seed: int) -> dict:
     n_changed = int((seqs != seqs2).any(axis=1).sum())
     t0 = time.perf_counter()
     params = build(ENCODER).init(seed, DEV)
-    rec["encoder_check"], qkv = encoder_check(kops, params, ENCODER,
-                                              seqs[:SEARCH_BATCH])
+    rec["encoder_check"], qkv, qkv32 = encoder_check(kops, params, ENCODER,
+                                                     seqs[:SEARCH_BATCH])
     rec["encoder_check_s"] = time.perf_counter() - t0
-    check(rec["encoder_check"]["ok"],
+    enc_rec = rec["encoder_check"]
+    check(enc_rec["ok"],
           f"encoder: chunked differs from xla beyond bf16's own rounding: "
-          f"{rec['encoder_check']}")
+          f"{enc_rec}")
+    check(enc_rec["f32_ok"],
+          f"encoder: f32 chunked differs from f32 xla by "
+          f"{enc_rec['f32_chunked_vs_xla']}, over {enc_rec['f32_tol']}")
+    f32_launches = enc_rec["f32_flash_launches"]
+    check(f32_launches["mma_f32"] == ENCODER.n_layers
+          and sum(f32_launches.values()) == ENCODER.n_layers,
+          f"encoder: the f32 run's flash launches {f32_launches}, not "
+          f"{ENCODER.n_layers} of mma_f32")
     enc = metapipe_encoder(params, ENCODER, "chunked")
     q = rng.integers(0, 25, (SEARCH_QUERIES, SEARCH_SEQ_W), dtype=np.int32)
     qids = [b"q%d" % i for i in range(SEARCH_QUERIES)]
@@ -3852,12 +3892,14 @@ def phase_search(core, kops, seed: int) -> dict:
           == rec["launches"]["flash_attention"],
           "search: a flash launch took another design than mma")
     del db, full, store
-    # the kernels line's D 16 and f32 rows time shapes no path launches
+    # the kernels line's D 16 rows time shapes no path launches; the f32
+    # D 32 row's launches are the encoder check's f32 run
     return {"launches": {**rec["launches"], "flash_attention_d32":
                          rec["flash_launches_by_design"]["mma"],
                          "flash_attention_d16": 0,
-                         "flash_attention_d32_f32": 0},
-            "qkv": qkv}
+                         "flash_attention_d32_f32": f32_launches["mma_f32"],
+                         "flash_attention_d16_f32": 0},
+            "qkv": qkv, "qkv32": qkv32}
 
 
 def corpus_check(rng) -> dict:
@@ -3909,7 +3951,9 @@ def phase_kernel_search(bench: KernelBench, search_out, seed: int) -> None:
     rounds with SDPA and with its device time alone: layer 0's q, k, v of
     one batch of the search path (B 4096 x S 32, 8 heads, D 32, bf16: the
     mma design); the same shape at D 16 in bf16 (the mma design, from
-    the seed); layer 0's q, k, v in f32 (the CUDA-core design)."""
+    the seed); layer 0's q, k, v of the encoder check's f32 run (the
+    mma_f32 design); the same shape at D 16 in f32 (mma_f32, from the
+    seed)."""
     q, k, v = search_out.pop("qkv")
     bench.flash(q, k, v, main=True, name="flash_attention_d32",
                 rounds=TIMED_ROUNDS, device=True)
@@ -3918,9 +3962,13 @@ def phase_kernel_search(bench: KernelBench, search_out, seed: int) -> None:
                                  device=DEV).to(x.dtype) for x in (q, k, v))
     bench.flash(q16, k16, v16, main=True, name="flash_attention_d16",
                 rounds=TIMED_ROUNDS, device=True)
-    bench.flash(q.float(), k.float(), v.float(), main=True,
-                name="flash_attention_d32_f32", rounds=TIMED_ROUNDS,
-                device=True)
+    q32, k32, v32 = search_out.pop("qkv32")
+    bench.flash(q32, k32, v32, main=True, name="flash_attention_d32_f32",
+                rounds=TIMED_ROUNDS, device=True)
+    q16, k16, v16 = (torch.randn(*x.shape[:3], 16, generator=gen,
+                                 device=DEV) for x in (q32, k32, v32))
+    bench.flash(q16, k16, v16, main=True, name="flash_attention_d16_f32",
+                rounds=TIMED_ROUNDS, device=True)
 
 
 def kernel_row(name: str, m: dict, launches: int) -> dict:

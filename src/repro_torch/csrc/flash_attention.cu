@@ -128,229 +128,47 @@
 //   shared memory; the block then stores whole rows of its heads as
 //   16-byte vectors. Every base and stride must be a multiple of 16
 //   bytes; the wrapper copies an operand that is not.
-// * f32 at D = 16 and 32: flash_kernel, the products on the CUDA cores in
-//   f32 (67 TFLOP/s peak). One block of 4 warps per (64-row query tile,
-//   head, batch). The query tile, scaled by D^-0.5 before the product,
-//   and each 32-key K/V tile are staged in shared memory (dynamic shared
-//   memory, opted in above 48 KB). Each warp owns 16 query rows; for the
-//   logits, lane j owns key j of the tile and reads q rows as broadcast
-//   float4s; K rows are padded to D + 4 floats so the lanes' float4 reads
-//   hit distinct banks. The running max is a warp reduction per row; each
-//   lane keeps a partial row sum l and the final l is one reduction at
-//   the end. p goes through a per-warp shared strip so that, for p @ v,
-//   lane d owns output dims d, d + 32, ... and reads p as broadcast
-//   float4s. acc stays in registers. Tiles past the block's last query
-//   row are never loaded.
+// * f32 at D = 16 and 32: flash_mma_f32_kernel, the mma kernel's skeleton
+//   (16-row strips of several heads a block, 16-byte cp.async copies of
+//   f32 rows, two K/V stages where a strip visits more than one tile, the
+//   epilogue through shared memory) with the products on the tensor cores
+//   at f32 precision: mma.sync m16n8k8 TF32, each product taken as three,
+//   A_lo B_hi + A_hi B_lo + A_hi B_hi of the operands' TF32 hi and lo
+//   parts (split in registers, q scaled by D^-0.5 in f32 first), as
+//   flash_wgmma_f32_kernel takes them. At the encoder's shape in f32
+//   (537 MB of q, k, v and o, 0.160 ms at 3.35 TB/s, against 2.2 GFLOP,
+//   6.6 as TF32 products, 0.013 ms) it is bound by bytes. The fragments:
+//   - An 8x8 b16 matrix of ldmatrix is 8 rows of 4 floats, and lane (g =
+//     lane / 4, t = lane % 4) receives float t of row g: the TF32 A
+//     fragment of q (rows g, g + 8; columns t, t + 4) and the B fragment
+//     of K as stored (key g; columns t, t + 4) load by ldmatrix.x4.
+//   - The S accumulator holds keys 2t and 2t + 1 of each 8-key group,
+//     the A fragment of P V wants k indices t and t + 4: a = c0, c2, c1,
+//     c3 takes k index t as key 2t and t + 4 as key 2t + 1, and V's B
+//     fragment is read at the same keys, V[2t][g] and V[2t + 1][g], by
+//     scalar shared loads (ldmatrix.trans would tear the floats into
+//     16-bit halves). No register moves between lanes.
+//   - Rows are padded to D + 4 floats: the 8 rows of an ldmatrix fall in
+//     8 distinct 16-byte bank groups, and the V reads (bank 8t + g, and
+//     8t + g + D + 4 for key 2t + 1, mod 32) in 32 distinct banks.
+//   - Each tile's P V goes into a fresh accumulator and O = O alpha +
+//     P V is one f32 fma per element (the tensor cores' sums drop low
+//     bits of addends much smaller than the sum; see the f32 wgmma
+//     kernel). The softmax runs in log2 units, exp2 of s log2(e) - m.
 #include <cuda.h>
 
 #include <atomic>
 #include <cmath>
+#include <type_traits>
 #include <cuda_bf16.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;               // query rows per block
-constexpr int kBK = 32;               // keys per tile: one per lane
-constexpr int kWarps = 4;
-constexpr int kRows = kBQ / kWarps;   // query rows per warp
-constexpr float kNeg = -1e30f;
-
 struct Strides {
   long long b, s, h;  // elements; the head dim is contiguous
 };
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBQ * (D + 4) + kBK * (D + 4) + kBK * D +
-                          kWarps * kRows * kBK);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int sq,
-             int sk, int n_heads, int group, Strides qst, Strides kst,
-             Strides vst, float scale) {
-  constexpr int kP = D + 4;            // padded row, float4-aligned
-  constexpr int kT = (D + 31) / 32;    // output dims per lane
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [kBQ][kP] scaled queries
-  float* ks = qs + kBQ * kP;                    // [kBK][kP]
-  float* vs = ks + kBK * kP;                    // [kBK][D]
-  float* ps = vs + kBK * D;                     // [kWarps][kRows][kBK]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int offset = sk - sq;
-  const float* qb = q + b * qst.b + h * qst.h;
-  const float* kb = k + b * kst.b + (h / group) * kst.h;
-  const float* vb = v + b * vst.b + (h / group) * vst.h;
-
-  for (int i = tid; i < kBQ * D; i += blockDim.x) {
-    const int r = i / D;
-    const int c = i % D;
-    const int qi = q0 + r;
-    qs[r * kP + c] = qi < sq ? qb[qi * qst.s + c] * scale : 0.f;
-  }
-
-  // causal trip count: the tiles holding keys up to the block's last query
-  const int q_last = offset + min(q0 + kBQ, sq) - 1;
-  const int n_tiles =
-      q_last < 0 ? 0 : min((q_last + kBK) / kBK, (sk + kBK - 1) / kBK);
-
-  const int row0 = warp * kRows;
-  float* pw = ps + warp * kRows * kBK;
-  float m[kRows], l[kRows], acc[kRows][kT];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNeg;
-    l[r] = 0.f;
-#pragma unroll
-    for (int t = 0; t < kT; ++t) acc[r][t] = 0.f;
-  }
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * kBK;
-    __syncthreads();  // the previous tile is fully read (and qs staged)
-    for (int i = tid; i < kBK * D; i += blockDim.x) {
-      const int r = i / D;
-      const int c = i % D;
-      const int kj = k0 + r;
-      const bool ok = kj < sk;
-      ks[r * kP + c] = ok ? kb[kj * kst.s + c] : 0.f;
-      vs[r * D + c] = ok ? vb[kj * vst.s + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    const float* krow = ks + lane * kP;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(krow + c);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(qs + (row0 + r) * kP + c);
-        s[r] = fmaf(qv.x, kv.x, s[r]);
-        s[r] = fmaf(qv.y, kv.y, s[r]);
-        s[r] = fmaf(qv.z, kv.z, s[r]);
-        s[r] = fmaf(qv.w, kv.w, s[r]);
-      }
-    }
-
-    const int kpos = k0 + lane;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qpos = offset + q0 + row0 + r;
-      const bool vis = kpos < sk && kpos <= qpos;
-      const float x = vis ? s[r] : kNeg;
-      float mx = x;
-#pragma unroll
-      for (int w = 16; w > 0; w >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(repro::kFullMask, mx, w));
-      }
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_new);
-      const float p = vis ? expf(x - m_new) : 0.f;
-      l[r] = l[r] * alpha + p;
-#pragma unroll
-      for (int t = 0; t < kT; ++t) acc[r][t] *= alpha;
-      m[r] = m_new;
-      pw[r * kBK + lane] = p;
-    }
-    __syncwarp();
-
-#pragma unroll 2
-    for (int j = 0; j < kBK; j += 4) {
-      float vv[4][kT];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int t = 0; t < kT; ++t) {
-          const int d = lane + 32 * t;
-          vv[jj][t] = d < D ? vs[(j + jj) * D + d] : 0.f;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 p4 = *reinterpret_cast<const float4*>(pw + r * kBK + j);
-#pragma unroll
-        for (int t = 0; t < kT; ++t) {
-          float a = acc[r][t];
-          a = fmaf(p4.x, vv[0][t], a);
-          a = fmaf(p4.y, vv[1][t], a);
-          a = fmaf(p4.z, vv[2][t], a);
-          a = fmaf(p4.w, vv[3][t], a);
-          acc[r][t] = a;
-        }
-      }
-    }
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    float lt = l[r];
-#pragma unroll
-    for (int w = 16; w > 0; w >>= 1) {
-      lt += __shfl_xor_sync(repro::kFullMask, lt, w);
-    }
-    const int qi = q0 + row0 + r;
-    if (qi >= sq) continue;
-    const float denom = fmaxf(lt, 1e-30f);
-    float* orow =
-        o + ((static_cast<long long>(b) * sq + qi) * n_heads + h) * D;
-#pragma unroll
-    for (int t = 0; t < kT; ++t) {
-      const int d = lane + 32 * t;
-      if (d < D) orow[d] = acc[r][t] / denom;
-    }
-  }
-}
-
-template <int D>
-int launch_typed(const void* q, const void* k, const void* v, void* o,
-                 int batch, int sq, int sk, int n_heads, int group,
-                 Strides qst, Strides kst, Strides vst, float scale,
-                 cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  // above 48 KB a launch needs the opt-in, on the current card
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBQ - 1) / kBQ, n_heads, batch);
-  flash_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, n_heads,
-      group, qst, kst, vst, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// f32 at D = 16 and 32 (bf16 takes the mma kernel, D = 64 and 128 the
-// tensor-core kernels below)
-int launch_d(int d, const void* q, const void* k, const void* v, void* o,
-             int batch, int sq, int sk, int n_heads, int group, Strides qst,
-             Strides kst, Strides vst, float scale, cudaStream_t stream) {
-  switch (d) {
-    case 16:
-      return launch_typed<16>(q, k, v, o, batch, sq, sk, n_heads, group, qst,
-                              kst, vst, scale, stream);
-    case 32:
-      return launch_typed<32>(q, k, v, o, batch, sq, sk, n_heads, group, qst,
-                              kst, vst, scale, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 
 // ---------------------------------------------------------------------------
 // The tensor-core kernel (bf16, D = 64 and 128)
@@ -1332,12 +1150,16 @@ int launch(const void* q, Strides qst, const void* k, const void* v, void* o,
 namespace mk {
 
 using tc::bits;
+using tc::ex2;
 using tc::smem_u32;
+using tf::tf32;
 
 constexpr int kRows = 16;      // query rows a warp owns: one m16 strip
 constexpr int kBK = 32;        // keys per K/V tile
 constexpr int kMaxWarps = 8;
-constexpr int kPad = 8;        // bf16 elements past each shared row
+constexpr int kVecBytes = 16;  // a cp.async piece; also the padding past
+                               // each shared row and each head's skew
+constexpr float kLog2e = 1.4426950408889634f;
 
 // The plan's packing (kernels/flash_attention.py: MmaPlan): strips and
 // heads a block, the most KV heads a block reads, K/V stages, strip and
@@ -1346,20 +1168,34 @@ struct Pack {
   int sb, hb, nkv, stages, n_sg, n_hg;
 };
 
-// Shared memory in bf16 elements, rows of D + kPad: the block's query
-// rows (warp w = hw * sb + sw at rows 16 w, head hw's rows skewed by
-// hw * kPad), then per stage the K tiles of the KV heads, then their V
-// tiles (KV head i skewed by i * kPad).
-__host__ __device__ constexpr int q_elems(int rs, int warps, int hb) {
-  return warps * kRows * rs + hb * kPad;
+// A head's row of D elements of T in shared memory: kVec elements (16
+// bytes) a piece, padded by one piece.
+template <typename T, int D>
+struct Rows {
+  static constexpr int kEs = static_cast<int>(sizeof(T));
+  static constexpr int kVec = kVecBytes / kEs;
+  static constexpr int kRS = D + kVec;  // bf16: 80 or 48 bytes; f32: 144
+                                        // or 80
+  static constexpr int kCh = D / kVec;  // pieces of a head's row
+};
+
+// Shared memory in elements, rows of rs = D + pad (pad: one 16-byte
+// piece): the block's query rows (warp w = hw * sb + sw at rows 16 w,
+// head hw's rows skewed by hw * pad), then per stage the K tiles of the
+// KV heads, then their V tiles (KV head i skewed by i * pad).
+__host__ __device__ constexpr int q_elems(int rs, int warps, int hb,
+                                          int pad) {
+  return warps * kRows * rs + hb * pad;
 }
-__host__ __device__ constexpr int tile_elems(int rs) {
-  return kBK * rs + kPad;
+__host__ __device__ constexpr int tile_elems(int rs, int pad) {
+  return kBK * rs + pad;
 }
-__host__ __device__ constexpr int smem_bytes(int d, int warps, int hb,
-                                             int nkv, int stages) {
-  return 2 * (q_elems(d + kPad, warps, hb) +
-              stages * 2 * nkv * tile_elems(d + kPad));
+// bytes, at element size es
+__host__ __device__ constexpr int smem_bytes(int d, int es, int warps,
+                                             int hb, int nkv, int stages) {
+  return es * (q_elems(d + kVecBytes / es, warps, hb, kVecBytes / es) +
+               stages * 2 * nkv *
+                   tile_elems(d + kVecBytes / es, kVecBytes / es));
 }
 
 // 16 bytes from global to shared memory, or 16 zero bytes where !ok
@@ -1377,8 +1213,9 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Four 8x8 bf16 matrices; lanes 8 i .. 8 i + 7 give the row addresses of
-// matrix i, which lands in r[i].
+// Four 8x8 b16 matrices; lanes 8 i .. 8 i + 7 give the row addresses of
+// matrix i, which lands in r[i]: lane (g, t) receives the 32 bits t of
+// row g (two bf16, or one f32).
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -1404,6 +1241,16 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// C (16 x 8, f32) += A (16 x 8, tf32, row) * B (8 x 8, tf32, col).
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Register e of three A fragments (part 0 the largest): two f32 values
 // each as three bf16 parts, hi = bf16(x), mid = bf16(x - hi) and lo =
 // bf16(x - hi - mid), whose sum is x exactly (8 significant bits each;
@@ -1421,12 +1268,170 @@ __device__ __forceinline__ void split3(float x0, float x1,
   }
 }
 
+// x as the TF32 operands of the three products: hi = tf32(x) and lo =
+// tf32(x - hi); hi + lo is x to 2^-22 of it.
+__device__ __forceinline__ void split2(float x, uint32_t& hi, uint32_t& lo) {
+  const float h = tf32(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(tf32(x - h));
+}
+
 // Key tiles that the query rows up to `last` (past Sq: up to the last
 // row) visit: those holding keys up to its position, none when it
 // precedes every key.
 __device__ __forceinline__ int trips(int last, int sq, int sk) {
   const int q_last = sk - sq + min(last, sq - 1);
   return q_last < 0 ? 0 : min(q_last / kBK + 1, (sk + kBK - 1) / kBK);
+}
+
+// Logits past the causal diagonal or the key axis to -inf: s holds the
+// 4 n8 accumulators of keys k0 .. k0 + 31 for the strip whose first row
+// is at key position row_pos. Only a tile that crosses the diagonal or
+// the end of the key axis is masked.
+__device__ __forceinline__ void mask_tile(float (&s)[kBK / 8][4], int k0,
+                                          int row_pos, int sk, int g,
+                                          int t) {
+  if (k0 + kBK - 1 <= row_pos && k0 + kBK <= sk) return;
+#pragma unroll
+  for (int nt = 0; nt < kBK / 8; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = k0 + 8 * nt + 2 * t + (i & 1);
+      const int qpos = row_pos + g + 8 * (i >> 1);
+      if (key > qpos || key >= sk) s[nt][i] = -INFINITY;
+    }
+  }
+}
+
+// The max of rows g and g + 8 over the tile's accumulators, across the 4
+// lanes that share a row.
+__device__ __forceinline__ void row_max(const float (&s)[kBK / 8][4],
+                                        float (&mx)[2]) {
+  mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < kBK / 8; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(repro::kFullMask, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(repro::kFullMask, mx[r], 2));
+  }
+}
+
+// l of rows g and g + 8 summed over the 4 lanes of each row, and at least
+// 1e-30 (a row that sees no key divides 0 by it)
+__device__ __forceinline__ void row_denominators(float (&l)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(repro::kFullMask, l[r], 1);
+    l[r] += __shfl_xor_sync(repro::kFullMask, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+}
+
+// What a block and one of its warps own. blockIdx.x -> (strip group,
+// head group, batch), as mma_units; warp w takes strip w % sb of head
+// w / sb of the block.
+struct Unit {
+  int b, h0, kv0, nkv;   // batch; the block's first head and KV head, and
+                         // its KV heads
+  int rows, row_blk;     // the block's query rows and its first row
+  int hw, row0, kvi;     // the warp's head in the block, first row, KV head
+  int my_trips, n_tiles; // key tiles of the warp's strip and of the block
+};
+
+__device__ __forceinline__ Unit unit_of(const Pack& pk, int batch, int group,
+                                        int sq, int sk, int warp) {
+  Unit u;
+  const int per = pk.n_hg * batch;
+  const int bid = static_cast<int>(blockIdx.x);
+  const int sg = pk.n_sg - 1 - bid / per;
+  u.h0 = bid % per % pk.n_hg * pk.hb;
+  u.b = bid % per / pk.n_hg;
+  u.kv0 = u.h0 / group;
+  u.nkv = (u.h0 + pk.hb - 1) / group - u.kv0 + 1;
+  u.rows = pk.sb * kRows;
+  u.row_blk = sg * u.rows;
+  u.hw = warp / pk.sb;
+  u.row0 = u.row_blk + (warp % pk.sb) * kRows;
+  u.kvi = (u.h0 + u.hw) / group - u.kv0;
+  u.my_trips = u.row0 < sq ? trips(u.row0 + kRows - 1, sq, sk) : 0;
+  u.n_tiles = trips(u.row_blk + u.rows - 1, sq, sk);
+  return u;
+}
+
+// The block's query rows into shared memory at sbase, piece ch of head
+// hh of row r, zero past Sq.
+template <typename T, int D>
+__device__ __forceinline__ void copy_q(uint32_t sbase, const T* q,
+                                       const Unit& u, const Pack& pk,
+                                       Strides qst, int sq) {
+  using R = Rows<T, D>;
+  const int n_q = u.rows * pk.hb * R::kCh;
+  for (int c = threadIdx.x; c < n_q; c += blockDim.x) {
+    const int ch = c % R::kCh;
+    const int hh = c / R::kCh % pk.hb;
+    const int r = c / (R::kCh * pk.hb);
+    const int qi = u.row_blk + r;
+    const bool ok = qi < sq;
+    cp16(sbase + R::kEs * ((hh * u.rows + r) * R::kRS + hh * R::kVec +
+                              ch * R::kVec),
+         q + u.b * qst.b + (ok ? qi : 0) * qst.s + (u.h0 + hh) * qst.h +
+             ch * R::kVec,
+         ok);
+  }
+}
+
+// Key tile j of the block's KV heads into the stage at kt (its K tiles,
+// then pk.nkv V tiles of tile_sz elements), zero past Sk.
+template <typename T, int D>
+__device__ __forceinline__ void copy_kv(uint32_t kt, const T* k, const T* v,
+                                        const Unit& u, const Pack& pk,
+                                        Strides kst, Strides vst, int j,
+                                        int sk, int tile_sz) {
+  using R = Rows<T, D>;
+  const uint32_t vt = kt + R::kEs * pk.nkv * tile_sz;
+  const int n = kBK * u.nkv * R::kCh;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const int ch = c % R::kCh;
+    const int i = c / R::kCh % u.nkv;
+    const int r = c / (R::kCh * u.nkv);
+    const int kj = j * kBK + r;
+    const bool ok = kj < sk;
+    const long long row = ok ? kj : 0;
+    const uint32_t dst = R::kEs * (i * tile_sz + r * R::kRS + ch * R::kVec);
+    cp16(kt + dst,
+         k + u.b * kst.b + row * kst.s + (u.kv0 + i) * kst.h + ch * R::kVec,
+         ok);
+    cp16(vt + dst,
+         v + u.b * vst.b + row * vst.s + (u.kv0 + i) * vst.h + ch * R::kVec,
+         ok);
+  }
+}
+
+// Whole rows < Sq of the block's heads from the query-row region of
+// shared memory (normalized O) to o, 16 bytes a thread.
+template <typename T, int D>
+__device__ __forceinline__ void store_o(T* o, const T* sm, const Unit& u,
+                                        const Pack& pk, int sq,
+                                        int n_heads) {
+  using R = Rows<T, D>;
+  const int n_q = u.rows * pk.hb * R::kCh;
+  for (int c = threadIdx.x; c < n_q; c += blockDim.x) {
+    const int ch = c % R::kCh;
+    const int hh = c / R::kCh % pk.hb;
+    const int r = c / (R::kCh * pk.hb);
+    const int qi = u.row_blk + r;
+    if (qi >= sq) continue;
+    *reinterpret_cast<uint4*>(
+        o + ((static_cast<long long>(u.b) * sq + qi) * n_heads + u.h0 + hh) *
+                D +
+        ch * R::kVec) =
+        *reinterpret_cast<const uint4*>(
+            sm + (hh * u.rows + r) * R::kRS + hh * R::kVec + ch * R::kVec);
+  }
 }
 
 // Fragments: g = lane / 4 and t = lane % 4. An accumulator c of an n8
@@ -1443,8 +1448,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  __nv_bfloat16* __restrict__ o, int sq, int sk, int n_heads,
                  int batch, int group, Pack pk, Strides qst, Strides kst,
                  Strides vst, float scale) {
-  constexpr int kRS = D + kPad;  // shared row: 80 or 48 bytes
-  constexpr int kCh = D / 8;     // 16-byte pieces of a head's row
+  using R = Rows<__nv_bfloat16, D>;
+  constexpr int kRS = R::kRS;
   extern __shared__ float4 smem4[];
   __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem4);
   const uint32_t sbase = smem_u32(sm);
@@ -1455,61 +1460,19 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  // blockIdx.x -> (strip group, head group, batch), as mma_units
-  const int per = pk.n_hg * batch;
-  const int bid = static_cast<int>(blockIdx.x);
-  const int sg = pk.n_sg - 1 - bid / per;
-  const int h0 = bid % per % pk.n_hg * pk.hb;
-  const int b = bid % per / pk.n_hg;
-  const int kv0 = h0 / group;
-  const int nkv = (h0 + pk.hb - 1) / group - kv0 + 1;
-  const int rows = pk.sb * kRows;  // the block's query rows
-  const int row_blk = sg * rows;
+  const Unit u = unit_of(pk, batch, group, sq, sk, warp);
   const int offset = sk - sq;
-  // this warp's unit: strip sw, head hw of the block
-  const int hw = warp / pk.sb;
-  const int row0 = row_blk + (warp % pk.sb) * kRows;
-  const int kvi = (h0 + hw) / group - kv0;
-  const int my_trips = row0 < sq ? trips(row0 + kRows - 1, sq, sk) : 0;
-  const int n_tiles = trips(row_blk + rows - 1, sq, sk);
 
-  const int q_sz = q_elems(kRS, warps, pk.hb);
-  const int tile_sz = tile_elems(kRS);
+  const int q_sz = q_elems(kRS, warps, pk.hb, R::kVec);
+  const int tile_sz = tile_elems(kRS, R::kVec);
   const int stage_sz = 2 * pk.nkv * tile_sz;
-  const uint32_t q_warp = sbase + 2 * (warp * kRows * kRS + hw * kPad);
+  const uint32_t q_warp = sbase + 2 * (warp * kRows * kRS + u.hw * R::kVec);
 
-  // the block's query rows, piece ch of head hh of row r
-  const int n_q = rows * pk.hb * kCh;
-  for (int c = tid; c < n_q; c += blockDim.x) {
-    const int ch = c % kCh;
-    const int hh = c / kCh % pk.hb;
-    const int r = c / (kCh * pk.hb);
-    const int qi = row_blk + r;
-    const bool ok = qi < sq;
-    cp16(sbase + 2 * ((hh * rows + r) * kRS + hh * kPad + ch * 8),
-         q + b * qst.b + (ok ? qi : 0) * qst.s + (h0 + hh) * qst.h + ch * 8,
-         ok);
+  copy_q<__nv_bfloat16, D>(sbase, q, u, pk, qst, sq);
+  if (u.n_tiles > 0) {
+    copy_kv<__nv_bfloat16, D>(sbase + 2 * q_sz, k, v, u, pk, kst, vst, 0,
+                              sk, tile_sz);
   }
-  // key tile j of the block's KV heads into stage st
-  auto load_kv = [&](int j, int st) {
-    const uint32_t kt = sbase + 2 * (q_sz + st * stage_sz);
-    const uint32_t vt = kt + 2 * pk.nkv * tile_sz;
-    const int n = kBK * nkv * kCh;
-    for (int c = tid; c < n; c += blockDim.x) {
-      const int ch = c % kCh;
-      const int i = c / kCh % nkv;
-      const int r = c / (kCh * nkv);
-      const int kj = j * kBK + r;
-      const bool ok = kj < sk;
-      const long long row = ok ? kj : 0;
-      const uint32_t dst = 2 * (i * tile_sz + r * kRS + ch * 8);
-      cp16(kt + dst, k + b * kst.b + row * kst.s + (kv0 + i) * kst.h + ch * 8,
-           ok);
-      cp16(vt + dst, v + b * vst.b + row * vst.s + (kv0 + i) * vst.h + ch * 8,
-           ok);
-    }
-  };
-  if (n_tiles > 0) load_kv(0, 0);
   cp_commit();
 
   float acc[D / 8][4];
@@ -1520,14 +1483,18 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   float m[2] = {-1e30f, -1e30f};
   float l[2] = {0.f, 0.f};
 
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) load_kv(j + 1, (j + 1) & 1);
+  for (int j = 0; j < u.n_tiles; ++j) {
+    if (j + 1 < u.n_tiles) {
+      copy_kv<__nv_bfloat16, D>(
+          sbase + 2 * (q_sz + ((j + 1) & 1) * stage_sz), k, v, u, pk, kst,
+          vst, j + 1, sk, tile_sz);
+    }
     cp_commit();
     cp_wait<1>();     // every group but the newest: tile j (and q)
     __syncthreads();
-    if (j < my_trips) {
+    if (j < u.my_trips) {
       const uint32_t kt = sbase + 2 * (q_sz + (j & 1) * stage_sz +
-                                       kvi * tile_sz);
+                                       u.kvi * tile_sz);
       const uint32_t vt = kt + 2 * pk.nkv * tile_sz;
 
       // S = (Q D^-0.5) K^T: per k-step the strip's A fragment, scaled in
@@ -1562,31 +1529,14 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
 
-      const int k0 = j * kBK;
-      if (k0 + kBK - 1 > offset + row0 || k0 + kBK > sk) {
-#pragma unroll
-        for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int key = k0 + 8 * nt + 2 * t + (i & 1);
-            const int qpos = offset + row0 + g + 8 * (i >> 1);
-            if (key > qpos || key >= sk) s[nt][i] = -INFINITY;
-          }
-        }
-      }
+      mask_tile(s, j * kBK, offset + u.row0, sk, g, t);
 
       // online softmax: m is the running max of the logits
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
-      }
+      float mx[2];
+      row_max(s, mx);
       float alpha[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(repro::kFullMask, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(repro::kFullMask, mx[r], 2));
         const float m_new = fmaxf(m[r], mx[r]);
         alpha[r] = __expf(m[r] - m_new);
         m[r] = m_new;
@@ -1629,20 +1579,14 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
     }
-    if (j + 1 < n_tiles) __syncthreads();  // stage j & 1 read by all
+    if (j + 1 < u.n_tiles) __syncthreads();  // stage j & 1 read by all
   }
   cp_wait<0>();
   __syncthreads();  // every copy landed and every tile read
 
-  // l over the 4 threads of each row, then acc / max(l, 1e-30) over the
-  // warp's own query rows in shared memory
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(repro::kFullMask, l[r], 1);
-    l[r] += __shfl_xor_sync(repro::kFullMask, l[r], 2);
-    l[r] = fmaxf(l[r], 1e-30f);
-  }
-  __nv_bfloat16* ow = sm + warp * kRows * kRS + hw * kPad;
+  // acc / max(l, 1e-30) over the warp's own query rows in shared memory
+  row_denominators(l);
+  __nv_bfloat16* ow = sm + warp * kRows * kRS + u.hw * R::kVec;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
 #pragma unroll
@@ -1654,27 +1598,204 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();
-  // whole rows of the block's heads, 16 bytes a thread
-  for (int c = tid; c < n_q; c += blockDim.x) {
-    const int ch = c % kCh;
-    const int hh = c / kCh % pk.hb;
-    const int r = c / (kCh * pk.hb);
-    const int qi = row_blk + r;
-    if (qi >= sq) continue;
-    *reinterpret_cast<uint4*>(
-        o + ((static_cast<long long>(b) * sq + qi) * n_heads + h0 + hh) * D +
-        ch * 8) = *reinterpret_cast<const uint4*>(
-        sm + (hh * rows + r) * kRS + hh * kPad + ch * 8);
+  store_o<__nv_bfloat16, D>(o, sm, u, pk, sq, n_heads);
+}
+
+// The same skeleton in f32 (rows of D + 4 floats, 4 floats a cp.async
+// piece), the products m16n8k8 TF32, three a product of split operands.
+// TF32 fragments (k8): A a[0..3] holds (row g, k t), (g + 8, t), (g,
+// t + 4), (g + 8, t + 4); B b[0..1] holds (k t, n g), (k t + 4, n g).
+template <int D>
+__global__ void __launch_bounds__(kMaxWarps * 32, 3)
+flash_mma_f32_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int sq, int sk, int n_heads, int batch, int group,
+                     Pack pk, Strides qst, Strides kst, Strides vst,
+                     float scale) {
+  using R = Rows<float, D>;
+  constexpr int kRS = R::kRS;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const uint32_t sbase = smem_u32(sm);
+
+  const int warps = pk.sb * pk.hb;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const Unit u = unit_of(pk, batch, group, sq, sk, warp);
+  const int offset = sk - sq;
+
+  const int q_sz = q_elems(kRS, warps, pk.hb, R::kVec);
+  const int tile_sz = tile_elems(kRS, R::kVec);
+  const int stage_sz = 2 * pk.nkv * tile_sz;
+  const uint32_t q_warp = sbase + 4 * (warp * kRows * kRS + u.hw * R::kVec);
+
+  copy_q<float, D>(sbase, q, u, pk, qst, sq);
+  if (u.n_tiles > 0) {
+    copy_kv<float, D>(sbase + 4 * q_sz, k, v, u, pk, kst, vst, 0, sk,
+                      tile_sz);
+  }
+  cp_commit();
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  }
+  float m[2] = {-1e30f, -1e30f};  // the running max of s log2(e)
+  float l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < u.n_tiles; ++j) {
+    if (j + 1 < u.n_tiles) {
+      copy_kv<float, D>(sbase + 4 * (q_sz + ((j + 1) & 1) * stage_sz), k, v,
+                        u, pk, kst, vst, j + 1, sk, tile_sz);
+    }
+    cp_commit();
+    cp_wait<1>();     // every group but the newest: tile j (and q)
+    __syncthreads();
+    if (j < u.my_trips) {
+      const int kt_el = q_sz + (j & 1) * stage_sz + u.kvi * tile_sz;
+      const uint32_t kt = sbase + 4 * kt_el;
+      const float* vs = sm + kt_el + pk.nkv * tile_sz;
+
+      // S = (Q D^-0.5) K^T: per k-step of 8 columns the strip's A
+      // fragment, scaled in f32 and split, then per 16 keys K's two B
+      // fragments by one ldmatrix, split; three products an n8 tile, the
+      // smallest first
+      float s[kBK / 8][4];
+#pragma unroll
+      for (int i = 0; i < kBK / 8; ++i) {
+        s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        uint32_t qa[4], qh[4], ql[4];
+        const int r = (lane & 7) + (((lane >> 3) & 1) << 3);
+        ldsm_x4(qa, q_warp + 4 * (r * kRS + kk * 8 + (lane >> 4) * 4));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          split2(__uint_as_float(qa[e]) * scale, qh[e], ql[e]);
+        }
+#pragma unroll
+        for (int np = 0; np < kBK / 16; ++np) {
+          uint32_t kb[4], kh[4], kl[4];
+          const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+          const int col = kk * 8 + (((lane >> 3) & 1) << 2);
+          ldsm_x4(kb, kt + 4 * (key * kRS + col));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            split2(__uint_as_float(kb[e]), kh[e], kl[e]);
+          }
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            float(&c)[4] = s[2 * np + n];
+            mma_tf32(c, ql, kh[2 * n], kh[2 * n + 1]);
+            mma_tf32(c, qh, kl[2 * n], kl[2 * n + 1]);
+            mma_tf32(c, qh, kh[2 * n], kh[2 * n + 1]);
+          }
+        }
+      }
+
+      mask_tile(s, j * kBK, offset + u.row0, sk, g, t);
+
+      // online softmax in log2 units
+      float mx[2];
+      row_max(s, mx);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], mx[r] * kLog2e);
+        alpha[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+      }
+
+      // pv = P V into a fresh accumulator, 8 keys a k-step: p = 0 where
+      // masked (s = -inf), l sums the f32 p. P's A fragment of k-step kk
+      // is n8 tile kk's accumulator as c0, c2, c1, c3 (k index t is key
+      // 2t, t + 4 is key 2t + 1), so V's B fragment is V[2t][g] and
+      // V[2t + 1][g] of the step's keys and the n8 tile's columns
+      float pv[D / 8][4];
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        pv[i][0] = pv[i][1] = pv[i][2] = pv[i][3] = 0.f;
+      }
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < kBK / 8; ++kk) {
+        float p[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          p[i] = ex2(fmaf(s[kk][i], kLog2e, -m[i >> 1]));
+        }
+        psum[0] += p[0] + p[1];
+        psum[1] += p[2] + p[3];
+        uint32_t ph[4], pl[4];
+        split2(p[0], ph[0], pl[0]);
+        split2(p[2], ph[1], pl[1]);
+        split2(p[1], ph[2], pl[2]);
+        split2(p[3], ph[3], pl[3]);
+        const float* v0 = vs + (8 * kk + 2 * t) * kRS + g;
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          uint32_t vh[2], vl[2];
+          split2(v0[8 * dn], vh[0], vl[0]);
+          split2(v0[kRS + 8 * dn], vh[1], vl[1]);
+          mma_tf32(pv[dn], pl, vh[0], vh[1]);
+          mma_tf32(pv[dn], ph, vl[0], vl[1]);
+          mma_tf32(pv[dn], ph, vh[0], vh[1]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[dn][i] = fmaf(acc[dn][i], alpha[i >> 1], pv[dn][i]);
+        }
+      }
+    }
+    if (j + 1 < u.n_tiles) __syncthreads();  // stage j & 1 read by all
+  }
+  cp_wait<0>();
+  __syncthreads();  // every copy landed and every tile read
+
+  // acc / max(l, 1e-30) over the warp's own query rows in shared memory
+  row_denominators(l);
+  float* ow = sm + warp * kRows * kRS + u.hw * R::kVec;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      *reinterpret_cast<float2*>(ow + (g + 8 * r) * kRS + 8 * dt + 2 * t) =
+          make_float2(acc[dt][2 * r] / l[r], acc[dt][2 * r + 1] / l[r]);
+    }
+  }
+  __syncthreads();
+  store_o<float, D>(o, sm, u, pk, sq, n_heads);
+}
+
+template <typename T, int D>
+auto kernel_of() {
+  if constexpr (std::is_same_v<T, float>) {
+    return &flash_mma_f32_kernel<D>;
+  } else {
+    return &flash_mma_kernel<D>;
   }
 }
 
 // `mp`: the plan's strips and heads a block, KV heads a block, stages and
-// shared-memory bytes, checked against the packing they imply.
-template <int D>
+// shared-memory bytes, checked against the packing they imply. T: f32
+// (flash_mma_f32_kernel) or bf16 (flash_mma_kernel).
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int sq, int sk, int n_heads, int group, Strides qst, Strides kst,
            Strides vst, const long long* mp, long long blocks, float scale,
            cudaStream_t stream) {
+  constexpr int es = static_cast<int>(sizeof(T));
   Pack pk{static_cast<int>(mp[0]), static_cast<int>(mp[1]),
           static_cast<int>(mp[2]), static_cast<int>(mp[3]), 0, 0};
   const auto bad = static_cast<int>(cudaErrorInvalidValue);
@@ -1691,22 +1812,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   pk.n_hg = n_heads / pk.hb;
   const int stages = (sk + kBK - 1) / kBK > 1 ? 2 : 1;
   const int warps = pk.sb * pk.hb;
-  const int smem = smem_bytes(D, warps, pk.hb, nkv, stages);
+  const int smem = smem_bytes(D, es, warps, pk.hb, nkv, stages);
   if (pk.nkv != nkv || pk.stages != stages || mp[4] != smem ||
       static_cast<long long>(pk.n_sg) * pk.n_hg * batch != blocks) {
     return bad;
   }
+  const auto kernel = kernel_of<T, D>();
   static std::atomic<unsigned long long> opted{0};
   const cudaError_t err = tc::opt_in(
-      flash_mma_kernel<D>, smem_bytes(D, kMaxWarps, kMaxWarps, kMaxWarps, 2),
-      opted);
+      kernel, smem_bytes(D, es, kMaxWarps, kMaxWarps, kMaxWarps, 2), opted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_mma_kernel<D><<<static_cast<unsigned>(blocks), warps * 32, smem,
-                        stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      sq, sk, n_heads, batch, group, pk, qst, kst, vst, scale);
+  kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, n_heads, batch,
+      group, pk, qst, kst, vst, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1718,14 +1837,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 // is the host's launch plan (kernels/flash_attention.py: FlashPlan.args),
 // 51 values: batch, sq, sk, n_heads, n_kv_heads, d, dtype (0 = float32,
 // 1 = bfloat16), design (0 = the bf16 tensor-core kernel, d 64 and 128;
-// 1 = the CUDA-core kernel, f32 at d 16 and 32; 2 = the f32 tensor-core
+// 1 = the mma_f32 kernel, f32 at d 16 and 32; 2 = the f32 tensor-core
 // kernel, d 64 and 128; 3 = the mma kernel, bf16 at d 16 and 32), query
-// tiles per head (designs 0 and 2; design 3: its block count), the
-// element strides (batch, seq, head) of q, k and v, then the q, k and v
-// tensor maps, 11 values each (design 0; design 2: k and v); design 3
-// appends 5 values, its packing (mk::launch). Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for a shape, type or plan the kernels do not
-// take.
+// tiles per head (designs 0 and 2; designs 1 and 3: their block count),
+// the element strides (batch, seq, head) of q, k and v, then the q, k and
+// v tensor maps, 11 values each (design 0; design 2: k and v); designs 1
+// and 3 append 5 values, their packing (mk::launch). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a shape, type or plan
+// the kernels do not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const long long* plan, float scale,
@@ -1765,18 +1884,24 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                    : tf::launch<128>(q, qst, k, v, o, batch, sq, sk, n_heads,
                                      group, maps, n_q_tiles, scale, s);
   }
-  if (design == 3) {
-    const long long* mp = plan + 51;
-    switch (d) {
-      case 16:
-        return mk::launch<16>(q, k, v, o, batch, sq, sk, n_heads, group, qst,
-                              kst, vst, mp, plan[8], scale, s);
-      case 32:
-        return mk::launch<32>(q, k, v, o, batch, sq, sk, n_heads, group, qst,
-                              kst, vst, mp, plan[8], scale, s);
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
+  // designs 1 (f32) and 3 (bf16): the mma kernels at d 16 and 32
+  const long long* mp = plan + 51;
+  const bool f32 = design == 1;
+  switch (d) {
+    case 16:
+      return f32 ? mk::launch<float, 16>(q, k, v, o, batch, sq, sk, n_heads,
+                                         group, qst, kst, vst, mp, plan[8],
+                                         scale, s)
+                 : mk::launch<__nv_bfloat16, 16>(q, k, v, o, batch, sq, sk,
+                                                 n_heads, group, qst, kst,
+                                                 vst, mp, plan[8], scale, s);
+    case 32:
+      return f32 ? mk::launch<float, 32>(q, k, v, o, batch, sq, sk, n_heads,
+                                         group, qst, kst, vst, mp, plan[8],
+                                         scale, s)
+                 : mk::launch<__nv_bfloat16, 32>(q, k, v, o, batch, sq, sk,
+                                                 n_heads, group, qst, kst,
+                                                 vst, mp, plan[8], scale, s);
   }
-  return launch_d(d, q, k, v, o, batch, sq, sk, n_heads, group, qst, kst,
-                  vst, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -30,17 +30,20 @@ Four designs, chosen by (dtype, D) alone (:func:`design`):
   strips and heads (:func:`mma_plan`), so a 32-token sequence fills its
   block; q, k and v come into shared memory as bf16 in 16-byte
   ``cp.async`` copies.
-* ``"cuda_core"``, f32 at D 16 and 32: the products on the CUDA cores in
-  f32.
+* ``"mma_f32"``, f32 at D 16 and 32: the ``mma`` skeleton (the same
+  packing, q, k and v as f32 in 16-byte ``cp.async`` copies) with both
+  products on the tensor cores at f32 precision, each as three TF32
+  ``mma.sync`` products of the operands' hi and lo parts, as
+  ``"wgmma_f32"`` takes them.
 
-The host side of the tensor-core launches is computed here, so the CPU
-tests reach it: :func:`plan`, a pure function of the tensors' shapes,
-strides, dtype and base alignment, gives the design, the query tiles,
-the TMA tensor maps (dims, byte strides, boxes) or the ``mma`` packing,
-and names the operands the kernel cannot read as they lie; the C
-launcher only encodes the maps and checks the plan. :func:`launch_order`,
-:func:`mma_units` and :func:`trip_count` state the block order and the
-causal trip counts that the kernels compute from ``blockIdx``.
+The host side of the launches is computed here, so the CPU tests reach
+it: :func:`plan`, a pure function of the tensors' shapes, strides, dtype
+and base alignment, gives the design, the query tiles, the TMA tensor
+maps (dims, byte strides, boxes) or the ``mma`` packing, and names the
+operands the kernel cannot read as they lie; the C launcher only encodes
+the maps and checks the plan. :func:`launch_order`, :func:`mma_units`
+and :func:`trip_count` state the block order and the causal trip counts
+that the kernels compute from ``blockIdx``.
 """
 from __future__ import annotations
 
@@ -60,7 +63,9 @@ HEAD_DIMS = (16, 32, 64, 128)
 #: head dims that take the wgmma kernels (in either dtype)
 WGMMA_HEAD_DIMS = (64, 128)
 #: the launcher's design codes are the indices
-DESIGNS = ("wgmma", "cuda_core", "wgmma_f32", "mma")
+DESIGNS = ("wgmma", "mma_f32", "wgmma_f32", "mma")
+#: the designs of 16-row strips packed a block (:func:`mma_plan`)
+MMA_DESIGNS = ("mma", "mma_f32")
 BLOCK_Q = 128    # query rows per block of the wgmma kernel (2 x 64)
 BLOCK_K = 128    # keys per K/V tile of the wgmma kernel
 #: the wgmma_f32 kernel's (query rows per block, keys per K/V tile) per D:
@@ -70,12 +75,12 @@ F32_TILES = {64: (128, 64), 128: (64, 32)}
 SWIZZLE_BYTES = 128  # a TMA box row: the row of the 128-byte swizzle
 BOX_COLS = 64    # head-dim columns per bf16 TMA box (32 per f32 box)
 TMA_ALIGN = 16   # bytes: TMA's alignment of the base and of every stride
-#: the mma design: query rows a warp owns (one m16 strip), keys per K/V
+#: the mma designs: query rows a warp owns (one m16 strip), keys per K/V
 #: tile, most warps a block
 MMA_ROWS = 16
 MMA_BK = 32
 MMA_WARPS = 8
-MMA_PAD = 8      # bf16 elements past each shared-memory row (16 bytes)
+MMA_PAD = 16     # bytes past each shared-memory row (one cp.async piece)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # q, k, v, o, the plan's args, the scale, the stream
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
@@ -84,10 +89,10 @@ _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
 def design(dtype: torch.dtype, d: int) -> str:
     """The kernel a (dtype, head dim) takes: ``"wgmma"`` for bf16 and
     ``"wgmma_f32"`` for f32 at D 64 and 128, ``"mma"`` for bf16 and
-    ``"cuda_core"`` for f32 at D 16 and 32."""
+    ``"mma_f32"`` for f32 at D 16 and 32."""
     bf16 = dtype == torch.bfloat16
     if d not in WGMMA_HEAD_DIMS:
-        return "mma" if bf16 else "cuda_core"
+        return "mma" if bf16 else "mma_f32"
     return "wgmma" if bf16 else "wgmma_f32"
 
 
@@ -122,7 +127,7 @@ def launch_order(sq: int, n_heads: int, batch: int,
 
 @dataclasses.dataclass(frozen=True)
 class MmaPlan:
-    """The ``mma`` design's packing. A unit is one 16-row query strip of
+    """The ``mma`` designs' packing. A unit is one 16-row query strip of
     one (head, batch), owned by one warp; a block holds
     ``strips_per_block`` consecutive strips of ``heads_per_block``
     consecutive heads of one batch element (a divisor of the head count,
@@ -149,14 +154,15 @@ class MmaPlan:
 
 
 def mma_plan(sq: int, sk: int, n_heads: int, n_kv_heads: int, batch: int,
-             d: int) -> MmaPlan:
-    """The ``mma`` design's packing (see :class:`MmaPlan`): as many strips
-    of a head as fit in ``MMA_WARPS`` warps, then as many heads as the
-    rest allows, the largest divisor of the head count that fits. At the
+             d: int, es: int = 2) -> MmaPlan:
+    """The ``mma`` designs' packing (see :class:`MmaPlan`) at element size
+    ``es`` (2: bf16, ``mma``; 4: f32, ``mma_f32``): as many strips of a
+    head as fit in ``MMA_WARPS`` warps, then as many heads as the rest
+    allows, the largest divisor of the head count that fits. At the
     Meta-pipe encoder's S 32 with 8 heads: 2 strips x 4 heads, 8 warps.
     Shared memory: the block's query rows, then ``stages`` K and V tiles
-    per KV head, each row padded by ``MMA_PAD`` elements and each head's
-    region skewed by 16 bytes (no bank conflict for ``ldmatrix``)."""
+    per KV head, each row padded by ``MMA_PAD`` bytes and each head's
+    region skewed by as many (no bank conflict for ``ldmatrix``)."""
     strips = cdiv(sq, MMA_ROWS)
     sb = max(min(strips, MMA_WARPS), 1)
     hb = max(x for x in range(1, n_heads + 1)
@@ -166,9 +172,10 @@ def mma_plan(sq: int, sk: int, n_heads: int, n_kv_heads: int, batch: int,
               for h0 in range(0, n_heads, hb))
     stages = 2 if trip_count(strips - 1, sq, sk, MMA_ROWS, MMA_BK) > 1 else 1
     n_sg, n_hg = cdiv(strips, sb), n_heads // hb
-    rs = d + MMA_PAD
-    smem = 2 * (sb * hb * MMA_ROWS * rs + hb * MMA_PAD
-                + stages * 2 * (nkv * MMA_BK * rs + nkv * MMA_PAD))
+    pad = MMA_PAD // es
+    rs = d + pad
+    smem = es * (sb * hb * MMA_ROWS * rs + hb * pad
+                 + stages * 2 * (nkv * MMA_BK * rs + nkv * pad))
     return MmaPlan(strips, sb, hb, nkv, stages, n_sg, n_hg,
                    n_sg * n_hg * batch, smem)
 
@@ -245,8 +252,8 @@ def _tensor_map(shape, stride, es, aligned, rows) -> TensorMap | None:
 class FlashPlan:
     """What the host hands the C launcher for one call."""
     design: str
-    n_q_tiles: int               # tensor cores: query tiles per (head,
-                                 # batch); mma: strip groups
+    n_q_tiles: int               # wgmma designs: query tiles per (head,
+                                 # batch); mma designs: strip groups
     maps: tuple | None           # TensorMap of q, k, v (wgmma_f32 reads
                                  # q through its strides: None)
     copies: tuple[str, ...]      # operands the kernel cannot read as they
@@ -254,18 +261,18 @@ class FlashPlan:
     # the launcher's long long[51]: batch, sq, sk, heads, kv heads, D,
     # dtype, design, n_q_tiles (mma: its block count), the (batch, seq,
     # head) element strides of q, k and v, then the three maps (zeros
-    # where there is none); mma appends its strips, heads and KV heads a
-    # block, stages and shared-memory bytes (56 values); None while an
-    # operand needs a copy
+    # where there is none); the mma designs append their strips, heads and
+    # KV heads a block, stages and shared-memory bytes (56 values); None
+    # while an operand needs a copy
     args: object = dataclasses.field(default=None, compare=False)
     mma: MmaPlan | None = None
 
 
 def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> FlashPlan:
-    """The launch plan of checked q, k, v. For the tensor-core designs,
-    ``copies`` names each operand whose base or strides the kernel cannot
-    read (TMA's, or ``mma``'s 16-byte copies: base and strides a multiple
-    of 16 bytes); the wrapper copies those (``torch.contiguous_format``)
+    """The launch plan of checked q, k, v. ``copies`` names each operand
+    whose base or strides the kernel cannot read (TMA's, or the ``mma``
+    designs' 16-byte copies: base and strides a multiple of 16 bytes); the
+    wrapper copies those (``torch.contiguous_format``)
     and plans again. Nothing here touches the data. Plans are cached by
     shapes, strides and base alignment: a prefill calls with the same
     layout in every layer, and the first bucket's call is launch-bound."""
@@ -280,15 +287,12 @@ def _plan(dtype, *operands) -> FlashPlan:
     kind = design(dtype, d)
     head = [b, sq, sk, h, kh, d, _DTYPES[dtype], DESIGNS.index(kind)]
     strides = [st for _, stride, _ in operands for st in stride[:3]]
-    if kind == "cuda_core":
-        return FlashPlan(kind, 0, None, (), _longs(head + [0] + strides
-                                                   + [0] * 33))
     es = torch.empty((), dtype=dtype).element_size()
-    if kind == "mma":
+    if kind in MMA_DESIGNS:
         copies = tuple(n for n, (shape, stride, aligned)
                        in zip("qkv", operands)
                        if _strides(shape, stride, es, aligned) is None)
-        mp = mma_plan(sq, sk, h, kh, b, d)
+        mp = mma_plan(sq, sk, h, kh, b, d, es)
         if copies:
             return FlashPlan(kind, mp.strip_groups, None, copies, mma=mp)
         return FlashPlan(kind, mp.strip_groups, None, (), _longs(
@@ -344,7 +348,7 @@ def _check(q, k, v, causal: bool) -> None:
 
 def tma_ready(q, k, v):
     """(q, k, v, plan) with each operand the kernel cannot read as it
-    lies (TMA's, or the ``mma`` design's 16-byte copies) copied into a
+    lies (TMA's, or the ``mma`` designs' 16-byte copies) copied into a
     fresh contiguous tensor, and the plan of what is launched."""
     p = plan(q, k, v)
     if p.copies:

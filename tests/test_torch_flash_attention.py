@@ -25,7 +25,9 @@ F32_TOL = 3e-5
 BF16_TOL = 3e-2
 
 # the five shapes of the JAX package's kernel test, a GQA group of 7
-# (qwen2-0.5b's 14 query heads over 2 kv heads), and ragged tiles
+# (qwen2-0.5b's 14 query heads over 2 kv heads), ragged tiles, and the
+# Meta-pipe encoder's 32-token sequences of 8 heads at D 32 and 16 (the
+# shapes the f32 mma design was written for) with Sq > Sk beside them
 SHAPES = [
     (2, 256, 256, 8, 4, 64),
     (1, 100, 300, 4, 4, 32),
@@ -33,6 +35,8 @@ SHAPES = [
     (1, 37, 37, 2, 1, 128),
     (2, 128, 640, 4, 2, 16),
     (1, 45, 130, 14, 2, 64),
+    (4, 32, 32, 8, 8, 32),
+    (4, 32, 32, 8, 8, 16),
 ]
 
 

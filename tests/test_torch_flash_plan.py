@@ -4,18 +4,22 @@
 tensor-core kernels are told from the host: which design a (dtype, head
 dim) takes, the heaviest-first order of the blocks and their causal trip
 counts, the TMA tensor maps (dims, byte strides, boxes) with their
-alignment, and the ``mma`` design's packing of 16-row query strips and
-heads into blocks (``mma_plan``, ``mma_units``). It is a pure function of
-shapes, strides and addresses, so it is tested here; the kernels
-themselves run only on the card (``chip_smoke.py``). The kernels'
-numerics are emulated here instead: the bf16 kernels' P operand, split
-into two bf16 parts, gives the plain version's f32 product within one
-bf16 ulp, where P rounded to bf16 once would not; the ``mma`` kernel's
+alignment, and the ``mma`` designs' packing of 16-row query strips and
+heads into blocks (``mma_plan``, ``mma_units``; bf16 and f32). It is a
+pure function of shapes, strides and addresses, so it is tested here;
+the kernels themselves run only on the card (``chip_smoke.py``). The
+kernels' numerics are emulated here instead: the bf16 kernels' P
+operand, split into two bf16 parts, gives the plain version's f32
+product within one bf16 ulp, where P rounded to bf16 once would not; the
+``mma`` kernel's
 arithmetic (q scaled in f32, q and P each as three bf16 parts that sum
 to them exactly, 32-key tiles) holds one bf16 ulp against the plain
-version and the JAX package's Pallas body; the f32 kernel's three TF32
+version and the JAX package's Pallas body; the f32 kernels' three TF32
 products of hi and lo parts hold the f32 tolerance against the plain
-version and the JAX package, where one TF32 product does not.
+version and the JAX package, where one TF32 product does not. The f32
+``mma`` kernel's fragment index maps (ldmatrix of f32 rows, the S
+accumulator taken as P's A fragment, V read at the permuted keys) are
+checked exactly in numpy.
 """
 import numpy as np
 import pytest
@@ -36,7 +40,7 @@ BF16 = torch.bfloat16
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"),
-    (torch.float32, 16, "cuda_core"), (torch.float32, 32, "cuda_core"),
+    (torch.float32, 16, "mma_f32"), (torch.float32, 32, "mma_f32"),
     (torch.float32, 64, "wgmma_f32"), (torch.float32, 128, "wgmma_f32"),
 ])
 def test_design_is_chosen_by_dtype_and_head_dim(dtype, d, want):
@@ -47,20 +51,22 @@ def test_design_is_chosen_by_dtype_and_head_dim(dtype, d, want):
     assert p.design == want
     tma = want in ("wgmma", "wgmma_f32")
     assert (p.maps is not None) == tma
-    assert (p.mma is not None) == (want == "mma")
-    assert p.n_q_tiles == (0 if want == "cuda_core" else 1)
+    assert (p.mma is not None) == (want in fa.MMA_DESIGNS)
+    assert p.n_q_tiles == 1
     # the launcher's args: the same choice, the shapes and the strides
     args = list(p.args)
     assert args[:8] == [1, 5, 7, 4, 2, d, int(dtype == torch.bfloat16),
                         fa.DESIGNS.index(want)]
     assert args[9:18] == [*q.stride()[:3], *kv.stride()[:3], *kv.stride()[:3]]
-    # the mma design: its block count (one strip of all 4 heads, which
-    # read 2 KV heads) and its packing after the 51 shared values
-    if want == "mma":
-        mp = fa.mma_plan(5, 7, 4, 2, 1, d)
+    # the mma designs: their block count (one strip of all 4 heads, which
+    # read 2 KV heads) and their packing after the 51 shared values, the
+    # shared memory at the dtype's element size
+    if want in fa.MMA_DESIGNS:
+        mp = fa.mma_plan(5, 7, 4, 2, 1, d, q.element_size())
         assert p.mma == mp and args[8] == mp.blocks == 1
         assert args[51:] == [1, 4, 2, 1, mp.smem]
-    assert len(args) == (56 if want == "mma" else 51)
+        assert mp.smem == mma_smem(mp, d, q.element_size())
+    assert len(args) == (56 if want in fa.MMA_DESIGNS else 51)
     # maps: q, k and v for bf16 at D 64/128; k and v for f32 there (q is
     # read through its strides); none at D 16/32
     assert [any(args[18 + 11 * i:29 + 11 * i]) for i in range(3)] == [
@@ -317,11 +323,24 @@ def test_split_p_keeps_the_plain_versions_f32_product(b, sq, sk, h, kh, d):
 
 # -- the short-sequence design ("mma") ----------------------------------------
 
-def check_mma_cover(b, sq, sk, h, kh, d=32):
+def mma_smem(p, d, es):
+    """The mma kernels' shared memory in bytes: the block's query rows,
+    then per stage a K and a V tile of each KV head, every row of D
+    elements of ``es`` bytes padded by 16 bytes, each head's region
+    skewed by 16."""
+    pad = 16 // es
+    rs = d + pad
+    return es * (p.warps * fa.MMA_ROWS * rs + p.heads_per_block * pad
+                 + p.stages * 2 * p.kv_heads_per_block
+                 * (fa.MMA_BK * rs + pad))
+
+
+def check_mma_cover(b, sq, sk, h, kh, d=32, es=2):
     """mma_plan and mma_units: every (16-row strip, head, batch) on
     exactly one warp; a block one batch element, its KV heads within its
-    shared memory; idle warps only past the last strip."""
-    p = fa.mma_plan(sq, sk, h, kh, b, d)
+    shared memory; idle warps only past the last strip. ``es``: the
+    element size (2: bf16, the ``mma`` design; 4: f32, ``mma_f32``)."""
+    p = fa.mma_plan(sq, sk, h, kh, b, d, es)
     units = fa.mma_units(p, b)
     strips = -(-sq // fa.MMA_ROWS)
     assert p.strips == strips and len(units) == p.blocks
@@ -344,11 +363,7 @@ def check_mma_cover(b, sq, sk, h, kh, d=32):
     firsts = [min(u[0] for u in blk if u is not None) for blk in units]
     assert firsts == sorted(firsts, reverse=True)
     assert p.stages == (2 if -(-sk // fa.MMA_BK) > 1 else 1)
-    rs = d + fa.MMA_PAD
-    assert p.smem == 2 * (p.warps * fa.MMA_ROWS * rs
-                          + p.heads_per_block * fa.MMA_PAD + p.stages * 2
-                          * p.kv_heads_per_block * (fa.MMA_BK * rs
-                                                    + fa.MMA_PAD))
+    assert p.smem == mma_smem(p, d, es) and fa.MMA_PAD == 16
     assert p.smem <= 232448
     return p
 
@@ -356,8 +371,20 @@ def check_mma_cover(b, sq, sk, h, kh, d=32):
 @pytest.mark.parametrize("h,kh", [(8, 8), (8, 2), (6, 3)])
 @pytest.mark.parametrize("sq", [1, 15, 16, 17, 31, 32, 33, 64, 65])
 def test_mma_plan_covers_every_strip_head_and_batch_once(sq, h, kh):
+    check_mma_cover_at(sq, h, kh, 2)
+
+
+@pytest.mark.parametrize("h,kh", [(8, 8), (8, 2), (6, 3)])
+@pytest.mark.parametrize("sq", [1, 15, 16, 17, 31, 32, 33, 64, 65])
+def test_mma_f32_plan_covers_every_strip_head_and_batch_once(sq, h, kh):
+    """The same packing in f32 (``mma_f32``): only the shared memory
+    differs."""
+    check_mma_cover_at(sq, h, kh, 4)
+
+
+def check_mma_cover_at(sq, h, kh, es):
     for sk in (sq, sq + 40, max(sq - 10, 0)):
-        p = check_mma_cover(3, sq, sk, h, kh)
+        p = check_mma_cover(3, sq, sk, h, kh, 32, es)
         # at S 32 the block is full: 2 strips of 4 heads (8 heads) or of
         # 3 heads (6 heads: 3 divides 6, 4 does not)
         if sq == 32:
@@ -370,13 +397,27 @@ def test_mma_plan_at_the_encoders_shape():
     """B 4,096 x S 32 x H 8 / K 8, D 32: 8,192 blocks of 2 strips x 4
     heads, 8 warps and none idle, each block reading its 4 KV heads once,
     one K/V stage."""
-    p = check_mma_cover(4096, 32, 32, 8, 8, 32)
+    check_mma_plan_at_the_encoders_shape(torch.bfloat16, "mma", 30_912)
+
+
+def test_mma_f32_plan_at_the_encoders_shape():
+    """The same packing in f32: rows of 36 floats (144 bytes), q 8 x 16
+    rows (18.5 KB) and K and V of 4 heads (37.0 KB), four blocks an SM by
+    shared memory."""
+    check_mma_plan_at_the_encoders_shape(torch.float32, "mma_f32", 55_488)
+
+
+def check_mma_plan_at_the_encoders_shape(dtype, want, smem):
+    es = torch.empty((), dtype=dtype).element_size()
+    p = check_mma_cover(4096, 32, 32, 8, 8, 32, es)
     assert (p.blocks, p.warps, p.strips_per_block, p.heads_per_block,
             p.kv_heads_per_block, p.stages) == (8192, 8, 2, 4, 4, 1)
-    q = torch.zeros(4096, 32, 8, 32, dtype=BF16)
+    assert p.smem == smem and 232448 // p.smem >= 4
+    q = torch.zeros(4096, 32, 8, 32, dtype=dtype)
     fp = fa.plan(q, q, q)
-    assert fp.design == "mma" and fp.mma == p and fp.copies == ()
-    assert list(fp.args)[8] == 8192
+    assert fp.design == want and fp.mma == p and fp.copies == ()
+    assert list(fp.args)[8] == 8192 and list(fp.args)[51:] == [
+        2, 4, 4, 1, smem]
 
 
 @pytest.mark.parametrize("sq,sk", [
@@ -424,8 +465,25 @@ def test_mma_operands_off_16_bytes_are_copied():
     q2, k2, v2, p2 = fa.tma_ready(qq, km, vm)
     assert p2.copies == () and q2 is qq and torch.equal(k2, km)
     assert k2.data_ptr() % fa.TMA_ALIGN == 0 and torch.equal(v2, vm)
-    # f32 on the CUDA cores reads any strides: nothing is copied
+    # fresh f32 copies are aligned: nothing is copied
     assert fa.plan(qq.float(), km.float(), vm.float()).copies == ()
+    # mma_f32 copies 4 floats a piece: the same rules in f32, a fused qkv
+    # read as it lies, a k 8 bytes off and rows of 33 floats copied
+    xf = x.float()
+    qf, kf, vf = (xf[..., :256].view(2, 48, 8, 32),
+                  xf[..., 256:320].view(2, 48, 2, 32),
+                  xf[..., 320:].view(2, 48, 2, 32))
+    p = fa.plan(qf, kf, vf)
+    assert p.design == "mma_f32" and p.copies == ()
+    kmf = torch.zeros(48 * 2 * 32 + 2)[2:].view(1, 48, 2, 32)
+    assert kmf.data_ptr() % fa.TMA_ALIGN == 8
+    vmf = torch.zeros(1, 48, 2, 33)[..., :32]
+    p = fa.plan(qq.float(), kmf, vmf)
+    assert p.copies == ("k", "v") and p.args is None
+    q2, k2, v2, p2 = fa.tma_ready(qq.float(), kmf, vmf)
+    assert p2.copies == () and p2.design == "mma_f32"
+    assert torch.equal(k2, kmf) and torch.equal(v2, vmf)
+    assert k2.data_ptr() % fa.TMA_ALIGN == 0
 
 
 # -- the f32 tensor-core design ("wgmma_f32") ---------------------------------
@@ -587,11 +645,17 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
 @pytest.mark.parametrize("b,sq,sk,h,kh,d", [
     (1, 129, 200, 8, 2, 64), (2, 70, 70, 4, 1, 128),
     (1, 45, 130, 8, 2, 64), (1, 100, 40, 4, 4, 128),
+    # mma_f32 at 32-key tiles: the Meta-pipe encoder's S 32 x 8 heads at
+    # D 32, D 16 with GQA, Sq > Sk, and Sk > Sq across strips and tiles
+    (4, 32, 32, 8, 8, 32), (2, 32, 32, 8, 2, 16), (1, 65, 40, 6, 3, 32),
+    (2, 17, 50, 10, 5, 16), (1, 100, 300, 4, 4, 32),
 ])
 def test_split_tf32_products_hold_the_f32_tolerance(b, sq, sk, h, kh, d):
-    """The f32 kernel's three TF32 products stay within FLASH_TOL[f32] of
-    the plain version, of the JAX package's ref_attention and of its
-    Pallas body (interpret); one TF32 product does not."""
+    """The f32 kernels' three TF32 products (``wgmma_f32`` at D 64/128,
+    ``mma_f32`` at D 16/32, each at its key tiles) stay within
+    FLASH_TOL[f32] of the plain version, of the JAX package's
+    ref_attention and of its Pallas body (interpret); one TF32 product
+    does not."""
     rng = np.random.default_rng(7 * sq + sk + d)
     q, k, v = (rng.normal(size=s).astype(np.float32)
                for s in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d)))
@@ -601,7 +665,8 @@ def test_split_tf32_products_hold_the_f32_tolerance(b, sq, sk, h, kh, d):
     jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
     jax_ref = np.asarray(jref.ref_attention(jq, jk, jv))
     pallas = np.asarray(jops.flash_attention(jq, jk, jv, interpret=True))
-    bk = fa.F32_TILES[d][1]
+    bk = (fa.MMA_BK if fa.design(F32, d) == "mma_f32"
+          else fa.F32_TILES[d][1])
     split = emulated_f32_flash(tq, tk, tv, bk, 3)
     single = emulated_f32_flash(tq, tk, tv, bk, 1)
     # the rows before every key (Sq > Sk) are 0 in the kernel, the plain
@@ -628,3 +693,126 @@ def test_f32_bound_is_three_tf32_products():
     assert round(flops / roofline.PEAK_CUDA_CORE_OPS * 1e3, 2) == 65.64
     assert roofline.compute_peak("bfloat16") == roofline.PEAK_TENSOR_BF16
     assert roofline.compute_peak("int32") == roofline.PEAK_CUDA_CORE_OPS
+
+
+# -- the f32 short-sequence design ("mma_f32"): its fragments ----------------
+
+def ldmatrix_x4(smem, addrs):
+    """``ldmatrix.x4 .b16`` on f32 rows: lanes 8 i .. 8 i + 7 give the row
+    addresses (in floats) of matrix i, an 8x8 b16 matrix of 8 rows of 4
+    floats; lane (g = lane / 4, t = lane % 4) receives float t of row g
+    of each matrix."""
+    return np.array([[smem[addrs[8 * i + lane // 4] + lane % 4]
+                      for i in range(4)] for lane in range(32)])
+
+
+def mma_m16n8k8(a, b):
+    """``mma.sync.m16n8k8`` (TF32) on per-lane fragments, exactly: A
+    a[lane][0..3] at (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4),
+    B b[lane][0..1] at (k t, n g), (k t + 4, n g); the accumulator
+    c[lane][0..3] at (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)."""
+    am, bm = np.zeros((16, 8)), np.zeros((8, 8))
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for e, (r, k) in enumerate(((g, t), (g + 8, t), (g, t + 4),
+                                    (g + 8, t + 4))):
+            am[r, k] = a[lane][e]
+        bm[t, g], bm[t + 4, g] = b[lane]
+    return from_acc(am @ bm)
+
+
+def from_acc(m):
+    """A 16 x 8 matrix as accumulator fragments, per lane."""
+    return np.array([[m[g, 2 * t], m[g, 2 * t + 1], m[g + 8, 2 * t],
+                      m[g + 8, 2 * t + 1]]
+                     for g, t in (divmod(lane, 4) for lane in range(32))])
+
+
+def to_mat(c):
+    """Accumulator fragments, per lane, as the 16 x 8 matrix."""
+    m = np.zeros((16, 8))
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        m[g, 2 * t], m[g, 2 * t + 1] = c[lane][0], c[lane][1]
+        m[g + 8, 2 * t], m[g + 8, 2 * t + 1] = c[lane][2], c[lane][3]
+    return m
+
+
+@pytest.mark.parametrize("d", [16, 32])
+def test_mma_f32_fragments_give_s_and_p_v(d):
+    """The f32 mma kernel's index maps (csrc/flash_attention.cu:
+    flash_mma_f32_kernel), on one strip and one 32-key tile of shared
+    rows of D + 4 floats, with integer values so every sum is exact:
+    ldmatrix at the kernel's row addresses gives q's A fragment and K's B
+    fragments as stored, whose products are S = Q K^T; S's accumulator
+    taken as P's A fragment a = (c0, c2, c1, c3), with V read at keys 2t
+    and 2t + 1 of each 8-key step, gives exactly P V; and the reads fall
+    in distinct banks (ldmatrix rows in distinct 16-byte groups, the
+    scalar V reads in 32 distinct 4-byte banks)."""
+    rng = np.random.default_rng(d)
+    rs, skew = d + 4, 4              # the kernel's kRS and head skew
+    qm = rng.integers(-4, 5, (16, d)).astype(np.float64)
+    km = rng.integers(-4, 5, (32, d)).astype(np.float64)
+    vm = rng.integers(-4, 5, (32, d)).astype(np.float64)
+    q_at, k_at = skew, 16 * rs + 2 * skew   # a second head's strip, and a
+    v_at = k_at + 32 * rs + skew            # second KV head's K and V tile
+    smem = np.zeros(v_at + 32 * rs)
+    for base, m in ((q_at, qm), (k_at, km), (v_at, vm)):
+        for r in range(len(m)):
+            smem[base + r * rs:base + r * rs + d] = m[r]
+
+    s = np.zeros((4, 32, 4))             # 4 n8 tiles of keys
+    for kk in range(d // 8):
+        qa = [q_at + ((lane & 7) + ((lane >> 3) & 1) * 8) * rs + kk * 8
+              + (lane >> 4) * 4 for lane in range(32)]
+        a = ldmatrix_x4(smem, qa)
+        assert all(a[ln].tolist() == [
+            qm[ln // 4, 8 * kk + ln % 4], qm[ln // 4 + 8, 8 * kk + ln % 4],
+            qm[ln // 4, 8 * kk + ln % 4 + 4],
+            qm[ln // 4 + 8, 8 * kk + ln % 4 + 4]] for ln in range(32))
+        for np_ in range(2):
+            ka = [k_at + (np_ * 16 + (lane & 7) + (lane >> 4) * 8) * rs
+                  + kk * 8 + ((lane >> 3) & 1) * 4 for lane in range(32)]
+            kb = ldmatrix_x4(smem, ka)
+            for n in range(2):
+                s[2 * np_ + n] += mma_m16n8k8(a, kb[:, 2 * n:2 * n + 2])
+            for addrs in (qa, ka):
+                for i in range(4):
+                    rows = [addrs[8 * i + r] for r in range(8)]
+                    assert all(x % 4 == 0 for x in rows)   # 16-byte rows
+                    assert len({x // 4 % 8 for x in rows}) == 8
+    st = np.concatenate([to_mat(c) for c in s], axis=1)
+    np.testing.assert_array_equal(st, qm @ km.T)
+
+    pm = rng.integers(0, 4, (16, 32)).astype(np.float64)
+    p = [from_acc(pm[:, 8 * kk:8 * kk + 8]) for kk in range(4)]
+    # the index maps: a[e] holds what c[(0, 2, 1, 3)[e]] holds when k
+    # index t is key 2t and t + 4 is key 2t + 1
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        a_pos = [(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)]
+        c_pos = [(g, 2 * t), (g, 2 * t + 1), (g + 8, 2 * t),
+                 (g + 8, 2 * t + 1)]
+        key = {t: 2 * t, t + 4: 2 * t + 1}
+        for e, src in enumerate((0, 2, 1, 3)):
+            assert (a_pos[e][0], key[a_pos[e][1]]) == c_pos[src]
+    o = np.zeros((d // 8, 32, 4))
+    for kk in range(4):
+        a = p[kk][:, [0, 2, 1, 3]]
+        # V[2t][g] and V[2t + 1][g] of the step's keys, by the kernel's
+        # address v0 = (8 kk + 2t) rs + g, + 8 dn, + rs for key 2t + 1
+        v0 = [v_at + (8 * kk + 2 * (lane % 4)) * rs + lane // 4
+              for lane in range(32)]
+        for dn in range(d // 8):
+            b = np.array([[smem[x + 8 * dn], smem[x + rs + 8 * dn]]
+                          for x in v0])
+            o[dn] += mma_m16n8k8(a, b)
+            for off in (0, rs):
+                assert len({(x + 8 * dn + off) % 32 for x in v0}) == 32
+    # one 16 x 8 x 8 step, then the whole tile
+    np.testing.assert_array_equal(
+        to_mat(mma_m16n8k8(p[0][:, [0, 2, 1, 3]], np.array(
+            [[vm[2 * (ln % 4), ln // 4], vm[2 * (ln % 4) + 1, ln // 4]]
+             for ln in range(32)]))), pm[:, :8] @ vm[:8, :8])
+    np.testing.assert_array_equal(
+        np.concatenate([to_mat(c) for c in o], axis=1), pm @ vm)

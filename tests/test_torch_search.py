@@ -49,7 +49,7 @@ from repro_torch.models.transformer import FwdOpts, forward_train  # noqa: E402
 SCORE_RTOL = 1e-5
 F32_TOL = 1e-5   # hidden states: max |port - jax| over max(1, max |jax|)
 # the ENCODER family at a test's size: 2 layers, narrow, the encoder's
-# head dim (32: the CUDA-core flash design's) and MHA, in f32
+# head dim (32: the mma_f32 flash design's) and MHA, in f32
 SMALL = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2, d_ff=128,
              vocab=64, head_dim=32, dtype="float32")
 
