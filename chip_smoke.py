@@ -226,7 +226,45 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   no path launches: D 16 in bf16 (flash_mma_kernel) and
                   in f32 (flash_mma_f32_kernel)),
                   and the frontdoor phase's launches, and the seconds
-                  since the start at which each phase's line was printed
+                  since the start at which each phase's line was printed;
+                  the flash backward's three kernels (delta, dkdv, dq) at
+                  llama3.2-1b's training layer, B 2 x S 4,096, H 32 / K 8,
+                  D 64, in bf16 (the train path's launches) and f32 (the
+                  f32 parity check's), with SDPA's backward beside them,
+                  and the wgmma forward rows at 32k timed with a null lse
+                  pointer and with one, in alternating rounds
+  kernel_edges_train  the flash backward's kernels at D 64/128, f32 and
+                  bf16, GQA groups 1/4, S 1/127/128/129/1,000, Sq < Sk,
+                  Sq > Sk (rows that see no key: gradient 0), a
+                  transposed and a padded (copied) q, each against the
+                  plain backward within BWD_TOL; the forward's lse
+                  against the plain version's; the plain backward against
+                  f64 autograd through ref_attention; the autograd path
+                  (and a scalar loss's zero-stride dO) giving q, k and v
+                  the kernels' gradients; an mma-design call that needs
+                  grad raising
+  train           llama3.2-1b at the published dims, bf16, RunConfig()
+                  defaults (AdamW, chunked, nothing_saveable remat) through
+                  Trainer.run_loop: 6 steps on one repeated batch of
+                  B 2 x S 4,096, the last under torch.profiler; every loss
+                  finite and the last below the first; flash forward
+                  launches 32 a step (a forward and a remat recompute per
+                  layer), all wgmma, and 16 a step of each backward
+                  kernel; step walls, tokens/s, peak device memory
+  train_parity    chunked against xla on the same parameters: the full
+                  model in bf16 at B 2 x S 2,048 (loss, gradient norm and
+                  each layer's wq, wk and wv gradients within
+                  PARITY_TOL_BF16), then a full-width 2-layer copy in f32
+                  (every gradient leaf within PARITY_TOL_F32)
+  train_checkpoint  a Trainer with ckpt_every=1 on llama3.2-1b cut to
+                  CKPT_DIMS (2 layers, d 512, d_ff 1,024, vocab 8,192;
+                  the rows keep their 2,048 f32 lanes; the cut is the
+                  line's "reduced"): two delta checkpoints into a
+                  VersionedStore on the card, each restored bit for bit,
+                  also through a fresh CheckpointManager; save and
+                  restore walls, stats(), the store kernels' launches.
+                  tools/torch_train_ckpt_probe.py runs the full-width
+                  save (4-5 minutes of host deflate a save)
 
 then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any mismatch or error ends the run with a
@@ -320,6 +358,15 @@ SOURCES = {
     "flash_attention_d16_f32": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:33"),
 }
+# the flash backward (no TPU kernel: the JAX package differentiates its
+# XLA scan), at llama3.2-1b's training layer in bf16 (the train path's
+# launches) and in f32 (the f32 chunked-against-xla check's)
+_BWD_REPLACES = ("none: src/repro/models/attention.py:89 (_chunked_attention, "
+                 "differentiated by JAX autodiff, not Pallas)")
+for _k in ("delta", "dkdv", "dq"):
+    for _sfx in ("", "_f32"):
+        SOURCES[f"flash_bwd_{_k}{_sfx}"] = (
+            "src/repro_torch/csrc/flash_attention_bwd.cu", _BWD_REPLACES)
 # the packed gather's decode, one row per gather size of the main path
 # (Q = 1, 8 and 64 timestamps a get_versions call)
 DECODE_ROWS = {1: "chain_decode", 8: "chain_decode_q8", 64: "chain_decode_q64"}
@@ -344,6 +391,9 @@ PATH_KERNELS = {
                   "keep_mask", "shard_route_bytes", "chain_decode",
                   "delta_pack"),
     "search": ("flash_attention", "masked_cumsum", "fingerprint"),
+    "train": ("flash_attention", "flash_bwd_delta", "flash_bwd_dkdv",
+              "flash_bwd_dq"),
+    "train_checkpoint": ("fingerprint", "masked_cumsum", "delta_pack"),
 }
 ARCH = "llama3.2-1b"
 SERVE_REQUESTS, SERVE_MAX_NEW, SERVE_MAX_BATCH = 16, 16, 8
@@ -368,6 +418,34 @@ ENCODER_F32_TOL = 1e-4
 # the value) apart
 FLASH_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-5, 2**-7)}
 PLAIN_FLASH_TILE = 1024  # the plain version's (bq, bk) tiles on the card
+# the train phase: llama3.2-1b at the published dims, B 2 x S 4,096 (what
+# launch/train.py picks at --seq 4096: chunked), RunConfig() defaults
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6
+PARITY_SEQ = 2048      # chunked against xla, full depth, bf16
+PARITY_F32_LAYERS = 2  # and at f32 on a full-width copy of this depth
+# the delta checkpoints' model, cut in depth and width: a save of the
+# full-width model deflates 1.3 GB of f32 rows on the host even at one
+# layer, 4-5 minutes a save on the card's host (PERF.md;
+# tools/torch_train_ckpt_probe.py measures it)
+CKPT_DIMS = dict(n_layers=2, d_model=512, n_heads=8, n_kv_heads=2,
+                 head_dim=64, d_ff=1024, vocab=8192)
+CKPT_SEQ = 1024
+# flash backward kernels against their plain version, |got - want| <=
+# atol + rtol |want|. f32: every sum f32, in another order (dK and dV sum
+# G Sq terms). bf16: both round the same f32 result, one bf16 ulp (2^-7
+# of the value) apart, on top of the f32 term. delta is f32 either way.
+BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-4, 2**-7 + 1e-5)}
+LSE_TOL = (1e-5, 1e-5)  # the kernels' lse against the plain version's
+# chunked (the flash kernels, forward and backward) against xla (torch
+# ops) end to end on the same parameters and batch, relative to the xla
+# value's largest magnitude: loss, gradient norm and each layer's wq, wk
+# and wv gradients. bf16: each layer's attention output rounds to bf16
+# from f32 results summed in another order, over 16 layers; the limits
+# sit a few times above the readings in PERF.md. f32: the same f32
+# arithmetic, 2 layers.
+PARITY_TOL_BF16 = {"loss": 1e-4, "grad_norm": 2e-3, "wq": 5e-2, "wk": 5e-2,
+                   "wv": 5e-2}
+PARITY_TOL_F32 = 1e-4
 N_SHARDS = 4  # the JAX package's default shard count
 # the fingerprint's edge cases: widths on every path of its plan (rows,
 # 16-byte and 4-byte tiles, chunks past 128 lanes), row counts (200,003: a
@@ -1063,6 +1141,82 @@ class KernelBench:
             tol=FLASH_TOL[q.dtype],
             peak=self.roof.compute_peak(str(q.dtype).split(".")[-1]),
             reps=reps, rounds=rounds, device=device)
+
+    def flash_bwd(self, q, k, v, o, lse, do, *, suffix: str = "",
+                  reps: int = 3) -> None:
+        """The three backward kernels on the forward's o and lse, each
+        against the plain backward (``ref_flash_attention_bwd``, which
+        computes all three gradients: its time is the whole plain
+        backward's) within BWD_TOL, with their device time alone. Bounds:
+        delta by its bytes; dkdv by its four products over the visible
+        pairs (S recomputed, dP, dV, dK) and dq by its three (S, dP, dQ),
+        2 B H D FLOPs a pair each, at the dtype's tensor-core peak. The
+        library yardstick of dkdv and dq is SDPA's backward
+        (``torch.autograd.grad`` of ``scaled_dot_product_attention`` with
+        ``is_causal`` and ``enable_gqa``; in f32 its memory-efficient
+        kernel with k and v repeated over the heads), which computes all
+        three gradients."""
+        import torch.nn.functional as F
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        from repro_torch.kernels import flash_attention as fa
+        kops, ref = self.kops, self.kops.ref
+        b, sq, h, d = q.shape
+        sk, kh = k.shape[1], k.shape[2]
+        es = q.element_size()
+        pairs = fa.causal_pairs(sq, sk)
+        product = 2 * b * h * d * pairs
+        peak = self.roof.compute_peak(str(q.dtype).split(".")[-1])
+        shape = {"B": b, "Sq": sq, "Sk": sk, "H": h, "K": kh, "D": d,
+                 "dtype": str(q.dtype),
+                 "plan": dataclasses.asdict(fa.bwd_plan(q, k, v)) | {
+                     "first_q_tile": None, "dq_trips": None}}
+        delta = kops.flash_bwd_delta(o, do)
+        if q.dtype == torch.bfloat16:
+            ctx = contextlib.nullcontext
+            kr, vr = k, v
+        else:
+            ctx = lambda: sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION)  # noqa
+            kr, vr = (x.repeat_interleave(h // kh, 2) for x in (k, v))
+        qt, kt, vt = (x.detach().transpose(1, 2).contiguous()
+                      .requires_grad_() for x in (q, kr, vr))
+        with ctx():
+            out = F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True,
+                enable_gqa=q.dtype == torch.bfloat16)
+        dot = do.transpose(1, 2).contiguous()
+
+        def library():
+            with ctx():
+                return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                           retain_graph=True)
+
+        def plain():
+            return ref.ref_flash_attention_bwd(
+                q, k, v, o, lse, do, bq=PLAIN_FLASH_TILE,
+                bk=PLAIN_FLASH_TILE)
+
+        lse_bytes = 2 * lse.numel() * 4  # lse and delta
+        self.run("flash_bwd_delta" + suffix, shape,
+                 lambda: kops.flash_bwd_delta(o, do),
+                 lambda: ref.ref_flash_bwd_delta(o, do),
+                 nbytes=2 * o.numel() * es + lse.numel() * 4,
+                 ops=2 * o.numel(), tol=BWD_TOL[torch.float32], main=True,
+                 timed=True, reps=reps, device=True)
+        self.run("flash_bwd_dkdv" + suffix, shape,
+                 lambda: kops.flash_bwd_dkdv(q, k, v, do, lse, delta),
+                 lambda: plain()[1:],
+                 nbytes=(2 * q.numel() + 4 * k.numel()) * es + lse_bytes,
+                 ops=4 * product, library=library, peak=peak,
+                 tol=BWD_TOL[q.dtype], main=True, timed=True, reps=reps,
+                 device=True)
+        self.run("flash_bwd_dq" + suffix, shape,
+                 lambda: kops.flash_bwd_dq(q, k, v, do, lse, delta),
+                 lambda: plain()[0],
+                 nbytes=(3 * q.numel() + 2 * k.numel()) * es + lse_bytes,
+                 ops=3 * product, library=library, peak=peak,
+                 tol=BWD_TOL[q.dtype], main=True, timed=True, reps=reps,
+                 device=True)
+        del out, qt, kt, vt
 
     def chain_decode(self, deltas, heads, idx, itemsize, *, xor=False,
                      timed=True, main=False, quiet=False, label=None,
@@ -1898,19 +2052,13 @@ def uncounted(kops, fn, flash: dict | None = None):
     """Run ``fn`` (reference work beside a path) without adding to any
     kernel's launch count. ``flash``, a dict, gets the flash launches by
     design that ``fn`` made (the serving checks' f32 prefills)."""
-    before = {k: (f.launches, dict(getattr(f, "by_design", {})))
-              for k, f in kops.KERNELS.items()}
-    try:
-        return fn()
-    finally:
-        if flash is not None:
-            fa, was = kops.flash_attention, before["flash_attention"][1]
-            for d, n in fa.by_design.items():
-                flash[d] = flash.get(d, 0) + n - was[d]
-        for k, f in kops.KERNELS.items():
-            f.launches = before[k][0]
-            if hasattr(f, "by_design"):
-                f.by_design.update(before[k][1])
+    acc: dict = {}
+    with launches_during(kops, acc):
+        out = fn()
+    if flash is not None:
+        for d in kops.flash_attention.by_design:
+            flash[d] = flash.get(d, 0) + acc[f"flash_attention.{d}"]
+    return out
 
 
 def same_bytes(x: np.ndarray, y: np.ndarray) -> bool:
@@ -3643,13 +3791,40 @@ def phase_kernel_serving(bench: KernelBench, merge_out, serving_out) -> None:
     rounds with the torch.where pair)."""
     long_qkv = serving_out.pop("long_qkv")
     bench.flash(*long_qkv, main=True, reps=3)
-    bench.flash(*(x.float() for x in long_qkv), main=True, reps=3,
-                name="flash_attention_f32")
-    del long_qkv
+    bench.main["flash_attention"].update(lse_rounds(bench, *long_qkv))
+    f32_qkv = tuple(x.float() for x in long_qkv)
+    bench.flash(*f32_qkv, main=True, reps=3, name="flash_attention_f32")
+    bench.main["flash_attention_f32"].update(lse_rounds(bench, *f32_qkv))
+    del long_qkv, f32_qkv
     bench.flash(*serving_out.pop("short_qkv"))
     torch.cuda.empty_cache()
     bench.masked_merge(*merge_out.pop("args"), merge_out["ts_new"],
                        main=True, rounds=TIMED_ROUNDS)
+
+
+def lse_rounds(bench: KernelBench, q, k, v, rounds: int = 3) -> dict:
+    """The wgmma forward with a null lse pointer (serving) and with one
+    (training) in alternating rounds of 3 calls each: their medians and
+    every round. The output must not change bit for bit, and the lse must
+    match the plain version's within LSE_TOL."""
+    from repro_torch.kernels import flash_attention as fa
+    o0, _ = fa._forward(q, k, v, lse=False)
+    o1, lse = fa._forward(q, k, v, lse=True)
+    _, want = bench.kops.ref.ref_flash_attention(
+        q, k, v, bq=PLAIN_FLASH_TILE, bk=PLAIN_FLASH_TILE, return_lse=True)
+    check(torch.equal(o0, o1), "the lse write changed the flash output")
+    err = float((lse - want).abs().max())
+    check(bool(((lse - want).abs() <= LSE_TOL[0] + LSE_TOL[1] * want.abs())
+                .all()), f"flash lse differs from plain by {err}")
+    del o0, o1, lse, want
+    null, with_lse = [], []
+    for _ in range(rounds):
+        null.append(cuda_ms(lambda: fa._forward(q, k, v, lse=False), 3))
+        with_lse.append(cuda_ms(lambda: fa._forward(q, k, v, lse=True), 3))
+    return {"null_lse_ms": float(np.median(null)),
+            "lse_ms": float(np.median(with_lse)),
+            "null_lse_rounds_ms": null, "lse_rounds_ms": with_lse,
+            "lse_max_abs_diff": err}
 
 
 def phase_serving_parity(seed: int) -> None:
@@ -3971,6 +4146,431 @@ def phase_kernel_search(bench: KernelBench, search_out, seed: int) -> None:
                 rounds=TIMED_ROUNDS, device=True)
 
 
+# ---------------------------------------------------------------------------
+# training: the flash backward's edges, llama3.2-1b's train path, chunked
+# against xla, delta checkpoints
+# ---------------------------------------------------------------------------
+
+def bwd_edge_shapes() -> list:
+    """(B, Sq, Sk, H, K, D, layout) of the backward's edge cases: D 64 and
+    128, GQA groups 1 and 4, S 1/127/128/129/1,000 (one tile, a tile - 1,
+    a tile, a tile + 1 over 64-row tiles, many tiles), Sq < Sk (keys
+    ahead of every query), Sq > Sk (rows that see no key), q as a
+    transposed view (read as it lies) or with padded rows (strides no
+    multiple of 4 elements: copied), and a contiguous k one element past
+    an aligned base (copied)."""
+    out = []
+    for d in (64, 128):
+        for g in (1, 4):
+            for s in (1, 127, 128, 129, 1000):
+                out.append((1 if s == 1000 else 2, s, s, 2 * g, 2, d,
+                            "contiguous"))
+        out += [(1, 100, 300, 4, 1, d, "contiguous"),
+                (2, 129, 1000, 8, 2, d, "contiguous"),
+                (1, 200, 70, 4, 2, d, "contiguous"),
+                (2, 127, 127, 8, 2, d, "transposed_q"),
+                (1, 129, 129, 4, 4, d, "padded_q"),
+                (1, 100, 130, 4, 2, d, "misaligned_k")]
+    return out
+
+
+def bwd_inputs(gen, b, sq, sk, h, kh, d, layout, dt):
+    q, k, v, do = (torch.randn(*shape, generator=gen, device=DEV).to(dt)
+                   for shape in ((b, sq, h, d), (b, sk, kh, d),
+                                 (b, sk, kh, d), (b, sq, h, d)))
+    if layout == "transposed_q":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif layout == "padded_q":
+        q = torch.cat([q, q[..., :2]], -1)[..., :d]
+    elif layout == "misaligned_k":
+        k = torch.empty(k.numel() + 1, dtype=dt, device=DEV)[1:].view(
+            k.shape).copy_(k)
+    return q, k, v, do
+
+
+def within(got, want, tol) -> tuple[bool, float]:
+    d = (got.float() - want.float()).abs()
+    if not d.numel():
+        return True, 0.0
+    return (bool((d <= tol[0] + tol[1] * want.float().abs()).all()),
+            float(d.max()))
+
+
+def phase_kernel_edges_train(bench: KernelBench, rng) -> None:
+    """The backward's three kernels at the edge shapes, f32 and bf16,
+    each against the plain backward on the same forward o and lse within
+    BWD_TOL; the lse of the wgmma forward against the plain version's
+    (LSE_TOL; -1e30 exactly for rows that see no key); the plain backward
+    against f64 autograd through ``ref_attention`` (f32 cases where every
+    row sees a key, within BWD_TOL[f32]); the autograd path
+    (``flash_attention`` with inputs that need grad, and a scalar loss's
+    zero-stride dO) handing q, k and v the kernels' gradients bit for
+    bit; and an ``mma``-design call (D 32) that needs grad raising."""
+    from repro_torch.kernels import flash_attention as fa
+    kops, ref = bench.kops, bench.kops.ref
+    gen = torch.Generator(device=DEV).manual_seed(int(rng.integers(1 << 31)))
+    worst: dict = {}
+    n_cases, n_f64, copies = 0, 0, 0
+    for shape in bwd_edge_shapes():
+        for dt in (torch.float32, torch.bfloat16):
+            b, sq, sk, h, kh, d, layout = shape
+            q, k, v, do = bwd_inputs(gen, *shape, dt)
+            copies += bool(fa.bwd_plan(q, k, v).copies)
+            o, lse = fa._forward(q, k, v, lse=True)
+            _, lse_want = ref.ref_flash_attention(
+                q, k, v, bq=PLAIN_FLASH_TILE, bk=PLAIN_FLASH_TILE,
+                return_lse=True)
+            seen = lse_want > -1e29
+            ok, err = within(lse[seen], lse_want[seen], LSE_TOL)
+            check(ok and bool((lse[~seen] == -1e30).all()),
+                  f"lse {shape} {dt}: {err}")
+            delta = kops.flash_bwd_delta(o, do)
+            dk, dv = kops.flash_bwd_dkdv(q, k, v, do, lse, delta)
+            dq = kops.flash_bwd_dq(q, k, v, do, lse, delta)
+            sync()
+            want = ref.ref_flash_attention_bwd(q, k, v, o, lse, do,
+                                               bq=PLAIN_FLASH_TILE,
+                                               bk=PLAIN_FLASH_TILE)
+            got = {"delta": (delta, ref.ref_flash_bwd_delta(o, do),
+                             BWD_TOL[torch.float32]),
+                   "dq": (dq, want[0], BWD_TOL[dt]),
+                   "dk": (dk, want[1], BWD_TOL[dt]),
+                   "dv": (dv, want[2], BWD_TOL[dt])}
+            for name, (g_, w_, tol) in got.items():
+                check(g_.dtype == w_.dtype and g_.shape == w_.shape,
+                      f"{name} {shape}: {g_.dtype} {g_.shape}")
+                ok, err = within(g_, w_, tol)
+                check(ok, f"flash backward {name} {shape} {dt}: {err}")
+                key = f"{name}_{str(dt).split('.')[-1]}"
+                worst[key] = max(worst.get(key, 0.0), err)
+            if sq > sk:
+                check(bool((dq[:, :sq - sk] == 0).all()),
+                      f"rows that see no key got a gradient: {shape}")
+            if dt == torch.float32 and sq <= sk:
+                leaves = [x.double().requires_grad_() for x in (q, k, v)]
+                ref.ref_attention(*leaves).backward(do.double())
+                for name, w_, t in zip(("dq", "dk", "dv"), want, leaves):
+                    ok, err = within(w_.double(), t.grad,
+                                     BWD_TOL[torch.float32])
+                    check(ok, f"plain backward {name} {shape} vs f64: {err}")
+                    worst[f"plain_vs_f64_{name}"] = max(
+                        worst.get(f"plain_vs_f64_{name}", 0.0), err)
+                n_f64 += 1
+            if layout == "transposed_q":
+                # the autograd path, and a scalar loss's zero-stride dO
+                leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+                kops.flash_attention(*leaves).backward(do)
+                check(all(torch.equal(t.grad, g_) for t, g_ in
+                          zip(leaves, (dq, dk, dv))),
+                      f"FlashAttentionFn's gradients {shape} {dt}")
+                leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+                kops.flash_attention(*leaves).float().sum().backward()
+                ones = torch.ones_like(do)
+                want1 = (kops.flash_bwd_dq(q, k, v, ones, lse, kops
+                                           .flash_bwd_delta(o, ones)),)
+                check(torch.equal(leaves[0].grad, want1[0]),
+                      f"a zero-stride dO {shape} {dt}")
+            n_cases += 1
+    q = torch.randn(2, 32, 8, 32, device=DEV, dtype=torch.bfloat16,
+                    requires_grad=True)
+    try:
+        kops.flash_attention(q, q.detach()[:, :, :4], q.detach()[:, :, :4])
+        raised = False
+    except NotImplementedError:
+        raised = True
+    check(raised, "an mma-design call that needs grad did not raise")
+    emit({"phase": "kernel_edges_train", "cases": n_cases,
+          "f64_checks": n_f64, "copied_cases": copies,
+          "mma_grad_raises": raised, "worst_abs_diff": worst,
+          "tol": {"f32": BWD_TOL[torch.float32],
+                  "bf16": BWD_TOL[torch.bfloat16], "lse": LSE_TOL}})
+
+
+@contextlib.contextmanager
+def launches_during(kops, acc: dict):
+    """Add the launches every kernel (and flash by design) made during
+    the block to ``acc``, and leave the counts as they were: work beside
+    a path, counted apart."""
+    before = {k: (f.launches, dict(getattr(f, "by_design", {})))
+              for k, f in kops.KERNELS.items()}
+    try:
+        yield acc
+    finally:
+        for k, f in kops.KERNELS.items():
+            acc[k] = acc.get(k, 0) + f.launches - before[k][0]
+            f.launches = before[k][0]
+            for dsg, n in getattr(f, "by_design", {}).items():
+                key = f"{k}.{dsg}"
+                acc[key] = acc.get(key, 0) + n - before[k][1][dsg]
+            if hasattr(f, "by_design"):
+                f.by_design.update(before[k][1])
+
+
+@contextlib.contextmanager
+def first_backward_inputs(kept: list):
+    """Keep the arguments of the first flash backward of the block (q, k,
+    v, o, lse, dO: the last layer's, where the backward starts)."""
+    from repro_torch.kernels import flash_attention as fa
+    orig = fa.flash_attention_bwd
+
+    def wrapped(*args):
+        if not kept:
+            kept.append(args)
+        return orig(*args)
+
+    fa.flash_attention_bwd = wrapped
+    try:
+        yield kept
+    finally:
+        fa.flash_attention_bwd = orig
+
+
+def lm_batch(rng, vocab: int, b: int, s: int) -> dict:
+    toks = rng.integers(3, vocab, (b, s + 1)).astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def phase_train(kops, seed: int, root: str) -> dict:
+    """llama3.2-1b at the published dims through ``Trainer.run_loop`` on
+    the card: TRAIN_STEPS steps on one repeated batch of TRAIN_BATCH x
+    TRAIN_SEQ, the last under torch.profiler; then chunked against xla
+    (``phase_train_parity``) and delta checkpoints
+    (``phase_train_checkpoint``)."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+    cfg = get_config(ARCH)
+    run = RunConfig()
+    # the launcher's rule at this length
+    check(run.attn_impl == ("xla" if TRAIN_SEQ <= 2048 else "chunked"),
+          f"RunConfig().attn_impl {run.attn_impl}")
+    rec = {"phase": "train", "arch": ARCH, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "params": cfg.param_count(),
+           "dtype": cfg.dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "optimizer": run.optimizer,
+           "remat": run.remat, "attn_impl": run.attn_impl}
+    rng = np.random.default_rng(seed)
+    batch = lm_batch(rng, cfg.vocab, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr, rec["init_s"] = wall(lambda: Trainer(
+        cfg, run, TrainerConfig(total_steps=TRAIN_STEPS), seed=seed))
+    walls, kept = [], []
+    t_prev = [0.0]
+
+    def hook(step, m):
+        sync()
+        now = time.perf_counter()
+        walls.append(now - t_prev[0])
+        t_prev[0] = now
+
+    reset_counts(kops)
+    with first_backward_inputs(kept):
+        sync()
+        t_prev[0] = time.perf_counter()
+        tr.run_loop(iter([batch] * (TRAIN_STEPS - 1)), hook=hook)
+        rec["profile"] = device_profile(
+            lambda: tr.run_loop(iter([batch])))
+    counts = read_counts(kops)
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    fa = kops.flash_attention
+    rec["launches"] = {k: counts[k] for k in PATH_KERNELS["train"]}
+    rec["flash_launches_by_design"] = dict(fa.by_design)
+    losses = [m["loss"] for m in tr.history]
+    rec.update(losses=losses,
+               grad_norms=[m["grad_norm"] for m in tr.history],
+               step_walls_s=walls, step_wall_median_s=float(np.median(walls)),
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / float(np.median(walls)))
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"train losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    per = cfg.n_layers * TRAIN_STEPS
+    check(fa.by_design["wgmma"] == 2 * per and fa.launches == 2 * per,
+          f"flash forward launches {fa.by_design} (want {2 * per} wgmma: "
+          f"a forward and a remat recompute per layer and step)")
+    for k in ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"):
+        check(counts[k] == per, f"{k}: {counts[k]} launches, want {per}")
+    for k in PATH_KERNELS["train"]:
+        check(counts[k] > 0, f"train path did not launch {k}")
+    rec["backward_inputs"] = [list(x.shape) for x in kept[0]]
+    emit(rec)
+    del tr
+    torch.cuda.empty_cache()
+    parity = phase_train_parity(kops, cfg, run, seed)
+    ckpt = phase_train_checkpoint(kops, cfg, seed, root)
+    return {"launches": {**rec["launches"], **parity["f32_launches"]},
+            "bwd_inputs": kept[0], "checkpoint": ckpt}
+
+
+def tree_norm(grads) -> float:
+    from repro_torch.train.tree import tree_leaves
+    return math.sqrt(sum(float((g.float() ** 2).sum())
+                         for g in tree_leaves(grads)))
+
+
+def phase_train_parity(kops, cfg, run, seed: int) -> dict:
+    """Chunked against xla on the same parameters and batch: the full
+    model in bf16 at B TRAIN_BATCH x PARITY_SEQ (loss, gradient norm and
+    each layer's wq, wk and wv gradients within PARITY_TOL_BF16), then a
+    full-width
+    copy of its first PARITY_F32_LAYERS layers in f32 (loss, norm and
+    every gradient leaf within PARITY_TOL_F32). The chunked f32 run's
+    launches are the f32 backward rows' (every flash forward on
+    wgmma_f32)."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import FwdOpts, build
+    from repro_torch.train.tree import leaves_with_path
+    rng = np.random.default_rng(seed + 1)
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in
+             lm_batch(rng, cfg.vocab, TRAIN_BATCH, PARITY_SEQ).items()}
+    rec = {"phase": "train_parity", "batch": TRAIN_BATCH,
+           "seq": PARITY_SEQ, "layers": cfg.n_layers}
+
+    def grads(c, params, impl):
+        return value_and_grad(lambda p: build(c).loss(
+            p, batch, FwdOpts(attn_impl=impl, remat=run.remat)), params)
+
+    params = build(cfg).init(seed + 1, device=DEV)
+    acc: dict = {}
+    with launches_during(kops, acc):
+        (lx, _), gx = grads(cfg, params, "xla")
+        (lc, _), gc = grads(cfg, params, "chunked")
+    check(acc["flash_attention.wgmma"] == 2 * cfg.n_layers
+          and acc["flash_bwd_dq"] == cfg.n_layers, f"launches {acc}")
+    nx, nc = tree_norm(gx), tree_norm(gc)
+    rel = {w: [float((a["attn"][w].float() - b["attn"][w].float()).abs()
+                     .max() / b["attn"][w].float().abs().max())
+               for a, b in zip(gc["layers"], gx["layers"])]
+           for w in ("wq", "wk", "wv")}
+    rec["bf16"] = {"loss_xla": float(lx), "loss_chunked": float(lc),
+                   "grad_norm_xla": nx, "grad_norm_chunked": nc,
+                   **{f"{w}_rel_max": r for w, r in rel.items()},
+                   "tol": PARITY_TOL_BF16}
+    check(abs(float(lc) - float(lx)) <= PARITY_TOL_BF16["loss"] * abs(
+        float(lx)) and abs(nc - nx) <= PARITY_TOL_BF16["grad_norm"] * nx
+          and all(max(r) <= PARITY_TOL_BF16[w] for w, r in rel.items()),
+          f"bf16 chunked against xla: {rec['bf16']}")
+    del gx, gc
+    c32 = dataclasses.replace(cfg, n_layers=PARITY_F32_LAYERS,
+                              dtype="float32")
+    p32 = {"embed": {k: v.float() for k, v in params["embed"].items()},
+           "final_norm": dict(params["final_norm"]),
+           "layers": [{k: {n: t.float() for n, t in sub.items()}
+                       for k, sub in lay.items()}
+                      for lay in params["layers"][:PARITY_F32_LAYERS]]}
+    del params
+    (lx, _), gx = uncounted(kops, lambda: grads(c32, p32, "xla"))
+    f32: dict = {}
+    with launches_during(kops, f32):
+        (lc, _), gc = grads(c32, p32, "chunked")
+    check(f32["flash_attention.wgmma_f32"] == 2 * PARITY_F32_LAYERS
+          and f32["flash_attention"] == 2 * PARITY_F32_LAYERS,
+          f"f32 chunked launches {f32}")
+    worst = 0.0
+    for (path, a), (_, b) in zip(leaves_with_path(gc), leaves_with_path(gx)):
+        err = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+        worst = max(worst, err)
+    nx, nc = tree_norm(gx), tree_norm(gc)
+    rec["f32"] = {"layers": PARITY_F32_LAYERS, "loss_xla": float(lx),
+                  "loss_chunked": float(lc), "grad_norm_xla": nx,
+                  "grad_norm_chunked": nc, "worst_leaf_rel": worst,
+                  "tol": PARITY_TOL_F32,
+                  "launches": {k: f32[k] for k in
+                               ("flash_attention.wgmma_f32", "flash_bwd_delta",
+                                "flash_bwd_dkdv", "flash_bwd_dq")}}
+    check(abs(float(lc) - float(lx)) <= PARITY_TOL_F32 * abs(float(lx))
+          and abs(nc - nx) <= PARITY_TOL_F32 * nx
+          and worst <= PARITY_TOL_F32, f"f32 chunked against xla: "
+          f"{rec['f32']}")
+    emit(rec)
+    return {"f32_launches": {f"{k}_f32": f32[k] for k in
+                             ("flash_bwd_delta", "flash_bwd_dkdv",
+                              "flash_bwd_dq")}}
+
+
+def phase_train_checkpoint(kops, cfg, seed: int, root: str) -> dict:
+    """Delta checkpoints of llama3.2-1b cut to CKPT_DIMS (at full width
+    the host's deflate of each save's 1.3 GB of f32 rows alone outlasts
+    this script's budget; tools/torch_train_ckpt_probe.py times that
+    save): a Trainer with ckpt_every=1 saves two steps into a
+    VersionedStore on the card; each step's restore equals the
+    parameters it saved bit for bit, in their dtype, on the card, and so
+    does a fresh CheckpointManager opened on the directory. Walls (the
+    caller's save, the store update, the persistence), stats() and the
+    launches of the store's kernels."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+    from repro_torch.train.tree import tree_leaves
+    c1 = dataclasses.replace(cfg, **CKPT_DIMS)
+    d = os.path.join(root, "ckpt")
+    rec = {"phase": "train_checkpoint", "dims": CKPT_DIMS,
+           "reduced": {k: [getattr(cfg, k), v] for k, v in CKPT_DIMS.items()
+                       if getattr(cfg, k) != v},
+           "params": c1.param_count(), "seq": CKPT_SEQ}
+    batch = lm_batch(np.random.default_rng(seed + 2), c1.vocab,
+                     TRAIN_BATCH, CKPT_SEQ)
+    tr = Trainer(c1, RunConfig(), TrainerConfig(
+        total_steps=2, ckpt_every=1, ckpt_dir=d), seed=seed)
+    saved = {}
+
+    def hook(step, m):  # the trainer has just saved this step's params
+        saved[step] = [t.clone() for t in tree_leaves(tr.state["params"])]
+
+    walls: dict = {}
+    reset_counts(kops)
+    with timed_calls(tr.ckpt, "save", walls, key=lambda a, k: f"save_{a[0]}"), \
+            timed_calls(tr.ckpt, "_persist", walls), \
+            timed_calls(tr.ckpt.store, "update", walls):
+        _, rec["run_s"] = wall(lambda: tr.run_loop(iter([batch] * 2),
+                                                   hook=hook))
+    save_counts = read_counts(kops)
+    rec["save_walls_s"] = walls
+    rec["stats"] = tr.ckpt.stats()
+    rec["store_rows"] = tr.ckpt.store.n_rows
+    check(tr.ckpt.steps() == [1, 2], f"steps {tr.ckpt.steps()}")
+    like = tr.state["params"]
+    restore_s = {}
+    for name, cm in (("same", tr.ckpt), ("reopened", None)):
+        if cm is None:
+            cm, restore_s["open"] = wall(lambda: CheckpointManager(d))
+        for step in (1, 2):
+            got, restore_s[f"{name}_{step}"] = wall(
+                lambda: cm.restore(step, like=like))
+            check(all(a.dtype == b.dtype and a.device == b.device
+                      and torch.equal(a, b) for a, b in
+                      zip(tree_leaves(got), saved[step])),
+                  f"{name} restore of step {step} differs from the save")
+            del got
+    counts = read_counts(kops)
+    rec["restore_walls_s"] = restore_s
+    rec["launches_saves"] = {k: save_counts[k] for k in (
+        "fingerprint", "masked_cumsum", "delta_pack", "chain_decode")}
+    rec["launches"] = {k: counts[k] for k in (
+        "fingerprint", "masked_cumsum", "delta_pack", "chain_decode")}
+    rec["disk_bytes"] = sum(os.path.getsize(os.path.join(p, n))
+                            for p, _, names in os.walk(d) for n in names)
+    for k in PATH_KERNELS["train_checkpoint"]:
+        check(counts[k] > 0, f"checkpoint path did not launch {k}")
+    del tr, saved
+    torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
+def phase_kernel_train(bench: KernelBench, train_out) -> None:
+    """The backward kernels at the train path's shape, timed: the first
+    backward's inputs of the first step (the last layer's q, k, v, o, lse
+    and dO) in bf16, and the same values in f32 with o and lse from the
+    f32 forward."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, o, lse, do = train_out.pop("bwd_inputs")
+    bench.flash_bwd(q, k, v, o, lse, do)
+    q, k, v, do = (x.float() for x in (q, k, v, do))
+    o, lse = fa._forward(q, k, v, lse=True)
+    bench.flash_bwd(q, k, v, o, lse, do, suffix="_f32")
+    torch.cuda.empty_cache()
+
+
 def kernel_row(name: str, m: dict, launches: int) -> dict:
     """One row of the kernels line from the kernel's record ``m``."""
     source, replaces = SOURCES[name]
@@ -3981,7 +4581,9 @@ def kernel_row(name: str, m: dict, launches: int) -> dict:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "shape": m["shape"],
             **{k: m[k] for k in ("bound_both_operands_ms", "rounds_won",
-                                 "device_ms") if k in m}}
+                                 "device_ms", "null_lse_ms", "lse_ms",
+                                 "null_lse_rounds_ms", "lse_rounds_ms")
+               if k in m}}
 
 
 def main() -> int:
@@ -4059,14 +4661,26 @@ def main() -> int:
     phase_serving_parity(args.seed)
     search_out = phase_search(core, kops, args.seed)
     phase_kernel_search(bench, search_out, args.seed)
+    # training: the backward's edges, the train path, chunked against xla
+    # and delta checkpoints (their store directory in the build tree)
+    phase_kernel_edges_train(bench, rng)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_",
+                            dir=os.path.join(HERE, "build"))
+    try:
+        train_out = phase_train(kops, args.seed, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_kernel_train(bench, train_out)
     # each kernel's launches come from the path that runs it: the codec
     # from persistence, the route and the stacked scan from sharding, the
     # merge from its phase, flash attention from serving (at the encoder's
     # shape, from search), the fingerprint at UniProt's widths
-    # from gestore, the rest from the main path (chain decode's rows: the
-    # launches of their gathers); the frontdoor phase's launches are on
-    # its own line
+    # from gestore, the flash backward from train (its f32 rows from the
+    # f32 chunked-against-xla check), the rest from the main path (chain
+    # decode's rows: the launches of their gathers); the frontdoor
+    # phase's launches are on its own line
     path_of = {k: (pers_out if k.startswith("delta_")
+                   else train_out if k.startswith("flash_bwd")
                    else gestore_out if k.startswith("fingerprint_w")
                    else shard_out if k in ("shard_route", "shard_route_bytes",
                                            "stacked_masked_cumsum")
@@ -4077,6 +4691,7 @@ def main() -> int:
     rows = [kernel_row(name, bench.main[name],
                        path_of[name]["launches"][name]) for name in SOURCES]
     emit({"kernels": rows, "frontdoor_launches": frontdoor_out["launches"],
+          "train_checkpoint_launches": train_out["checkpoint"]["launches"],
           "seconds": time.perf_counter() - t_start,
           "phase_ends_s": PHASE_ENDS})
     print(smi, flush=True)

@@ -136,12 +136,22 @@ SHAPES: dict[str, ShapeConfig] = {
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """Runtime knobs (launcher-owned, not architecture-owned). Only the
-    serving path's knob is copied from the JAX package's RunConfig; its
-    training knobs (optimizer, remat, microbatch, ...) come with the
-    training slice (ROADMAP.md). ``attn_chunk`` has no counterpart: the
-    port's flash kernel picks its own tiles."""
+    """Runtime knobs (launcher-owned, not architecture-owned): the JAX
+    package's training knobs that act in the port, with its defaults.
+    Its other four have no counterpart here: ``attn_chunk`` (the flash
+    kernels pick their own tiles), ``scan_layers`` and ``unroll`` (the
+    layer loop is a Python loop; the JAX package scans stacked layers
+    and unrolls the scan for its dry run), and ``z_loss`` (the JAX
+    package's step reads no such field either: ``loss_fn`` takes its
+    coefficient as ``z_coef``, 1e-4)."""
+    optimizer: str = "adamw"         # adamw | adafactor
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    microbatch: int = 0              # 0 = no gradient accumulation
+    remat: str = "nothing_saveable"  # nothing_saveable | dots | none
     attn_impl: str = "chunked"       # xla | chunked (the flash kernel)
+    grad_compress: bool = False      # int8 error-feedback compression
 
 
 ARCH_IDS = [

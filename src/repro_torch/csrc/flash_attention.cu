@@ -1,6 +1,11 @@
-// Causal grouped-query flash attention, forward only:
+// Causal grouped-query flash attention, forward (its backward is
+// flash_attention_bwd.cu):
 //   o[b, i, h, :] = softmax_j(q[b, i, h, :] . k[b, j, h / group, :] * D^-0.5)
 //                   @ v[b, j, h / group, :]   over keys j <= i + (Sk - Sq)
+// and, where the caller passes an lse buffer (training; the wgmma kernels
+// at D 64 and 128 only), each row's log-sum-exp m + log(max(l, 1e-30)) in
+// f32, (B, H, Sq), from the epilogue's m and l. A null lse (serving)
+// changes nothing else.
 // with q (B, Sq, H, D), k and v (B, Sk, K, D), H = K * group, f32 or bf16,
 // D in {16, 32, 64, 128}. Queries are the last Sq positions of the key
 // axis. A query that sees no key (Sq > Sk) gives 0. The serving prefill's
@@ -364,6 +369,25 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// The log-sum-exp of the thread's two rows r0 and r0 + 8 (lse: the (b, h)
+// row of the (B, H, Sq) output), written by the first of the 4 threads
+// that share a row: m (the running max, in log2 units) ln 2 + log(l),
+// natural units, as the plain version's m + log(max(l, 1e-30)); -1e30,
+// what that gives in f32, for a row that sees no key (l = 0).
+__device__ __forceinline__ void write_lse(float* lse, const float (&m)[2],
+                                          const float (&l)[2], int r0,
+                                          int lane, int sq) {
+  if ((lane & 3) != 0) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row < sq) {
+      lse[row] = l[r] > 0.f ? fmaf(m[r], 0.6931471805599453f, logf(l[r]))
+                            : -1e30f;
+    }
+  }
+}
+
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
@@ -376,8 +400,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
-                   __nv_bfloat16* __restrict__ o, int sq, int sk, int n_heads,
-                   int batch, int group, int n_q_tiles, float scale_log2) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int sq, int sk, int n_heads, int batch, int group,
+                   int n_q_tiles, float scale_log2) {
   using L = Layout<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -538,13 +563,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       if (lane == 0) mbar_arrive(empty0 + 8 * st);
     }
 
-    // l over the 4 threads of each row, then acc / max(l, 1e-30)
+    // l over the 4 threads of each row, the row's log-sum-exp where it is
+    // asked for, then acc / max(l, 1e-30)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(repro::kFullMask, l[r], 1);
       l[r] += __shfl_xor_sync(repro::kFullMask, l[r], 2);
-      l[r] = fmaxf(l[r], 1e-30f);
     }
+    if (lse != nullptr) {
+      tc::write_lse(lse + (static_cast<long long>(b) * n_heads + h) * sq, m,
+                    l, r0, lane, sq);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + 8 * r;
@@ -629,9 +660,10 @@ cudaError_t opt_in(Kernel kernel, int smem,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int sq, int sk, int n_heads, int group, const long long* maps,
-           int n_q_tiles, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int sq, int sk, int n_heads, int group,
+           const long long* maps, int n_q_tiles, float scale,
+           cudaStream_t stream) {
   constexpr auto kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap qm, km, vm;
   if (n_q_tiles != (sq + kBQ - 1) / kBQ ||
@@ -654,8 +686,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
       static_cast<long long>(n_q_tiles) * n_heads * batch;
   flash_wgmma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem,
                           stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), sq, sk, n_heads, batch,
-      group, n_q_tiles, scale * kLog2e);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, sq, sk, n_heads,
+      batch, group, n_q_tiles, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -862,8 +894,9 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 flash_wgmma_f32_kernel(const float* __restrict__ q, Strides qst,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
-                       float* __restrict__ o, int sq, int sk, int n_heads,
-                       int batch, int group, int n_q_tiles, float scale) {
+                       float* __restrict__ o, float* __restrict__ lse,
+                       int sq, int sk, int n_heads, int batch, int group,
+                       int n_q_tiles, float scale) {
   using C = Cfg<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -1090,13 +1123,19 @@ flash_wgmma_f32_kernel(const float* __restrict__ q, Strides qst,
       }
     }
 
-    // l over the 4 threads of each row, then acc / max(l, 1e-30)
+    // l over the 4 threads of each row, the row's log-sum-exp where it is
+    // asked for, then acc / max(l, 1e-30)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(repro::kFullMask, l[r], 1);
       l[r] += __shfl_xor_sync(repro::kFullMask, l[r], 2);
-      l[r] = fmaxf(l[r], 1e-30f);
     }
+    if (lse != nullptr) {
+      tc::write_lse(lse + (static_cast<long long>(b) * n_heads + h) * sq, m,
+                    l, r0, lane, sq);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + 8 * r;
@@ -1114,7 +1153,7 @@ flash_wgmma_f32_kernel(const float* __restrict__ q, Strides qst,
 
 template <int D>
 int launch(const void* q, Strides qst, const void* k, const void* v, void* o,
-           int batch, int sq, int sk, int n_heads, int group,
+           float* lse, int batch, int sq, int sk, int n_heads, int group,
            const long long* maps, int n_q_tiles, float scale,
            cudaStream_t stream) {
   using C = Cfg<D>;
@@ -1136,8 +1175,8 @@ int launch(const void* q, Strides qst, const void* k, const void* v, void* o,
       static_cast<long long>(n_q_tiles) * n_heads * batch;
   flash_wgmma_f32_kernel<D><<<static_cast<unsigned>(blocks), C::kThreads,
                               C::kAlloc, stream>>>(
-      static_cast<const float*>(q), qst, km, vm, static_cast<float*>(o), sq,
-      sk, n_heads, batch, group, n_q_tiles, scale);
+      static_cast<const float*>(q), qst, km, vm, static_cast<float*>(o), lse,
+      sq, sk, n_heads, batch, group, n_q_tiles, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1842,11 +1881,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 // tiles per head (designs 0 and 2; designs 1 and 3: their block count),
 // the element strides (batch, seq, head) of q, k and v, then the q, k and
 // v tensor maps, 11 values each (design 0; design 2: k and v); designs 1
-// and 3 append 5 values, their packing (mk::launch). Returns
+// and 3 append 5 values, their packing (mk::launch). `lse`: null, or the
+// (batch, n_heads, sq) f32 log-sum-exp of every query row, written by
+// designs 0 and 2 (the training forward; flash_attention_bwd.cu reads
+// it); designs 1 and 3 refuse a non-null one. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape, type or plan
 // the kernels do not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o,
+                                      const void* v, void* o, float* lse,
                                       const long long* plan, float scale,
                                       void* stream) {
   const int batch = static_cast<int>(plan[0]), sq = static_cast<int>(plan[1]),
@@ -1861,7 +1903,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool wide = d == 64 || d == 128;
-  if (design != (wide ? (dtype == 1 ? 0 : 2) : (dtype == 1 ? 3 : 1))) {
+  if (design != (wide ? (dtype == 1 ? 0 : 2) : (dtype == 1 ? 3 : 1)) ||
+      (!wide && lse != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch <= 0 || sq <= 0 || n_heads <= 0) {
@@ -1873,16 +1916,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const Strides qst{plan[9], plan[10], plan[11]},
       kst{plan[12], plan[13], plan[14]}, vst{plan[15], plan[16], plan[17]};
   if (design == 0) {
-    return d == 64 ? tc::launch<64>(q, k, v, o, batch, sq, sk, n_heads, group,
-                                    maps, n_q_tiles, scale, s)
-                   : tc::launch<128>(q, k, v, o, batch, sq, sk, n_heads,
+    return d == 64 ? tc::launch<64>(q, k, v, o, lse, batch, sq, sk, n_heads,
+                                    group, maps, n_q_tiles, scale, s)
+                   : tc::launch<128>(q, k, v, o, lse, batch, sq, sk, n_heads,
                                      group, maps, n_q_tiles, scale, s);
   }
   if (design == 2) {
-    return d == 64 ? tf::launch<64>(q, qst, k, v, o, batch, sq, sk, n_heads,
-                                    group, maps, n_q_tiles, scale, s)
-                   : tf::launch<128>(q, qst, k, v, o, batch, sq, sk, n_heads,
-                                     group, maps, n_q_tiles, scale, s);
+    return d == 64 ? tf::launch<64>(q, qst, k, v, o, lse, batch, sq, sk,
+                                    n_heads, group, maps, n_q_tiles, scale, s)
+                   : tf::launch<128>(q, qst, k, v, o, lse, batch, sq, sk,
+                                     n_heads, group, maps, n_q_tiles, scale,
+                                     s);
   }
   // designs 1 (f32) and 3 (bf16): the mma kernels at d 16 and 32
   const long long* mp = plan + 51;

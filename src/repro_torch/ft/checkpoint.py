@@ -1,20 +1,36 @@
-"""The ingest journal of the streaming release ingest (core/ingest.py).
+"""Delta-compressed versioned checkpoints, and the streaming ingest's
+journal.
 
-The port's copy of the ``IngestJournal`` part of ``repro.ft.checkpoint``:
-parsed release chunks are journaled to a sidecar directory with an
-atomically rewritten manifest, so a crash mid-release resumes by
-replaying journaled chunks over the pre-release store instead of
-re-parsing the whole file. The files are the JAX package's, byte for
-byte. ``CheckpointManager`` (delta-compressed training checkpoints) comes
-with the training slice.
+``CheckpointManager`` applies the paper's technique to training state: a
+checkpoint is a meta-database release. Each leaf is cut into rows of
+``CHUNK_W`` f32 lanes of a ``VersionedStore``; saving step T is
+``store.update(ts=T, ...)`` (the fingerprint kernel finds the rows that
+changed), and the store's save chain-packs float rows by XOR against
+their previous version (the codec kernel) before deflate. Restoring any
+step is ``get_version(T)``. Saves are asynchronous: the leaves are copied
+to the host on the caller's thread, the update and the disk write run on
+a worker thread. The directory is the JAX package's (``meta.json`` and
+the store's segmented layout, leaves named by ``jax.tree_util.keystr``
+paths), so either package opens what the other wrote.
+
+``IngestJournal``, the port's copy of the JAX package's: parsed release
+chunks are journaled to a sidecar directory with an atomically rewritten
+manifest, so a crash mid-release resumes by replaying journaled chunks
+over the pre-release store instead of re-parsing the whole file. The
+files are the JAX package's, byte for byte.
 """
 from __future__ import annotations
 
 import io
 import json
 import os
+import threading
+from typing import Any
 
 import numpy as np
+import torch
+
+CHUNK_W = 2048
 
 JOURNAL_FORMAT = "gestore-ingest-journal-v1"
 JOURNAL_NAME = "JOURNAL.json"
@@ -149,3 +165,145 @@ class IngestJournal:
     def _write_manifest(self) -> None:
         _fsync_write(os.path.join(self.root, JOURNAL_NAME),
                      json.dumps(self.meta).encode())
+
+
+def _leaf_rows(path: str, arr: np.ndarray):
+    """Flatten a leaf into (keys, (N, CHUNK_W) f32 rows, pad)."""
+    flat = np.asarray(arr, np.float32).reshape(-1)
+    pad = (-len(flat)) % CHUNK_W
+    if pad:
+        flat = np.concatenate([flat, np.zeros(pad, np.float32)])
+    rows = flat.reshape(-1, CHUNK_W)
+    keys = [f"{path}#{i}".encode() for i in range(len(rows))]
+    return keys, rows, pad
+
+
+def _host(x) -> tuple[np.ndarray, str]:
+    """A leaf as an f32 host array (what the rows hold) and its dtype's
+    name as the JAX package writes it (``float32``, ``bfloat16``, ...)."""
+    if isinstance(x, torch.Tensor):
+        return (x.detach().to(torch.float32).cpu().numpy(),
+                str(x.dtype).removeprefix("torch."))
+    arr = np.asarray(x)
+    return arr.astype(np.float32), str(arr.dtype)
+
+
+class CheckpointManager:
+    """Versioned checkpoints of a tree of tensors under ``root``.
+
+    ``device``: where the checkpoint store's kernels run (None: the CUDA
+    card; ``"cpu"`` for the plain versions on the host)."""
+
+    def __init__(self, root: str, *, async_save: bool = True, device=None):
+        from ..core.store import FieldSchema, VersionedStore
+        self.root = root
+        self.device = device
+        os.makedirs(root, exist_ok=True)
+        self.store = VersionedStore(
+            "ckpt", [FieldSchema("w", CHUNK_W, "float32")], device=device)
+        self.meta: dict[str, Any] = {"leaves": {}, "steps": []}
+        self.async_save = async_save
+        self._worker: threading.Thread | None = None
+        self._error: BaseException | None = None
+        self._last_info = None
+        self._load_existing()
+
+    # -- save -----------------------------------------------------------------
+    def save(self, step: int, state) -> dict:
+        """Record ``state`` (a tree of tensors or arrays) as version
+        ts=step. The leaves are copied to the host before this returns."""
+        from ..train.tree import leaves_with_path
+        self.wait()
+        host = [(path, *_host(x)) for path, x in leaves_with_path(state)]
+
+        def work():
+            keys: list[bytes] = []
+            rows: list[np.ndarray] = []
+            for path, arr, dtype in host:
+                k, r, _pad = _leaf_rows(path, arr)
+                keys.extend(k)
+                rows.append(r)
+                self.meta["leaves"][path] = {"shape": list(arr.shape),
+                                             "dtype": dtype}
+            table = {"w": np.concatenate(rows) if rows else
+                     np.zeros((0, CHUNK_W), np.float32)}
+            info = self.store.update(step, keys, table, label=f"step{step}")
+            self.meta["steps"].append(step)
+            self._persist()
+            self._last_info = info
+
+        if self.async_save:
+            def guarded():
+                try:
+                    work()
+                except BaseException as e:  # re-raised by wait()
+                    self._error = e
+            self._worker = threading.Thread(target=guarded, daemon=True)
+            self._worker.start()
+            return {"async": True, "step": step}
+        work()
+        return {"async": False, "step": step,
+                "changed": self._last_info.n_updated + self._last_info.n_new}
+
+    def wait(self) -> None:
+        """Wait for the save in flight; raise what it raised."""
+        if self._worker is not None:
+            self._worker.join()
+            self._worker = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    # -- restore ----------------------------------------------------------------
+    def steps(self) -> list[int]:
+        self.wait()
+        return sorted(self.meta["steps"])
+
+    def restore(self, step: int, like=None):
+        """The tree at version ``step``: with ``like``, a tree of its
+        structure whose leaves are tensors on the devices of ``like``'s
+        leaves; without, ``{keystr path: CPU tensor}``. Each leaf has the
+        dtype it was saved with."""
+        from ..train.tree import leaves_with_path, tree_unflatten
+        self.wait()
+        view = self.store.get_version(step, fields=["w"])
+        by_key = dict(zip(view.keys, view.values["w"]))
+        leaves = {}
+        for path, info in self.meta["leaves"].items():
+            n = int(np.prod(info["shape"])) if info["shape"] else 1
+            n_chunks = -(-n // CHUNK_W)
+            parts = [by_key[f"{path}#{i}".encode()] for i in range(n_chunks)]
+            flat = (np.concatenate(parts)[:n] if parts
+                    else np.zeros(0, np.float32))
+            leaves[path] = torch.from_numpy(
+                np.ascontiguousarray(flat.reshape(info["shape"]))).to(
+                    getattr(torch, info["dtype"]))
+        if like is None:
+            return leaves
+        flat_like = leaves_with_path(like)
+        return tree_unflatten(like, [leaves[p].to(x.device)
+                                     for p, x in flat_like])
+
+    # -- persistence -------------------------------------------------------------
+    def _persist(self) -> None:
+        self.store.save(os.path.join(self.root, "store"))
+        with open(os.path.join(self.root, "meta.json"), "w") as f:
+            json.dump(self.meta, f)
+
+    def _load_existing(self) -> None:
+        from ..core.store import VersionedStore
+        mp = os.path.join(self.root, "meta.json")
+        sp = os.path.join(self.root, "store")
+        if os.path.exists(mp) and os.path.exists(sp):
+            with open(mp) as f:
+                self.meta = json.load(f)
+            self.store = VersionedStore.load(sp, device=self.device)
+
+    def stats(self) -> dict:
+        self.wait()
+        cells = sum(col.log.n_cells for col in self.store.fields.values())
+        total_rows = self.store.n_rows
+        return {"versions": len(self.meta["steps"]), "rows": total_rows,
+                "cells": cells,
+                "dedup_ratio": (total_rows * max(len(self.meta['steps']), 1))
+                / max(cells, 1)}

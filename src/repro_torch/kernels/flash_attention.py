@@ -36,6 +36,19 @@ Four designs, chosen by (dtype, D) alone (:func:`design`):
   ``mma.sync`` products of the operands' hi and lo parts, as
   ``"wgmma_f32"`` takes them.
 
+Training goes through :class:`FlashAttentionFn` (what
+:func:`flash_attention` takes when an input requires grad): its forward
+launches a ``wgmma`` design with an lse buffer, so the kernel also writes
+each row's log-sum-exp, and its backward launches the three kernels of
+``csrc/flash_attention_bwd.cu`` (:func:`flash_bwd_delta`,
+:func:`flash_bwd_dkdv`, :func:`flash_bwd_dq`, planned by
+:func:`bwd_plan`), which recompute P from q, k and the lse. The JAX
+package differentiates its XLA scan under ``jax.checkpoint``, which
+recomputes the forward in the backward; the port saves o and the lse
+instead, and the arithmetic is the same: f32 logits, P and dS, f32 sums.
+The ``mma`` designs (D 16 and 32) have no lse yet: a CUDA call of theirs
+that needs grad raises.
+
 The host side of the launches is computed here, so the CPU tests reach
 it: :func:`plan`, a pure function of the tensors' shapes, strides, dtype
 and base alignment, gives the design, the query tiles, the TMA tensor
@@ -82,8 +95,14 @@ MMA_BK = 32
 MMA_WARPS = 8
 MMA_PAD = 16     # bytes past each shared-memory row (one cp.async piece)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# q, k, v, o, the plan's args, the scale, the stream
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
+# q, k, v, o, lse (or null), the plan's args, the scale, the stream
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_float, ctypes.c_void_p]
+#: head dims the backward kernels are built for (the wgmma designs')
+BWD_HEAD_DIMS = (64, 128)
+BWD_BQ = 64      # query rows a tile of the backward kernels
+BWD_BK = 64      # keys a tile of the backward kernels
+BWD_THREADS = 256
+BWD_VEC = 4      # elements a load: bases and strides a multiple of it
 
 
 def design(dtype: torch.dtype, d: int) -> str:
@@ -369,11 +388,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :func:`design` (and counts the launch in ``flash_attention.launches``
     and ``flash_attention.by_design``)."""
     _check(q, k, v, causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if (q.device.type == "cuda"
+                and design(q.dtype, q.shape[3]) in MMA_DESIGNS):
+            raise NotImplementedError(
+                f"the flash backward is built for D {BWD_HEAD_DIMS}; the "
+                f"{design(q.dtype, q.shape[3])} design at D {q.shape[3]} "
+                f"writes no log-sum-exp yet (ROADMAP.md Queue 2)")
+        return FlashAttentionFn.apply(q, k, v)
+    return _forward(q, k, v, lse=False)[0]
+
+
+def _forward(q, k, v, *, lse: bool):
+    """(o, lse or None) of checked q, k, v: the plain version on the CPU,
+    else one launch of the kernel of the tensors' design, which also
+    writes the (B, H, Sq) f32 log-sum-exp where ``lse`` (wgmma designs
+    only)."""
     if q.device.type == "cpu":
-        return ref.ref_flash_attention(q, k, v)
+        if lse:
+            return ref.ref_flash_attention(q, k, v, return_lse=True)
+        return ref.ref_flash_attention(q, k, v), None
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse_t = (torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                         dtype=torch.float32, device=q.device)
+             if lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse_t
     q, k, v, p = tma_ready(q, k, v)
     fn = _build.kernel_fn("flash_attention", "flash_attention_launch", _ARGS)
     # the first bucket's call is launch-bound: switch devices only when q
@@ -381,11 +421,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     here = q.device.index == torch.cuda.current_device()
     with contextlib.nullcontext() if here else torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                p.args, q.shape[3] ** -0.5,
-                torch.cuda.current_stream().cuda_stream)
+                0 if lse_t is None else lse_t.data_ptr(), p.args,
+                q.shape[3] ** -0.5, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "flash_attention", "flash_attention_launch")
     count_launch(flash_attention, p.design)
-    return out
+    return out, lse_t
 
 
 flash_attention.launches = 0
@@ -399,3 +439,226 @@ def causal_pairs(sq: int, sk: int) -> int:
     lo = max(0, sq - sk)          # the first query that sees a key
     n = max(sq - lo, 0)
     return (lo + sk - sq + 1 + sk) * n // 2
+
+
+# ---------------------------------------------------------------------------
+# the backward (csrc/flash_attention_bwd.cu)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward kernels' launch geometry: 64-row query tiles and
+    64-key tiles, 256 threads a block.
+
+    * ``flash_bwd_dkdv_kernel``: ``dkdv_blocks`` = key tiles x KV heads x
+      B; block ``x`` is (key tile ``x // (K B)``, KV head ``x % (K B) %
+      K``, batch ``x % (K B) // K``), key tile 0 (the most query tiles)
+      first. Key tile ``t`` visits query tiles ``first_q_tile[t]`` ..
+      ``n_q_tiles - 1`` for each of the G query heads of its KV head.
+    * ``flash_bwd_dq_kernel``: ``dq_blocks`` = query tiles x H x B, in the
+      forward's order (:func:`launch_order` at ``bq`` 64); query tile
+      ``t`` visits key tiles 0 .. ``dq_trips[t] - 1``.
+    * ``flash_bwd_delta_kernel``: D / 4 threads a row, ``delta_blocks``.
+
+    ``copies`` names the operands of q, k, v whose base or (batch, seq,
+    head) strides are not multiples of ``BWD_VEC`` elements (the kernels
+    load four elements at a time); the wrapper copies those, and o and dO
+    alike."""
+    n_q_tiles: int
+    n_k_tiles: int
+    dkdv_blocks: int
+    dq_blocks: int
+    delta_blocks: int
+    first_q_tile: tuple[int, ...]
+    dq_trips: tuple[int, ...]
+    copies: tuple[str, ...]
+    bq: int = BWD_BQ
+    bk: int = BWD_BK
+
+
+def _vec_ok(t: torch.Tensor) -> bool:
+    """True where the backward kernels read ``t`` as it lies: a contiguous
+    head dim, and base and (batch, seq, head) strides a multiple of
+    ``BWD_VEC`` elements (a dim of size 1 is never stepped over)."""
+    es = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % (BWD_VEC * es) == 0
+            and all(st % BWD_VEC == 0 for n, st in zip(t.shape[:3],
+                                                        t.stride()[:3])
+                    if n > 1))
+
+
+def bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> BwdPlan:
+    """The backward's plan of (B, Sq, H, D) q and (B, Sk, K, D) k, v: a
+    pure function of their shapes, strides, dtype and base alignment
+    (see :class:`BwdPlan`)."""
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    n_q, n_k = cdiv(sq, BWD_BQ), cdiv(sk, BWD_BK)
+    offset = sk - sq
+    first = tuple(max(t * BWD_BK - offset, 0) // BWD_BQ for t in range(n_k))
+    trips = tuple(trip_count(t, sq, sk, BWD_BQ, BWD_BK) for t in range(n_q))
+    rows_per_block = BWD_THREADS // (d // 4)
+    copies = tuple(n for n, t in zip("qkv", (q, k, v)) if not _vec_ok(t))
+    return BwdPlan(n_q, n_k, n_k * kh * b, n_q * h * b,
+                   cdiv(b * h * sq, rows_per_block), first, trips, copies)
+
+
+def _bwd_check(q, k, v, like_q=(), rows=()) -> None:
+    """Raise on inputs the backward kernels do not take: q, k, v as the
+    forward takes them; each of ``like_q`` (o, dO) q's shape, dtype and
+    device; each of ``rows`` (lse, delta) a contiguous (B, H, Sq) f32
+    tensor on q's device; on a card, D in ``BWD_HEAD_DIMS``."""
+    _check(q, k, v, True)
+    for t in like_q:
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"o and dO must be {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    b, sq, h, _ = q.shape
+    for t in rows:
+        if (t.shape != (b, h, sq) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"lse and delta must be contiguous ({b}, {h}, "
+                             f"{sq}) float32 on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if q.device.type == "cuda" and q.shape[3] not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the flash backward kernels are built for D {BWD_HEAD_DIMS}, "
+            f"not {q.shape[3]} (ROADMAP.md Queue 2)")
+
+
+def _vec_ready(*ts):
+    """Each tensor as it lies where the kernels read it so, else a fresh
+    contiguous copy (``contiguous()`` would hand back a contiguous view at
+    a misaligned base as it is)."""
+    return [t if _vec_ok(t) else t.clone(memory_format=torch.contiguous_format)
+            for t in ts]
+
+
+def _bwd_args(q, k, v, o, do) -> ctypes.Array:
+    """The launchers' plan (csrc/flash_attention_bwd.cu: Args): the
+    shapes, the tile counts of :func:`bwd_plan`, which the launchers check
+    against their own, and the operands' (batch, seq, head) strides."""
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    p = bwd_plan(q, k, v)
+    return _longs([b, sq, sk, h, kh, d, _DTYPES[q.dtype], p.n_q_tiles,
+                   p.n_k_tiles]
+                  + [st for t in (q, k, v, o, do) for st in t.stride()[:3]])
+
+
+def _bwd_launch(symbol: str, wrapper, ptrs: list, args, scale=None):
+    fn = _build.kernel_fn("flash_attention_bwd", symbol,
+                          [ctypes.c_void_p] * (len(ptrs) + 1)
+                          + ([] if scale is None else [ctypes.c_float])
+                          + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = (fn(*ptrs, args, stream) if scale is None
+          else fn(*ptrs, args, scale, stream))
+    _build.check(rc, "flash_attention_bwd", symbol)
+    count_launch(wrapper)
+
+
+def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * o): (B, Sq, H, D) o and dO -> (B, H, Sq) f32.
+    A CPU tensor takes ``ref.ref_flash_bwd_delta``; a CUDA tensor launches
+    ``flash_bwd_delta_kernel`` (counted in ``flash_bwd_delta.launches``)."""
+    _bwd_check(o, o, o, like_q=(do,))
+    if o.device.type == "cpu":
+        return ref.ref_flash_bwd_delta(o, do)
+    b, sq, h, d = o.shape
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=o.device)
+    if delta.numel() == 0:
+        return delta
+    o, do = _vec_ready(o, do)
+    # the delta kernel reads only the plan's shape and o's and dO's
+    # strides: o stands in for q, k and v
+    _bwd_launch("flash_bwd_delta_launch", flash_bwd_delta,
+                [o.data_ptr(), do.data_ptr(), delta.data_ptr()],
+                _bwd_args(o, o, o, o, do))
+    return delta
+
+
+def flash_bwd_dkdv(q, k, v, do, lse, delta):
+    """(dk, dv), (B, Sk, K, D) in k's dtype, of the causal attention of q,
+    k, v given dO, the forward's lse and delta (each (B, H, Sq) f32). A CPU
+    tensor takes the plain backward's; a CUDA tensor launches
+    ``flash_bwd_dkdv_kernel`` (``flash_bwd_dkdv.launches``)."""
+    _bwd_check(q, k, v, like_q=(do,), rows=(lse, delta))
+    if q.device.type == "cpu":
+        _, dk, dv = _ref_bwd(q, k, v, do, lse, delta)
+        return dk, dv
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    if dk.numel() == 0:
+        return dk, dv
+    if q.numel() == 0:
+        return dk.zero_(), dv.zero_()
+    q, k, v, do = _vec_ready(q, k, v, do)
+    _bwd_launch("flash_bwd_dkdv_launch", flash_bwd_dkdv,
+                [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr()],
+                _bwd_args(q, k, v, do, do), q.shape[3] ** -0.5)
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta):
+    """dq, (B, Sq, H, D) in q's dtype, of the causal attention of q, k, v
+    given dO, lse and delta. A CPU tensor takes the plain backward's; a
+    CUDA tensor launches ``flash_bwd_dq_kernel``
+    (``flash_bwd_dq.launches``)."""
+    _bwd_check(q, k, v, like_q=(do,), rows=(lse, delta))
+    if q.device.type == "cpu":
+        return _ref_bwd(q, k, v, do, lse, delta)[0]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    if k.shape[1] == 0:
+        return dq.zero_()
+    q, k, v, do = _vec_ready(q, k, v, do)
+    _bwd_launch("flash_bwd_dq_launch", flash_bwd_dq,
+                [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr()],
+                _bwd_args(q, k, v, do, do), q.shape[3] ** -0.5)
+    return dq
+
+
+def _ref_bwd(q, k, v, do, lse, delta):
+    return ref.ref_flash_attention_bwd(q, k, v, None, lse, do, delta=delta)
+
+
+for _w in (flash_bwd_delta, flash_bwd_dkdv, flash_bwd_dq):
+    _w.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do):
+    """(dq, dk, dv) of causal flash attention, from the forward's o and
+    lse (B, H, Sq) and the output's gradient dO. A CPU tensor takes
+    ``ref.ref_flash_attention_bwd``; a CUDA tensor launches the delta,
+    dkdv and dq kernels, in that order, or raises."""
+    _bwd_check(q, k, v, like_q=(o, do), rows=(lse,))
+    if q.device.type == "cpu":
+        return ref.ref_flash_attention_bwd(q, k, v, o, lse, do)
+    delta = flash_bwd_delta(o, do)
+    dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta)
+    return flash_bwd_dq(q, k, v, do, lse, delta), dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal flash attention with the hand-written backward. forward(q,
+    k, v) -> o saves q, k, v, o and the lse; backward(dO) -> (dq, dk, dv)
+    through :func:`flash_attention_bwd`. On CPU tensors both are the plain
+    versions (the backward is ``ref.ref_flash_attention_bwd``, not autograd
+    through the plain forward); on CUDA tensors both launch kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = _forward(q, k, v, lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, o, lse, do)

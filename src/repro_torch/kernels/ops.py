@@ -23,7 +23,8 @@ from .delta_codec import (chain_decode, chain_decode_at, chain_pack,
                           delta_unpack, delta_unpack_wide, narrow_dtype,
                           ref_chain_decode_at)
 from .fingerprint import fingerprint
-from .flash_attention import flash_attention
+from .flash_attention import (flash_attention, flash_bwd_delta, flash_bwd_dkdv,
+                              flash_bwd_dq)
 from .masked_merge import masked_merge
 from .shard_route import (key_bytes, key_lanes, merge_shard_rows, route_keys,
                           shard_route, shard_route_bytes)
@@ -34,7 +35,8 @@ __all__ = [
     "chain_decode", "chain_decode_at", "chain_pack", "chain_unpack",
     "compact_rewrite",
     "delta_pack", "delta_pack_wide", "delta_unpack", "delta_unpack_wide",
-    "fingerprint", "fingerprint_rows", "flash_attention", "keep_mask",
+    "fingerprint", "fingerprint_rows", "flash_attention", "flash_bwd_delta",
+    "flash_bwd_dkdv", "flash_bwd_dq", "keep_mask",
     "key_bytes", "key_lanes", "launch", "masked_cumsum", "masked_merge",
     "merge_shard_rows", "narrow_dtype", "ref", "ref_chain_decode_at",
     "ref_compact_rewrite", "route_keys", "scan_bucket", "shard_route",
@@ -56,6 +58,9 @@ KERNELS = {
     "delta_unpack_wide": delta_unpack_wide,
     "masked_merge": masked_merge,
     "flash_attention": flash_attention,
+    "flash_bwd_delta": flash_bwd_delta,
+    "flash_bwd_dkdv": flash_bwd_dkdv,
+    "flash_bwd_dq": flash_bwd_dq,
     "chain_decode": chain_decode_at,
 }
 

@@ -358,28 +358,34 @@ def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, scale: float | None = None
                   ) -> torch.Tensor:
     """q: (B, Sq, H, D); k/v: (B, Sk, K, D) with H % K == 0, f32 math over
-    the full (Sq, Sk) logits. Queries are the last Sq positions of the key
+    the full (Sq, Sk) logits (f64 for f64 inputs: the backward's check
+    differentiates it in f64). Queries are the last Sq positions of the key
     axis; a query that sees no key gives NaN (softmax over nothing)."""
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
     g = h // kh
-    qf = q.float() * (scale if scale is not None else d ** -0.5)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(ct) * (scale if scale is not None else d ** -0.5)
     qf = qf.reshape(b, sq, kh, g, d)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(ct))
     if causal:
         qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
         kpos = torch.arange(sk, device=q.device)[None, :]
         logits = logits.masked_fill(~(qpos >= kpos), float("-inf"))
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(ct))
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
 def ref_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, bq: int = 128, bk: int = 128) -> torch.Tensor:
+                        *, bq: int = 128, bk: int = 128,
+                        return_lse: bool = False):
     """The flash kernel's plain version: q (B, Sq, H, D), k/v (B, Sk, K, D)
     -> (B, Sq, H, D) in q's dtype, causal with the queries aligned to the
-    end of the key axis.
+    end of the key axis; with ``return_lse``, also each query row's
+    log-sum-exp m + log(max(l, 1e-30)) of its scaled logits, (B, H, Sq)
+    f32 (-1e30 for a row that sees no key), what the backward recomputes
+    P from.
 
     An online softmax over ``bk``-key tiles for each ``bq``-row query tile,
     with f32 m, l and acc, q scaled by D^-0.5 before the product, masked
@@ -397,6 +403,7 @@ def ref_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = k.float().permute(0, 2, 1, 3)[:, :, None]   # (B, K, 1, Sk, D)
     vf = v.float().permute(0, 2, 1, 3)[:, :, None]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, kh, g, sq), dtype=torch.float32, device=q.device)
     for q0 in range(0, sq, bq):
         q1 = min(q0 + bq, sq)
         qt = qf[:, :, :, q0:q1]                      # (B, K, G, n, D)
@@ -421,4 +428,70 @@ def ref_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = acc / torch.clamp(l, min=1e-30)[..., None]
         out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).reshape(b, q1 - q0, h,
                                                          d).to(q.dtype)
+        lse[..., q0:q1] = m + torch.log(torch.clamp(l, min=1e-30))
+    if return_lse:
+        return out, lse.reshape(b, h, sq)
     return out
+
+
+def ref_flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """The backward's row term: delta = rowsum(dO * o) in f32, o and dO
+    (B, Sq, H, D) -> (B, H, Sq), the delta kernel's plain version."""
+    return (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+
+
+def ref_flash_attention_bwd(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            delta: torch.Tensor | None = None,
+                            bq: int = 64, bk: int = 64):
+    """The flash backward's plain version: (dq, dk, dv) in q's dtype from
+    q (B, Sq, H, D), k/v (B, Sk, K, D), the forward's output o and
+    log-sum-exp lse (B, H, Sq), and the output's gradient do (B, Sq, H,
+    D); causal with the queries at the end of the key axis.
+
+    The kernels' tiled recurrence (``csrc/flash_attention_bwd.cu``) in
+    torch ops, in f32: for each ``bk``-key tile, the ``bq``-row query
+    tiles from the first that sees one of its keys, P = exp(q k^T D^-0.5
+    - lse) with 0 where masked, dP = dO v^T, dS = P (dP - delta) with
+    delta = rowsum(dO o); dV += P^T dO and dK += dS^T q D^-0.5 summed over
+    the query heads of each KV head, dQ += dS k D^-0.5. Masked pairs, and
+    rows that see no key, add exactly 0. ``delta`` (B, H, Sq), where
+    given, stands for rowsum(dO o), and o is not read."""
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    g = h // kh
+    offset = sk - sq
+    scale = d ** -0.5
+    dev = q.device
+    if delta is None:
+        delta = ref_flash_bwd_delta(o, do)
+    delta = delta.reshape(b, kh, g, sq)
+    lse = lse.float().reshape(b, kh, g, sq)
+
+    def heads(t):   # (B, S, H, D) -> (B, K, G, S, D) f32
+        return t.float().reshape(b, sq, kh, g, d).permute(0, 2, 3, 1, 4)
+
+    qs, dof = heads(q) * scale, heads(do)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]   # (B, K, 1, Sk, D)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    dq = torch.zeros(qs.shape, dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, kh, sk, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    for k0 in range(0, sk, bk):
+        k1 = min(k0 + bk, sk)
+        kpos = torch.arange(k0, k1, device=dev)
+        for q0 in range(max(k0 - offset, 0) // bq * bq, sq, bq):
+            q1 = min(q0 + bq, sq)
+            qpos = torch.arange(q0, q1, device=dev) + offset
+            mask = qpos[:, None] >= kpos[None, :]
+            s = qs[..., q0:q1, :] @ kf[..., k0:k1, :].transpose(-1, -2)
+            p = torch.where(mask, torch.exp(s - lse[..., q0:q1, None]), 0.0)
+            dp = dof[..., q0:q1, :] @ vf[..., k0:k1, :].transpose(-1, -2)
+            ds = p * (dp - delta[..., q0:q1, None])
+            dv[:, :, k0:k1] += (p.transpose(-1, -2) @ dof[..., q0:q1, :]).sum(2)
+            dk[:, :, k0:k1] += (ds.transpose(-1, -2) @ qs[..., q0:q1, :]).sum(2)
+            dq[..., q0:q1, :] += ds @ kf[..., k0:k1, :]
+    dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))

@@ -11,7 +11,9 @@ Two softmax-attention implementations, selected by ``RunConfig.attn_impl``:
   The kernel picks its own tiles, so ``attn_chunk`` does not apply to it.
   The JAX scan keeps its (Sq, chunk) logits and probabilities in bf16 in
   the serving prefill (``compact_logits``); the kernel keeps them in f32,
-  as the JAX package's Pallas kernel does.
+  as the JAX package's Pallas kernel does. In training
+  (``attention_train``) the JAX package differentiates the scan; the port
+  runs the kernel's hand-written backward (``FlashAttentionFn``).
 
 Decode writes the new K/V into a ring slot (pos % S_max) of the cache, in
 place (the JAX package returns a new cache; the port updates the tensors
@@ -106,6 +108,17 @@ def run_attention(q, k, v, *, causal: bool, q_offset: int = 0,
         return flash_attention(q, k, v)
     return _xla_attention(q, k, v, causal=causal, q_offset=q_offset,
                           kv_valid=kv_valid)
+
+
+def attention_train(p: dict, x: torch.Tensor, cfg, *,
+                    positions: torch.Tensor, impl: str = "xla"
+                    ) -> torch.Tensor:
+    """Causal self-attention with RoPE over the whole sequence (Sq = Sk),
+    no cache: the training forward, differentiable through either
+    implementation. The JAX package's sequence-parallel split of the
+    queries (``_wants_seq_parallel``) needs a mesh; one card has none
+    (ROADMAP.md Queue 1 item 3)."""
+    return attention_prefill(p, x, cfg, positions=positions, impl=impl)[0]
 
 
 def attention_prefill(p: dict, x: torch.Tensor, cfg, *,

@@ -2,13 +2,14 @@
 
     bundle = build(cfg)
     params = bundle.init(seed, device=None)      # None: the CUDA card
+    loss, metrics = bundle.loss(params, batch, opts)
     logits, state = bundle.prefill(params, {"tokens": tokens}, opts, pad_to)
     logits, state = bundle.decode(params, token, state)
 
 ``params`` is the port's tree of tensors on one device
 (``models/transformer.py``); ``models/weights.py`` makes one from the JAX
-package's parameter tree. Only the dense family is ported; the others,
-and the training loss, raise.
+package's parameter tree. Only the dense family is ported; the others
+raise.
 """
 from __future__ import annotations
 
@@ -60,9 +61,10 @@ class ModelBundle:
                state: tf.DecodeState):
         return tf.decode_step(params, self.cfg, token, state)
 
-    def loss(self, *args, **kwargs):
-        raise NotImplementedError("training is not ported yet; see "
-                                  "ROADMAP.md")
+    def loss(self, params: dict, batch: dict, opts: FwdOpts | None = None):
+        """(loss, metrics) of a batch of ``tokens`` and ``labels``
+        (``transformer.loss_fn``), differentiable in ``params``."""
+        return tf.loss_fn(params, self.cfg, batch, opts or FwdOpts())
 
 
 def build(cfg: ModelConfig) -> ModelBundle:

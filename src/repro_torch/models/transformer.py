@@ -8,18 +8,21 @@ with its stacked layer axis unstacked (``models/weights.py`` converts
 between the two). The layer loop is a Python loop; the JAX package's
 ``lax.scan`` over stacked layers has no counterpart the port needs.
 
-Three entry points: ``forward_train`` (the final-normed hidden states of
-every position, no cache: the encoder's forward, and the training
-forward the loss will take), ``prefill`` (build the KV caches +
-last-position logits) and ``decode_step`` (one token for the whole
-stack).
+Four entry points: ``forward_train`` (the final-normed hidden states of
+every position, no cache, each layer under ``FwdOpts.remat``: the
+encoder's forward and the loss's), ``loss_fn`` (causal-LM cross entropy
+with z-loss), ``prefill`` (build the KV caches + last-position logits)
+and ``decode_step`` (one token for the whole stack).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention as attn
 from .layers import (apply_embed, apply_head, apply_mlp, apply_norm,
@@ -77,7 +80,43 @@ def init_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16,
 
 @dataclasses.dataclass(frozen=True)
 class FwdOpts:
+    """The JAX package's forward options that act in the port (its
+    ``attn_chunk`` and ``unroll`` have no counterpart: see
+    ``RunConfig``)."""
     attn_impl: str = "xla"      # xla | chunked (the flash kernel)
+    remat: str = "nothing_saveable"  # nothing_saveable | dots | none
+
+
+#: the products the ``"dots"`` policy keeps: JAX's
+#: ``checkpoint_dots_with_no_batch_dims`` keeps the matrix products'
+#: outputs, which the port's layers take as 2-D ``mm`` / ``addmm`` (and
+#: ``bmm`` where a product keeps a batch dim)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, name: str):
+    """``fn`` under the JAX package's remat policy ``name``, per layer, by
+    ``torch.utils.checkpoint`` (non-reentrant): ``"nothing_saveable"``
+    keeps only the layer's inputs and recomputes the whole layer in the
+    backward, ``"dots"`` keeps the matrix products' outputs and
+    recomputes the rest, ``"none"`` keeps everything. Without grad there
+    is nothing to keep, and ``fn`` runs as it is."""
+    if name not in ("nothing_saveable", "dots", "none"):
+        raise ValueError(f"unknown remat policy {name!r}")
+    if name == "none" or not torch.is_grad_enabled():
+        return fn
+    if name == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_dots)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=ctx)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
 def _layer(p: dict, x: torch.Tensor, cfg, attn_fn):
@@ -94,8 +133,10 @@ def forward_train(params: dict, cfg, batch: dict,
     S). Returns the final-normed hidden states (B, S, d) and the MoE aux
     loss, a 0-d f32 zero for the dense family.
 
-    Not under ``torch.inference_mode``, so gradients can flow through it;
-    callers that only embed wrap it themselves."""
+    Not under ``torch.inference_mode``, so gradients flow through it
+    (through the flash kernel's hand-written backward with
+    ``attn_impl="chunked"``); each layer runs under ``opts.remat``.
+    Callers that only embed wrap it themselves."""
     check_dense(cfg)
     x = apply_embed(params["embed"], batch["tokens"])
     b, s = x.shape[:2]
@@ -103,11 +144,39 @@ def forward_train(params: dict, cfg, batch: dict,
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
+
+    def layer(p, x):
+        return _layer(p, x, cfg, lambda pa, h: (attn.attention_train(
+            pa, h, cfg, positions=positions, impl=opts.attn_impl), None))[0]
+
+    layer = _remat(layer, opts.remat)
     for p in params["layers"]:
-        x, _ = _layer(p, x, cfg, lambda pa, h: attn.attention_prefill(
-            pa, h, cfg, positions=positions, impl=opts.attn_impl))
+        x = layer(p, x)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params: dict, cfg, batch: dict, opts: FwdOpts = FwdOpts(),
+            z_coef: float = 1e-4, aux_coef: float | None = None):
+    """Causal-LM cross entropy with z-loss, the JAX package's arithmetic:
+    labels = ``batch["labels"]`` (B, S), entries of -100 (any negative)
+    masked; f32 logits; ``loss = ce + z_coef * mean(lse^2) + aux_coef *
+    moe_aux``. Returns (loss, {"ce", "z_loss", "moe_aux", "tokens"}), 0-d
+    f32 tensors."""
+    x, aux = forward_train(params, cfg, batch, opts)
+    logits = apply_head(params["embed"], x).float()
+    labels = batch["labels"].long()
+    mask = (labels >= 0).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = nll.sum() / denom
+    zl = z_coef * ((lse * mask) ** 2).sum() / denom
+    ac = cfg.router_aux_coef if aux_coef is None else aux_coef
+    loss = ce + zl + ac * aux
+    return loss, {"ce": ce, "z_loss": zl, "moe_aux": aux,
+                  "tokens": mask.sum()}
 
 
 @torch.inference_mode()

@@ -277,7 +277,8 @@ def test_scheduler_matches_jax(jax_tree, dtype):
 
 def test_port_init_launcher_and_unported_families():
     """The port's own seeded init is deterministic; the launcher runs on
-    the CPU; other families and the training loss raise."""
+    the CPU; other families raise; the training loss (ported since) is a
+    finite 0-d f32 tensor on the port's own weights."""
     _, tc = configs("bfloat16")
     a = build(tc).init(7, device="cpu")
     b = build(tc).init(7, device="cpu")
@@ -291,8 +292,10 @@ def test_port_init_launcher_and_unported_families():
     assert len(caches) == tc.n_layers
     assert caches[0].k.shape == (2, 9, tc.n_kv_heads, tc.hd)
     assert caches[0].v.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        build(tc).loss()
+    toks = torch.as_tensor(prompts(0, 2, 9, tc.vocab))
+    loss, metrics = build(tc).loss(a, {"tokens": toks, "labels": toks})
+    assert loss.shape == () and loss.dtype == torch.float32
+    assert torch.isfinite(loss) and float(metrics["tokens"]) == 18
     from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("rwkv6-7b")
