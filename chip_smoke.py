@@ -8,9 +8,12 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
 ``build/repro_torch/`` on first use. It prints one JSON object per line:
 
   env             card, power limit, torch/CUDA versions, kernel build time,
-                  ptxas reports (registers and spills per flash kernel)
-                  and the flash kernels' tensor-core instructions per
-                  kernel (HGMMA, BF16 and TF32; HMMA in flash_mma_kernel)
+                  ptxas reports (registers and spills per flash kernel,
+                  forward and backward) and the flash kernels'
+                  tensor-core instructions per kernel (HGMMA, BF16 and
+                  TF32; HMMA in flash_mma_kernel; HGMMA BF16 in the
+                  backward's flash_bwd_dkdv_wgmma_kernel and
+                  flash_bwd_dq_wgmma_kernel)
   kernel          each CUDA kernel at ragged edge shapes (the delta codec
                   at every lane dtype, with extreme values, and on bases 4
                   and 8 bytes past a 16-byte boundary; the route's two
@@ -106,19 +109,20 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   length and taxid int32), streamed into a 4-shard store by
                   add_release_stream (journal, pre- and post-release saves;
                   a thread reads version 10 while the second streams, and
-                  every read must equal the one before) and given whole to
-                  a one-shard store by add_release; per store one
+                  every read must equal the one before); one
                   generate_files_batch (full versions 10 and 20, the
                   blastp and annot increments, a key filter), every file
                   checked against FASTA written from the release text by
                   a regex, the increments' keys against the releases'
                   changed and new entries; the batch again (all cached),
                   merge_files, flush; a new GeStore over the root, cache
-                  evicted, the batches again (the same sha256, the first
-                  under torch.profiler). Walls (parse and update inside
-                  add_release, each stream's entries/s, each batch split
-                  into increments, size context, full versions and format
-                  + cache put), the launches of every kernel, the
+                  evicted, the batch again (the same sha256, under
+                  torch.profiler). Cut in depth (its "reduced"): no
+                  one-shard store built by add_release of the whole
+                  text (gestore_parity keeps one at 20,000 entries).
+                  Walls (each stream's entries/s, each batch split into
+                  increments, size context, full versions and format +
+                  cache put), the launches of every kernel, the
                   fingerprint's by row width
   gestore_parity  a 20,000-entry history through GeStore(device="cpu")
                   and GeStore(device="cuda"): identical generated files
@@ -229,15 +233,20 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   since the start at which each phase's line was printed;
                   the flash backward's three kernels (delta, dkdv, dq) at
                   llama3.2-1b's training layer, B 2 x S 4,096, H 32 / K 8,
-                  D 64, in bf16 (the train path's launches) and f32 (the
-                  f32 parity check's), with SDPA's backward beside them,
+                  D 64, in bf16 (flash_bwd_dkdv_wgmma_kernel and
+                  flash_bwd_dq_wgmma_kernel on the tensor cores, the
+                  train path's launches) and f32 (the CUDA-core
+                  flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, the f32
+                  parity check's), with SDPA's backward beside them,
                   and the wgmma forward rows at 32k timed with a null lse
                   pointer and with one, in alternating rounds
   kernel_edges_train  the flash backward's kernels at D 64/128, f32 and
                   bf16, GQA groups 1/4, S 1/127/128/129/1,000, Sq < Sk,
                   Sq > Sk (rows that see no key: gradient 0), a
                   transposed and a padded (copied) q, each against the
-                  plain backward within BWD_TOL; the forward's lse
+                  plain backward within BWD_TOL, every bf16 case on the
+                  wgmma kernels and every f32 case on the CUDA-core ones
+                  (worst error per design); the forward's lse
                   against the plain version's; the plain backward against
                   f64 autograd through ref_attention; the autograd path
                   (and a scalar loss's zero-stride dO) giving q, k and v
@@ -250,7 +259,8 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   finite and the last below the first; flash forward
                   launches 32 a step (a forward and a remat recompute per
                   layer), all wgmma, and 16 a step of each backward
-                  kernel; step walls, tokens/s, peak device memory
+                  kernel, all 96 of dkdv's and of dq's on the wgmma
+                  design; step walls, tokens/s, peak device memory
   train_parity    chunked against xla on the same parameters: the full
                   model in bf16 at B 2 x S 2,048 (loss, gradient norm and
                   each layer's wq, wk and wv gradients within
@@ -821,7 +831,10 @@ def phase_env(build_info: dict, smi: str) -> None:
     all and per kernel and variant, where cuobjdump exists: HGMMA (BF16,
     TF32) in each wgmma kernel, the f32 ones with TF32 products, and HMMA
     (mma.sync) in flash_mma_kernel (BF16) and flash_mma_f32_kernel
-    (TF32), which must not spill."""
+    (TF32), which must not spill; for the flash backward its registers
+    and spills and its HGMMA per kernel: BF16 in
+    flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel at D 64 and
+    128, neither spilling at D 64."""
     from repro_torch.kernels import _build
     ptxas = build_info["ptxas"]
     by_fn = _build.sass_opcodes_by_function("flash_attention", "HGMMA")
@@ -831,6 +844,10 @@ def phase_env(build_info: dict, smi: str) -> None:
     mma_by_kernel = (None if mma_fn is None else
                      {kernel_label(k): v for k, v in sorted(mma_fn.items())})
     flash_regs = ptxas_by_kernel(ptxas.get("flash_attention", ""))
+    bwd_fn = _build.sass_opcodes_by_function("flash_attention_bwd", "HGMMA")
+    bwd_hgmma = (None if bwd_fn is None else
+                 {kernel_label(k): v for k, v in sorted(bwd_fn.items())})
+    bwd_regs = ptxas_by_kernel(ptxas.get("flash_attention_bwd", ""))
     emit({"phase": "env", "gpu": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
@@ -845,7 +862,9 @@ def phase_env(build_info: dict, smi: str) -> None:
                           sum(sum(v.values()) for v in by_fn.values())),
           "flash_hgmma_by_kernel": by_kernel,
           "flash_hmma_by_kernel": mma_by_kernel,
-          "flash_registers_by_kernel": flash_regs})
+          "flash_registers_by_kernel": flash_regs,
+          "flash_bwd_hgmma_by_kernel": bwd_hgmma,
+          "flash_bwd_registers_by_kernel": bwd_regs})
     for name, variant in (("flash_mma_kernel<16>", "HMMA.16816.F32.BF16"),
                           ("flash_mma_kernel<32>", "HMMA.16816.F32.BF16"),
                           ("flash_mma_f32_kernel<16>", "HMMA.1688.F32.TF32"),
@@ -866,6 +885,20 @@ def phase_env(build_info: dict, smi: str) -> None:
                                "HGMMA.F32.TF32")):
             check(by_kernel.get(name, {}).get(variant, 0) > 0,
                   f"{name}: no {variant} instruction in its SASS")
+    # the backward's tensor-core kernels: bf16 products in each, and no
+    # spill at D 64
+    for d in (64, 128):
+        for kern in ("flash_bwd_dkdv_wgmma_kernel",
+                     "flash_bwd_dq_wgmma_kernel"):
+            name = f"{kern}<{d}>"
+            if d == 64 and "flash_attention_bwd" in ptxas:
+                got = bwd_regs.get(name, {})
+                check(got.get("spill_stores") == 0
+                      and got.get("spill_loads") == 0,
+                      f"{name}: spills or no ptxas report: {got}")
+            if bwd_hgmma is not None:
+                check(bwd_hgmma.get(name, {}).get("HGMMA.F32.BF16", 0) > 0,
+                      f"{name}: no HGMMA.F32.BF16 in its SASS")
 
 
 class KernelBench:
@@ -1147,7 +1180,9 @@ class KernelBench:
         """The three backward kernels on the forward's o and lse, each
         against the plain backward (``ref_flash_attention_bwd``, which
         computes all three gradients: its time is the whole plain
-        backward's) within BWD_TOL, with their device time alone. Bounds:
+        backward's) within BWD_TOL, with their device time alone; the
+        design (bf16: the wgmma kernels, f32: the CUDA-core ones) is in
+        ``shape["plan"]["design"]``. Bounds:
         delta by its bytes; dkdv by its four products over the visible
         pairs (S recomputed, dP, dV, dK) and dq by its three (S, dP, dQ),
         2 B H D FLOPs a pair each, at the dtype's tensor-core peak. The
@@ -1168,8 +1203,8 @@ class KernelBench:
         peak = self.roof.compute_peak(str(q.dtype).split(".")[-1])
         shape = {"B": b, "Sq": sq, "Sk": sk, "H": h, "K": kh, "D": d,
                  "dtype": str(q.dtype),
-                 "plan": dataclasses.asdict(fa.bwd_plan(q, k, v)) | {
-                     "first_q_tile": None, "dq_trips": None}}
+                 "plan": dataclasses.asdict(fa.bwd_plan(q, k, v, do)) | {
+                     "first_q_tile": None, "dq_trips": None, "maps": None}}
         delta = kops.flash_bwd_delta(o, do)
         if q.dtype == torch.bfloat16:
             ctx = contextlib.nullcontext
@@ -2782,6 +2817,11 @@ def phase_frontdoor_budget(core, stores, cfg, want, rng, releases, next_ts,
 GS_ENTRIES, GS_NEW, GS_CHURN = 570_000, 0.01, 0.03
 GS_TS = (10, 20)
 GS_PARITY_ENTRIES = 20_000
+# the gestore phase's cut in depth, its line's "reduced"
+GS_REDUCED = ("dropped: the one-shard store that add_release gave each "
+              "whole release text (two parses and updates, its "
+              "generate_files_batch, cached and reopened batches, its "
+              "share of flush); gestore_parity keeps one at 20,000 entries")
 # 1,000 entries of the first release and 1,000 of the second's new ones
 GS_KEY_FILTER = r"^P005(69|70)"
 # the first accession and the sequence lines of a UniProtKB entry
@@ -2943,12 +2983,14 @@ def phase_gestore(core, kops, seed: int, root: str) -> dict:
     """The GeStore facade at UniProtKB/Swiss-Prot scale on the card: two
     releases written by ``write_synth_uniprot``, streamed into a 4-shard
     store (journal, saves; a reader of version 10 on another thread while
-    the second streams) and given whole to a one-shard store; one
-    generate_files_batch per store, again from the cache, merge_files,
-    flush; a new GeStore over the root, cache evicted, the batch again.
-    Every generated file is checked against FASTA written from the release
-    text, and the stores' and the reopened GeStore's files against each
-    other."""
+    the second streams); one generate_files_batch, again from the cache,
+    merge_files, flush; a new GeStore over the root, cache evicted, the
+    batch again. Every generated file is checked against FASTA written
+    from the release text, and the reopened GeStore's files against the
+    first batch's. Cut in depth (the line's ``reduced``): no one-shard
+    store given the whole release text by ``add_release`` (its two
+    ingests, batches and save were about 70 s of the script);
+    ``phase_gestore_parity`` keeps one at 20,000 entries."""
     import threading
     from repro_torch.core.ingest import write_synth_uniprot
     from repro_torch.core.parsers import UniProtParser
@@ -2956,6 +2998,7 @@ def phase_gestore(core, kops, seed: int, root: str) -> dict:
     rec = {"phase": "gestore", "entries": [GS_ENTRIES,
                                            int(GS_ENTRIES * (1 + GS_NEW))],
            "churn": GS_CHURN, "shards": N_SHARDS,
+           "reduced": {"one_shard_store": GS_REDUCED},
            "widths": {f.name: [f.width, f.dtype] for f in parser.schema()},
            "write_release_s": []}
     paths, fasta = [], []
@@ -3023,32 +3066,17 @@ def phase_gestore(core, kops, seed: int, root: str) -> dict:
         check(reads[0] > 0, "the reader made no read during the ingest")
         rec["reader_reads"] = reads[0]
         del v10
-        # -- the one-shard store through add_release of the whole text ---
-        rec["add_release"] = []
-        for ts, p in zip(GS_TS, paths):
-            with open(p, encoding="latin-1") as f:
-                text = f.read()
-            acc = {}
-            with timed_calls(parser, "parse_text", acc), \
-                    timed_calls(core.VersionedStore, "update", acc):
-                _, s = wall(lambda: gs.add_release(
-                    "uniprot1", ts, text, parser_name="uniprot_dat"))
-            del text
-            rec["add_release"].append({"ts": ts, "wall_s": s,
-                                       "parse_s": acc["parse_text"],
-                                       "update_s": acc["update"]})
-        for name in ("uniprot", "uniprot1"):
-            infos = [(v.n_new, v.n_updated, v.n_deleted)
-                     for v in gs.open_store(name).versions]
-            check(infos == [(len(r0), 0, 0), (len(new), len(changed), 0)],
-                  f"{name}: VersionInfo {infos}")
+        infos = [(v.n_new, v.n_updated, v.n_deleted)
+                 for v in gs.open_store("uniprot").versions]
+        check(infos == [(len(r0), 0, 0), (len(new), len(changed), 0)],
+              f"uniprot: VersionInfo {infos}")
         check(isinstance(gs.stores["uniprot"], core.ShardedStore)
               and gs.stores["uniprot"].n_shards == N_SHARDS,
               "the streamed store is not a 4-shard store")
         # -- generated files ----------------------------------------------
         shas, gens = {}, {}
         rec["generate_files_batch"], rec["cached_batch_s"] = {}, {}
-        for name in ("uniprot", "uniprot1"):
+        for name in ("uniprot",):
             gens[name], rec["generate_files_batch"][name] = gestore_batch(
                 gs, name)
             check([g.mode for g in gens[name]] ==
@@ -3061,8 +3089,6 @@ def phase_gestore(core, kops, seed: int, root: str) -> dict:
                   f"{name}: the second batch was not all cached")
             check([g.path for g in again] == [g.path for g in gens[name]],
                   f"{name}: cached paths differ")
-        check(shas["uniprot"] == shas["uniprot1"],
-              "the two stores generated different files")
         # -- merge_files with a toy BLAST output ---------------------------
         ctx = gens["uniprot"][2].context
         check(ctx["db_size_old"] == sum(len(v) - v.count("\n") - len(k) - 1
@@ -3088,15 +3114,15 @@ def phase_gestore(core, kops, seed: int, root: str) -> dict:
         rec["flush"] = flushed
         # -- a new GeStore over the root ----------------------------------
         gs2, rec["reopen_s"] = wall(lambda: core.GeStore(gs_root, reg))
-        check(sorted(gs2.stores) == ["uniprot", "uniprot1"]
+        check(sorted(gs2.stores) == ["uniprot"]
               and not gs2.load_errors, f"reopen: {gs2.load_errors}")
         check(gs2.device.type == torch.device(DEV).type, "reopen device")
         rec["evicted_files"] = gs2.cache.evict(0)
-        check(rec["evicted_files"] == 10, "the cache held other files")
+        check(rec["evicted_files"] == 5, "the cache held other files")
         rec["reopened_batch"] = {}
-        for name in ("uniprot", "uniprot1"):
+        for name in ("uniprot",):
             got, rec["reopened_batch"][name] = gestore_batch(
-                gs2, name, profile=(name == "uniprot"))
+                gs2, name, profile=True)
             check({g.mode for g in got} == {"full", "increment"},
                   f"reopened {name}: not materialized again")
             check([file_sha(g.path) for g in got] == shas[name],
@@ -3114,7 +3140,7 @@ def phase_gestore(core, kops, seed: int, root: str) -> dict:
         f"fingerprint_w{w}": fp_by_w.get(w, 0) for w in (512, 256)}}
     for w in (512, 256):
         check(launches[f"fingerprint_w{w}"] > 0, f"no fingerprint at W {w}")
-    view = uncounted(kops, lambda: gs2.open_store("uniprot1").get_versions(
+    view = uncounted(kops, lambda: gs2.open_store("uniprot").get_versions(
         [GS_TS[0]], fields=["sequence", "annotation"])[0])
     return {"launches": launches, "rows": {
         512: view.values["sequence"], 256: view.values["annotation"]}}
@@ -4199,8 +4225,11 @@ def within(got, want, tol) -> tuple[bool, float]:
 def phase_kernel_edges_train(bench: KernelBench, rng) -> None:
     """The backward's three kernels at the edge shapes, f32 and bf16,
     each against the plain backward on the same forward o and lse within
-    BWD_TOL; the lse of the wgmma forward against the plain version's
-    (LSE_TOL; -1e30 exactly for rows that see no key); the plain backward
+    BWD_TOL: every bf16 case through the wgmma kernels and every f32 case
+    through the CUDA-core ones (each call's launch counted on its design),
+    the worst error per gradient and design; the lse of the wgmma forward
+    against the plain version's (LSE_TOL; -1e30 exactly for rows that see
+    no key); the plain backward
     against f64 autograd through ``ref_attention`` (f32 cases where every
     row sees a key, within BWD_TOL[f32]); the autograd path
     (``flash_attention`` with inputs that need grad, and a scalar loss's
@@ -4211,11 +4240,12 @@ def phase_kernel_edges_train(bench: KernelBench, rng) -> None:
     gen = torch.Generator(device=DEV).manual_seed(int(rng.integers(1 << 31)))
     worst: dict = {}
     n_cases, n_f64, copies = 0, 0, 0
+    cases_by_design = dict.fromkeys(fa.BWD_DESIGNS, 0)
     for shape in bwd_edge_shapes():
         for dt in (torch.float32, torch.bfloat16):
             b, sq, sk, h, kh, d, layout = shape
             q, k, v, do = bwd_inputs(gen, *shape, dt)
-            copies += bool(fa.bwd_plan(q, k, v).copies)
+            copies += bool(fa.bwd_plan(q, k, v, do).copies)
             o, lse = fa._forward(q, k, v, lse=True)
             _, lse_want = ref.ref_flash_attention(
                 q, k, v, bq=PLAIN_FLASH_TILE, bk=PLAIN_FLASH_TILE,
@@ -4225,8 +4255,20 @@ def phase_kernel_edges_train(bench: KernelBench, rng) -> None:
             check(ok and bool((lse[~seen] == -1e30).all()),
                   f"lse {shape} {dt}: {err}")
             delta = kops.flash_bwd_delta(o, do)
+            # bf16 takes the wgmma kernels, f32 the CUDA-core ones
+            design = fa.bwd_plan(q, k, v, do).design
+            check(design == ("wgmma" if dt == torch.bfloat16 else "cuda"),
+                  f"{shape} {dt}: backward design {design}")
+            before = [dict(w.by_design)
+                      for w in (kops.flash_bwd_dkdv, kops.flash_bwd_dq)]
             dk, dv = kops.flash_bwd_dkdv(q, k, v, do, lse, delta)
             dq = kops.flash_bwd_dq(q, k, v, do, lse, delta)
+            for w, b0 in zip((kops.flash_bwd_dkdv, kops.flash_bwd_dq),
+                             before):
+                check({k_: n - b0[k_] for k_, n in w.by_design.items()}
+                      == {k_: int(k_ == design) for k_ in b0},
+                      f"{shape} {dt}: launches by design {w.by_design}")
+            cases_by_design[design] += 1
             sync()
             want = ref.ref_flash_attention_bwd(q, k, v, o, lse, do,
                                                bq=PLAIN_FLASH_TILE,
@@ -4241,7 +4283,8 @@ def phase_kernel_edges_train(bench: KernelBench, rng) -> None:
                       f"{name} {shape}: {g_.dtype} {g_.shape}")
                 ok, err = within(g_, w_, tol)
                 check(ok, f"flash backward {name} {shape} {dt}: {err}")
-                key = f"{name}_{str(dt).split('.')[-1]}"
+                key = (f"{name}_{str(dt).split('.')[-1]}"
+                       + ("" if name == "delta" else f"_{design}"))
                 worst[key] = max(worst.get(key, 0.0), err)
             if sq > sk:
                 check(bool((dq[:, :sq - sk] == 0).all()),
@@ -4279,7 +4322,10 @@ def phase_kernel_edges_train(bench: KernelBench, rng) -> None:
     except NotImplementedError:
         raised = True
     check(raised, "an mma-design call that needs grad did not raise")
+    check(cases_by_design["wgmma"] == cases_by_design["cuda"] == n_cases // 2,
+          f"cases by design {cases_by_design}")
     emit({"phase": "kernel_edges_train", "cases": n_cases,
+          "cases_by_design": cases_by_design,
           "f64_checks": n_f64, "copied_cases": copies,
           "mma_grad_raises": raised, "worst_abs_diff": worst,
           "tol": {"f32": BWD_TOL[torch.float32],
@@ -4389,6 +4435,12 @@ def phase_train(kops, seed: int, root: str) -> dict:
           f"a forward and a remat recompute per layer and step)")
     for k in ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"):
         check(counts[k] == per, f"{k}: {counts[k]} launches, want {per}")
+    rec["bwd_launches_by_design"] = {
+        k: dict(getattr(kops, k).by_design)
+        for k in ("flash_bwd_dkdv", "flash_bwd_dq")}
+    for k, by in rec["bwd_launches_by_design"].items():
+        check(by["wgmma"] == per == counts[k],
+              f"{k}: launches by design {by}, want all {per} wgmma")
     for k in PATH_KERNELS["train"]:
         check(counts[k] > 0, f"train path did not launch {k}")
     rec["backward_inputs"] = [list(x.shape) for x in kept[0]]
@@ -4435,7 +4487,9 @@ def phase_train_parity(kops, cfg, run, seed: int) -> dict:
         (lx, _), gx = grads(cfg, params, "xla")
         (lc, _), gc = grads(cfg, params, "chunked")
     check(acc["flash_attention.wgmma"] == 2 * cfg.n_layers
-          and acc["flash_bwd_dq"] == cfg.n_layers, f"launches {acc}")
+          and acc["flash_bwd_dq"] == cfg.n_layers
+          and acc["flash_bwd_dq.wgmma"] == acc["flash_bwd_dkdv.wgmma"]
+          == cfg.n_layers, f"launches {acc}")
     nx, nc = tree_norm(gx), tree_norm(gc)
     rel = {w: [float((a["attn"][w].float() - b["attn"][w].float()).abs()
                      .max() / b["attn"][w].float().abs().max())
@@ -4463,8 +4517,9 @@ def phase_train_parity(kops, cfg, run, seed: int) -> dict:
     with launches_during(kops, f32):
         (lc, _), gc = grads(c32, p32, "chunked")
     check(f32["flash_attention.wgmma_f32"] == 2 * PARITY_F32_LAYERS
-          and f32["flash_attention"] == 2 * PARITY_F32_LAYERS,
-          f"f32 chunked launches {f32}")
+          and f32["flash_attention"] == 2 * PARITY_F32_LAYERS
+          and f32["flash_bwd_dkdv.cuda"] == f32["flash_bwd_dq.cuda"]
+          == PARITY_F32_LAYERS, f"f32 chunked launches {f32}")
     worst = 0.0
     for (path, a), (_, b) in zip(leaves_with_path(gc), leaves_with_path(gx)):
         err = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))

@@ -160,6 +160,12 @@
 //     P V is one f32 fma per element (the tensor cores' sums drop low
 //     bits of addends much smaller than the sum; see the f32 wgmma
 //     kernel). The softmax runs in log2 units, exp2 of s log2(e) - m.
+//
+// The Hopper helpers that the wgmma kernels share with the backward's
+// (flash_attention_bwd.cu) live in hopper.cuh: the mbarriers, TMA loads
+// and the tensor-map encoding, the wgmma descriptors, fences, commit and
+// wait, the bf16 product with its A operand in registers, exp2, and the
+// dynamic shared-memory opt-in.
 #include <cuda.h>
 
 #include <atomic>
@@ -168,6 +174,7 @@
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -202,94 +209,28 @@ struct Layout {
   static constexpr int kAlloc = kBars + 8 * (1 + 2 * kStages) + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Returns once the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box of a 4-D map (D, heads, S, B) into shared memory; the bytes
-// complete on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor of a 128-byte-swizzled operand:
-// start address, leading and stride byte offsets (16-byte units), and the
-// swizzle mode in bits 62-63 (1 = 128 B).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// K-major operand (Q as A, K as B): rows of 128 bytes, 8-row groups 1024
-// bytes apart; a k16 step moves 32 bytes along the row.
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
-  return smem_desc(addr, 16, 1024);
-}
+using hopper::bits;
+using hopper::desc_k_major;
+using hopper::encode;
+using hopper::ex2;
+using hopper::fence_regs;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::opt_in;
+using hopper::smem_u32;
+using hopper::tma_load;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_rs_bf16;
+using hopper::wgmma_wait_all;
 
 // MN-major operand (V as B of P V): 64 head-dim columns per 128-byte row
 // of a key, 8-key groups 1024 bytes apart, the next 64 columns one box
 // (kBox bytes) on; a k16 step moves 16 keys = 2048 bytes.
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
-  return smem_desc(addr, kBox, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma's registers
-// across the asynchronous product's issue and wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+  return hopper::desc_mn_major(addr, kBox);
 }
 
 // S (64 x 128, f32) (+)= A (64 x 16, smem) * B (128 x 16, smem)^T.
@@ -318,57 +259,6 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// O (64 x D, f32) += P (64 x 16, bf16 in registers) * V (16 x D, smem,
-// MN-major).
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  if constexpr (D == 64) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-  }
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The log-sum-exp of the thread's two rows r0 and r0 + 8 (lse: the (b, h)
 // row of the (B, H, Sq) output), written by the first of the 4 threads
 // that share a row: m (the running max, in log2 units) ln 2 + log(l),
@@ -388,9 +278,6 @@ __device__ __forceinline__ void write_lse(float* lse, const float (&m)[2],
   }
 }
 
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // blockIdx.x -> (query tile, head, batch): the last query tile first over
 // every head and batch, heads that share a KV head side by side
@@ -553,8 +440,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                 pa_hi[4 * kk + 2], pa_hi[4 * kk + 3]};
         const uint32_t lo[4] = {pa_lo[4 * kk], pa_lo[4 * kk + 1],
                                 pa_lo[4 * kk + 2], pa_lo[4 * kk + 3]};
-        wgmma_pv<D>(acc, hi, dv);
-        wgmma_pv<D>(acc, lo, dv);
+        wgmma_rs_bf16<D>(acc, hi, dv);
+        wgmma_rs_bf16<D>(acc, lo, dv);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -590,73 +477,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda; this library links only the
-// CUDA runtime, so it is looked up once through the runtime's entry-point
-// query.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess) {
-      return static_cast<EncodeTiled>(nullptr);
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// g: the plan's map (kernels/flash_attention.py: TensorMap.packed): dims
-// (D, heads, S, B), byte strides of dims 1-3, box (cols, 1, rows, 1) with
-// `cols` one 128-byte swizzle row of the element type.
-bool encode(CUtensorMap* map, const void* ptr, const long long* g, int d,
-            CUtensorMapDataType type, int cols, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || g[0] != d || g[7] != cols || g[8] != 1 ||
-      g[9] != rows || g[10] != 1) {
-    return false;
-  }
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(g[0]),
-                              static_cast<cuuint64_t>(g[1]),
-                              static_cast<cuuint64_t>(g[2]),
-                              static_cast<cuuint64_t>(g[3])};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(g[4]),
-                                 static_cast<cuuint64_t>(g[5]),
-                                 static_cast<cuuint64_t>(g[6])};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Above 48 KB a launch needs the opt-in, once per card per kernel (a bit
-// per device below 64; others opt in on every call).
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, int smem,
-                   std::atomic<unsigned long long>& opted) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (opted.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err == cudaSuccess) opted.fetch_or(bit, std::memory_order_relaxed);
-  return err;
 }
 
 template <int D>

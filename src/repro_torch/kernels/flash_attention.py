@@ -42,10 +42,13 @@ launches a ``wgmma`` design with an lse buffer, so the kernel also writes
 each row's log-sum-exp, and its backward launches the three kernels of
 ``csrc/flash_attention_bwd.cu`` (:func:`flash_bwd_delta`,
 :func:`flash_bwd_dkdv`, :func:`flash_bwd_dq`, planned by
-:func:`bwd_plan`), which recompute P from q, k and the lse. The JAX
-package differentiates its XLA scan under ``jax.checkpoint``, which
-recomputes the forward in the backward; the port saves o and the lse
-instead, and the arithmetic is the same: f32 logits, P and dS, f32 sums.
+:func:`bwd_plan`), which recompute P from q, k and the lse: in bf16
+the dkdv and dq kernels run on the tensor cores (``wgmma`` fed by TMA, P
+and dS entering the products as two bf16 parts), in f32 on the CUDA
+cores. The JAX package differentiates its XLA scan under
+``jax.checkpoint``, which recomputes the forward in the backward; the
+port saves o and the lse instead, and the arithmetic is the same: f32
+logits, P and dS, f32 sums.
 The ``mma`` designs (D 16 and 32) have no lse yet: a CUDA call of theirs
 that needs grad raises.
 
@@ -99,10 +102,20 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_float, ctypes.c_void_p]
 #: head dims the backward kernels are built for (the wgmma designs')
 BWD_HEAD_DIMS = (64, 128)
-BWD_BQ = 64      # query rows a tile of the backward kernels
-BWD_BK = 64      # keys a tile of the backward kernels
+#: the backward's designs by launcher code: f32 on the CUDA cores, bf16 on
+#: the tensor cores
+BWD_DESIGNS = ("cuda", "wgmma")
+BWD_BQ = 64      # query rows a tile of the CUDA-core kernels (and of the
+                 # wgmma dkdv kernel's query tiles)
+BWD_BK = 64      # keys a tile of the CUDA-core kernels
 BWD_THREADS = 256
 BWD_VEC = 4      # elements a load: bases and strides a multiple of it
+#: the wgmma backward's tiles per D: dkdv's (query rows a tile, keys a
+#: block: 64 per consumer warpgroup, two at D 64 and one at D 128), and
+#: dq's (query rows a block: two 64-row consumers, keys a tile)
+BWD_WGMMA_TILES = {64: ((64, 128), (128, 64)), 128: ((64, 64), (128, 64))}
+#: the names of the backward's TMA operands, in the launcher's map order
+BWD_OPERANDS = ("q", "k", "v", "do")
 
 
 def design(dtype: torch.dtype, d: int) -> str:
@@ -447,23 +460,30 @@ def causal_pairs(sq: int, sk: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """The backward kernels' launch geometry: 64-row query tiles and
-    64-key tiles, 256 threads a block.
+    """The backward kernels' launch geometry, by ``design``: ``"wgmma"``
+    (bf16, the tensor-core kernels) or ``"cuda"`` (f32, the CUDA-core
+    kernels, 256 threads a block and 64 x 64 tiles throughout).
 
-    * ``flash_bwd_dkdv_kernel``: ``dkdv_blocks`` = key tiles x KV heads x
-      B; block ``x`` is (key tile ``x // (K B)``, KV head ``x % (K B) %
-      K``, batch ``x % (K B) // K``), key tile 0 (the most query tiles)
-      first. Key tile ``t`` visits query tiles ``first_q_tile[t]`` ..
-      ``n_q_tiles - 1`` for each of the G query heads of its KV head.
-    * ``flash_bwd_dq_kernel``: ``dq_blocks`` = query tiles x H x B, in the
-      forward's order (:func:`launch_order` at ``bq`` 64); query tile
-      ``t`` visits key tiles 0 .. ``dq_trips[t] - 1``.
-    * ``flash_bwd_delta_kernel``: D / 4 threads a row, ``delta_blocks``.
+    * dkdv: ``dkdv_blocks`` = key tiles of ``bk`` keys x KV heads x B;
+      block ``x`` is (key tile ``x // (K B)``, KV head ``x % (K B) % K``,
+      batch ``x % (K B) // K``), key tile 0 (the most query tiles) first.
+      Key tile ``t`` visits the query tiles of ``bq`` rows
+      ``first_q_tile[t]`` .. ``n_q_tiles - 1`` for each of the G query
+      heads of its KV head (wgmma: ``bk`` is 64 keys per consumer
+      warpgroup, 128 at D 64 and 64 at D 128).
+    * dq: ``dq_blocks`` = query tiles of ``dq_bq`` rows x H x B, in the
+      forward's order (:func:`launch_order` at ``dq_bq``); query tile
+      ``t`` visits key tiles of ``dq_bk`` keys 0 .. ``dq_trips[t] - 1``.
+    * delta: D / 4 threads a row, ``delta_blocks``.
 
-    ``copies`` names the operands of q, k, v whose base or (batch, seq,
-    head) strides are not multiples of ``BWD_VEC`` elements (the kernels
-    load four elements at a time); the wrapper copies those, and o and dO
-    alike."""
+    ``copies`` names the operands of q, k, v and dO (``BWD_OPERANDS``)
+    that the design cannot read as they lie: for ``"wgmma"`` a base or
+    stride that is not a multiple of ``TMA_ALIGN`` bytes, a zero stride
+    (the dO of a scalar loss) or a head dim that is not contiguous; for
+    ``"cuda"`` a base or (batch, seq, head) stride that is no multiple of
+    ``BWD_VEC`` elements. The wrappers copy those and plan again. ``maps``
+    (wgmma, once nothing needs a copy): the TMA maps of q, k, v and dO
+    with dkdv's boxes, then with dq's."""
     n_q_tiles: int
     n_k_tiles: int
     dkdv_blocks: int
@@ -474,33 +494,89 @@ class BwdPlan:
     copies: tuple[str, ...]
     bq: int = BWD_BQ
     bk: int = BWD_BK
+    design: str = "cuda"
+    dq_q_tiles: int = 0
+    dq_bq: int = BWD_BQ
+    dq_bk: int = BWD_BK
+    maps: tuple | None = None
 
 
 def _vec_ok(t: torch.Tensor) -> bool:
-    """True where the backward kernels read ``t`` as it lies: a contiguous
-    head dim, and base and (batch, seq, head) strides a multiple of
-    ``BWD_VEC`` elements (a dim of size 1 is never stepped over)."""
-    es = t.element_size()
-    return (t.stride(-1) == 1 and t.data_ptr() % (BWD_VEC * es) == 0
-            and all(st % BWD_VEC == 0 for n, st in zip(t.shape[:3],
-                                                        t.stride()[:3])
+    """True where the CUDA-core backward kernels read ``t`` as it lies: a
+    contiguous head dim, and base and (batch, seq, head) strides a
+    multiple of ``BWD_VEC`` elements (a dim of size 1 is never stepped
+    over)."""
+    return _vec_ok_layout(tuple(t.shape), t.stride(), t.element_size(),
+                          t.data_ptr())
+
+
+def _vec_ok_layout(shape, stride, es, ptr) -> bool:
+    return (stride[-1] == 1 and ptr % (BWD_VEC * es) == 0
+            and all(st % BWD_VEC == 0 for n, st in zip(shape[:3], stride[:3])
                     if n > 1))
 
 
-def bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> BwdPlan:
-    """The backward's plan of (B, Sq, H, D) q and (B, Sk, K, D) k, v: a
-    pure function of their shapes, strides, dtype and base alignment
-    (see :class:`BwdPlan`)."""
-    b, sq, h, d = q.shape
-    _, sk, kh, _ = k.shape
-    n_q, n_k = cdiv(sq, BWD_BQ), cdiv(sk, BWD_BK)
+def _bwd_map(shape, stride, es, aligned, rows) -> TensorMap | None:
+    """The TMA map of a (B, S, heads, D) backward operand with boxes of
+    ``rows`` rows, or None where TMA cannot read it as it lies: what
+    :func:`tensor_map` refuses, a head dim that is not contiguous, or a
+    zero stride over a dim of size > 1 (an expanded tensor)."""
+    if stride[3] != 1 or any(st == 0 for n, st in zip(shape[:3], stride[:3])
+                             if n > 1):
+        return None
+    return _tensor_map(shape, stride, es, aligned, rows)
+
+
+def bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             do: torch.Tensor | None = None) -> BwdPlan:
+    """The backward's plan of (B, Sq, H, D) q and dO and (B, Sk, K, D) k,
+    v: a pure function of their shapes, strides, dtype and base alignment
+    (see :class:`BwdPlan`). Without ``do``, dO is taken as a contiguous,
+    aligned tensor of q's shape."""
+    ops = [(tuple(t.shape), t.stride(), t.data_ptr()) for t in (q, k, v)]
+    if do is None:
+        b, sq, h, d = q.shape
+        ops.append((tuple(q.shape), (sq * h * d, h * d, d, 1), 0))
+    else:
+        ops.append((tuple(do.shape), do.stride(), do.data_ptr()))
+    es = q.element_size()
+    return _bwd_plan(q.dtype, *((shape, stride,
+                                 ptr % TMA_ALIGN == 0,
+                                 _vec_ok_layout(shape, stride, es, ptr))
+                                for shape, stride, ptr in ops))
+
+
+@functools.lru_cache(maxsize=1024)
+def _bwd_plan(dtype, *operands) -> BwdPlan:
+    (b, sq, h, d), (_, sk, kh, _) = operands[0][0], operands[1][0]
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"the flash backward kernels are built for D "
+                         f"{BWD_HEAD_DIMS}, not {d}")
+    kind = "wgmma" if dtype == torch.bfloat16 else "cuda"
+    (bq, bk), (dq_bq, dq_bk) = (BWD_WGMMA_TILES[d] if kind == "wgmma" else
+                                ((BWD_BQ, BWD_BK), (BWD_BQ, BWD_BK)))
+    n_q, n_k, n_dq = cdiv(sq, bq), cdiv(sk, bk), cdiv(sq, dq_bq)
     offset = sk - sq
-    first = tuple(max(t * BWD_BK - offset, 0) // BWD_BQ for t in range(n_k))
-    trips = tuple(trip_count(t, sq, sk, BWD_BQ, BWD_BK) for t in range(n_q))
+    first = tuple(max(t * bk - offset, 0) // bq for t in range(n_k))
+    trips = tuple(trip_count(t, sq, sk, dq_bq, dq_bk) for t in range(n_dq))
     rows_per_block = BWD_THREADS // (d // 4)
-    copies = tuple(n for n, t in zip("qkv", (q, k, v)) if not _vec_ok(t))
-    return BwdPlan(n_q, n_k, n_k * kh * b, n_q * h * b,
-                   cdiv(b * h * sq, rows_per_block), first, trips, copies)
+    es = torch.empty((), dtype=dtype).element_size()
+    maps = None
+    if kind == "wgmma":
+        boxes = [(bq, bk, bk, bq), (dq_bq, dq_bk, dq_bk, dq_bq)]
+        maps = tuple(_bwd_map(shape, stride, es, aligned, rows)
+                     for box in boxes
+                     for (shape, stride, aligned, _), rows in zip(operands,
+                                                                  box))
+        copies = tuple(n for n, m in zip(BWD_OPERANDS, maps) if m is None)
+        if copies:
+            maps = None
+    else:
+        copies = tuple(n for n, (*_, vec_ok) in zip(BWD_OPERANDS, operands)
+                       if not vec_ok)
+    return BwdPlan(n_q, n_k, n_k * kh * b, n_dq * h * b,
+                   cdiv(b * h * sq, rows_per_block), first, trips, copies,
+                   bq, bk, kind, n_dq, dq_bq, dq_bk, maps)
 
 
 def _bwd_check(q, k, v, like_q=(), rows=()) -> None:
@@ -528,26 +604,45 @@ def _bwd_check(q, k, v, like_q=(), rows=()) -> None:
 
 
 def _vec_ready(*ts):
-    """Each tensor as it lies where the kernels read it so, else a fresh
-    contiguous copy (``contiguous()`` would hand back a contiguous view at
-    a misaligned base as it is)."""
+    """Each tensor as it lies where the CUDA-core kernels read it so, else
+    a fresh contiguous copy (``contiguous()`` would hand back a contiguous
+    view at a misaligned base as it is)."""
     return [t if _vec_ok(t) else t.clone(memory_format=torch.contiguous_format)
             for t in ts]
 
 
-def _bwd_args(q, k, v, o, do) -> ctypes.Array:
+def bwd_ready(q, k, v, do):
+    """(q, k, v, dO, plan) with each operand the plan names in ``copies``
+    copied into a fresh contiguous tensor, and the plan of what is
+    launched."""
+    p = bwd_plan(q, k, v, do)
+    if p.copies:
+        q, k, v, do = (t.clone(memory_format=torch.contiguous_format)
+                       if n in p.copies else t
+                       for n, t in zip(BWD_OPERANDS, (q, k, v, do)))
+        p = bwd_plan(q, k, v, do)
+    return q, k, v, do, p
+
+
+def _bwd_args(p: BwdPlan, q, k, v, o, do) -> ctypes.Array:
     """The launchers' plan (csrc/flash_attention_bwd.cu: Args): the
-    shapes, the tile counts of :func:`bwd_plan`, which the launchers check
-    against their own, and the operands' (batch, seq, head) strides."""
+    shapes, the tile counts of ``p``, which the launchers check against
+    their own, the operands' (batch, seq, head) strides, the design, and
+    ``p``'s TMA maps (zeros where it has none: the CUDA-core kernels and
+    the delta kernel read through the strides)."""
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
-    p = bwd_plan(q, k, v)
+    # eight maps of 11 values (TensorMap.packed), zeros where there are none
+    maps = ([x for m in p.maps for x in m.packed()] if p.maps
+            else [0] * (2 * len(BWD_OPERANDS) * 11))
     return _longs([b, sq, sk, h, kh, d, _DTYPES[q.dtype], p.n_q_tiles,
                    p.n_k_tiles]
-                  + [st for t in (q, k, v, o, do) for st in t.stride()[:3]])
+                  + [st for t in (q, k, v, o, do) for st in t.stride()[:3]]
+                  + [BWD_DESIGNS.index(p.design), p.dq_q_tiles] + maps)
 
 
-def _bwd_launch(symbol: str, wrapper, ptrs: list, args, scale=None):
+def _bwd_launch(symbol: str, wrapper, ptrs: list, args, scale=None,
+                kind=None):
     fn = _build.kernel_fn("flash_attention_bwd", symbol,
                           [ctypes.c_void_p] * (len(ptrs) + 1)
                           + ([] if scale is None else [ctypes.c_float])
@@ -556,7 +651,7 @@ def _bwd_launch(symbol: str, wrapper, ptrs: list, args, scale=None):
     rc = (fn(*ptrs, args, stream) if scale is None
           else fn(*ptrs, args, scale, stream))
     _build.check(rc, "flash_attention_bwd", symbol)
-    count_launch(wrapper)
+    count_launch(wrapper, kind)
 
 
 def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -575,15 +670,17 @@ def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     # strides: o stands in for q, k and v
     _bwd_launch("flash_bwd_delta_launch", flash_bwd_delta,
                 [o.data_ptr(), do.data_ptr(), delta.data_ptr()],
-                _bwd_args(o, o, o, o, do))
+                _bwd_args(bwd_plan(o, o, o, do), o, o, o, o, do))
     return delta
 
 
 def flash_bwd_dkdv(q, k, v, do, lse, delta):
     """(dk, dv), (B, Sk, K, D) in k's dtype, of the causal attention of q,
     k, v given dO, the forward's lse and delta (each (B, H, Sq) f32). A CPU
-    tensor takes the plain backward's; a CUDA tensor launches
-    ``flash_bwd_dkdv_kernel`` (``flash_bwd_dkdv.launches``)."""
+    tensor takes the plain backward's; a CUDA tensor launches the kernel
+    of its design, ``flash_bwd_dkdv_wgmma_kernel`` for bf16 and
+    ``flash_bwd_dkdv_kernel`` for f32 (``flash_bwd_dkdv.launches`` and
+    ``.by_design``)."""
     _bwd_check(q, k, v, like_q=(do,), rows=(lse, delta))
     if q.device.type == "cpu":
         _, dk, dv = _ref_bwd(q, k, v, do, lse, delta)
@@ -594,20 +691,21 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta):
         return dk, dv
     if q.numel() == 0:
         return dk.zero_(), dv.zero_()
-    q, k, v, do = _vec_ready(q, k, v, do)
+    q, k, v, do, p = bwd_ready(q, k, v, do)
     _bwd_launch("flash_bwd_dkdv_launch", flash_bwd_dkdv,
                 [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                  dv.data_ptr()],
-                _bwd_args(q, k, v, do, do), q.shape[3] ** -0.5)
+                _bwd_args(p, q, k, v, do, do), q.shape[3] ** -0.5, p.design)
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta):
     """dq, (B, Sq, H, D) in q's dtype, of the causal attention of q, k, v
     given dO, lse and delta. A CPU tensor takes the plain backward's; a
-    CUDA tensor launches ``flash_bwd_dq_kernel``
-    (``flash_bwd_dq.launches``)."""
+    CUDA tensor launches ``flash_bwd_dq_wgmma_kernel`` for bf16 and
+    ``flash_bwd_dq_kernel`` for f32 (``flash_bwd_dq.launches`` and
+    ``.by_design``)."""
     _bwd_check(q, k, v, like_q=(do,), rows=(lse, delta))
     if q.device.type == "cpu":
         return _ref_bwd(q, k, v, do, lse, delta)[0]
@@ -616,11 +714,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta):
         return dq
     if k.shape[1] == 0:
         return dq.zero_()
-    q, k, v, do = _vec_ready(q, k, v, do)
+    q, k, v, do, p = bwd_ready(q, k, v, do)
     _bwd_launch("flash_bwd_dq_launch", flash_bwd_dq,
                 [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr()],
-                _bwd_args(q, k, v, do, do), q.shape[3] ** -0.5)
+                _bwd_args(p, q, k, v, do, do), q.shape[3] ** -0.5, p.design)
     return dq
 
 
@@ -630,6 +728,8 @@ def _ref_bwd(q, k, v, do, lse, delta):
 
 for _w in (flash_bwd_delta, flash_bwd_dkdv, flash_bwd_dq):
     _w.launches = 0
+for _w in (flash_bwd_dkdv, flash_bwd_dq):
+    _w.by_design = dict.fromkeys(BWD_DESIGNS, 0)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do):
