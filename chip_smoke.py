@@ -13,7 +13,9 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   tensor-core instructions per kernel (HGMMA, BF16 and
                   TF32; HMMA in flash_mma_kernel; HGMMA BF16 in the
                   backward's flash_bwd_dkdv_wgmma_kernel and
-                  flash_bwd_dq_wgmma_kernel)
+                  flash_bwd_dq_wgmma_kernel, HGMMA TF32 in its
+                  flash_bwd_dkdv_wgmma_f32_kernel and
+                  flash_bwd_dq_wgmma_f32_kernel)
   kernel          each CUDA kernel at ragged edge shapes (the delta codec
                   at every lane dtype, with extreme values, and on bases 4
                   and 8 bytes past a 16-byte boundary; the route's two
@@ -235,18 +237,26 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   llama3.2-1b's training layer, B 2 x S 4,096, H 32 / K 8,
                   D 64, in bf16 (flash_bwd_dkdv_wgmma_kernel and
                   flash_bwd_dq_wgmma_kernel on the tensor cores, the
-                  train path's launches) and f32 (the CUDA-core
-                  flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, the f32
-                  parity check's), with SDPA's backward beside them,
-                  and the wgmma forward rows at 32k timed with a null lse
-                  pointer and with one, in alternating rounds
+                  train path's launches) and f32
+                  (flash_bwd_dkdv_wgmma_f32_kernel and
+                  flash_bwd_dq_wgmma_f32_kernel, three TF32 products of
+                  split operands, the f32 parity check's),
+                  with SDPA's backward beside them; the same three at
+                  olmo-1b's attention, H 16 / K 16, D 128, B 2 x S 4,096,
+                  in bf16 (_d128) and f32 (_d128_f32), launched by no
+                  path; the bf16 forward at the train path's shape with
+                  the lse written (flash_attention_train, its launches
+                  the train path's); and the wgmma forward rows at 32k
+                  and at the train shape timed with a null lse pointer
+                  and with one, in alternating rounds
   kernel_edges_train  the flash backward's kernels at D 64/128, f32 and
                   bf16, GQA groups 1/4, S 1/127/128/129/1,000, Sq < Sk,
                   Sq > Sk (rows that see no key: gradient 0), a
                   transposed and a padded (copied) q, each against the
                   plain backward within BWD_TOL, every bf16 case on the
-                  wgmma kernels and every f32 case on the CUDA-core ones
-                  (worst error per design); the forward's lse
+                  wgmma kernels and every f32 case on the wgmma_f32 ones
+                  (counted by design; worst error per design); the
+                  forward's lse
                   against the plain version's; the plain backward against
                   f64 autograd through ref_attention; the autograd path
                   (and a scalar loss's zero-stride dO) giving q, k and v
@@ -373,10 +383,13 @@ SOURCES = {
 # launches) and in f32 (the f32 chunked-against-xla check's)
 _BWD_REPLACES = ("none: src/repro/models/attention.py:89 (_chunked_attention, "
                  "differentiated by JAX autodiff, not Pallas)")
+# and at olmo-1b's attention (D 128), in both dtypes, launched by no path
 for _k in ("delta", "dkdv", "dq"):
-    for _sfx in ("", "_f32"):
+    for _sfx in ("", "_f32", "_d128", "_d128_f32"):
         SOURCES[f"flash_bwd_{_k}{_sfx}"] = (
             "src/repro_torch/csrc/flash_attention_bwd.cu", _BWD_REPLACES)
+# the bf16 forward at the train path's shape, the lse written
+SOURCES["flash_attention_train"] = SOURCES["flash_attention"]
 # the packed gather's decode, one row per gather size of the main path
 # (Q = 1, 8 and 64 timestamps a get_versions call)
 DECODE_ROWS = {1: "chain_decode", 8: "chain_decode_q8", 64: "chain_decode_q64"}
@@ -433,6 +446,10 @@ PLAIN_FLASH_TILE = 1024  # the plain version's (bq, bk) tiles on the card
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6
 PARITY_SEQ = 2048      # chunked against xla, full depth, bf16
 PARITY_F32_LAYERS = 2  # and at f32 on a full-width copy of this depth
+# the backward's D 128 rows, launched by no path: olmo-1b's attention
+# (src/repro/configs/olmo_1b.py:6-7, 16 heads of 128, no GQA) at the train
+# phase's B 2 x S 4,096: (H, K, D)
+BWD_D128_HEADS = (16, 16, 128)
 # the delta checkpoints' model, cut in depth and width: a save of the
 # full-width model deflates 1.3 GB of f32 rows on the host even at one
 # layer, 4-5 minutes a save on the card's host (PERF.md;
@@ -834,7 +851,9 @@ def phase_env(build_info: dict, smi: str) -> None:
     (TF32), which must not spill; for the flash backward its registers
     and spills and its HGMMA per kernel: BF16 in
     flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel at D 64 and
-    128, neither spilling at D 64."""
+    128, neither spilling at D 64, and TF32 in
+    flash_bwd_dkdv_wgmma_f32_kernel and flash_bwd_dq_wgmma_f32_kernel at D
+    64 and 128, none spilling."""
     from repro_torch.kernels import _build
     ptxas = build_info["ptxas"]
     by_fn = _build.sass_opcodes_by_function("flash_attention", "HGMMA")
@@ -885,20 +904,23 @@ def phase_env(build_info: dict, smi: str) -> None:
                                "HGMMA.F32.TF32")):
             check(by_kernel.get(name, {}).get(variant, 0) > 0,
                   f"{name}: no {variant} instruction in its SASS")
-    # the backward's tensor-core kernels: bf16 products in each, and no
-    # spill at D 64
+    # the backward's tensor-core kernels: bf16 products in the wgmma ones,
+    # TF32 in the f32 ones; no spill in the f32 ones, nor at D 64 in bf16
     for d in (64, 128):
-        for kern in ("flash_bwd_dkdv_wgmma_kernel",
-                     "flash_bwd_dq_wgmma_kernel"):
+        for kern, variant in (("flash_bwd_dkdv_wgmma_kernel", "BF16"),
+                              ("flash_bwd_dq_wgmma_kernel", "BF16"),
+                              ("flash_bwd_dkdv_wgmma_f32_kernel", "TF32"),
+                              ("flash_bwd_dq_wgmma_f32_kernel", "TF32")):
             name = f"{kern}<{d}>"
-            if d == 64 and "flash_attention_bwd" in ptxas:
+            if ((d == 64 or variant == "TF32")
+                    and "flash_attention_bwd" in ptxas):
                 got = bwd_regs.get(name, {})
                 check(got.get("spill_stores") == 0
                       and got.get("spill_loads") == 0,
                       f"{name}: spills or no ptxas report: {got}")
             if bwd_hgmma is not None:
-                check(bwd_hgmma.get(name, {}).get("HGMMA.F32.BF16", 0) > 0,
-                      f"{name}: no HGMMA.F32.BF16 in its SASS")
+                check(bwd_hgmma.get(name, {}).get(f"HGMMA.F32.{variant}", 0)
+                      > 0, f"{name}: no HGMMA.F32.{variant} in its SASS")
 
 
 class KernelBench:
@@ -1132,7 +1154,7 @@ class KernelBench:
 
     def flash(self, q, k, v, *, timed=True, main=False, quiet=False,
               reps=None, name="flash_attention", rounds=1,
-              device=False) -> dict:
+              device=False, lse=False) -> dict:
         """Flash attention against its plain version within FLASH_TOL,
         bound by its causal FLOPs at the dtype's peak (f32: three TF32
         products each, ``roofline.compute_peak``), with the design the
@@ -1141,7 +1163,8 @@ class KernelBench:
         takes GQA itself in bf16; in f32 its memory-efficient kernel,
         which does not, gets k and v repeated over the query heads (made
         before the timing), since its math fallback would hold the full
-        logits."""
+        logits. ``lse``: the kernel also writes the log-sum-exp, as
+        training's forward does (``shape["lse"]``)."""
         import torch.nn.functional as F
         from torch.nn.attention import SDPBackend, sdpa_kernel
         from repro_torch.kernels import flash_attention as fa
@@ -1165,8 +1188,9 @@ class KernelBench:
         return self.run(
             name, {"B": b, "Sq": sq, "Sk": sk, "H": h, "K": kh, "D": d,
                    "dtype": str(q.dtype), "design": fa.design(q.dtype, d),
-                   "copies": list(fa.plan(q, k, v).copies)},
-            lambda: self.kops.flash_attention(q, k, v),
+                   "copies": list(fa.plan(q, k, v).copies), "lse": lse},
+            ((lambda: fa._forward(q, k, v, lse=True)[0]) if lse
+             else lambda: self.kops.flash_attention(q, k, v)),
             lambda: self.kops.ref.ref_flash_attention(
                 q, k, v, bq=PLAIN_FLASH_TILE, bk=PLAIN_FLASH_TILE),
             nbytes=nbytes, ops=4 * b * h * d * fa.causal_pairs(sq, sk),
@@ -1181,7 +1205,7 @@ class KernelBench:
         against the plain backward (``ref_flash_attention_bwd``, which
         computes all three gradients: its time is the whole plain
         backward's) within BWD_TOL, with their device time alone; the
-        design (bf16: the wgmma kernels, f32: the CUDA-core ones) is in
+        design (bf16: wgmma, f32: wgmma_f32) is in
         ``shape["plan"]["design"]``. Bounds:
         delta by its bytes; dkdv by its four products over the visible
         pairs (S recomputed, dP, dV, dK) and dq by its three (S, dP, dQ),
@@ -1190,7 +1214,8 @@ class KernelBench:
         (``torch.autograd.grad`` of ``scaled_dot_product_attention`` with
         ``is_causal`` and ``enable_gqa``; in f32 its memory-efficient
         kernel with k and v repeated over the heads), which computes all
-        three gradients."""
+        three gradients. Both designs (bf16: wgmma, f32: wgmma_f32) are on
+        the tensor cores."""
         import torch.nn.functional as F
         from torch.nn.attention import SDPBackend, sdpa_kernel
         from repro_torch.kernels import flash_attention as fa
@@ -4226,7 +4251,7 @@ def phase_kernel_edges_train(bench: KernelBench, rng) -> None:
     """The backward's three kernels at the edge shapes, f32 and bf16,
     each against the plain backward on the same forward o and lse within
     BWD_TOL: every bf16 case through the wgmma kernels and every f32 case
-    through the CUDA-core ones (each call's launch counted on its design),
+    through the wgmma_f32 ones (each call's launch counted on its design),
     the worst error per gradient and design; the lse of the wgmma forward
     against the plain version's (LSE_TOL; -1e30 exactly for rows that see
     no key); the plain backward
@@ -4255,9 +4280,10 @@ def phase_kernel_edges_train(bench: KernelBench, rng) -> None:
             check(ok and bool((lse[~seen] == -1e30).all()),
                   f"lse {shape} {dt}: {err}")
             delta = kops.flash_bwd_delta(o, do)
-            # bf16 takes the wgmma kernels, f32 the CUDA-core ones
+            # bf16 takes the wgmma kernels, f32 the wgmma_f32 ones
             design = fa.bwd_plan(q, k, v, do).design
-            check(design == ("wgmma" if dt == torch.bfloat16 else "cuda"),
+            check(design == ("wgmma" if dt == torch.bfloat16
+                             else "wgmma_f32"),
                   f"{shape} {dt}: backward design {design}")
             before = [dict(w.by_design)
                       for w in (kops.flash_bwd_dkdv, kops.flash_bwd_dq)]
@@ -4322,8 +4348,8 @@ def phase_kernel_edges_train(bench: KernelBench, rng) -> None:
     except NotImplementedError:
         raised = True
     check(raised, "an mma-design call that needs grad did not raise")
-    check(cases_by_design["wgmma"] == cases_by_design["cuda"] == n_cases // 2,
-          f"cases by design {cases_by_design}")
+    check(cases_by_design["wgmma"] == cases_by_design["wgmma_f32"]
+          == n_cases // 2, f"cases by design {cases_by_design}")
     emit({"phase": "kernel_edges_train", "cases": n_cases,
           "cases_by_design": cases_by_design,
           "f64_checks": n_f64, "copied_cases": copies,
@@ -4449,7 +4475,13 @@ def phase_train(kops, seed: int, root: str) -> dict:
     torch.cuda.empty_cache()
     parity = phase_train_parity(kops, cfg, run, seed)
     ckpt = phase_train_checkpoint(kops, cfg, seed, root)
-    return {"launches": {**rec["launches"], **parity["f32_launches"]},
+    # the kernels line's rows of this phase: the forward at the train
+    # shape is the path's flash launches; the D 128 backward rows no path's
+    no_path = {f"flash_bwd_{k}{sfx}": 0 for k in ("delta", "dkdv", "dq")
+               for sfx in ("_d128", "_d128_f32")}
+    return {"launches": {**rec["launches"], **parity["f32_launches"],
+                         "flash_attention_train":
+                         rec["launches"]["flash_attention"], **no_path},
             "bwd_inputs": kept[0], "checkpoint": ckpt}
 
 
@@ -4467,7 +4499,7 @@ def phase_train_parity(kops, cfg, run, seed: int) -> dict:
     copy of its first PARITY_F32_LAYERS layers in f32 (loss, norm and
     every gradient leaf within PARITY_TOL_F32). The chunked f32 run's
     launches are the f32 backward rows' (every flash forward on
-    wgmma_f32)."""
+    wgmma_f32, every dkdv and dq on the f32 backward's wgmma_f32)."""
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.models import FwdOpts, build
     from repro_torch.train.tree import leaves_with_path
@@ -4518,7 +4550,8 @@ def phase_train_parity(kops, cfg, run, seed: int) -> dict:
         (lc, _), gc = grads(c32, p32, "chunked")
     check(f32["flash_attention.wgmma_f32"] == 2 * PARITY_F32_LAYERS
           and f32["flash_attention"] == 2 * PARITY_F32_LAYERS
-          and f32["flash_bwd_dkdv.cuda"] == f32["flash_bwd_dq.cuda"]
+          and f32["flash_bwd_dkdv.wgmma_f32"] == f32["flash_bwd_dq.wgmma_f32"]
+          == f32["flash_bwd_dkdv"] == f32["flash_bwd_dq"]
           == PARITY_F32_LAYERS, f"f32 chunked launches {f32}")
     worst = 0.0
     for (path, a), (_, b) in zip(leaves_with_path(gc), leaves_with_path(gx)):
@@ -4531,7 +4564,9 @@ def phase_train_parity(kops, cfg, run, seed: int) -> dict:
                   "tol": PARITY_TOL_F32,
                   "launches": {k: f32[k] for k in
                                ("flash_attention.wgmma_f32", "flash_bwd_delta",
-                                "flash_bwd_dkdv", "flash_bwd_dq")}}
+                                "flash_bwd_dkdv", "flash_bwd_dq",
+                                "flash_bwd_dkdv.wgmma_f32",
+                                "flash_bwd_dq.wgmma_f32")}}
     check(abs(float(lc) - float(lx)) <= PARITY_TOL_F32 * abs(float(lx))
           and abs(nc - nx) <= PARITY_TOL_F32 * nx
           and worst <= PARITY_TOL_F32, f"f32 chunked against xla: "
@@ -4612,18 +4647,35 @@ def phase_train_checkpoint(kops, cfg, seed: int, root: str) -> dict:
     return rec
 
 
-def phase_kernel_train(bench: KernelBench, train_out) -> None:
+def phase_kernel_train(bench: KernelBench, train_out, seed: int) -> None:
     """The backward kernels at the train path's shape, timed: the first
     backward's inputs of the first step (the last layer's q, k, v, o, lse
     and dO) in bf16, and the same values in f32 with o and lse from the
-    f32 forward."""
+    f32 forward; the bf16 forward on those q, k, v with the lse written
+    (flash_attention_train, with lse_rounds); then the backward at
+    olmo-1b's attention (BWD_D128_HEADS) on seeded inputs, in bf16 and
+    f32, launched by no path."""
     from repro_torch.kernels import flash_attention as fa
-    q, k, v, o, lse, do = train_out.pop("bwd_inputs")
+    q, k, v, o, lse, do = (x.detach() for x in train_out.pop("bwd_inputs"))
     bench.flash_bwd(q, k, v, o, lse, do)
+    bench.flash(q, k, v, main=True, reps=3, name="flash_attention_train",
+                device=True, lse=True)
+    bench.main["flash_attention_train"].update(lse_rounds(bench, q, k, v))
     q, k, v, do = (x.float() for x in (q, k, v, do))
     o, lse = fa._forward(q, k, v, lse=True)
     bench.flash_bwd(q, k, v, o, lse, do, suffix="_f32")
+    del q, k, v, o, lse, do
     torch.cuda.empty_cache()
+    h, kh, d = BWD_D128_HEADS
+    gen = torch.Generator(device=DEV).manual_seed(seed + 5)
+    for dt, suffix in ((torch.bfloat16, "_d128"), (torch.float32,
+                                                   "_d128_f32")):
+        q, k, v, do = bwd_inputs(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, h,
+                                 kh, d, "contiguous", dt)
+        o, lse = fa._forward(q, k, v, lse=True)
+        bench.flash_bwd(q, k, v, o, lse, do, suffix=suffix)
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
 
 
 def kernel_row(name: str, m: dict, launches: int) -> dict:
@@ -4725,17 +4777,19 @@ def main() -> int:
         train_out = phase_train(kops, args.seed, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    phase_kernel_train(bench, train_out)
+    phase_kernel_train(bench, train_out, args.seed)
     # each kernel's launches come from the path that runs it: the codec
     # from persistence, the route and the stacked scan from sharding, the
     # merge from its phase, flash attention from serving (at the encoder's
-    # shape, from search), the fingerprint at UniProt's widths
-    # from gestore, the flash backward from train (its f32 rows from the
-    # f32 chunked-against-xla check), the rest from the main path (chain
+    # shape, from search; at the train shape, from train), the fingerprint
+    # at UniProt's widths from gestore, the flash backward from train (its
+    # f32 rows from the f32 chunked-against-xla check, its D 128 rows from
+    # no path), the rest from the main path (chain
     # decode's rows: the launches of their gathers); the frontdoor
     # phase's launches are on its own line
     path_of = {k: (pers_out if k.startswith("delta_")
                    else train_out if k.startswith("flash_bwd")
+                   or k == "flash_attention_train"
                    else gestore_out if k.startswith("fingerprint_w")
                    else shard_out if k in ("shard_route", "shard_route_bytes",
                                            "stacked_masked_cumsum")

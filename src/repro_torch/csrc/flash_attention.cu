@@ -164,8 +164,10 @@
 // The Hopper helpers that the wgmma kernels share with the backward's
 // (flash_attention_bwd.cu) live in hopper.cuh: the mbarriers, TMA loads
 // and the tensor-map encoding, the wgmma descriptors, fences, commit and
-// wait, the bf16 product with its A operand in registers, exp2, and the
-// dynamic shared-memory opt-in.
+// wait, the bf16 product with its A operand in registers, exp2, the TF32
+// parts (tf32), swizzled f32 tile offsets (swz), named barriers, the
+// async-proxy fence, the TF32 products (wgmma_ss_tf32, wgmma_rs_tf32),
+// and the dynamic shared-memory opt-in.
 #include <cuda.h>
 
 #include <atomic>
@@ -531,6 +533,12 @@ using tc::tma_load;
 using tc::wgmma_commit;
 using tc::wgmma_fence;
 using tc::wgmma_wait_all;
+using hopper::bar_sync;
+using hopper::fence_async_smem;
+using hopper::swz;
+using hopper::tf32;
+using hopper::wgmma_rs_tf32;
+using hopper::wgmma_ss_tf32;
 
 constexpr int kCols = 32;  // head-dim columns per TMA box: one 128-byte
                            // swizzle row of f32
@@ -557,95 +565,6 @@ struct Cfg {
   static constexpr int kAlloc = kBars + 8 * (kRaw + 2 * kStages) + 1024;
   static_assert(kAlloc <= 232448, "over the block's shared memory");
 };
-
-// x rounded to TF32 (to nearest, ties away from zero), as f32 with the
-// low 13 bits clear: what wgmma reads of it is all of it.
-__device__ __forceinline__ float tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return __uint_as_float(r & 0xffffe000u);
-}
-
-// Generic-proxy writes to shared memory made visible to wgmma's reads
-// (the async proxy), and the reads before a TMA overwrite ordered.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-// Byte offset of f32 element (row, col) in a K-major tile of `rows` rows
-// whose columns go in boxes of 32 (128 bytes a row), 128-byte swizzled:
-// the 16-byte chunk c of row r sits at chunk c ^ (r % 8).
-template <int kRows>
-__device__ __forceinline__ uint32_t swz(int row, int col) {
-  return (col >> 5) * (kRows * 128) + row * 128 +
-         ((((col & 31) >> 2) ^ (row & 7)) << 4) + ((col & 3) << 2);
-}
-
-// S (64 x 32, f32) (+)= A (64 x 8, smem) * B (32 x 8, smem)^T, TF32.
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
-                                            uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// D (64 x 64, f32) (+)= A (64 x 8, registers) * B (64 x 8, smem)^T, TF32.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(scale_d));
-}
-
-// D (64 x 128, f32) (+)= A (64 x 8, registers) * B (128 x 8, smem)^T, TF32.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(scale_d));
-}
 
 // The producer's pass over one raw tile: K's hi and lo at the raw tile's
 // own offsets, V transposed (row d of D, keys contiguous, each 8-key group
@@ -850,17 +769,17 @@ flash_wgmma_f32_kernel(const float* __restrict__ q, Strides qst,
       for (int kk = 0; kk < D / 8; ++kk) {
         const uint32_t off = (kk / 4) * C::kBK * 128 + (kk % 4) * 32;
         if constexpr (C::kQRegs) {
-          wgmma_rs_n64(s, ql[kk], desc_k_major(khi + off), kk > 0);
-          wgmma_rs_n64(s, qh[kk], desc_k_major(klo + off), 1);
-          wgmma_rs_n64(s, qh[kk], desc_k_major(khi + off), 1);
+          wgmma_rs_tf32<64>(s, ql[kk], desc_k_major(khi + off), kk > 0);
+          wgmma_rs_tf32<64>(s, qh[kk], desc_k_major(klo + off), 1);
+          wgmma_rs_tf32<64>(s, qh[kk], desc_k_major(khi + off), 1);
         } else {
           const uint32_t qo = (kk / 4) * 64 * 128 + (kk % 4) * 32;
-          wgmma_ss_n32(s, desc_k_major(q_lo + qo), desc_k_major(khi + off),
-                       kk > 0);
-          wgmma_ss_n32(s, desc_k_major(q_hi + qo), desc_k_major(klo + off),
-                       1);
-          wgmma_ss_n32(s, desc_k_major(q_hi + qo), desc_k_major(khi + off),
-                       1);
+          wgmma_ss_tf32<32>(s, desc_k_major(q_lo + qo),
+                            desc_k_major(khi + off), kk > 0);
+          wgmma_ss_tf32<32>(s, desc_k_major(q_hi + qo),
+                            desc_k_major(klo + off), 1);
+          wgmma_ss_tf32<32>(s, desc_k_major(q_hi + qo),
+                            desc_k_major(khi + off), 1);
         }
       }
       wgmma_commit();
@@ -922,15 +841,9 @@ flash_wgmma_f32_kernel(const float* __restrict__ q, Strides qst,
 #pragma unroll
       for (int kk = 0; kk < C::kBK / 8; ++kk) {
         const uint32_t off = (kk / 4) * D * 128 + (kk % 4) * 32;
-        if constexpr (D == 64) {
-          wgmma_rs_n64(pv, pl[kk], desc_k_major(vhi + off), kk > 0);
-          wgmma_rs_n64(pv, ph[kk], desc_k_major(vlo + off), 1);
-          wgmma_rs_n64(pv, ph[kk], desc_k_major(vhi + off), 1);
-        } else {
-          wgmma_rs_n128(pv, pl[kk], desc_k_major(vhi + off), kk > 0);
-          wgmma_rs_n128(pv, ph[kk], desc_k_major(vlo + off), 1);
-          wgmma_rs_n128(pv, ph[kk], desc_k_major(vhi + off), 1);
-        }
+        wgmma_rs_tf32<D>(pv, pl[kk], desc_k_major(vhi + off), kk > 0);
+        wgmma_rs_tf32<D>(pv, ph[kk], desc_k_major(vlo + off), 1);
+        wgmma_rs_tf32<D>(pv, ph[kk], desc_k_major(vhi + off), 1);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -1011,7 +924,7 @@ namespace mk {
 using tc::bits;
 using tc::ex2;
 using tc::smem_u32;
-using tf::tf32;
+using hopper::tf32;
 
 constexpr int kRows = 16;      // query rows a warp owns: one m16 strip
 constexpr int kBK = 32;        // keys per K/V tile

@@ -27,96 +27,145 @@
 // visible pairs (S recomputed, dP, dV, dK) and dq three (S, dP, dQ), 2 B H
 // D FLOPs a pair each: at llama3.2-1b's training layer (B 2 x S 4,096,
 // H 32 / K 8, D 64) 0.275 and 0.206 TFLOP, 0.28 and 0.21 ms at the dense
-// bf16 tensor-core rate of 989.4 TFLOP/s. Two kernels rather than dQ
-// folded into the dkdv pass with f32 atomics: 7 products a tile pair
-// instead of 5, but deterministic gradients.
+// bf16 tensor-core rate of 989.4 TFLOP/s; in f32 each product is three
+// TF32 products at 494.7 TFLOP/s, 1.67 and 1.25 ms. Two kernels rather
+// than dQ folded into the dkdv pass with f32 atomics: 7 products a tile
+// pair instead of 5, but deterministic gradients.
 //
-// Two designs, by dtype (kernels/flash_attention.py: bwd_plan):
+// Two designs, by dtype (kernels/flash_attention.py: bwd_plan), both on
+// the tensor cores by wgmma, with the skeleton of flash_attention.cu's
+// wgmma kernels: warpgroup 0 the producer (one thread issues TMA loads of
+// 128-byte-swizzled boxes into a ring of stages, each with a full and an
+// empty mbarrier), 64-row consumer warpgroups, blocks heaviest first,
+// masks only on tiles that cross the diagonal, Sq or Sk. P and dS are
+// formed in f32 on the accumulator fragment and enter their products in
+// parts that keep them at f32 precision. dkdv is a block per (key tile,
+// KV head, batch), key tile 0 (the most query tiles) first: the block
+// takes its K and V once and, for each of the G query heads and each
+// query tile from the first that sees its keys (bwd_plan.first_q_tile),
+// the q and dO tiles and their lse (log2 units) and delta rows; its
+// consumers take the keys as the M side, S^T = K q^T, dP^T = V dO^T,
+// P^T = exp2(S^T D^-0.5 log2(e) - lse) and dS^T = P^T (dP^T - delta) with
+// the query the column, then dV += P^T dO and dK += dS^T q with P^T and
+// dS^T the register A operand (RS). dq is a block per (query tile, head,
+// batch), the last first: q and dO once, then each causal K and V tile,
+// S = q K^T, dP = dO V^T, dS = P (dP - delta), dQ += dS K (RS). dK, dV
+// and dQ stay in f32 registers and are written once (dK and dQ times
+// D^-0.5), with no atomics: the result does not depend on block order.
 //
-// * bf16: flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel, on
-//   the tensor cores, the skeleton of flash_attention.cu's
-//   flash_wgmma_kernel: warpgroup 0 the producer (one thread issues TMA
-//   loads of 128-byte-swizzled boxes into a ring of stages, each with a
-//   full and an empty mbarrier; it gives its registers away by setmaxnreg
-//   where there are two consumers), 64-row consumer warpgroups, blocks
-//   heaviest first, masks only on tiles that cross the diagonal, Sq or
-//   Sk. P and dS are formed in f32 on the accumulator fragment, and enter
-//   the register-A (RS) products as two bf16 parts, hi = bf16(x) and lo =
-//   bf16(x - hi), each its own wgmma: hi + lo is x to 2^-17, and the other
-//   operand is a bf16 input, so each product is exact in f32 and only the
-//   order of the f32 sums differs from the plain version's; the outputs
-//   round once to bf16. P rounded to bf16 once (FlashAttention-2/3) would
-//   move outputs by several bf16 ulps from the f32-P gradient. The price:
-//   dkdv issues 6 product units a tile pair against the 4 of its bound, dq
-//   4 against 3.
-//   - dkdv: a block per (key tile, KV head, batch), key tile 0 (the most
-//     query tiles) first; 128 keys and two consumers at D 64, 64 keys and
-//     one consumer at D 128 (dK and dV alone are 128 registers a thread
-//     there). The block loads its K and V tile once; the producer streams,
-//     for each of the G query heads and each 64-row query tile from the
-//     first that sees the block's keys (bwd_plan.first_q_tile), the q and
-//     dO tiles by TMA, while producer warp 1 copies the tile's lse (log2
-//     units) and delta rows into the stage. Each consumer takes its 64
-//     keys as the M side: S^T = K q^T and dP^T = V dO^T as SS wgmma
+// * bf16: flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel. P and
+//   dS enter as two bf16 parts, hi = bf16(x) and lo = bf16(x - hi), each
+//   its own wgmma: hi + lo is x to 2^-17, and the other operand is a bf16
+//   input, so each product is exact in f32 and only the order of the f32
+//   sums differs from the plain version's; the outputs round once to
+//   bf16. P rounded to bf16 once (FlashAttention-2/3) would move outputs
+//   by several bf16 ulps from the f32-P gradient. The price: dkdv issues 6
+//   product units a tile pair against the 4 of its bound, dq 4 against 3.
+//   The producer gives its registers away by setmaxnreg where there are
+//   two consumers.
+//   - dkdv: 128 keys and two consumers at D 64, 64 keys and one consumer
+//     at D 128 (dK and dV alone are 128 registers a thread there); 64-row
+//     query tiles through 3 stages, producer warp 1 copying each tile's
+//     lse and delta rows into the stage. S^T and dP^T are SS wgmma
 //     m64n64k16 (K and V the K-major A operand as stored, q and dO the
-//     K-major B operand as stored), P^T = exp2(S^T D^-0.5 log2(e) - lse)
-//     and dS^T = P^T (dP^T - delta) on the accumulator, the query the
-//     column (lse and delta read per column from shared memory), then dV
-//     += P^T dO and dK += dS^T q as RS wgmma m64nDk16, the A fragments the
-//     accumulator's registers packed as the forward packs P, dO and q read
-//     from the same stage as the MN-major B operand (the forward's V).
-//     The products go in three commit groups so that the exp and the
-//     splits overlap the tensor cores: S^T, then dP^T (P^T is formed while
-//     it runs), then dV (dS^T is formed while it runs), then dK. A tile
-//     where all of a consumer's keys follow all its queries is skipped. dK and dV stay in f32 registers across all G x query-tile
-//     trips and are written once, dK times D^-0.5, with no atomics: the
-//     result does not depend on block order. Shared memory: 83 KB at D 64
-//     (3 stages), 131 KB at D 128.
-//   - dq: a block per (128-row query tile, head, batch), the last tile
-//     first, two consumers of 64 rows; q and dO load once, each 64-key K
-//     and V tile streams through a two-stage ring over the causal key
-//     tiles. S = q K^T and dP = dO V^T as SS wgmma in two commit groups
-//     (P formed while dP runs), dS in registers, dQ += dS K as RS wgmma
-//     with K the MN-major B operand; dQ written once, times D^-0.5. Shared memory: 65 KB at D 64, 129 KB at D 128.
-// * f32: flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, the first design
-//   (f32 FMAs on the CUDA cores, 67 TFLOP/s peak), kept for f32 until a
-//   tensor-core f32 backward (three TF32 products) is written. 256
-//   threads a block, 64-row query tiles and 64-key tiles, converted to f32
-//   into shared memory with rows padded to D + 4 floats (the float4 reads
-//   of 8 neighbouring rows fall in 8 distinct 16-byte bank groups). A
-//   thread (ty = tid / 16, tx = tid % 16) owns the 4 x 4 elements (ty + 16
-//   a, tx + 16 b) of each 64 x 64 product S and dP, taken as dot products
-//   over D in float4 steps, and rows ty + 16 a, columns 4 tx + 64 c .. + 3
-//   of each 64 x D accumulator (dK and dV, or dQ), taken as outer
-//   products over the tile's rows (P and dS from shared memory). The
-//   block geometry and order are the bf16 design's at 64 keys: dkdv a
-//   block per (key tile, KV head, batch) over the G heads' query tiles
-//   from the first that sees its keys, dK and dV in registers, written
-//   once; dq a block per (query tile, head, batch), the last first.
-//   Operands are read through their (batch, seq, head) strides, four
-//   elements a load: base and strides must be multiples of 4 elements
-//   (the wrapper copies an operand that is not).
+//     K-major B operand as stored); dV and dK are RS wgmma m64nDk16, dO
+//     and q read from the same stage as the MN-major B operand (the
+//     forward's V). Three commit groups overlap the exp and the splits
+//     with the tensor cores: S^T, then dP^T (P^T formed while it runs),
+//     then dV (dS^T formed while it runs), then dK. A tile where all of a
+//     consumer's keys follow all its queries is skipped. Shared memory:
+//     83 KB at D 64, 131 KB at D 128.
+//   - dq: 128-row query tiles, two 64-row consumers; 64-key K and V tiles
+//     through two stages; S and dP as SS wgmma in two groups, dQ += dS K
+//     as RS wgmma with K the MN-major B operand. Shared memory: 65 KB at
+//     D 64, 129 KB at D 128.
+// * f32: flash_bwd_dkdv_wgmma_f32_kernel and flash_bwd_dq_wgmma_f32_kernel,
+//   the arithmetic of flash_attention.cu's flash_wgmma_f32_kernel: wgmma
+//   reads f32 operands as TF32, so every operand x is split into hi, x
+//   rounded to TF32, and lo = x - hi (split), and every product is three
+//   TF32 products, A_lo B_hi + A_hi B_lo + A_hi B_hi (the small terms
+//   first), summed in f32; A_lo B_lo (2^-22 of A B) is dropped. One TF32
+//   product would be 2^-11 off, far outside the f32 checks. P^T and dS^T
+//   (dkdv), P and dS (dq), are split in registers as the forward splits P.
+//   Unlike the forward, the split takes no cvt: hi is rounded on the
+//   integer pipe and lo is left unrounded, since the conversion pipe,
+//   which the producer and the consumers share, held both kernels back.
+//   What the TF32 products force:
+//   - TF32 wgmma reads both shared-memory operands K-major only. Of the
+//     B operands, q and dO (of S^T, dP^T), K and V (of S, dP) are K-major
+//     as stored; dO^T (of dV), q^T (of dK) and K^T (of dQ) are not, so the
+//     producer warpgroup writes them transposed: rows of D, the queries or
+//     keys contiguous, each 8-group in the order 0 2 4 6 1 3 5 7, so that
+//     the accumulator's P and dS fragments are TF32 A fragments with no
+//     register moved between lanes (perm8). TMA loads the raw f32 tiles
+//     (32-column boxes, the 128-byte swizzle row of f32) into a raw ring;
+//     all 128 producer threads write each tile's hi and lo parts at the
+//     raw tile's own offsets and, where it is a B operand of an RS
+//     product, transposed, into a ring of split stages that the consumers
+//     read. Its writes are free of bank conflicts (split_tile).
+//   - Shared memory: f32 tiles are twice bf16's and every operand needs
+//     two parts. dkdv holds the hi and lo of its K and V, 64 keys (64 KB
+//     at D 64, 128 KB at D 128), and per split stage the hi and lo of q,
+//     dO and of the transposed tile (q^T beside dO^T): 64 KB at 32 query
+//     rows a trip and D 64, or at 16 rows and D 128. D 64: two split
+//     stages and two raw stages (16 KB each), 224 KB of the 227; D 128:
+//     one split stage, 224 KB. So 64 keys a block, where the bf16 kernel
+//     takes 128 at D 64. dq holds the hi and lo of q and dO for its 64
+//     rows (64 KB at D 64, 128 KB at D 128) and per split stage the hi and
+//     lo of K and V and one transposed tile (K^T hi beside K^T lo): 48 KB
+//     at 32 keys a trip and D 64 (two stages, 192 KB), at 16 keys and D
+//     128 (one stage, 208 KB). The raw K and V (dkdv) and q and dO (dq)
+//     land once where the stages go and are split before the first trip.
+//     Sixteen-row tiles are half a 128-byte row transposed; two share one
+//     (q^T beside dO^T, K^T hi beside K^T lo), so every tile keeps the
+//     128-byte swizzle.
+//   - Accumulator drift: the tensor cores' f32 sums drop low bits of
+//     addends much smaller than the sum. dK and dV sum over G x query
+//     trips (512 at S 4,096, G 4, 32-row trips), dQ over up to 256 key
+//     trips, so each kFold trips' products go into a fresh accumulator
+//     and are added to the f32 running sums with one FADD an element
+//     (kFold). tools/torch_flash_bwd_probe.py chose kFold = 1
+//     (NVIDIA H100 80GB HBM3, 700 W, B 2 x S 4,096, llama3.2-1b's H 32 /
+//     K 8, D 64): with no fold dK and dV land 4.2 and 6.8 times BWD_TOL[f32]
+//     from the plain backward (1.4 and 1.8 at olmo-1b's D 128); folding
+//     every 8 trips leaves 0.15 and 0.24 of it, every trip 0.09 and 0.11,
+//     for the same time.
+//   - Registers: the running sums and a fresh accumulator are D
+//     registers a thread, too many at D 128 beside dK and dV's own. So
+//     dkdv's two consumers split by gradient, not by keys: both own the
+//     block's 64 keys and form P^T, warpgroup 1 sums dV, warpgroup 2 forms
+//     dP^T and dS^T and sums dK (5 product units a trip against the 4 of
+//     the bound). Each role is its own instantiation (dkdv_consumer):
+//     with the roles as runtime branches ptxas serialized every wgmma (a
+//     register of the A operand defined on a divergent path). The producer
+//     keeps 72 registers (setmaxnreg) for its unrolled split, the
+//     consumers 216. At D 64 the consumers also hold K's hi and lo as A
+//     fragments (64 registers), so S^T is an RS product and reads only
+//     q's parts from shared memory. dq has one consumer and no setmaxnreg.
+//   - Where the time goes (the probe, same card): at llama3.2-1b's layer
+//     dkdv 4.21 ms and dq 2.74 ms on the card alone, 40% and 46% of their
+//     bounds (4.75 and 3.03 with two cvt an element); with the producer's
+//     per-trip split removed (timing only) 3.47-3.61 and 2.29 ms.
 // * flash_bwd_delta_kernel (either dtype): D / 4 threads a row, four
 //   elements each, a shuffle reduction; (B, H, Sq) f32.
 //
-// The wgmma kernels read q, k, v and dO by TMA: every base and stride a
-// multiple of 16 bytes, the head dim contiguous; the wrapper copies an
-// operand that is not (a scalar loss's zero-stride dO among them).
+// The dkdv and dq kernels read q, k, v and dO by TMA: every base and
+// stride a multiple of 16 bytes, the head dim contiguous; the wrapper
+// copies an operand that is not (a scalar loss's zero-stride dO among
+// them).
 #include <cuda_bf16.h>
 
 #include <atomic>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;  // query rows a tile
-constexpr int kBK = 64;  // keys a tile
-constexpr int kPS = kBK + 4;  // row pitch of the P / dS tiles (floats)
+constexpr int kThreads = 256;  // the delta kernel's block
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
@@ -140,328 +189,11 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 fa = __bfloat1622float2(a), fc = __bfloat1622float2(c);
   return make_float4(fa.x, fa.y, fc.x, fc.y);
 }
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 __device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);
   acc = fmaf(a.z, b.z, acc);
   return fmaf(a.w, b.w, acc);
-}
-__device__ __forceinline__ void axpy4(float4& acc, float a, float4 x) {
-  acc.x = fmaf(a, x.x, acc.x);
-  acc.y = fmaf(a, x.y, acc.y);
-  acc.z = fmaf(a, x.z, acc.z);
-  acc.w = fmaf(a, x.w, acc.w);
-}
-
-template <int D>
-struct Tiles {
-  static constexpr int kP = D + 4;  // row pitch of a q / k / v / dO tile
-  static constexpr int kTile = 64 * kP;
-  static constexpr int kC = D / 64;  // float4 columns a thread owns, / 16
-};
-
-// rows [r0, r0 + 64) of one head of a (B, S, heads, D) tensor into a
-// padded f32 tile; zeros from row n on
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long row_stride, int r0,
-                                          int n) {
-  constexpr int kPer = D / 4;
-  for (int c = threadIdx.x; c < 64 * kPer; c += kThreads) {
-    const int r = c / kPer;
-    const int col = 4 * (c % kPer);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n) x = load4(src + (r0 + r) * row_stride + col);
-    store4(dst + r * Tiles<D>::kP + col, x);
-  }
-}
-
-// lse (in log2 units) and delta of query rows [q0, q0 + 64) of one (b, h)
-__device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
-                                          const float* lse,
-                                          const float* delta, int q0,
-                                          int sq) {
-  for (int i = threadIdx.x; i < kBQ; i += kThreads) {
-    const bool ok = q0 + i < sq;
-    lse_s[i] = ok ? lse[q0 + i] * kLog2e : 0.f;
-    delta_s[i] = ok ? delta[q0 + i] : 0.f;
-  }
-}
-
-// S = Q K^T and dP = dO V^T at (ty + 16 a, tx + 16 b), unscaled
-template <int D>
-__device__ __forceinline__ void dots(float (&s)[4][4], float (&dp)[4][4],
-                                     const float* qs, const float* dos,
-                                     const float* ks, const float* vs,
-                                     int ty, int tx) {
-  constexpr int P = Tiles<D>::kP;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) s[a][b] = dp[a][b] = 0.f;
-  }
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 qa[4], da[4], kb[4], vb[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      qa[a] = lds4(qs + (ty + 16 * a) * P + d);
-      da[a] = lds4(dos + (ty + 16 * a) * P + d);
-      kb[a] = lds4(ks + (tx + 16 * a) * P + d);
-      vb[a] = lds4(vs + (tx + 16 * a) * P + d);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        s[a][b] = dot4(s[a][b], qa[a], kb[b]);
-        dp[a][b] = dot4(dp[a][b], da[a], vb[b]);
-      }
-    }
-  }
-}
-
-// P and dS of the tile's (ty + 16 a, tx + 16 b): 0 past Sq or Sk and past
-// the diagonal
-__device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4],
-                                      const float* lse_s,
-                                      const float* delta_s, int ty, int tx,
-                                      int q0, int k0, const Shape& sh,
-                                      float scale_log2) {
-  const int offset = sh.sk - sh.sq;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = ty + 16 * a;
-    const int row = q0 + i;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int key = k0 + tx + 16 * b;
-      const bool ok = row < sh.sq && key < sh.sk && key <= row + offset;
-      const float p = ok ? ex2(fmaf(s[a][b], scale_log2, -lse_s[i])) : 0.f;
-      s[a][b] = p;
-      dp[a][b] = p * (dp[a][b] - delta_s[i]);
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, Strides qst,
-                      const T* __restrict__ k, Strides kst,
-                      const T* __restrict__ v, Strides vst,
-                      const T* __restrict__ dO, Strides dst,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, Shape sh, float scale) {
-  using L = Tiles<D>;
-  constexpr int P = L::kP;
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + L::kTile;
-  float* qs = vs + L::kTile;
-  float* dos = qs + L::kTile;
-  float* ps = dos + L::kTile;   // P, [query row][key]
-  float* dss = ps + kBQ * kPS;  // dS, [query row][key]
-  float* lse_s = dss + kBQ * kPS;
-  float* delta_s = lse_s + kBQ;
-
-  const int per = sh.n_kv_heads * sh.batch;
-  const int kt = static_cast<int>(blockIdx.x) / per;
-  const int kvh = static_cast<int>(blockIdx.x) % per % sh.n_kv_heads;
-  const int b = static_cast<int>(blockIdx.x) % per / sh.n_kv_heads;
-  const int k0 = kt * kBK;
-  const int offset = sh.sk - sh.sq;
-  const int n_q_tiles = (sh.sq + kBQ - 1) / kBQ;
-  const int first = max(k0 - offset, 0) / kBQ;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float scale_log2 = scale * kLog2e;
-
-  load_tile<T, D>(ks, k + b * kst.b + kvh * kst.h, kst.s, k0, sh.sk);
-  load_tile<T, D>(vs, v + b * vst.b + kvh * vst.h, vst.s, k0, sh.sk);
-
-  float4 acc_k[4][L::kC], acc_v[4][L::kC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int c = 0; c < L::kC; ++c) {
-      acc_k[a][c] = acc_v[a][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-
-  for (int g = 0; g < sh.group; ++g) {
-    const int h = kvh * sh.group + g;
-    const long long rows = (static_cast<long long>(b) * sh.n_heads + h) *
-                           sh.sq;
-    for (int qt = first; qt < n_q_tiles; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();  // the previous tile's P, dS, q and dO are read
-      load_tile<T, D>(qs, q + b * qst.b + h * qst.h, qst.s, q0, sh.sq);
-      load_tile<T, D>(dos, dO + b * dst.b + h * dst.h, dst.s, q0, sh.sq);
-      load_rows(lse_s, delta_s, lse + rows, delta + rows, q0, sh.sq);
-      __syncthreads();
-
-      float s[4][4], dp[4][4];
-      dots<D>(s, dp, qs, dos, ks, vs, ty, tx);
-      probs(s, dp, lse_s, delta_s, ty, tx, q0, k0, sh, scale_log2);
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          ps[(ty + 16 * a) * kPS + tx + 16 * bb] = s[a][bb];
-          dss[(ty + 16 * a) * kPS + tx + 16 * bb] = dp[a][bb];
-        }
-      }
-      __syncthreads();
-
-      // dV += P^T dO, dK += dS^T q: this thread's keys ty + 16 a
-      const int n_rows = min(kBQ, sh.sq - q0);
-      for (int i = 0; i < n_rows; ++i) {
-        float pj[4], dsj[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          pj[a] = ps[i * kPS + ty + 16 * a];
-          dsj[a] = dss[i * kPS + ty + 16 * a];
-        }
-#pragma unroll
-        for (int c = 0; c < L::kC; ++c) {
-          const float4 dov = lds4(dos + i * P + 4 * tx + 64 * c);
-          const float4 qv = lds4(qs + i * P + 4 * tx + 64 * c);
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            axpy4(acc_v[a][c], pj[a], dov);
-            axpy4(acc_k[a][c], dsj[a], qv);
-          }
-        }
-      }
-    }
-  }
-
-  // dK and dV of keys < Sk: (B, Sk, K, D) contiguous
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int key = k0 + ty + 16 * a;
-    if (key >= sh.sk) continue;
-    const long long off =
-        ((static_cast<long long>(b) * sh.sk + key) * sh.n_kv_heads + kvh) * D;
-#pragma unroll
-    for (int c = 0; c < L::kC; ++c) {
-      float4 x = acc_k[a][c];
-      x.x *= scale;
-      x.y *= scale;
-      x.z *= scale;
-      x.w *= scale;
-      store4(dk + off + 4 * tx + 64 * c, x);
-      store4(dv + off + 4 * tx + 64 * c, acc_v[a][c]);
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, Strides qst,
-                    const T* __restrict__ k, Strides kst,
-                    const T* __restrict__ v, Strides vst,
-                    const T* __restrict__ dO, Strides dst,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    Shape sh, float scale) {
-  using L = Tiles<D>;
-  constexpr int P = L::kP;
-  constexpr int kPT = kBQ + 4;  // row pitch of dS^T
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + L::kTile;
-  float* ks = dos + L::kTile;
-  float* vs = ks + L::kTile;
-  float* dst_s = vs + L::kTile;  // dS^T, [key][query row]
-  float* lse_s = dst_s + kBK * kPT;
-  float* delta_s = lse_s + kBQ;
-
-  const int per = sh.n_heads * sh.batch;
-  const int n_q_tiles = (sh.sq + kBQ - 1) / kBQ;
-  const int qt = n_q_tiles - 1 - static_cast<int>(blockIdx.x) / per;
-  const int h = static_cast<int>(blockIdx.x) % per % sh.n_heads;
-  const int b = static_cast<int>(blockIdx.x) % per / sh.n_heads;
-  const int kvh = h / sh.group;
-  const int q0 = qt * kBQ;
-  const int offset = sh.sk - sh.sq;
-  // causal trip count: the key tiles up to the tile's last row's position
-  const int q_last = offset + min(q0 + kBQ, sh.sq) - 1;
-  const int n_tiles =
-      q_last < 0 ? 0 : min(q_last / kBK + 1, (sh.sk + kBK - 1) / kBK);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float scale_log2 = scale * kLog2e;
-  const long long rows =
-      (static_cast<long long>(b) * sh.n_heads + h) * sh.sq;
-
-  load_tile<T, D>(qs, q + b * qst.b + h * qst.h, qst.s, q0, sh.sq);
-  load_tile<T, D>(dos, dO + b * dst.b + h * dst.h, dst.s, q0, sh.sq);
-  load_rows(lse_s, delta_s, lse + rows, delta + rows, q0, sh.sq);
-
-  float4 acc[4][L::kC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int c = 0; c < L::kC; ++c) acc[a][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBK;
-    __syncthreads();  // the previous tile's K and dS^T are read
-    load_tile<T, D>(ks, k + b * kst.b + kvh * kst.h, kst.s, k0, sh.sk);
-    load_tile<T, D>(vs, v + b * vst.b + kvh * vst.h, vst.s, k0, sh.sk);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    dots<D>(s, dp, qs, dos, ks, vs, ty, tx);
-    probs(s, dp, lse_s, delta_s, ty, tx, q0, k0, sh, scale_log2);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        dst_s[(tx + 16 * bb) * kPT + ty + 16 * a] = dp[a][bb];
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K: this thread's query rows ty + 16 a
-    const int n_keys = min(kBK, sh.sk - k0);
-    for (int jj = 0; jj < n_keys; ++jj) {
-      float dsj[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) dsj[a] = dst_s[jj * kPT + ty + 16 * a];
-#pragma unroll
-      for (int c = 0; c < L::kC; ++c) {
-        const float4 kv = lds4(ks + jj * P + 4 * tx + 64 * c);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) axpy4(acc[a][c], dsj[a], kv);
-      }
-    }
-  }
-
-  // dQ of rows < Sq: (B, Sq, H, D) contiguous; rows that see no key get 0
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = q0 + ty + 16 * a;
-    if (row >= sh.sq) continue;
-    const long long off =
-        ((static_cast<long long>(b) * sh.sq + row) * sh.n_heads + h) * D;
-#pragma unroll
-    for (int c = 0; c < L::kC; ++c) {
-      float4 x = acc[a][c];
-      x.x *= scale;
-      x.y *= scale;
-      x.z *= scale;
-      x.w *= scale;
-      store4(dq + off + 4 * tx + 64 * c, x);
-    }
-  }
 }
 
 // delta[(b H + h) Sq + i] = dO[b, i, h, :] . o[b, i, h, :], D / 4 threads
@@ -490,15 +222,6 @@ flash_bwd_delta_kernel(const T* __restrict__ o, Strides ost,
     acc += __shfl_xor_sync(repro::kFullMask, acc, w);
   }
   if (r < n_rows && lane == 0) delta[r] = acc;
-}
-
-template <int D>
-constexpr int dkdv_smem() {
-  return (4 * Tiles<D>::kTile + 2 * kBQ * kPS + 2 * kBQ) * 4;
-}
-template <int D>
-constexpr int dq_smem() {
-  return (4 * Tiles<D>::kTile + kBK * (kBQ + 4) + 2 * kBQ) * 4;
 }
 
 // ---------------------------------------------------------------------------
@@ -1036,13 +759,771 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// The f32 tensor-core kernels (D = 64 and 128): three TF32 products
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+using hopper::bar_sync;
+using hopper::desc_k_major;
+using hopper::fence_async_smem;
+using hopper::fence_regs;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_u32;
+using hopper::swz;
+using hopper::tma_load;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_rs_tf32;
+using hopper::wgmma_ss_tf32;
+using hopper::wgmma_wait;
+
+constexpr int kCols = 32;  // head-dim columns a TMA box: one 128-byte
+                           // swizzle row of f32
+
+// Trips whose dK / dV (dq: dQ) products one tensor-core accumulator sums
+// before it is added into the f32 running sums (0: the running sums are
+// the accumulator; tools/torch_flash_bwd_probe.py builds other values to
+// compare, see the header).
+constexpr int kFold = 1;
+
+// flash_bwd_dkdv_wgmma_f32_kernel's geometry. Shared memory from a
+// 1024-byte aligned base: K hi, K lo, V hi, V lo (kBK x D each, K-major,
+// 128-byte swizzled as TMA writes them); the split stages, each q hi, q lo,
+// dO hi, dO lo (kBQ x D) and the transposed hi and lo tiles (D rows of
+// 2 kBQ columns: q^T, then dO^T); the raw ring (q, then dO, as TMA loads
+// them); per split stage the trip's lse (log2 units) and delta rows; the
+// mbarriers. The raw K and V tiles land where the split stages go, once.
+template <int D>
+struct Dkdv {
+  static constexpr int kBK = 64;                  // keys a block
+  static constexpr int kBQ = D == 64 ? 32 : 16;   // query rows a trip
+  static constexpr int kStages = D == 64 ? 2 : 1; // split stages
+  static constexpr int kRaw = 2;                  // raw q / dO stages
+  static constexpr int kThreads = 384;  // producer, dV and dK warpgroups
+  static constexpr bool kKRegs = D == 64;  // K's parts as A fragments too
+  static constexpr int kKPart = kBK * D * 4;
+  static constexpr int kQPart = kBQ * D * 4;
+  static constexpr int kTPart = D * 2 * kBQ * 4;
+  static constexpr int kStage = 4 * kQPart + 2 * kTPart;
+  static constexpr int kSplit = 4 * kKPart;
+  static constexpr int kRawOff = kSplit + kStages * kStage;
+  static constexpr int kRows = kRawOff + kRaw * 2 * kQPart;
+  static constexpr int kBars = kRows + kStages * 2 * kBQ * 4;
+  // parts, K/V full, raw full per raw stage, full and empty per stage
+  static constexpr int kAlloc = kBars + 8 * (2 + kRaw + 2 * kStages) + 1024;
+  static_assert(2 * kKPart <= kStages * kStage, "raw K and V do not fit");
+  static_assert(kAlloc <= 232448, "over the block's shared memory");
+};
+
+// flash_bwd_dq_wgmma_f32_kernel's geometry: q hi, q lo, dO hi, dO lo
+// (kBQ x D each); the split stages, each K hi, K lo, V hi, V lo (kBK x D)
+// and one transposed tile (D rows of 2 kBK columns: K^T hi, then K^T lo);
+// the raw ring (K, then V); the mbarriers. The raw q and dO tiles land
+// where the split stages and the raw ring go, once.
+template <int D>
+struct Dq {
+  static constexpr int kBQ = 64;                  // query rows a block
+  static constexpr int kBK = D == 64 ? 32 : 16;   // keys a trip
+  static constexpr int kStages = D == 64 ? 2 : 1;
+  static constexpr int kRaw = 2;
+  static constexpr int kThreads = 256;  // producer and one consumer
+  static constexpr int kQPart = kBQ * D * 4;
+  static constexpr int kKPart = kBK * D * 4;
+  static constexpr int kTPart = D * 2 * kBK * 4;
+  static constexpr int kStage = 4 * kKPart + kTPart;
+  static constexpr int kSplit = 4 * kQPart;
+  static constexpr int kRawOff = kSplit + kStages * kStage;
+  static constexpr int kBars = kRawOff + kRaw * 2 * kKPart;
+  static constexpr int kAlloc = kBars + 8 * (2 + kRaw + 2 * kStages) + 1024;
+  static_assert(2 * kQPart <= kBars - kSplit, "raw q and dO do not fit");
+  static_assert(kAlloc <= 232448, "over the block's shared memory");
+};
+
+// Byte offset of column `col` (a multiple of 8) in a K-major tile of
+// `kRows` rows: where a k8 step that starts there reads.
+template <int kRows>
+__device__ __forceinline__ uint32_t kstep(int col) {
+  return (col >> 5) * (kRows * 128) + ((col & 31) >> 3) * 32;
+}
+
+// The slot of index t in its 8-group of a transposed tile: 0 2 4 6 1 3 5
+// 7. The accumulator holds indices 2u and 2u + 1 of each 8-group where a
+// TF32 A fragment holds k slots u and u + 4 (u = lane & 3), so the
+// transposed B operand stores index 2u at slot u and 2u + 1 at u + 4, and
+// no register moves between lanes.
+__device__ __forceinline__ int perm8(int t) {
+  return (t & ~7) | ((t & 1) << 2) | ((t & 7) >> 1);
+}
+
+// Two raw (kRows x D) f32 tiles of one head, rows row0 on, of maps a and
+// b, by TMA to dst and the next tile; the bytes complete on `bar`.
+template <int kRows, int D>
+__device__ __forceinline__ void load_pair(uint32_t dst, uint32_t bar,
+                                          const CUtensorMap* a,
+                                          const CUtensorMap* b, int head,
+                                          int row0, int batch) {
+  constexpr int kTile = kRows * D * 4;
+  mbar_expect_tx(bar, 2 * kTile);
+  for (int c = 0; c < D / kCols; ++c) {
+    tma_load(dst + c * kRows * 128, a, bar, c * kCols, head, row0, batch);
+    tma_load(dst + kTile + c * kRows * 128, b, bar, c * kCols, head, row0,
+             batch);
+  }
+}
+
+// x as its TF32 hi and lo parts: hi is x rounded to TF32, to nearest with
+// ties away from zero (cvt.rna's rounding, done here on the integer pipe),
+// and lo = x - hi, exact in f32. wgmma reads lo's top 19 bits; whatever it
+// does with the other 13 costs at most 2^-11 of lo, 2^-22 of x, the size
+// of the lo lo term the products drop. Two cvt.rna an element held the
+// producer's split and the consumers' fragments back on the conversion
+// pipe (tools/torch_flash_bwd_probe.py; PERF.md, PR 26).
+__device__ __forceinline__ void split(float x, float& hi, float& lo) {
+  hi = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+  lo = x - hi;
+}
+
+// `bytes` of raw f32 as hi and lo parts at the same offsets; t: the thread
+// in the producer warpgroup.
+template <int kBytes>
+__device__ __forceinline__ void split_same(const uint8_t* raw, uint8_t* hi,
+                                           uint8_t* lo, int t) {
+  const float4* r = reinterpret_cast<const float4*>(raw);
+  float4* h4 = reinterpret_cast<float4*>(hi);
+  float4* l4 = reinterpret_cast<float4*>(lo);
+  static_assert(kBytes % (16 * 128) == 0, "whole float4s a thread");
+#pragma unroll 8
+  for (int it = 0; it < kBytes / (16 * 128); ++it) {
+    const int i = t + 128 * it;
+    const float4 x = r[i];
+    float4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    h4[i] = h;
+    l4[i] = l;
+  }
+}
+
+// A raw (kRows x D) tile as hi and lo parts at its own offsets, and
+// transposed: element (row, d) also to row d, column th_col + perm8(row)
+// of th (its hi) and tl_col + perm8(row) of tl (its lo), tiles of D rows.
+// A warp takes consecutive rows at one 4-column chunk: its reads, its
+// float4 writes (8 rows, 8 distinct chunks a phase) and its transposed
+// writes (consecutive columns of one row, or of rows 4 apart whose
+// swizzles differ) are free of bank conflicts.
+template <int kRows, int D>
+__device__ __forceinline__ void split_tile(const uint8_t* raw, uint8_t* hi,
+                                           uint8_t* lo, uint8_t* th,
+                                           int th_col, uint8_t* tl,
+                                           int tl_col, int t) {
+  static_assert(kRows * D % (4 * 128) == 0, "whole float4s a thread");
+#pragma unroll
+  for (int it = 0; it < kRows * D / (4 * 128); ++it) {
+    const int f = t + 128 * it;
+    const int row = f % kRows;
+    const int d0 = 4 * (f / kRows);
+    const uint32_t off = swz<kRows>(row, d0);
+    const float4 x = *reinterpret_cast<const float4*>(raw + off);
+    float h[4], l[4];
+    split(x.x, h[0], l[0]);
+    split(x.y, h[1], l[1]);
+    split(x.z, h[2], l[2]);
+    split(x.w, h[3], l[3]);
+    *reinterpret_cast<float4*>(hi + off) = make_float4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<float4*>(lo + off) = make_float4(l[0], l[1], l[2], l[3]);
+    const int col = perm8(row);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      *reinterpret_cast<float*>(th + swz<D>(d0 + c, th_col + col)) = h[c];
+      *reinterpret_cast<float*>(tl + swz<D>(d0 + c, tl_col + col)) = l[c];
+    }
+  }
+}
+
+// C (64 x N) = A B^T over D, A (64 rows) and B (N rows) K-major hi and lo
+// parts in shared memory: per k8 step A_lo B_hi + A_hi B_lo + A_hi B_hi
+// (the small terms first) into a fresh accumulator.
+template <int N, int D>
+__device__ __forceinline__ void product_ss(float (&c)[N / 2], uint32_t a_hi,
+                                           uint32_t a_lo, uint32_t b_hi,
+                                           uint32_t b_lo) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint32_t oa = kstep<64>(8 * kk);
+    const uint32_t ob = kstep<N>(8 * kk);
+    wgmma_ss_tf32<N>(c, desc_k_major(a_lo + oa), desc_k_major(b_hi + ob),
+                     kk > 0);
+    wgmma_ss_tf32<N>(c, desc_k_major(a_hi + oa), desc_k_major(b_lo + ob), 1);
+    wgmma_ss_tf32<N>(c, desc_k_major(a_hi + oa), desc_k_major(b_hi + ob), 1);
+  }
+}
+
+// C (64 x D) (+)= A B^T over K: A's hi and lo parts in registers (k8 step
+// kk: hi[kk], lo[kk]); B (D rows, K-major) at columns c_hi + 8 kk of tile
+// b_hi (its hi part) and c_lo + 8 kk of b_lo (its lo part). `fresh`: the
+// first product overwrites C.
+template <int D, int K>
+__device__ __forceinline__ void product_rs(float (&c)[D / 2],
+                                           const uint32_t (&hi)[K / 8][4],
+                                           const uint32_t (&lo)[K / 8][4],
+                                           uint32_t b_hi, int c_hi,
+                                           uint32_t b_lo, int c_lo,
+                                           bool fresh) {
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk) {
+    const uint64_t bh = desc_k_major(b_hi + kstep<D>(c_hi + 8 * kk));
+    wgmma_rs_tf32<D>(c, lo[kk], bh, kk > 0 || !fresh);
+    wgmma_rs_tf32<D>(c, hi[kk], desc_k_major(b_lo + kstep<D>(c_lo + 8 * kk)),
+                     1);
+    wgmma_rs_tf32<D>(c, hi[kk], bh, 1);
+  }
+}
+
+// An accumulator fragment x (64 x K) as TF32 A fragments, hi and lo:
+// register e of k8 step kk is row 8 (e & 1), index 2 (lane & 3) + (e >> 1)
+// of the step's 8, x[4 kk + 2 (e & 1) + (e >> 1)] (B stores that index at
+// slot (lane & 3) + 4 (e >> 1): perm8).
+template <int K>
+__device__ __forceinline__ void split_frags(const float (&x)[K / 2],
+                                            uint32_t (&hi)[K / 8][4],
+                                            uint32_t (&lo)[K / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float h, l;
+      split(x[4 * kk + ((e & 1) << 1) + (e >> 1)], h, l);
+      hi[kk][e] = __float_as_uint(h);
+      lo[kk][e] = __float_as_uint(l);
+    }
+  }
+}
+
+// The fold: a tensor-core accumulator's f32 sums drop low bits of addends
+// much smaller than the sum, so the running sums are f32 registers and
+// each kFold trips' products go into a fresh accumulator first (`pick`:
+// the accumulator the products go into).
+template <int N>
+__device__ __forceinline__ void fold(float (&acc)[N], const float (&c)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] += c[i];
+}
+template <int N>
+__device__ __forceinline__ auto pick(float (&acc)[N], float (&fresh)[N])
+    -> float (&)[N] {
+  if constexpr (kFold > 0) {
+    return fresh;
+  } else {
+    return acc;
+  }
+}
+
+// What a dkdv block's consumers share: shared memory, the ring's
+// barriers, the block's keys and trips.
+struct DkdvBlock {
+  uint32_t base;
+  uint8_t* sbase;
+  uint32_t full0, empty0;
+  int k0, kvh, b, offset, first, n_per_head, n_trips;
+};
+
+// One dkdv consumer warpgroup over the block's trips: kDV sums dV += P^T
+// dO (dO^T the B operand), else dK += dS^T q (q^T), and writes it (dK
+// times D^-0.5) for keys < Sk to `out`, (B, Sk, K, D) contiguous.
+template <int D, bool kDV>
+__device__ __forceinline__ void dkdv_consumer(const DkdvBlock blk,
+                                              uint32_t parts, const Shape& sh,
+                                              float scale, float* out) {
+  using L = Dkdv<D>;
+  const int t = threadIdx.x % 128;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  // accumulator fragment of S^T (keys x queries): element i of this
+  // thread is key r0 + 8 ((i >> 1) & 1), query column 8 (i >> 2) + col0 +
+  // (i & 1) of the trip
+  const int r0 = blk.k0 + 16 * warp + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  const uint32_t k_hi = blk.base;
+  const uint32_t k_lo = blk.base + L::kKPart;
+  const uint32_t v_hi = blk.base + 2 * L::kKPart;
+  const uint32_t v_lo = blk.base + 3 * L::kKPart;
+  const float scale_log2 = scale * kLog2e;
+  constexpr int tcol = kDV ? L::kBQ : 0;  // dO^T or q^T in the T tiles
+
+  float acc[D / 2], fresh[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = fresh[i] = 0.f;
+
+  mbar_wait(parts, 0);
+  // at D 64 K's hi and lo parts also as register A fragments (S^T as RS
+  // products: only q's parts read from shared memory): register e of k8
+  // step kk is key 16 warp + (lane >> 2) + 8 (e & 1) of the block, column
+  // 8 kk + (lane & 3) + 4 (e >> 1)
+  uint32_t kfh[L::kKRegs ? D / 8 : 1][4], kfl[L::kKRegs ? D / 8 : 1][4];
+  if constexpr (L::kKRegs) {
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t off = swz<L::kBK>(16 * warp + (lane >> 2) + 8 * (e & 1),
+                                         8 * kk + (lane & 3) + 4 * (e >> 1));
+        kfh[kk][e] = *reinterpret_cast<const uint32_t*>(blk.sbase + off);
+        kfl[kk][e] = *reinterpret_cast<const uint32_t*>(blk.sbase +
+                                                        L::kKPart + off);
+      }
+    }
+  }
+  for (int j = 0; j < blk.n_trips; ++j) {
+    const int s = j % L::kStages;
+    const int q0 = (blk.first + j % blk.n_per_head) * L::kBQ;
+    mbar_wait(blk.full0 + 8 * s, (j / L::kStages) & 1);
+    const uint32_t qh = blk.base + L::kSplit + s * L::kStage;
+    const uint32_t ql = qh + L::kQPart;
+    const uint32_t dh = qh + 2 * L::kQPart;
+    const uint32_t dl = qh + 3 * L::kQPart;
+    const uint32_t th = qh + 4 * L::kQPart;
+    const uint32_t tl = th + L::kTPart;
+    const float* ls = reinterpret_cast<const float*>(
+        blk.sbase + L::kRows + s * 2 * L::kBQ * 4);
+    const float* ds = ls + L::kBQ;
+
+    // S^T = K q^T (and, for dK, dP^T = V dO^T), two groups: P^T is
+    // formed while dP^T is in flight
+    float st[L::kBQ / 2], dpt[L::kBQ / 2];
+    wgmma_fence();
+    if constexpr (L::kKRegs) {
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint32_t ob = kstep<L::kBQ>(8 * kk);
+        wgmma_rs_tf32<L::kBQ>(st, kfl[kk], desc_k_major(qh + ob), kk > 0);
+        wgmma_rs_tf32<L::kBQ>(st, kfh[kk], desc_k_major(ql + ob), 1);
+        wgmma_rs_tf32<L::kBQ>(st, kfh[kk], desc_k_major(qh + ob), 1);
+      }
+    } else {
+      product_ss<L::kBQ, D>(st, k_hi, k_lo, qh, ql);
+    }
+    wgmma_commit();
+    if constexpr (kDV) {
+      wgmma_wait<0>();
+    } else {
+      product_ss<L::kBQ, D>(dpt, v_hi, v_lo, dh, dl);
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    fence_regs(st);
+
+    // P^T = exp2(S^T D^-0.5 log2(e) - lse), 0 where masked (only on
+    // trips that cross the diagonal, Sq or Sk)
+    const bool edge = blk.k0 + L::kBK - 1 > blk.offset + q0 ||
+                      blk.k0 + L::kBK > sh.sk || q0 + L::kBQ > sh.sq;
+#pragma unroll
+    for (int i = 0; i < L::kBQ / 2; i += 2) {
+      const int col = 8 * (i >> 2) + col0;
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+      float p0 = ex2(fmaf(st[i], scale_log2, -l2.x));
+      float p1 = ex2(fmaf(st[i + 1], scale_log2, -l2.y));
+      if (edge) {
+        const int key = r0 + 8 * ((i >> 1) & 1);
+        const int qpos = blk.offset + q0 + col;
+        const bool kill = key >= sh.sk;
+        if (kill || key > qpos || q0 + col >= sh.sq) p0 = 0.f;
+        if (kill || key > qpos + 1 || q0 + col + 1 >= sh.sq) p1 = 0.f;
+      }
+      st[i] = p0;
+      st[i + 1] = p1;
+    }
+
+    // the A operand: P^T (dV) or dS^T = P^T (dP^T - delta) (dK), as TF32
+    // hi and lo fragments
+    if constexpr (!kDV) {
+      wgmma_wait<0>();
+      fence_regs(dpt);
+#pragma unroll
+      for (int i = 0; i < L::kBQ / 2; i += 2) {
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(ds + 8 * (i >> 2) + col0);
+        st[i] *= dpt[i] - d2.x;
+        st[i + 1] *= dpt[i + 1] - d2.y;
+      }
+    }
+    uint32_t xh[L::kBQ / 8][4], xl[L::kBQ / 8][4];
+    split_frags<L::kBQ>(st, xh, xl);
+
+    // dV (+)= P^T dO with dO^T, or dK (+)= dS^T q with q^T, the K-major B
+    // operand of the transposed tiles
+    float(&c)[D / 2] = pick(acc, fresh);
+    wgmma_fence();
+    product_rs<D, L::kBQ>(c, xh, xl, th, tcol, tl, tcol,
+                          kFold > 0 && j % kFold == 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(c);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(blk.empty0 + 8 * s);
+    if (kFold > 0 && ((j + 1) % kFold == 0 || j + 1 == blk.n_trips)) {
+      fold(acc, fresh);
+    }
+  }
+
+  const float mul = kDV ? 1.f : scale;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = r0 + 8 * r;
+    if (key >= sh.sk) continue;
+    float* row = out + ((static_cast<long long>(blk.b) * sh.sk + key) *
+                            sh.n_kv_heads + blk.kvh) * D;
+#pragma unroll
+    for (int jb = 0; jb < D / 8; ++jb) {
+      const int i = 4 * jb + 2 * r;
+      *reinterpret_cast<float2*>(row + 8 * jb + col0) =
+          make_float2(acc[i] * mul, acc[i + 1] * mul);
+    }
+  }
+}
+
+// blockIdx.x -> (key tile, KV head, batch), key tile 0 (the most query
+// tiles) first (kernels/flash_attention.py: BwdPlan). Warpgroup 0 the
+// producer, 1 dV, 2 dK.
+template <int D>
+__global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
+flash_bwd_dkdv_wgmma_f32_kernel(const __grid_constant__ CUtensorMap qmap,
+                                const __grid_constant__ CUtensorMap kmap,
+                                const __grid_constant__ CUtensorMap vmap,
+                                const __grid_constant__ CUtensorMap dmap,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                float* __restrict__ dk,
+                                float* __restrict__ dv, Shape sh,
+                                float scale) {
+  using L = Dkdv<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* sbase = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t parts = base + L::kBars;            // K and V split
+  const uint32_t kv_full = parts + 8;                // raw K and V loaded
+  const uint32_t raw0 = kv_full + 8;                 // raw[r] = raw0 + 8 r
+  const uint32_t full0 = raw0 + 8 * L::kRaw;         // full[s] = full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * L::kStages;    // empty[s]
+
+  const int per = sh.n_kv_heads * sh.batch;
+  const int kvh = static_cast<int>(blockIdx.x) % per % sh.n_kv_heads;
+  const int b = static_cast<int>(blockIdx.x) % per / sh.n_kv_heads;
+  const int k0 = static_cast<int>(blockIdx.x) / per * L::kBK;
+  const int offset = sh.sk - sh.sq;
+  const int n_q_tiles = (sh.sq + L::kBQ - 1) / L::kBQ;
+  // the first query tile that sees a key of the block; then every tile
+  // to the last, for each of the G query heads of the KV head
+  const int first = max(k0 - offset, 0) / L::kBQ;
+  const int n_per_head = n_q_tiles - first;
+  const int n_trips = sh.group * n_per_head;
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(parts, 128);
+    mbar_init(kv_full, 1);
+    for (int r = 0; r < L::kRaw; ++r) mbar_init(raw0 + 8 * r, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 128);
+      mbar_init(empty0 + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    // producer: thread 0 issues the TMA loads; all 128 threads split K
+    // and V once, then each trip's q and dO, and copy its lse and delta
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n" ::: "memory");
+    const int t = threadIdx.x;
+    const auto trip_head = [&](int j) {
+      return kvh * sh.group + j / n_per_head;
+    };
+    const auto trip_q0 = [&](int j) {
+      return (first + j % n_per_head) * L::kBQ;
+    };
+    const auto load_raw = [&](int j) {
+      const int r = j % L::kRaw;
+      load_pair<L::kBQ, D>(base + L::kRawOff + r * 2 * L::kQPart,
+                           raw0 + 8 * r, &qmap, &dmap, trip_head(j),
+                           trip_q0(j), b);
+    };
+    if (t == 0) {
+      load_pair<L::kBK, D>(base + L::kSplit, kv_full, &kmap, &vmap, kvh, k0,
+                           b);
+      for (int j = 0; j < min(L::kRaw, n_trips); ++j) load_raw(j);
+    }
+    mbar_wait(kv_full, 0);
+    split_same<L::kKPart>(sbase + L::kSplit, sbase, sbase + L::kKPart, t);
+    split_same<L::kKPart>(sbase + L::kSplit + L::kKPart,
+                          sbase + 2 * L::kKPart, sbase + 3 * L::kKPart, t);
+    fence_async_smem();
+    mbar_arrive(parts);
+    bar_sync(1, 128);  // raw K and V read before stage 0 is written
+    for (int j = 0; j < n_trips; ++j) {
+      const int r = j % L::kRaw;
+      const int s = j % L::kStages;
+      mbar_wait(raw0 + 8 * r, (j / L::kRaw) & 1);
+      mbar_wait(empty0 + 8 * s, ((j / L::kStages) & 1) ^ 1);
+      uint8_t* st = sbase + L::kSplit + s * L::kStage;
+      uint8_t* th = st + 4 * L::kQPart;
+      const uint8_t* rq = sbase + L::kRawOff + r * 2 * L::kQPart;
+      split_tile<L::kBQ, D>(rq, st, st + L::kQPart, th, 0, th + L::kTPart, 0,
+                            t);
+      split_tile<L::kBQ, D>(rq + L::kQPart, st + 2 * L::kQPart,
+                            st + 3 * L::kQPart, th, L::kBQ, th + L::kTPart,
+                            L::kBQ, t);
+      if (t < L::kBQ) {
+        const int q0 = trip_q0(j);
+        const long long rows =
+            (static_cast<long long>(b) * sh.n_heads + trip_head(j)) * sh.sq;
+        float* ls = reinterpret_cast<float*>(sbase + L::kRows +
+                                             s * 2 * L::kBQ * 4);
+        const bool ok = q0 + t < sh.sq;
+        ls[t] = ok ? lse[rows + q0 + t] * kLog2e : 0.f;
+        ls[L::kBQ + t] = ok ? delta[rows + q0 + t] : 0.f;
+      }
+      fence_async_smem();
+      mbar_arrive(full0 + 8 * s);
+      if (j + L::kRaw < n_trips) {
+        bar_sync(1, 128);  // every producer thread is done with raw r
+        if (t == 0) load_raw(j + L::kRaw);
+      }
+    }
+  } else {
+    // consumers: both own the block's 64 keys as the M side; warpgroup 1
+    // sums dV += P^T dO, warpgroup 2 dK += dS^T q (each forms P^T). Each
+    // runs its own instantiation: no wgmma register is defined on a path
+    // that differs between them (ptxas would serialize the products)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n" ::: "memory");
+    const DkdvBlock blk{base, sbase, full0, empty0, k0, kvh, b, offset,
+                        first, n_per_head, n_trips};
+    if (wgi == 1) {
+      dkdv_consumer<D, true>(blk, parts, sh, scale, dv);
+    } else {
+      dkdv_consumer<D, false>(blk, parts, sh, scale, dk);
+    }
+  }
+}
+
+// blockIdx.x -> (64-row query tile, head, batch): the last query tile
+// first over every head and batch (the forward's launch_order at 64 rows).
+template <int D>
+__global__ void __launch_bounds__(Dq<D>::kThreads, 1)
+flash_bwd_dq_wgmma_f32_kernel(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              const __grid_constant__ CUtensorMap dmap,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ dq, Shape sh,
+                              float scale) {
+  using L = Dq<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* sbase = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t parts = base + L::kBars;            // q and dO split
+  const uint32_t q_full = parts + 8;                 // raw q and dO loaded
+  const uint32_t raw0 = q_full + 8;                  // raw[r] = raw0 + 8 r
+  const uint32_t full0 = raw0 + 8 * L::kRaw;         // full[s] = full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * L::kStages;    // empty[s]
+
+  const int per = sh.n_heads * sh.batch;
+  const int n_q_tiles = (sh.sq + L::kBQ - 1) / L::kBQ;
+  const int qt = n_q_tiles - 1 - static_cast<int>(blockIdx.x) / per;
+  const int h = static_cast<int>(blockIdx.x) % per % sh.n_heads;
+  const int b = static_cast<int>(blockIdx.x) % per / sh.n_heads;
+  const int q0 = qt * L::kBQ;
+  const int offset = sh.sk - sh.sq;
+  // causal trip count: the key tiles up to the block's last row's position
+  const int q_last = offset + min(q0 + L::kBQ, sh.sq) - 1;
+  const int n_tiles =
+      q_last < 0 ? 0 : min(q_last / L::kBK + 1, (sh.sk + L::kBK - 1) / L::kBK);
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(parts, 128);
+    mbar_init(q_full, 1);
+    for (int r = 0; r < L::kRaw; ++r) mbar_init(raw0 + 8 * r, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 128);
+      mbar_init(empty0 + 8 * s, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    // producer: thread 0 issues the TMA loads; all 128 threads split q and
+    // dO once, then each trip's K (also transposed) and V
+    const int t = threadIdx.x;
+    const int kvh = h / sh.group;
+    if (n_tiles > 0) {
+      if (t == 0) {
+        load_pair<L::kBQ, D>(base + L::kSplit, q_full, &qmap, &dmap, h, q0,
+                             b);
+      }
+      mbar_wait(q_full, 0);
+      split_same<L::kQPart>(sbase + L::kSplit, sbase, sbase + L::kQPart, t);
+      split_same<L::kQPart>(sbase + L::kSplit + L::kQPart,
+                            sbase + 2 * L::kQPart, sbase + 3 * L::kQPart, t);
+      fence_async_smem();
+      mbar_arrive(parts);
+      bar_sync(1, 128);  // raw q and dO read before the ring is written
+      const auto load_raw = [&](int j) {
+        const int r = j % L::kRaw;
+        load_pair<L::kBK, D>(base + L::kRawOff + r * 2 * L::kKPart,
+                             raw0 + 8 * r, &kmap, &vmap, kvh, j * L::kBK, b);
+      };
+      if (t == 0) {
+        for (int j = 0; j < min(L::kRaw, n_tiles); ++j) load_raw(j);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int r = j % L::kRaw;
+        const int s = j % L::kStages;
+        mbar_wait(raw0 + 8 * r, (j / L::kRaw) & 1);
+        mbar_wait(empty0 + 8 * s, ((j / L::kStages) & 1) ^ 1);
+        uint8_t* st = sbase + L::kSplit + s * L::kStage;
+        uint8_t* tt = st + 4 * L::kKPart;
+        const uint8_t* rk = sbase + L::kRawOff + r * 2 * L::kKPart;
+        split_tile<L::kBK, D>(rk, st, st + L::kKPart, tt, 0, tt, L::kBK, t);
+        split_same<L::kKPart>(rk + L::kKPart, st + 2 * L::kKPart,
+                              st + 3 * L::kKPart, t);
+        fence_async_smem();
+        mbar_arrive(full0 + 8 * s);
+        if (j + L::kRaw < n_tiles) {
+          bar_sync(1, 128);  // every producer thread is done with raw r
+          if (t == 0) load_raw(j + L::kRaw);
+        }
+      }
+    }
+  } else {
+    // the consumer: the block's 64 query rows as the M side
+    const int t = threadIdx.x - 128;
+    const int warp = t >> 5;
+    const int lane = t & 31;
+    // accumulator fragment of S (rows x keys): element i of this thread is
+    // row r0 + 8 ((i >> 1) & 1), key column 8 (i >> 2) + col0 + (i & 1)
+    const int r0 = q0 + 16 * warp + (lane >> 2);
+    const int col0 = 2 * (lane & 3);
+    const uint32_t q_hi = base;
+    const uint32_t q_lo = base + L::kQPart;
+    const uint32_t do_hi = base + 2 * L::kQPart;
+    const uint32_t do_lo = base + 3 * L::kQPart;
+    const float scale_log2 = scale * kLog2e;
+    const long long rows =
+        (static_cast<long long>(b) * sh.n_heads + h) * sh.sq;
+    float lr[2], dr[2];  // the rows' lse (log2 units) and delta, 0 past Sq
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      lr[r] = row < sh.sq ? lse[rows + row] * kLog2e : 0.f;
+      dr[r] = row < sh.sq ? delta[rows + row] : 0.f;
+    }
+
+    float acc[D / 2], fresh[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = fresh[i] = 0.f;
+
+    if (n_tiles > 0) mbar_wait(parts, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % L::kStages;
+      const int k0 = j * L::kBK;
+      mbar_wait(full0 + 8 * s, (j / L::kStages) & 1);
+      const uint32_t kh = base + L::kSplit + s * L::kStage;
+      const uint32_t kl = kh + L::kKPart;
+      const uint32_t vh = kh + 2 * L::kKPart;
+      const uint32_t vl = kh + 3 * L::kKPart;
+      const uint32_t tt = kh + 4 * L::kKPart;
+
+      // S = q K^T and dP = dO V^T, two groups: P is formed while dP is in
+      // flight
+      float sc[L::kBK / 2], dp[L::kBK / 2];
+      wgmma_fence();
+      product_ss<L::kBK, D>(sc, q_hi, q_lo, kh, kl);
+      wgmma_commit();
+      product_ss<L::kBK, D>(dp, do_hi, do_lo, vh, vl);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+
+      // P = exp2(S D^-0.5 log2(e) - lse), 0 where masked (only on tiles
+      // that cross the diagonal or Sk)
+      const bool edge = k0 + L::kBK - 1 > offset + q0 || k0 + L::kBK > sh.sk;
+#pragma unroll
+      for (int i = 0; i < L::kBK / 2; i += 2) {
+        const int r = (i >> 1) & 1;
+        float p0 = ex2(fmaf(sc[i], scale_log2, -lr[r]));
+        float p1 = ex2(fmaf(sc[i + 1], scale_log2, -lr[r]));
+        if (edge) {
+          const int key = k0 + 8 * (i >> 2) + col0;
+          const int qpos = offset + r0 + 8 * r;
+          if (key > qpos || key >= sh.sk) p0 = 0.f;
+          if (key + 1 > qpos || key + 1 >= sh.sk) p1 = 0.f;
+        }
+        sc[i] = p0;
+        sc[i + 1] = p1;
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+
+      // dS = P (dP - delta), as TF32 hi and lo fragments
+#pragma unroll
+      for (int i = 0; i < L::kBK / 2; ++i) {
+        dp[i] = sc[i] * (dp[i] - dr[(i >> 1) & 1]);
+      }
+      uint32_t xh[L::kBK / 8][4], xl[L::kBK / 8][4];
+      split_frags<L::kBK>(dp, xh, xl);
+
+      // dQ (+)= dS K, K^T (hi, then lo) the K-major B operand
+      float(&c)[D / 2] = pick(acc, fresh);
+      wgmma_fence();
+      product_rs<D, L::kBK>(c, xh, xl, tt, 0, tt, L::kBK,
+                            kFold > 0 && j % kFold == 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(c);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+      if (kFold > 0 && ((j + 1) % kFold == 0 || j + 1 == n_tiles)) {
+        fold(acc, fresh);
+      }
+    }
+
+    // dQ (times D^-0.5) of rows < Sq, (B, Sq, H, D) contiguous; rows that
+    // see no key get 0
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= sh.sq) continue;
+      float* out =
+          dq + ((static_cast<long long>(b) * sh.sq + row) * sh.n_heads + h) *
+                   D;
+#pragma unroll
+      for (int jb = 0; jb < D / 8; ++jb) {
+        const int i = 4 * jb + 2 * r;
+        *reinterpret_cast<float2*>(out + 8 * jb + col0) =
+            make_float2(acc[i] * scale, acc[i + 1] * scale);
+      }
+    }
+  }
+}
+
+}  // namespace tf
+
 // plan (kernels/flash_attention.py: BwdPlan.args), 114 values: batch, sq,
 // sk, n_heads, n_kv_heads, d, dtype (0 f32, 1 bf16), the dkdv kernel's
 // query tiles and key tiles, the (batch, seq, head) element strides of q,
-// k, v, o and dO, the design (0: the CUDA-core kernels, f32; 1: the wgmma
-// kernels, bf16), the dq kernel's query tiles, then the TMA maps of q, k,
-// v and dO for the dkdv kernel and again for the dq kernel, 11 values
-// each (design 1; zeros for design 0)
+// k, v, o and dO, the design (0: the f32 wgmma kernels, 1: the bf16
+// ones; it must be the dtype's), the dq kernel's query tiles, then the TMA
+// maps of q, k, v and dO for the dkdv kernel and again for the dq kernel,
+// 11 values each
 constexpr int kPlanMaps = 26;
 constexpr int kMapLongs = 11;
 
@@ -1051,6 +1532,21 @@ struct Args {
   int d, dtype, n_q_tiles, n_k_tiles, design, dq_q_tiles;
   Strides qst, kst, vst, ost, dst;
 };
+
+// (dkdv query rows a trip, dkdv keys a block, dq query rows a block) of a
+// design at D
+template <int D>
+void tiles(int design, int& bq, int& bk, int& dq_bq) {
+  if (design == 0) {
+    bq = tf::Dkdv<D>::kBQ;
+    bk = tf::Dkdv<D>::kBK;
+    dq_bq = tf::Dq<D>::kBQ;
+  } else {
+    bq = wg::Dkdv<D>::kBQ;
+    bk = wg::Dkdv<D>::kBK;
+    dq_bq = wg::Dq<D>::kBQ;
+  }
+}
 
 bool parse(const long long* p, Args& a) {
   a.sh = Shape{static_cast<int>(p[0]), static_cast<int>(p[1]),
@@ -1073,11 +1569,12 @@ bool parse(const long long* p, Args& a) {
       a.sh.sk <= 0) {
     return false;
   }
-  // the tiles of the design's kernels
-  const int bq = kBQ;
-  const int bk = a.design == 0 ? kBK : (a.d == 64 ? wg::Dkdv<64>::kBK
-                                                  : wg::Dkdv<128>::kBK);
-  const int dq_bq = a.design == 0 ? kBQ : wg::Dq<64>::kBQ;
+  int bq, bk, dq_bq;
+  if (a.d == 64) {
+    tiles<64>(a.design, bq, bk, dq_bq);
+  } else {
+    tiles<128>(a.design, bq, bk, dq_bq);
+  }
   if (a.n_q_tiles != (a.sh.sq + bq - 1) / bq ||
       a.n_k_tiles != (a.sh.sk + bk - 1) / bk ||
       a.dq_q_tiles != (a.sh.sq + dq_bq - 1) / dq_bq) {
@@ -1101,107 +1598,88 @@ int delta_launch(const void* o, const void* dO, float* delta, const Args& a,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int dkdv_launch(const void* q, const void* k, const void* v, const void* dO,
-                const float* lse, const float* delta, void* dk, void* dv,
-                const Args& a, float scale, cudaStream_t s) {
-  constexpr int smem = dkdv_smem<D>();
-  static std::atomic<unsigned long long> opted{0};
-  const cudaError_t err =
-      hopper::opt_in(flash_bwd_dkdv_kernel<float, D>, smem, opted);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks =
-      static_cast<long long>(a.n_k_tiles) * a.sh.n_kv_heads * a.sh.batch;
-  flash_bwd_dkdv_kernel<float, D><<<static_cast<unsigned>(blocks), kThreads,
-                                    smem, s>>>(
-      static_cast<const float*>(q), a.qst, static_cast<const float*>(k),
-      a.kst, static_cast<const float*>(v), a.vst,
-      static_cast<const float*>(dO), a.dst, lse, delta,
-      static_cast<float*>(dk), static_cast<float*>(dv), a.sh, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int dq_launch(const void* q, const void* k, const void* v, const void* dO,
-              const float* lse, const float* delta, void* dq, const Args& a,
-              float scale, cudaStream_t s) {
-  constexpr int smem = dq_smem<D>();
-  static std::atomic<unsigned long long> opted{0};
-  const cudaError_t err =
-      hopper::opt_in(flash_bwd_dq_kernel<float, D>, smem, opted);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks =
-      static_cast<long long>(a.n_q_tiles) * a.sh.n_heads * a.sh.batch;
-  flash_bwd_dq_kernel<float, D><<<static_cast<unsigned>(blocks), kThreads,
-                                  smem, s>>>(
-      static_cast<const float*>(q), a.qst, static_cast<const float*>(k),
-      a.kst, static_cast<const float*>(v), a.vst,
-      static_cast<const float*>(dO), a.dst, lse, delta,
-      static_cast<float*>(dq), a.sh, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The four TMA maps of q, k, v and dO at `maps` (11 values each), with
-// boxes of `bq` query rows and `bk` keys; false where a map does not
-// encode or does not name those boxes.
+// boxes of `cols` columns of `type` and `bq` query rows or `bk` keys;
+// false where a map does not encode or does not name those boxes.
 template <int D>
 bool encode_qkvd(CUtensorMap (&m)[4], const void* q, const void* k,
                  const void* v, const void* dO, const long long* maps, int bq,
-                 int bk) {
-  constexpr auto kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  return hopper::encode(&m[0], q, maps, D, kBf16, wg::kCols, bq) &&
-         hopper::encode(&m[1], k, maps + kMapLongs, D, kBf16, wg::kCols, bk) &&
-         hopper::encode(&m[2], v, maps + 2 * kMapLongs, D, kBf16, wg::kCols,
-                        bk) &&
-         hopper::encode(&m[3], dO, maps + 3 * kMapLongs, D, kBf16, wg::kCols,
-                        bq);
+                 int bk, CUtensorMapDataType type, int cols) {
+  return hopper::encode(&m[0], q, maps, D, type, cols, bq) &&
+         hopper::encode(&m[1], k, maps + kMapLongs, D, type, cols, bk) &&
+         hopper::encode(&m[2], v, maps + 2 * kMapLongs, D, type, cols, bk) &&
+         hopper::encode(&m[3], dO, maps + 3 * kMapLongs, D, type, cols, bq);
 }
 
-template <int D>
-int dkdv_wgmma_launch(const void* q, const void* k, const void* v,
-                      const void* dO, const float* lse, const float* delta,
-                      void* dk, void* dv, const Args& a,
-                      const long long* plan, float scale, cudaStream_t s) {
-  using L = wg::Dkdv<D>;
+// One launch of `kernel`, of geometry L, over `blocks` blocks with the
+// four maps and the kernel's other arguments.
+template <typename L, typename Kernel, typename... Rest>
+int launch_maps(Kernel kernel, const CUtensorMap (&m)[4], long long blocks,
+                std::atomic<unsigned long long>& opted, cudaStream_t s,
+                Rest... rest) {
+  const cudaError_t err = hopper::opt_in(kernel, L::kAlloc, opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), L::kThreads, L::kAlloc, s>>>(
+      m[0], m[1], m[2], m[3], rest...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dkdv of the f32 design (the tf kernel) or the bf16 one (wg): a block per
+// (key tile, KV head, batch)
+template <int D, bool kF32>
+int dkdv_launch(const void* q, const void* k, const void* v, const void* dO,
+                const float* lse, const float* delta, void* dk, void* dv,
+                const Args& a, const long long* plan, float scale,
+                cudaStream_t s) {
+  using L = std::conditional_t<kF32, tf::Dkdv<D>, wg::Dkdv<D>>;
+  using Out = std::conditional_t<kF32, float, __nv_bfloat16>;
   CUtensorMap m[4];
-  if (!encode_qkvd<D>(m, q, k, v, dO, plan + kPlanMaps, L::kBQ, L::kBK)) {
+  if (!encode_qkvd<D>(m, q, k, v, dO, plan + kPlanMaps, L::kBQ, L::kBK,
+                      kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      kF32 ? tf::kCols : wg::kCols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   static std::atomic<unsigned long long> opted{0};
-  const cudaError_t err = hopper::opt_in(wg::flash_bwd_dkdv_wgmma_kernel<D>,
-                                         L::kAlloc, opted);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks =
       static_cast<long long>(a.n_k_tiles) * a.sh.n_kv_heads * a.sh.batch;
-  wg::flash_bwd_dkdv_wgmma_kernel<D><<<static_cast<unsigned>(blocks),
-                                       L::kThreads, L::kAlloc, s>>>(
-      m[0], m[1], m[2], m[3], lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), a.sh, scale);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (kF32) {
+    return launch_maps<L>(tf::flash_bwd_dkdv_wgmma_f32_kernel<D>, m, blocks,
+                          opted, s, lse, delta, static_cast<Out*>(dk),
+                          static_cast<Out*>(dv), a.sh, scale);
+  } else {
+    return launch_maps<L>(wg::flash_bwd_dkdv_wgmma_kernel<D>, m, blocks,
+                          opted, s, lse, delta, static_cast<Out*>(dk),
+                          static_cast<Out*>(dv), a.sh, scale);
+  }
 }
 
-template <int D>
-int dq_wgmma_launch(const void* q, const void* k, const void* v,
-                    const void* dO, const float* lse, const float* delta,
-                    void* dq, const Args& a, const long long* plan,
-                    float scale, cudaStream_t s) {
-  using L = wg::Dq<D>;
+// dq of either design: a block per (query tile, head, batch)
+template <int D, bool kF32>
+int dq_launch(const void* q, const void* k, const void* v, const void* dO,
+              const float* lse, const float* delta, void* dq, const Args& a,
+              const long long* plan, float scale, cudaStream_t s) {
+  using L = std::conditional_t<kF32, tf::Dq<D>, wg::Dq<D>>;
+  using Out = std::conditional_t<kF32, float, __nv_bfloat16>;
   CUtensorMap m[4];
   if (!encode_qkvd<D>(m, q, k, v, dO, plan + kPlanMaps + 4 * kMapLongs,
-                      L::kBQ, L::kBK)) {
+                      L::kBQ, L::kBK,
+                      kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      kF32 ? tf::kCols : wg::kCols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   static std::atomic<unsigned long long> opted{0};
-  const cudaError_t err =
-      hopper::opt_in(wg::flash_bwd_dq_wgmma_kernel<D>, L::kAlloc, opted);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks =
       static_cast<long long>(a.dq_q_tiles) * a.sh.n_heads * a.sh.batch;
-  wg::flash_bwd_dq_wgmma_kernel<D><<<static_cast<unsigned>(blocks),
-                                     L::kThreads, L::kAlloc, s>>>(
-      m[0], m[1], m[2], m[3], lse, delta, static_cast<__nv_bfloat16*>(dq),
-      a.sh, scale);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (kF32) {
+    return launch_maps<L>(tf::flash_bwd_dq_wgmma_f32_kernel<D>, m, blocks,
+                          opted, s, lse, delta, static_cast<Out*>(dq), a.sh,
+                          scale);
+  } else {
+    return launch_maps<L>(wg::flash_bwd_dq_wgmma_kernel<D>, m, blocks, opted,
+                          s, lse, delta, static_cast<Out*>(dq), a.sh, scale);
+  }
 }
 
 }  // namespace
@@ -1210,8 +1688,8 @@ int dq_wgmma_launch(const void* q, const void* k, const void* v,
 // cudaErrorInvalidValue for a plan the kernels do not take (an empty axis
 // included: the wrapper launches nothing then). delta and lse are
 // (B, H, Sq) f32 contiguous; dq (B, Sq, H, D), dk and dv (B, Sk, K, D)
-// contiguous in the operands' dtype. bf16 takes the wgmma kernels, f32 the
-// CUDA-core ones; the delta kernel takes both.
+// contiguous in the operands' dtype. f32 takes the tf kernels, bf16 the
+// wg ones; the delta kernel takes both.
 extern "C" int flash_bwd_delta_launch(const void* o, const void* dO,
                                       float* delta, const long long* plan,
                                       void* stream) {
@@ -1236,14 +1714,15 @@ extern "C" int flash_bwd_dkdv_launch(const void* q, const void* k,
   if (!parse(plan, a)) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   if (a.design == 1) {
-    return a.d == 64 ? dkdv_wgmma_launch<64>(q, k, v, dO, lse, delta, dk, dv,
-                                             a, plan, scale, s)
-                     : dkdv_wgmma_launch<128>(q, k, v, dO, lse, delta, dk, dv,
-                                              a, plan, scale, s);
+    return a.d == 64 ? dkdv_launch<64, false>(q, k, v, dO, lse, delta, dk,
+                                              dv, a, plan, scale, s)
+                     : dkdv_launch<128, false>(q, k, v, dO, lse, delta, dk,
+                                               dv, a, plan, scale, s);
   }
-  return a.d == 64
-             ? dkdv_launch<64>(q, k, v, dO, lse, delta, dk, dv, a, scale, s)
-             : dkdv_launch<128>(q, k, v, dO, lse, delta, dk, dv, a, scale, s);
+  return a.d == 64 ? dkdv_launch<64, true>(q, k, v, dO, lse, delta, dk, dv,
+                                           a, plan, scale, s)
+                   : dkdv_launch<128, true>(q, k, v, dO, lse, delta, dk, dv,
+                                            a, plan, scale, s);
 }
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
@@ -1255,11 +1734,13 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
   if (!parse(plan, a)) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   if (a.design == 1) {
-    return a.d == 64 ? dq_wgmma_launch<64>(q, k, v, dO, lse, delta, dq, a,
-                                           plan, scale, s)
-                     : dq_wgmma_launch<128>(q, k, v, dO, lse, delta, dq, a,
-                                            plan, scale, s);
+    return a.d == 64 ? dq_launch<64, false>(q, k, v, dO, lse, delta, dq, a,
+                                            plan, scale, s)
+                     : dq_launch<128, false>(q, k, v, dO, lse, delta, dq, a,
+                                             plan, scale, s);
   }
-  return a.d == 64 ? dq_launch<64>(q, k, v, dO, lse, delta, dq, a, scale, s)
-                   : dq_launch<128>(q, k, v, dO, lse, delta, dq, a, scale, s);
+  return a.d == 64 ? dq_launch<64, true>(q, k, v, dO, lse, delta, dq, a,
+                                         plan, scale, s)
+                   : dq_launch<128, true>(q, k, v, dO, lse, delta, dq, a,
+                                          plan, scale, s);
 }

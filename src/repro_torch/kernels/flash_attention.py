@@ -44,11 +44,12 @@ each row's log-sum-exp, and its backward launches the three kernels of
 :func:`flash_bwd_dkdv`, :func:`flash_bwd_dq`, planned by
 :func:`bwd_plan`), which recompute P from q, k and the lse: in bf16
 the dkdv and dq kernels run on the tensor cores (``wgmma`` fed by TMA, P
-and dS entering the products as two bf16 parts), in f32 on the CUDA
-cores. The JAX package differentiates its XLA scan under
-``jax.checkpoint``, which recomputes the forward in the backward; the
-port saves o and the lse instead, and the arithmetic is the same: f32
-logits, P and dS, f32 sums.
+and dS entering the products as two bf16 parts), and in f32 too
+(``wgmma_f32``: every product three TF32 products of split operands, the
+transposed B operands written by a producer warpgroup). The JAX package
+differentiates its XLA scan under ``jax.checkpoint``, which recomputes
+the forward in the backward; the port saves o and the lse instead, and
+the arithmetic is the same: f32 logits, P and dS, f32 sums.
 The ``mma`` designs (D 16 and 32) have no lse yet: a CUDA call of theirs
 that needs grad raises.
 
@@ -102,18 +103,21 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_float, ctypes.c_void_p]
 #: head dims the backward kernels are built for (the wgmma designs')
 BWD_HEAD_DIMS = (64, 128)
-#: the backward's designs by launcher code: f32 on the CUDA cores, bf16 on
-#: the tensor cores
-BWD_DESIGNS = ("cuda", "wgmma")
-BWD_BQ = 64      # query rows a tile of the CUDA-core kernels (and of the
-                 # wgmma dkdv kernel's query tiles)
-BWD_BK = 64      # keys a tile of the CUDA-core kernels
-BWD_THREADS = 256
-BWD_VEC = 4      # elements a load: bases and strides a multiple of it
-#: the wgmma backward's tiles per D: dkdv's (query rows a tile, keys a
+#: the backward's designs by launcher code, both on the tensor cores: f32
+#: (three TF32 products of split operands) and bf16
+BWD_DESIGNS = ("wgmma_f32", "wgmma")
+BWD_THREADS = 256  # the delta kernel's block
+BWD_VEC = 4      # the delta kernel's elements a load: bases and strides a
+                 # multiple of it
+#: the bf16 backward's tiles per D: dkdv's (query rows a tile, keys a
 #: block: 64 per consumer warpgroup, two at D 64 and one at D 128), and
 #: dq's (query rows a block: two 64-row consumers, keys a tile)
 BWD_WGMMA_TILES = {64: ((64, 128), (128, 64)), 128: ((64, 64), (128, 64))}
+#: the f32 backward's tiles per D: dkdv's (query rows a trip, keys a block:
+#: 64, the dV and dK warpgroups both on them), and dq's (query rows a
+#: block: one 64-row consumer, keys a trip); what shared memory holds with
+#: every operand as a TF32 hi and lo part (csrc/flash_attention_bwd.cu)
+BWD_WGMMA_F32_TILES = {64: ((32, 64), (64, 32)), 128: ((16, 64), (64, 16))}
 #: the names of the backward's TMA operands, in the launcher's map order
 BWD_OPERANDS = ("q", "k", "v", "do")
 
@@ -461,29 +465,28 @@ def causal_pairs(sq: int, sk: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
     """The backward kernels' launch geometry, by ``design``: ``"wgmma"``
-    (bf16, the tensor-core kernels) or ``"cuda"`` (f32, the CUDA-core
-    kernels, 256 threads a block and 64 x 64 tiles throughout).
+    (bf16, tiles ``BWD_WGMMA_TILES``) or ``"wgmma_f32"`` (f32, tiles
+    ``BWD_WGMMA_F32_TILES``), both on the tensor cores.
 
     * dkdv: ``dkdv_blocks`` = key tiles of ``bk`` keys x KV heads x B;
       block ``x`` is (key tile ``x // (K B)``, KV head ``x % (K B) % K``,
       batch ``x % (K B) // K``), key tile 0 (the most query tiles) first.
       Key tile ``t`` visits the query tiles of ``bq`` rows
       ``first_q_tile[t]`` .. ``n_q_tiles - 1`` for each of the G query
-      heads of its KV head (wgmma: ``bk`` is 64 keys per consumer
-      warpgroup, 128 at D 64 and 64 at D 128).
+      heads of its KV head (``bk``: 64 keys per consumer warpgroup in
+      bf16, 128 at D 64 and 64 at D 128; 64 in f32).
     * dq: ``dq_blocks`` = query tiles of ``dq_bq`` rows x H x B, in the
       forward's order (:func:`launch_order` at ``dq_bq``); query tile
       ``t`` visits key tiles of ``dq_bk`` keys 0 .. ``dq_trips[t] - 1``.
     * delta: D / 4 threads a row, ``delta_blocks``.
 
     ``copies`` names the operands of q, k, v and dO (``BWD_OPERANDS``)
-    that the design cannot read as they lie: for ``"wgmma"`` a base or
-    stride that is not a multiple of ``TMA_ALIGN`` bytes, a zero stride
-    (the dO of a scalar loss) or a head dim that is not contiguous; for
-    ``"cuda"`` a base or (batch, seq, head) stride that is no multiple of
-    ``BWD_VEC`` elements. The wrappers copy those and plan again. ``maps``
-    (wgmma, once nothing needs a copy): the TMA maps of q, k, v and dO
-    with dkdv's boxes, then with dq's."""
+    that TMA cannot read as they lie: a base or stride that is not a
+    multiple of ``TMA_ALIGN`` bytes, a zero stride (the dO of a scalar
+    loss) or a head dim that is not contiguous. The wrappers copy those
+    and plan again. ``maps`` (once nothing needs a copy): the TMA maps of
+    q, k, v and dO with dkdv's boxes, then with dq's (32-column boxes in
+    f32, 64 in bf16: one 128-byte swizzle row)."""
     n_q_tiles: int
     n_k_tiles: int
     dkdv_blocks: int
@@ -492,28 +495,23 @@ class BwdPlan:
     first_q_tile: tuple[int, ...]
     dq_trips: tuple[int, ...]
     copies: tuple[str, ...]
-    bq: int = BWD_BQ
-    bk: int = BWD_BK
-    design: str = "cuda"
-    dq_q_tiles: int = 0
-    dq_bq: int = BWD_BQ
-    dq_bk: int = BWD_BK
-    maps: tuple | None = None
+    bq: int
+    bk: int
+    design: str
+    dq_q_tiles: int
+    dq_bq: int
+    dq_bk: int
+    maps: tuple | None
 
 
 def _vec_ok(t: torch.Tensor) -> bool:
-    """True where the CUDA-core backward kernels read ``t`` as it lies: a
-    contiguous head dim, and base and (batch, seq, head) strides a
-    multiple of ``BWD_VEC`` elements (a dim of size 1 is never stepped
-    over)."""
-    return _vec_ok_layout(tuple(t.shape), t.stride(), t.element_size(),
-                          t.data_ptr())
-
-
-def _vec_ok_layout(shape, stride, es, ptr) -> bool:
-    return (stride[-1] == 1 and ptr % (BWD_VEC * es) == 0
-            and all(st % BWD_VEC == 0 for n, st in zip(shape[:3], stride[:3])
-                    if n > 1))
+    """True where the delta kernel reads ``t`` as it lies: a contiguous
+    head dim, and base and (batch, seq, head) strides a multiple of
+    ``BWD_VEC`` elements (a dim of size 1 is never stepped over)."""
+    return (t.stride(-1) == 1
+            and t.data_ptr() % (BWD_VEC * t.element_size()) == 0
+            and all(st % BWD_VEC == 0
+                    for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1))
 
 
 def _bwd_map(shape, stride, es, aligned, rows) -> TensorMap | None:
@@ -539,10 +537,7 @@ def bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ops.append((tuple(q.shape), (sq * h * d, h * d, d, 1), 0))
     else:
         ops.append((tuple(do.shape), do.stride(), do.data_ptr()))
-    es = q.element_size()
-    return _bwd_plan(q.dtype, *((shape, stride,
-                                 ptr % TMA_ALIGN == 0,
-                                 _vec_ok_layout(shape, stride, es, ptr))
+    return _bwd_plan(q.dtype, *((shape, stride, ptr % TMA_ALIGN == 0)
                                 for shape, stride, ptr in ops))
 
 
@@ -552,28 +547,22 @@ def _bwd_plan(dtype, *operands) -> BwdPlan:
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"the flash backward kernels are built for D "
                          f"{BWD_HEAD_DIMS}, not {d}")
-    kind = "wgmma" if dtype == torch.bfloat16 else "cuda"
-    (bq, bk), (dq_bq, dq_bk) = (BWD_WGMMA_TILES[d] if kind == "wgmma" else
-                                ((BWD_BQ, BWD_BK), (BWD_BQ, BWD_BK)))
+    kind = "wgmma" if dtype == torch.bfloat16 else "wgmma_f32"
+    (bq, bk), (dq_bq, dq_bk) = (BWD_WGMMA_TILES if kind == "wgmma"
+                                else BWD_WGMMA_F32_TILES)[d]
     n_q, n_k, n_dq = cdiv(sq, bq), cdiv(sk, bk), cdiv(sq, dq_bq)
     offset = sk - sq
     first = tuple(max(t * bk - offset, 0) // bq for t in range(n_k))
     trips = tuple(trip_count(t, sq, sk, dq_bq, dq_bk) for t in range(n_dq))
     rows_per_block = BWD_THREADS // (d // 4)
     es = torch.empty((), dtype=dtype).element_size()
-    maps = None
-    if kind == "wgmma":
-        boxes = [(bq, bk, bk, bq), (dq_bq, dq_bk, dq_bk, dq_bq)]
-        maps = tuple(_bwd_map(shape, stride, es, aligned, rows)
-                     for box in boxes
-                     for (shape, stride, aligned, _), rows in zip(operands,
-                                                                  box))
-        copies = tuple(n for n, m in zip(BWD_OPERANDS, maps) if m is None)
-        if copies:
-            maps = None
-    else:
-        copies = tuple(n for n, (*_, vec_ok) in zip(BWD_OPERANDS, operands)
-                       if not vec_ok)
+    boxes = [(bq, bk, bk, bq), (dq_bq, dq_bk, dq_bk, dq_bq)]
+    maps = tuple(_bwd_map(shape, stride, es, aligned, rows)
+                 for box in boxes
+                 for (shape, stride, aligned), rows in zip(operands, box))
+    copies = tuple(n for n, m in zip(BWD_OPERANDS, maps) if m is None)
+    if copies:
+        maps = None
     return BwdPlan(n_q, n_k, n_k * kh * b, n_dq * h * b,
                    cdiv(b * h * sq, rows_per_block), first, trips, copies,
                    bq, bk, kind, n_dq, dq_bq, dq_bk, maps)
@@ -604,7 +593,7 @@ def _bwd_check(q, k, v, like_q=(), rows=()) -> None:
 
 
 def _vec_ready(*ts):
-    """Each tensor as it lies where the CUDA-core kernels read it so, else
+    """Each tensor as it lies where the delta kernel reads it so, else
     a fresh contiguous copy (``contiguous()`` would hand back a contiguous
     view at a misaligned base as it is)."""
     return [t if _vec_ok(t) else t.clone(memory_format=torch.contiguous_format)
@@ -628,8 +617,8 @@ def _bwd_args(p: BwdPlan, q, k, v, o, do) -> ctypes.Array:
     """The launchers' plan (csrc/flash_attention_bwd.cu: Args): the
     shapes, the tile counts of ``p``, which the launchers check against
     their own, the operands' (batch, seq, head) strides, the design, and
-    ``p``'s TMA maps (zeros where it has none: the CUDA-core kernels and
-    the delta kernel read through the strides)."""
+    ``p``'s TMA maps (zeros where it has none: the delta kernel reads
+    through the strides)."""
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
     # eight maps of 11 values (TensorMap.packed), zeros where there are none
@@ -679,8 +668,8 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta):
     k, v given dO, the forward's lse and delta (each (B, H, Sq) f32). A CPU
     tensor takes the plain backward's; a CUDA tensor launches the kernel
     of its design, ``flash_bwd_dkdv_wgmma_kernel`` for bf16 and
-    ``flash_bwd_dkdv_kernel`` for f32 (``flash_bwd_dkdv.launches`` and
-    ``.by_design``)."""
+    ``flash_bwd_dkdv_wgmma_f32_kernel`` for f32 (``flash_bwd_dkdv.launches``
+    and ``.by_design``), or raises."""
     _bwd_check(q, k, v, like_q=(do,), rows=(lse, delta))
     if q.device.type == "cpu":
         _, dk, dv = _ref_bwd(q, k, v, do, lse, delta)
@@ -704,8 +693,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta):
     """dq, (B, Sq, H, D) in q's dtype, of the causal attention of q, k, v
     given dO, lse and delta. A CPU tensor takes the plain backward's; a
     CUDA tensor launches ``flash_bwd_dq_wgmma_kernel`` for bf16 and
-    ``flash_bwd_dq_kernel`` for f32 (``flash_bwd_dq.launches`` and
-    ``.by_design``)."""
+    ``flash_bwd_dq_wgmma_f32_kernel`` for f32 (``flash_bwd_dq.launches``
+    and ``.by_design``), or raises."""
     _bwd_check(q, k, v, like_q=(do,), rows=(lse, delta))
     if q.device.type == "cpu":
         return _ref_bwd(q, k, v, do, lse, delta)[0]

@@ -117,24 +117,29 @@ def test_bwd_plan_visits_exactly_the_causal_tiles(sq, sk):
     p = tflash.bwd_plan(q, k, k)
     bq, bk = p.bq, p.bk
     assert (p.n_q_tiles, p.n_k_tiles) == (-(-sq // bq), -(-sk // bk))
+    assert p.dq_q_tiles == -(-sq // p.dq_bq)
     assert p.dkdv_blocks == p.n_k_tiles * 2 * 2
-    assert p.dq_blocks == p.n_q_tiles * 8 * 2
+    assert p.dq_blocks == p.dq_q_tiles * 8 * 2
     assert p.delta_blocks == -(-2 * 8 * sq // (256 // 16)) and not p.copies
-    # the tile pairs that hold a visible (query, key) pair
-    vis = np.arange(sk)[None, :] <= np.arange(sq)[:, None] + (sk - sq)
-    per_tile = np.add.reduceat(np.add.reduceat(
-        vis.astype(np.int64), np.arange(0, sq, bq), axis=0),
-        np.arange(0, sk, bk), axis=1)
-    want = set(zip(*(x.tolist() for x in np.nonzero(per_tile))))
+
+    def seen(bq, bk):   # the tile pairs that hold a visible (query, key)
+        vis = np.arange(sk)[None, :] <= np.arange(sq)[:, None] + (sk - sq)
+        per_tile = np.add.reduceat(np.add.reduceat(
+            vis.astype(np.int64), np.arange(0, sq, bq), axis=0),
+            np.arange(0, sk, bk), axis=1)
+        return set(zip(*(x.tolist() for x in np.nonzero(per_tile))))
+
+    want, want_dq = seen(bq, bk), seen(p.dq_bq, p.dq_bk)
     dkdv = {(t, kt) for kt in range(p.n_k_tiles)
             for t in range(p.first_q_tile[kt], p.n_q_tiles)}
-    dq = {(t, kt) for t in range(p.n_q_tiles) for kt in range(p.dq_trips[t])}
-    assert dkdv == want and dq == want
+    dq = {(t, kt) for t in range(p.dq_q_tiles)
+          for kt in range(p.dq_trips[t])}
+    assert dkdv == want and dq == want_dq
     for kt in range(p.n_k_tiles):   # the first query tile is the first seen
-        seen = [t for t, c in want if c == kt]
-        assert p.first_q_tile[kt] == (min(seen) if seen else p.n_q_tiles)
-    assert all(p.dq_trips[t] == len([c for a, c in want if a == t])
-               for t in range(p.n_q_tiles))
+        first = [t for t, c in want if c == kt]
+        assert p.first_q_tile[kt] == (min(first) if first else p.n_q_tiles)
+    assert all(p.dq_trips[t] == len([c for a, c in want_dq if a == t])
+               for t in range(p.dq_q_tiles))
 
 
 def test_bwd_plan_copies_what_the_kernels_cannot_read():

@@ -2,7 +2,7 @@
 
 ``repro_torch.kernels.flash_attention.bwd_plan`` decides what the
 backward kernels are told from the host: the design a dtype takes
-(``wgmma`` for bf16, ``cuda`` for f32), the tiles and block order of the
+(``wgmma`` for bf16, ``wgmma_f32`` for f32), the tiles and block order of the
 dkdv and dq kernels, their causal trips, and the TMA maps of q, k, v and
 dO with the operands that have to be copied first. It is a pure function
 of shapes, strides and addresses, so it is tested here against the
@@ -95,13 +95,15 @@ def test_bwd_plan_visits_every_causal_tile_pair_once(b, sq, sk, g, d, dtype):
     k = torch.empty((b, sk, kh, d), dtype=dtype)
     p = fa.bwd_plan(q, k, k)
     wg = dtype == BF16
-    assert p.design == ("wgmma" if wg else "cuda")
-    (bq, bk), (dq_bq, dq_bk) = (fa.BWD_WGMMA_TILES[d] if wg else
-                                ((64, 64), (64, 64)))
+    assert p.design == ("wgmma" if wg else "wgmma_f32")
+    (bq, bk), (dq_bq, dq_bk) = (fa.BWD_WGMMA_TILES if wg else
+                                fa.BWD_WGMMA_F32_TILES)[d]
     assert (p.bq, p.bk, p.dq_bq, p.dq_bk) == (bq, bk, dq_bq, dq_bk)
     if wg:   # 64 keys a consumer warpgroup: two at D 64, one at D 128
         assert bk == (128 if d == 64 else 64) and (bq, dq_bq, dq_bk) == (
             64, 128, 64)
+    else:    # 64 keys a block; 32-row / 32-key trips at D 64, 16 at 128
+        assert (bk, dq_bq) == (64, 64) and bq == dq_bk == 2048 // d
     assert (p.n_q_tiles, p.n_k_tiles, p.dq_q_tiles) == (
         -(-sq // bq), -(-sk // bk), -(-sq // dq_bq))
     assert p.dkdv_blocks == p.n_k_tiles * kh * b
@@ -161,10 +163,15 @@ def test_bwd_plan_maps_and_copies():
         for n, t, r in zip(fa.BWD_OPERANDS, args_, ready):
             assert torch.equal(t, r)
             assert (r.data_ptr() != t.data_ptr()) == (n in want)
-    # f32 takes the CUDA-core kernels: no maps; 4-element loads
+    # f32 takes the TF32 tensor-core kernels: maps of 32-column boxes
+    # (128 bytes) over the f32 tiles
     p32 = fa.bwd_plan(q.float(), k.float(), k.float(), q.float())
-    assert p32.design == "cuda" and p32.maps is None and p32.copies == ()
-    assert (p32.bq, p32.bk, p32.dq_bq, p32.dq_bk) == (64, 64, 64, 64)
+    assert p32.design == "wgmma_f32" and p32.copies == ()
+    assert (p32.bq, p32.bk, p32.dq_bq, p32.dq_bk) == (32, 64, 64, 32)
+    rows = [32, 64, 64, 32, 64, 32, 32, 64]
+    for m, t, r in zip(p32.maps, (q, k, k, q) * 2, rows):
+        assert m.box == (32, 1, r, 1) and m.strides == tuple(
+            st * 4 for st in (t.stride(2), t.stride(1), t.stride(0)))
     mis32 = torch.zeros(k.numel() + 1)[1:].view(k.shape)
     assert fa.bwd_plan(q.float(), mis32, k.float()).copies == ("k",)
     assert list(fa._bwd_args(p32, *(t.float() for t in (q, k, k, q, q))))[
