@@ -62,7 +62,8 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   then the same 8 releases into a ShardedStore of 4 shards
                   (ts 10..40 through update, ts 50..80 through threaded
                   ShardedReleaseSession waves of 4 chunks), get_versions at
-                  Q = 1/8/64 (serial: Q = 1/8) and get_increments over the
+                  Q = 1/8 (Q = 64 cut: the line's "reduced") and
+                  get_increments over the
                   7 windows under serial and stacked placement (and mesh
                   with 2+ cards), every row checked against its release
                   and byte for byte against an unsharded store's answers;
@@ -85,7 +86,7 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
   cpu_gpu_parity  a 2,000-entry history through device="cpu" and
                   device="cuda": identical views, increments and digests
   kernel_edges_serving  flash attention at the JAX package's kernel-test
-                  shapes, D 16/32/64/128, f32 and bf16, Sq > Sk and
+                  shapes, D 8/16/32/64/112/128, f32 and bf16, Sq > Sk and
                   Sq = 1, and at shapes that straddle the tensor-core
                   kernels' tiles (Sq 129 and 300 with Sk - Sq not a
                   multiple of any key tile, Sk 257, GQA groups 1/4/8, B 3,
@@ -187,6 +188,36 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   pool stats and pressure, the device over one read wave
                   of each store (torch.profiler and CUDA-event spans of
                   every device operation), launches
+  families_served Jamba-v0.1 at its published widths (d 4,096, 32 / 8
+                  heads of 128, 16 experts top-2, Mamba state 16), 8 of
+                  its 32 layers (one period of the 1:7 interleave), weights
+                  from a seeded generator on the card, through Scheduler
+                  and ServeEngine (the serving phase's 16 requests, 16
+                  tokens each), then one 4,096-token prompt at batch 1:
+                  walls, decode tokens/s, peak memory, flash launches by
+                  design and head dim (flash_wgmma_kernel<128>), and one
+                  profiled prefill of the long prompt (the same weights,
+                  in a fresh process) with the device time of the Mamba
+                  scan and of the MoE's routing, dispatch, expert
+                  products and combine
+  families_config each other new config at its published widths for one
+                  bucket's prefill and 8 greedy decode steps: olmo-1b,
+                  qwen1.5-4b, qwen2-0.5b, rwkv6-7b at full depth, grok-1
+                  at 2 layers, kimi-k2 at 1 (flash_wgmma_kernel<112>),
+                  qwen2-vl-72b at 2 on embeddings with M-RoPE positions;
+                  prefill wall, decode tokens/s, peak memory, flash calls
+                  by design and head dim (rwkv6-7b: none; and its
+                  4,096-token prompt at batch 1, its wall over all 32
+                  layers and a profiled prefill through the first 2, in
+                  a fresh process, with the scan's share)
+  families        the above in brief, and the eight new smoke configs in
+                  f32 through device="cpu" and device="cuda": the same
+                  greedy ids from a Scheduler run (qwen2-vl: greedy
+                  steps through ModelBundle on embeddings) and prefill
+                  logits within SMOKE_TOL, with the card run's kernel
+                  launches (counted from 0) and its flash calls by design
+                  and head dim, which must add up to the launches
+                  (flash_mma_f32_kernel at D 16 and 8)
   search          table4_application at Swiss-Prot scale: 570,000
                   sequences (32 x int32) and a release at 3.1% churn, the
                   Meta-pipe encoder at its published widths in bf16
@@ -230,7 +261,13 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   search path's), f32 at D 32 (flash_mma_f32_kernel, its
                   launches the encoder check's f32 run), and two shapes
                   no path launches: D 16 in bf16 (flash_mma_kernel) and
-                  in f32 (flash_mma_f32_kernel)),
+                  in f32 (flash_mma_f32_kernel, its launches the families
+                  phase's f32 smoke checks); flash attention at the
+                  families' shapes: bf16 D 128 on Jamba's 4,096-token
+                  prefill (layer 4), bf16 D 112 at kimi-k2's B 1 x S
+                  4,096, H 64 / K 8, D 8 at qwen2-0.5b-smoke's f32
+                  prefill on the card and the same values in bf16 (no
+                  path)),
                   and the frontdoor phase's launches, and the seconds
                   since the start at which each phase's line was printed;
                   the flash backward's three kernels (delta, dkdv, dq) at
@@ -378,6 +415,13 @@ SOURCES = {
     "flash_attention_d16_f32": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:33"),
 }
+# the same wrapper at the families' shapes: bf16 D 128 at Jamba's 4,096-
+# token prefill (flash_wgmma_kernel<128>), bf16 D 112 at kimi-k2's
+# attention (flash_wgmma_kernel<112>), D 8 at qwen2-0.5b-smoke's shape in
+# f32 (flash_mma_f32_kernel<8>, the smoke checks' path) and bf16
+# (flash_mma_kernel<8>, no path)
+for _sfx in ("_d128_4k", "_d112", "_d8_f32", "_d8"):
+    SOURCES[f"flash_attention{_sfx}"] = SOURCES["flash_attention"]
 # the flash backward (no TPU kernel: the JAX package differentiates its
 # XLA scan), at llama3.2-1b's training layer in bf16 (the train path's
 # launches) and in f32 (the f32 chunked-against-xla check's)
@@ -417,6 +461,7 @@ PATH_KERNELS = {
     "train": ("flash_attention", "flash_bwd_delta", "flash_bwd_dkdv",
               "flash_bwd_dq"),
     "train_checkpoint": ("fingerprint", "masked_cumsum", "delta_pack"),
+    "families": ("flash_attention",),
 }
 ARCH = "llama3.2-1b"
 SERVE_REQUESTS, SERVE_MAX_NEW, SERVE_MAX_BATCH = 16, 16, 8
@@ -884,10 +929,10 @@ def phase_env(build_info: dict, smi: str) -> None:
           "flash_registers_by_kernel": flash_regs,
           "flash_bwd_hgmma_by_kernel": bwd_hgmma,
           "flash_bwd_registers_by_kernel": bwd_regs})
-    for name, variant in (("flash_mma_kernel<16>", "HMMA.16816.F32.BF16"),
-                          ("flash_mma_kernel<32>", "HMMA.16816.F32.BF16"),
-                          ("flash_mma_f32_kernel<16>", "HMMA.1688.F32.TF32"),
-                          ("flash_mma_f32_kernel<32>", "HMMA.1688.F32.TF32")):
+    for name, variant in [(f"flash_mma_kernel<{d}>", "HMMA.16816.F32.BF16")
+                          for d in (8, 16, 32)] + [
+                              (f"flash_mma_f32_kernel<{d}>",
+                               "HMMA.1688.F32.TF32") for d in (8, 16, 32)]:
         if "flash_attention" in ptxas:
             got = flash_regs.get(name, {})
             check(got.get("spill_stores") == 0 and got.get("spill_loads") == 0,
@@ -896,12 +941,10 @@ def phase_env(build_info: dict, smi: str) -> None:
             check(mma_by_kernel.get(name, {}).get(variant, 0) > 0,
                   f"{name}: no {variant} in its SASS")
     if by_kernel is not None:
-        for name, variant in (("flash_wgmma_kernel<64>", "HGMMA.F32.BF16"),
-                              ("flash_wgmma_kernel<128>", "HGMMA.F32.BF16"),
-                              ("flash_wgmma_f32_kernel<64>",
-                               "HGMMA.F32.TF32"),
-                              ("flash_wgmma_f32_kernel<128>",
-                               "HGMMA.F32.TF32")):
+        for name, variant in [(f"flash_wgmma_kernel<{d}>", "HGMMA.F32.BF16")
+                              for d in (64, 112, 128)] + [
+                                  (f"flash_wgmma_f32_kernel<{d}>",
+                                   "HGMMA.F32.TF32") for d in (64, 112, 128)]:
             check(by_kernel.get(name, {}).get(variant, 0) > 0,
                   f"{name}: no {variant} instruction in its SASS")
     # the backward's tensor-core kernels: bf16 products in the wgmma ones,
@@ -2137,6 +2180,17 @@ def same_rows(a, b, what: str) -> None:
         check(same_bytes(a.values[f], b.values[f]), f"{what}: {f} differs")
 
 
+# the sharding phase's cuts in depth, its line's "reduced"
+SHARDING_REDUCED = {
+    "get_versions_q64": "dropped under every placement (the stacked "
+                        "placement's call, the unsharded store's answers "
+                        "and the check of 64 views of 570,000 rows; the "
+                        "serial placement's went earlier), for the "
+                        "families phase's time; main_path keeps Q = 64 on "
+                        "one store, and the kernel rows the stacked scan "
+                        "at Q = 64"}
+
+
 def phase_sharding(core, placement, kops, releases, root: str) -> dict:
     """The releases through a 4-shard ShardedStore on the card, queried
     under every placement and checked row by row against the releases and
@@ -2190,8 +2244,10 @@ def phase_sharding(core, placement, kops, releases, root: str) -> dict:
     rec["rows_per_shard"] = [st.shard(i).n_rows for i in range(N_SHARDS)]
     _, rec["superlog_build_s"] = wall(
         lambda: [st.shard(i).superlog() for i in range(N_SHARDS)])
-    queries = {1: [RELEASE_TS[-1]], 8: RELEASE_TS,
-               64: sorted(set(np.linspace(5, 85, 64).astype(int).tolist()))}
+    # Q = 64 is cut (SHARDING_REDUCED); the stacked scan at Q = 64 is
+    # still timed in phase_kernel_sharding
+    queries = {1: [RELEASE_TS[-1]], 8: RELEASE_TS}
+    rec["reduced"] = SHARDING_REDUCED
     pairs = list(zip(RELEASE_TS[:-1], RELEASE_TS[1:len(releases)]))
     placements = {"serial": placement.plan_placement(N_SHARDS,
                                                      force="serial"),
@@ -2222,10 +2278,6 @@ def phase_sharding(core, placement, kops, releases, root: str) -> dict:
                                     "Bmax": placed.bmax,
                                     "cells": placed.n_cells}
         for q, tss in queries.items():
-            if name == "serial" and q == 64:
-                # cut to keep the script near 300 s: 40.7 s on one H100,
-                # 30.2 s of it the host merge of 64 x 611k rows
-                continue
             stages = {}
             views, s = wall(lambda: st.get_versions(tss, trace=stages))
             rec["get_versions_s"][name][str(q)] = s
@@ -3344,6 +3396,17 @@ FLASH_EDGE_SHAPES = [  # (B, Sq, Sk, H, K, D)
     (2, 16, 9, 8, 8, 16), (2, 17, 50, 10, 5, 32), (1, 17, 5, 10, 5, 16),
     (2, 33, 33, 7, 7, 32), (1, 33, 20, 8, 4, 16), (1, 65, 100, 6, 3, 32),
     (2, 65, 40, 8, 2, 16),
+    # D 112 (kimi-k2's heads; the wgmma designs in D 128's tiles, columns
+    # past 112 zero-filled by TMA): its GQA group of 8, Sq and Sk on and
+    # off the tiles, Sq = 1, Sq > Sk, an empty key axis
+    (1, 129, 200, 16, 2, 112), (2, 300, 300, 8, 1, 112),
+    (1, 1, 65, 8, 8, 112), (1, 65, 97, 4, 4, 112), (2, 150, 40, 8, 1, 112),
+    (1, 5, 0, 8, 1, 112),
+    # D 8 (qwen2-0.5b-smoke's heads; the mma designs, a k16 step over a
+    # zero-padded row in bf16): 7 heads over 1 (7 heads a block, or 1),
+    # 14 over 2, Sq 1 / 16 / 17 / 130, Sq > Sk, an empty key axis
+    (2, 37, 37, 7, 1, 8), (1, 1, 40, 7, 1, 8), (3, 130, 200, 14, 2, 8),
+    (2, 17, 5, 7, 7, 8), (1, 16, 16, 7, 1, 8), (1, 5, 0, 7, 1, 8),
 ]
 
 
@@ -3353,9 +3416,10 @@ FLASH_EDGE_SHAPES = [  # (B, Sq, Sk, H, K, D)
 #: at D 16 and 32 q, k and v as views of one fused projection, and a k
 #: whose base is 8 bytes past a 16-byte boundary (the mma kernel's
 #: 16-byte copies cannot read it: copied, then launched)
-FLASH_EDGE_LAYOUTS = [(lay, d) for d in (64, 128)
+FLASH_EDGE_LAYOUTS = [(lay, d) for d in (64, 112, 128)
                       for lay in ("strided q", "misaligned k")] + [
-    (lay, d) for d in (16, 32) for lay in ("fused qkv", "k 8 bytes past 16")]
+    (lay, d) for d in (8, 16, 32)
+    for lay in ("fused qkv", "k 8 bytes past 16")]
 
 
 def flash_edge_inputs(gen, dt):
@@ -3909,6 +3973,552 @@ def phase_serving_parity(seed: int) -> None:
           "max_abs_logit_diff": err, "tol": SMOKE_TOL})
     check(same, "smoke serving: greedy ids differ between cpu and cuda")
     check(err <= SMOKE_TOL, f"smoke serving: logits differ by {err}")
+
+
+# ---------------------------------------------------------------------------
+# the decoder-only model families: Jamba-v0.1 served at its published
+# widths, the other new configs one bucket each, the smoke configs in f32
+# on the CPU and the card
+# ---------------------------------------------------------------------------
+
+#: the served model: Jamba-v0.1 at its published widths (d 4,096, 32 / 8
+#: heads of 128, 16 experts top-2 of d_ff 14,336, Mamba state 16, conv 4,
+#: expand 2, vocab 65,536), cut to one period of its 1:7 interleave: 8 of
+#: 32 layers (attention at 4, MoE at 1, 3, 5 and 7), 13.3 B parameters
+#: (26.6 GB in bf16; the whole model's 104 GB does not fit one card)
+FAMILY_SERVED = ("jamba-v0.1-52b", 8)
+FAMILY_LONG = 4096     # one prompt at batch 1 after the Scheduler's run
+FAMILY_DECODE = 8      # decode steps after each other config's prefill
+#: every other new config at its published widths, (arch, layers run): all
+#: of the dense ones' and rwkv6-7b's, the MoE and VLM giants cut in depth
+#: to what one card holds (grok-1 2 of 64, kimi-k2 1 of 61, qwen2-vl 2 of
+#: 80)
+FAMILY_OTHERS = (("olmo-1b", 16), ("qwen1.5-4b", 40), ("qwen2-0.5b", 24),
+                 ("rwkv6-7b", 32), ("grok-1-314b", 2),
+                 ("kimi-k2-1t-a32b", 1), ("qwen2-vl-72b", 2))
+#: rwkv6-7b's layers under the profiler at FAMILY_LONG tokens: its 32 layers
+#: are of one kind, and the profiler's host work grows with the ops (128
+#: chunks of 32 tokens a layer); the whole model's would take minutes.
+#: Profiles run in a fresh process (:func:`family_profile_fresh`), since
+#: the profiler loses device events late in a long one
+FAMILY_PROFILE_LAYERS = 2
+FAMILY_SMOKE = ("grok-1-314b", "jamba-v0.1-52b", "kimi-k2-1t-a32b",
+                "olmo-1b", "qwen1.5-4b", "qwen2-0.5b", "qwen2-vl-72b",
+                "rwkv6-7b")
+#: the device-time regions of one prefill: the Mamba and RWKV scans, the
+#: MoE's routing, dispatch, expert products and combine (module, function)
+FAMILY_REGIONS = {
+    "mamba_scan": ("repro_torch.models.ssm", "ssm_scan_chunked"),
+    "rwkv_scan": ("repro_torch.models.rwkv", "wkv_chunked"),
+    "moe_route": ("repro_torch.models.moe", "route"),
+    "moe_dispatch": ("repro_torch.models.moe", "dispatch"),
+    "moe_experts": ("repro_torch.models.moe", "expert_ffn"),
+    "moe_combine": ("repro_torch.models.moe", "combine"),
+}
+
+
+def family_cfg(arch: str, layers: int):
+    """The arch's published config, ``layers`` deep, in bf16."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=layers)
+
+
+def _leaves_of(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+        return
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        yield from _leaves_of(v)
+
+
+def tree_sizes(params) -> tuple[int, int]:
+    """(elements, bytes) of a parameter tree."""
+    leaves = list(_leaves_of(params))
+    return (sum(t.numel() for t in leaves),
+            sum(t.numel() * t.element_size() for t in leaves))
+
+
+def flash_key(cfg) -> str:
+    """The design and head dim a config's prefill attention takes."""
+    from repro_torch.kernels import flash_attention as fa
+    return f"{fa.design(getattr(torch, cfg.dtype), cfg.hd)}<{cfg.hd}>"
+
+
+def peak_bytes() -> int:
+    return torch.cuda.max_memory_allocated()
+
+
+def reset_peak() -> None:
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+
+
+@contextlib.contextmanager
+def flash_calls(keep: int = 0):
+    """Count the attention module's flash calls on the card by design and
+    head dim (``"wgmma<128>"``; each launches one kernel) and keep the
+    q, k, v of the first ``keep`` calls and of the last one (``"qkv"``,
+    ``"last_qkv"``)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as A
+    orig, out = A.flash_attention, {"by_dim": {}, "qkv": []}
+
+    def wrapped(q, k, v):
+        if q.device.type == torch.device(DEV).type:
+            key = f"{fa.design(q.dtype, q.shape[3])}<{q.shape[3]}>"
+            out["by_dim"][key] = out["by_dim"].get(key, 0) + 1
+            if len(out["qkv"]) < keep:
+                out["qkv"].append((q, k, v))
+            out["last_qkv"] = (q, k, v)
+        return orig(q, k, v)
+
+    A.flash_attention = wrapped
+    try:
+        yield out
+    finally:
+        A.flash_attention = orig
+
+
+@contextlib.contextmanager
+def labelled_regions(regions: dict):
+    """Wrap each region's function in a ``torch.profiler.record_function``
+    of its label and a pair of CUDA events; yields {label: [event pairs]}."""
+    import importlib
+    spans, patched = {k: [] for k in regions}, []
+    for label, (mod_name, fn_name) in regions.items():
+        mod = importlib.import_module(mod_name)
+        orig = getattr(mod, fn_name)
+
+        def wrapped(*a, _orig=orig, _label=label, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            with torch.profiler.record_function(_label):
+                ev[0].record()
+                out = _orig(*a, **kw)
+                ev[1].record()
+            spans[_label].append(ev)
+            return out
+
+        setattr(mod, fn_name, wrapped)
+        patched.append((mod, fn_name, orig))
+    try:
+        yield spans
+    finally:
+        for mod, fn_name, orig in patched:
+            setattr(mod, fn_name, orig)
+
+
+def _dev_us(e, attr: str) -> float:
+    v = getattr(e, attr.replace("cuda", "device"), None)
+    return float(v if v is not None else getattr(e, attr, 0) or 0)
+
+
+def region_shares(fn, regions: dict) -> dict:
+    """One run of ``fn`` under torch.profiler with each region labelled:
+    the device time of every kernel and copy the profiler kept
+    (``device_s``), and per region its kernels' device time (the kernels
+    its host range launched, ``region_device_s``) and that over
+    ``device_s`` (``share``); beside them each region's summed CUDA-event
+    spans on the stream (``region_span_s``: an upper bound, the spans also
+    hold the card's waits on the host inside the region).
+
+    Where the profiler lost events (``complete`` false) no share is read:
+    the kept events are then not only fewer but can be misattributed (a
+    region's kept kernel time has passed its own span)."""
+    from torch.profiler import ProfilerActivity, profile
+    with labelled_regions(regions) as spans:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, s = wall(fn)
+    evs = prof.events()
+    labels = set(regions)
+    dev = [e for e in evs if "CUDA" in str(e.device_type)
+           and e.name not in labels]
+    total = sum(_dev_us(e, "self_cuda_time_total") for e in dev) / 1e6
+    by = dict.fromkeys(labels, 0.0)
+    for e in evs:
+        if e.name in labels and "CPU" in str(e.device_type):
+            by[e.name] += _dev_us(e, "cuda_time_total") / 1e6
+    enqueued = sum("CPU" in str(e.device_type)
+                   and bool(ENQUEUE_CALL.match(e.name)) for e in evs)
+    span_s = {k: sum(a.elapsed_time(b) for a, b in v) / 1e3
+              for k, v in spans.items()}
+    return {"wall_s": s, "device_s": total, "idle_share":
+            1 - total / s if s > 0 else None,
+            "complete": len(dev) >= enqueued, "calls": {
+                k: len(v) for k, v in spans.items()},
+            "region_device_s": by,
+            "share": {k: (v / total if total > 0 else None)
+                      for k, v in by.items()},
+            "region_span_s": span_s,
+            "span_share": {k: (v / s if s > 0 else None)
+                           for k, v in span_s.items()}}
+
+
+def vlm_inputs(cfg, b: int, s: int, gen, dtype) -> dict:
+    """Stand-ins for qwen2-vl's stubbed vision frontend (``batch_specs``):
+    (B, S, d) embeddings from ``gen`` and M-RoPE's (3, B, S) positions,
+    temporal 0 .. S-1, height and width a 4-wide patch grid."""
+    t = torch.arange(s, device=gen.device)
+    pos = torch.stack([t, t // 4, t % 4]).to(torch.int32)
+    return {"embeds": torch.randn(b, s, cfg.d_model, generator=gen,
+                                  device=gen.device).to(dtype),
+            "positions": pos[:, None, :].expand(3, b, s).contiguous()}
+
+
+def vlm_step_positions(b: int, s: int, t: int, device) -> torch.Tensor:
+    """The (3, B, 1) M-RoPE positions of decode step ``t`` after an
+    S-token prompt: past the patch grid, all three rows advance."""
+    p = s // 4 + t
+    return torch.tensor([s + t, p, p], dtype=torch.int32,
+                        device=device)[:, None, None].expand(3, b, 1)
+
+
+def family_one_bucket(kops, cfg, seed: int, profile_layers: int = 0) -> dict:
+    """One bucket of the serving stream through ``cfg`` at its published
+    widths on the card: the prefill, then FAMILY_DECODE greedy decode
+    steps (qwen2-vl through ModelBundle with embeddings and M-RoPE
+    positions), with walls, peak memory and flash calls by design and
+    head dim; with ``profile_layers``, a FAMILY_LONG-token prompt at batch
+    1 (as Jamba's): one prefill for its wall, then
+    :func:`family_profile_fresh` of the first ``profile_layers`` layers.
+    The model is freed after."""
+    from repro_torch.models import build, transformer
+    bundle = build(cfg)
+    reset_peak()
+    params, init_s = wall(lambda: bundle.init(seed, device=DEV))
+    kinds = transformer.layer_kinds(cfg)
+    rec = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "head_dim": cfg.hd, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "init_s": init_s,
+           "kinds": sorted({f"{m}+{f}" for m, f in kinds})}
+    rec["params"], rec["weights_bytes"] = tree_sizes(params)
+    _, batch = first_bucket(serving_requests(cfg, seed), SERVE_MAX_BATCH)
+    b, s = batch.shape
+    if cfg.input_mode == "embeddings":
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        inp = vlm_inputs(cfg, b, s, gen, getattr(torch, cfg.dtype))
+    else:
+        inp = {"tokens": torch.as_tensor(batch, device=DEV)}
+    reset_counts(kops)
+    with flash_calls() as calls:
+        (logits, state), rec["prefill_s"] = wall(lambda: bundle.prefill(
+            params, inp, pad_to=s + FAMILY_DECODE))
+        first = logits
+
+        def decode():
+            nonlocal logits, state
+            for t in range(FAMILY_DECODE):
+                tok = logits[:, 0].argmax(-1, keepdim=True)
+                pos = (vlm_step_positions(b, s, t, DEV)
+                       if cfg.mrope_sections else None)
+                logits, state = bundle.decode(params, tok, state, pos)
+        _, rec["decode_s"] = wall(decode)
+    rec["bucket"] = [b, s]
+    rec["decode_tokens_per_s"] = b * FAMILY_DECODE / rec["decode_s"]
+    rec["peak_memory_bytes"] = peak_bytes()
+    rec["flash_calls_by_dim"] = calls["by_dim"]
+    rec["launches"] = {k: v for k, v in read_counts(kops).items() if v}
+    n_attn = sum(m == "attn" for m, _ in kinds)
+    check(bool(torch.isfinite(first).all() and torch.isfinite(logits).all())
+          and logits.shape == (b, 1, cfg.vocab),
+          f"{cfg.name}: logits not finite or of shape {logits.shape}")
+    want = {flash_key(cfg): n_attn} if n_attn else {}
+    check(calls["by_dim"] == want and rec["launches"].get(
+        "flash_attention", 0) == n_attn,
+          f"{cfg.name}: flash calls {calls['by_dim']}, launches "
+          f"{rec['launches']}, not {want}")
+    rec["last_qkv_shape"] = (list(calls["last_qkv"][0].shape)
+                             if n_attn else None)
+    del state, logits, first, calls
+    if profile_layers:
+        long_inp = long_prompt_batch(cfg, seed)
+        reset_peak()
+        _, rec["long_prefill_s"] = wall(
+            lambda: bundle.prefill(params, long_inp))
+        rec["peak_memory_long_bytes"] = peak_bytes()
+    del params, inp
+    torch.cuda.empty_cache()
+    if profile_layers:
+        rec["profile_long_prefill"] = family_profile_fresh(
+            cfg.name, profile_layers, seed)
+    return rec
+
+
+def long_prompt_batch(cfg, seed: int) -> dict:
+    """A FAMILY_LONG-token prompt at batch 1 on the card (the tokens of
+    :func:`phase_families`' long request)."""
+    return {"tokens": torch.as_tensor(np.random.default_rng(seed + 5).integers(
+        3, cfg.vocab, (1, FAMILY_LONG)), device=DEV)}
+
+
+def family_profile_child(arch: str, layers: int, seed: int) -> None:
+    """In a fresh process: ``arch`` at its published widths, ``layers``
+    deep, seeded weights on the card; one warm-up prefill of the
+    FAMILY_LONG-token prompt, then one under :func:`region_shares`,
+    printed as the last line."""
+    from repro_torch.models import build
+    cfg = family_cfg(arch, layers)
+    bundle = build(cfg)
+    params = bundle.init(seed, device=DEV)
+    inp = long_prompt_batch(cfg, seed)
+    _, warm_s = wall(lambda: bundle.prefill(params, inp))
+    out = region_shares(lambda: bundle.prefill(params, inp), FAMILY_REGIONS)
+    print(json.dumps({"layers": layers, "warm_prefill_s": warm_s, **out}),
+          flush=True)
+
+
+def family_profile_fresh(arch: str, layers: int, seed: int) -> dict:
+    """:func:`family_profile_child` in a process of its own (the profiler
+    keeps every device event early in a process, and loses some a minute
+    or more into one); waits for it and returns its record."""
+    code = (f"import sys; sys.path[:0] = [{os.path.join(HERE, 'src')!r}, "
+            f"{HERE!r}]; import chip_smoke; "
+            f"chip_smoke.family_profile_child({arch!r}, {layers}, {seed})")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=HERE)
+    check(out.returncode == 0, f"{arch} profile: exit {out.returncode}: "
+                               f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def family_smoke_parity(kops, cfg, seed: int, keep: int = 0) -> dict:
+    """A smoke config in f32 through device="cpu" and device="cuda": the
+    same greedy ids from a Scheduler run (qwen2-vl: from FAMILY_DECODE
+    greedy steps through ModelBundle on embeddings) and the same prefill
+    logits within SMOKE_TOL; the card run's kernel launches (the counts
+    set to 0 just before it) and flash launches by design, its flash calls
+    by design and head dim (which must add up to those launches, design
+    by design), and the q, k, v of its first ``keep`` calls."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.models import build, weights
+    from repro_torch.serve import Scheduler, ServeConfig, ServeEngine
+    tree = weights.random_tree(cfg, np.random.default_rng(seed))
+    bundle = build(cfg)
+    requests = serving_requests(cfg, seed + 1)
+    _, batch = first_bucket(requests, SERVE_MAX_BATCH)
+    outs, logits, calls = [], [], None
+    for dev in ("cpu", DEV):
+        params = weights.from_jax_tree(cfg, tree, device=dev)
+        counted = (flash_calls(keep) if dev == DEV
+                   else contextlib.nullcontext())
+        if dev == DEV:
+            reset_counts(kops)
+        with counted as got:
+            if cfg.input_mode == "embeddings":
+                gen = torch.Generator().manual_seed(seed)
+                inp = {k: v.to(dev) for k, v in vlm_inputs(
+                    cfg, *batch.shape, gen, torch.float32).items()}
+                lg, state = bundle.prefill(params, inp,
+                                           pad_to=batch.shape[1]
+                                           + FAMILY_DECODE)
+                ids = []
+                for t in range(FAMILY_DECODE):
+                    ids.append(lg[:, 0].argmax(-1, keepdim=True))
+                    lg, state = bundle.decode(params, ids[-1], state,
+                                              vlm_step_positions(
+                                                  *batch.shape, t, dev))
+                outs.append({"greedy": torch.cat(ids, 1).cpu().numpy()})
+                logits.append(bundle.prefill(params, inp)[0].cpu())
+            else:
+                engine = ServeEngine(cfg, params, ServeConfig(
+                    max_new_tokens=SERVE_MAX_NEW), run=RunConfig())
+                sched = Scheduler(engine, max_batch=SERVE_MAX_BATCH)
+                for rid, toks in requests:
+                    sched.submit(rid, toks)
+                sched.run_until_drained()
+                outs.append({r: sched.done[r].output for r, _ in requests})
+                logits.append(bundle.prefill(params, {
+                    "tokens": torch.as_tensor(batch, device=dev)})[0].cpu())
+        if dev == DEV:
+            calls = got
+            launches = {k: v for k, v in read_counts(kops).items() if v}
+            by_design = {k: v for k, v in
+                         kops.flash_attention.by_design.items() if v}
+    err = float((logits[0] - logits[1]).abs().max())
+    same = all(np.array_equal(outs[0][r], outs[1][r]) for r in outs[0])
+    from_calls: dict = {}
+    for key, n in calls["by_dim"].items():
+        d = key.split("<")[0]
+        from_calls[d] = from_calls.get(d, 0) + n
+    check(from_calls == by_design and sum(by_design.values())
+          == launches.get("flash_attention", 0),
+          f"{cfg.name} smoke f32: flash calls {calls['by_dim']} against "
+          f"launches {launches}, by design {by_design}")
+    return {"config": cfg.name, "ids_equal": same, "sequences": len(outs[0]),
+            "max_abs_logit_diff": err, "tol": SMOKE_TOL,
+            "launches": launches, "flash_launches_by_design": by_design,
+            "flash_calls_by_dim": calls["by_dim"], "qkv": calls["qkv"]}
+
+
+def phase_families(kops, seed: int) -> dict:
+    """The decoder-only families on the card. Jamba-v0.1 at its published
+    widths (FAMILY_SERVED's depth) through Scheduler and ServeEngine with
+    the serving phase's requests and SERVE_MAX_NEW tokens, then one
+    FAMILY_LONG-token prompt at batch 1: Mamba, MoE and bf16 flash at D
+    128 on one path; one profiled prefill of that prompt and of rwkv6-7b's
+    FAMILY_LONG-token prompt (FAMILY_PROFILE_LAYERS deep) with the scans'
+    and the MoE's share of the device time. Then every other new config (FAMILY_OTHERS) for one
+    bucket; then the eight smoke configs in f32 on the CPU and the card,
+    their flash launches counted on the card run."""
+    from repro_torch.configs import RunConfig, get_config, get_smoke_config
+    from repro_torch.models import build, transformer
+    from repro_torch.obs.recorder import RECORDER
+    from repro_torch.serve import Scheduler, ServeConfig, ServeEngine
+    arch, layers = FAMILY_SERVED
+    cfg = family_cfg(arch, layers)
+    kinds = transformer.layer_kinds(cfg)
+    n_attn = sum(m == "attn" for m, _ in kinds)
+    served = {"arch": arch, "layers": layers, "d_model": cfg.d_model,
+              "kinds": [f"{m}+{f}" for m, f in kinds], "dtype": cfg.dtype,
+              "reduced": {"layers": f"{layers} of 32: one period of the "
+                          "1:7 interleave (the whole model, 104 GB in "
+                          "bf16, does not fit one card)"}}
+    bundle = build(cfg)
+    reset_peak()
+    params, served["init_s"] = wall(lambda: bundle.init(seed, device=DEV))
+    served["params"], served["weights_bytes"] = tree_sizes(params)
+    engine = ServeEngine(cfg, params,
+                         ServeConfig(max_new_tokens=SERVE_MAX_NEW),
+                         run=RunConfig())
+    sched = Scheduler(engine, max_batch=SERVE_MAX_BATCH)
+    requests = serving_requests(cfg, seed)
+    long_prompt = np.random.default_rng(seed + 5).integers(
+        3, cfg.vocab, (1, FAMILY_LONG)).astype(np.int32)
+    RECORDER.clear()
+    reset_counts(kops)
+    with flash_calls() as calls:
+        for rid, toks in requests:
+            sched.submit(rid, toks)
+        stats, served["scheduler_wall_s"] = wall(sched.run_until_drained)
+        served["peak_memory_scheduler_bytes"] = peak_bytes()
+        reset_peak()
+        long_out, served["long_wall_s"] = wall(
+            lambda: engine.generate(long_prompt))
+    served["peak_memory_long_bytes"] = peak_bytes()
+    served["launches"] = read_counts(kops)
+    served["flash_launches_by_design"] = dict(kops.flash_attention.by_design)
+    served["flash_calls_by_dim"] = dict(calls["by_dim"])
+    hist = [e for e in RECORDER.events("span")
+            if e["name"] == "serve.generate"]
+    served["n_done"] = stats["n_done"]
+    served["p50_latency_s"] = stats["p50_latency_s"]
+    served["p99_latency_s"] = stats["p99_latency_s"]
+    served["buckets"] = [{"batch": h["batch"], "seq": h["seq"],
+                          "prefill_s": h["stages"]["prefill"],
+                          "decode_steps": h["decode_steps"],
+                          "decode_s": h["stages"]["decode"]} for h in hist]
+    short = served["buckets"][:-1]
+    served["decode_tokens_per_s"] = (
+        sum(h["batch"] * h["decode_steps"] for h in short)
+        / sum(h["decode_s"] for h in short))
+    served["long_prefill_s"] = served["buckets"][-1]["prefill_s"]
+    check(stats["n_done"] == SERVE_REQUESTS, f"{stats['n_done']} done")
+    for rid, _ in requests:
+        out = sched.done[rid].output
+        check(out.shape == (SERVE_MAX_NEW,) and (out >= 0).all()
+              and (out < cfg.vocab).all(), f"{rid}: bad output {out}")
+    check(long_out.shape == (1, SERVE_MAX_NEW) and (long_out >= 0).all()
+          and (long_out < cfg.vocab).all(), "the long request: bad output")
+    check(len(hist) >= 2 and hist[-1]["seq"] == FAMILY_LONG,
+          f"{len(hist)} generate spans")
+    n_flash = served["launches"]["flash_attention"]
+    check(n_flash == n_attn * len(hist) and n_flash > 0
+          and served["flash_launches_by_design"][
+              flash_key(cfg).split("<")[0]] == n_flash
+          and calls["by_dim"] == {flash_key(cfg): n_flash},
+          f"jamba flash launches {n_flash}, by design "
+          f"{served['flash_launches_by_design']}, by dim {calls['by_dim']}")
+    long_qkv = calls["last_qkv"]
+    check(tuple(long_qkv[0].shape) == (1, FAMILY_LONG, cfg.n_heads, cfg.hd),
+          f"the long prompt's q is {tuple(long_qkv[0].shape)}")
+    del calls, engine, sched, params
+    torch.cuda.empty_cache()
+    # where the device time of one long prefill goes: the Mamba scan, the
+    # MoE's steps, the rest (the same weights and prompt, profiled in a
+    # process of its own)
+    served["profile_long_prefill"] = family_profile_fresh(arch, layers, seed)
+    rec = {"phase": "families", "gpu": nvidia_smi_line(), "served": {
+        k: served[k] for k in ("arch", "layers", "scheduler_wall_s",
+                               "long_prefill_s", "decode_tokens_per_s",
+                               "peak_memory_long_bytes",
+                               "flash_calls_by_dim")}}
+    emit({"phase": "families_served", **served})
+    # -- every other new config, one bucket each -------------------------
+    others, launches = {}, {"flash_attention_d112": 0}
+    for i, (name, depth) in enumerate(FAMILY_OTHERS):
+        one = family_one_bucket(
+            kops, family_cfg(name, depth), seed + 10 + i,
+            FAMILY_PROFILE_LAYERS if name == "rwkv6-7b" else 0)
+        others[name] = one
+        launches["flash_attention_d112"] += one["flash_calls_by_dim"].get(
+            "wgmma<112>", 0)
+        full = get_config(name).n_layers
+        emit({"phase": "families_config", "arch": name, "reduced": (
+            None if depth == full else f"{depth} of {full} layers"), **one})
+    rec["others"] = {k: {x: v[x] for x in (
+        "layers", "prefill_s", "decode_tokens_per_s", "peak_memory_bytes",
+        "flash_calls_by_dim")} for k, v in others.items()}
+    # -- the eight smoke configs in f32, CPU against the card ------------
+    smoke, kept = {}, {}
+    for i, name in enumerate(FAMILY_SMOKE):
+        c = dataclasses.replace(get_smoke_config(name), dtype="float32")
+        one = family_smoke_parity(kops, c, seed + 40 + i,
+                                  keep=1 if c.hd == 8 else 0)
+        if one["qkv"]:
+            kept["d8_f32"] = one["qkv"][0]
+        one.pop("qkv")
+        smoke[name] = one
+    rec["smoke_f32"] = smoke
+    by_dim: dict = {}
+    for one in smoke.values():      # launches, split by head dim
+        for k, v in one["flash_calls_by_dim"].items():
+            by_dim[k] = by_dim.get(k, 0) + v
+    rec["smoke_f32_flash_calls_by_dim"] = by_dim
+    rec["smoke_f32_flash_launches"] = sum(
+        one["launches"].get("flash_attention", 0) for one in smoke.values())
+    emit(rec)
+    for name, one in smoke.items():
+        check(one["ids_equal"], f"{name} smoke f32: greedy ids differ "
+                                f"between cpu and cuda")
+        check(one["max_abs_logit_diff"] <= SMOKE_TOL,
+              f"{name} smoke f32: logits differ by "
+              f"{one['max_abs_logit_diff']}")
+    check(by_dim.get("mma_f32<8>", 0) > 0 and by_dim.get("mma_f32<16>", 0)
+          > 0 and set(by_dim) == {"mma_f32<8>", "mma_f32<16>"},
+          f"smoke f32 flash calls by design and dim: {by_dim}")
+    check(launches["flash_attention_d112"] > 0, "kimi-k2: no D 112 launch")
+    launches.update({
+        "flash_attention_d128_4k": n_flash,
+        "flash_attention_d8_f32": by_dim["mma_f32<8>"],
+        "flash_attention_d16_f32": by_dim["mma_f32<16>"],
+        "flash_attention_d8": 0})
+    return {"launches": launches, "long_qkv": long_qkv, **kept}
+
+
+def phase_kernel_families(bench: KernelBench, families_out, seed: int) -> None:
+    """Flash attention at the families' shapes, each against its plain
+    version and SDPA: bf16 D 128 on layer 4's q, k, v of Jamba's
+    FAMILY_LONG-token prefill (B 1, H 32 / K 8); bf16 D 112 at kimi-k2's
+    attention, B 1 x S FAMILY_LONG, H 64 / K 8, from the seed; D 8 on
+    qwen2-0.5b-smoke's first f32 prefill on the card (B 8 x S 16, H 7 /
+    K 1; the mma_f32 design), and the same values in bf16 (the mma
+    design, on no path)."""
+    q, k, v = families_out.pop("long_qkv")
+    bench.flash(q, k, v, main=True, name="flash_attention_d128_4k",
+                rounds=3, device=True)
+    del q, k, v
+    gen = torch.Generator(device=DEV).manual_seed(seed + 23)
+    q, k, v = (torch.randn(1, FAMILY_LONG, h, 112, generator=gen,
+                           device=DEV).to(torch.bfloat16) for h in (64, 8, 8))
+    bench.flash(q, k, v, main=True, name="flash_attention_d112", rounds=3,
+                device=True)
+    del q, k, v
+    q, k, v = families_out.pop("d8_f32")
+    bench.flash(q, k, v, main=True, name="flash_attention_d8_f32",
+                rounds=TIMED_ROUNDS, device=True)
+    bench.flash(*(x.to(torch.bfloat16) for x in (q, k, v)), main=True,
+                name="flash_attention_d8", rounds=TIMED_ROUNDS, device=True)
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4766,6 +5376,8 @@ def main() -> int:
     serving_out = phase_serving(kops, args.seed)
     phase_kernel_serving(bench, merge_out, serving_out)
     phase_serving_parity(args.seed)
+    families_out = phase_families(kops, args.seed)
+    phase_kernel_families(bench, families_out, args.seed)
     search_out = phase_search(core, kops, args.seed)
     phase_kernel_search(bench, search_out, args.seed)
     # training: the backward's edges, the train path, chunked against xla
@@ -4781,7 +5393,8 @@ def main() -> int:
     # each kernel's launches come from the path that runs it: the codec
     # from persistence, the route and the stacked scan from sharding, the
     # merge from its phase, flash attention from serving (at the encoder's
-    # shape, from search; at the train shape, from train), the fingerprint
+    # shape, from search; at the train shape, from train; at the families'
+    # shapes and in f32 at D 16, from families), the fingerprint
     # at UniProt's widths from gestore, the flash backward from train (its
     # f32 rows from the f32 chunked-against-xla check, its D 128 rows from
     # no path), the rest from the main path (chain
@@ -4794,6 +5407,7 @@ def main() -> int:
                    else shard_out if k in ("shard_route", "shard_route_bytes",
                                            "stacked_masked_cumsum")
                    else merge_out if k == "masked_merge"
+                   else families_out if k in families_out["launches"]
                    else search_out if k.startswith("flash_attention_d")
                    else serving_out if k.startswith("flash_attention")
                    else main_out) for k in SOURCES}

@@ -1,9 +1,9 @@
 """Config system: ModelConfig (architecture), ShapeConfig (assigned input
 shapes), RunConfig (parallelism/optimizer/runtime). The port's own copy of
 ``repro.configs.base``: one module per ported architecture lives next to
-this file, and `get_config(arch_id)` resolves them. Only llama3.2-1b has
-a module so far; the other assigned architectures raise, naming the
-roadmap. The Meta-pipe encoder (``metapipe.py``) is no assigned
+this file, and `get_config(arch_id)` resolves them. Every assigned
+architecture but whisper-medium (family ``encdec``) has one; that one
+raises, naming the roadmap. The Meta-pipe encoder (``metapipe.py``) is no assigned
 architecture and is imported by module.
 """
 from __future__ import annotations
@@ -161,9 +161,10 @@ ARCH_IDS = [
 ]
 
 
-#: architectures with a config module in the port (the rest wait for
-#: their model families; see ROADMAP.md)
-PORTED = ("llama3.2-1b",)
+#: architectures with a config module in the port (whisper-medium waits
+#: for its encoder-decoder family; see ROADMAP.md)
+PORTED = ("grok-1-314b", "jamba-v0.1-52b", "kimi-k2-1t-a32b", "llama3.2-1b",
+          "olmo-1b", "qwen1.5-4b", "qwen2-0.5b", "qwen2-vl-72b", "rwkv6-7b")
 
 
 def _module_for(arch_id: str) -> str:

@@ -7,7 +7,7 @@
 // f32, (B, H, Sq), from the epilogue's m and l. A null lse (serving)
 // changes nothing else.
 // with q (B, Sq, H, D), k and v (B, Sk, K, D), H = K * group, f32 or bf16,
-// D in {16, 32, 64, 128}. Queries are the last Sq positions of the key
+// D in {8, 16, 32, 64, 112, 128}. Queries are the last Sq positions of the key
 // axis. A query that sees no key (Sq > Sk) gives 0. The serving prefill's
 // attention in every layer (models/attention.py: run_attention with
 // impl="chunked").
@@ -28,7 +28,12 @@
 // Python plan (kernels/flash_attention.py: design) makes the same choice
 // and the launcher refuses a plan that disagrees:
 //
-// * bf16 at D = 64 and 128: flash_wgmma_kernel, on the tensor cores.
+// * bf16 at D = 64, 112 and 128: flash_wgmma_kernel, on the tensor cores.
+//   D 112 (kimi-k2's heads) runs in D 128's tiles (tc::tile_d): its TMA
+//   boxes are two of 64 columns, and TMA fills the second one's columns
+//   past 112 with zeros, so the products take 16 columns of zeros (a
+//   seventh more tensor work than the head needs: D 128's time for D
+//   112's output) and the epilogue stores 112 columns.
 //   One block of three warpgroups per (128-row query tile, query head,
 //   batch), launched heaviest query tile first (the last tile of a 32k
 //   prompt visits 256 key tiles, the first one). Warpgroup 0 is the
@@ -55,7 +60,9 @@
 //   boxes with the 128-byte swizzle that the wgmma descriptors name, and
 //   zero-fills rows past Sq and Sk; the epilogue writes rows < Sq from
 //   registers. Shared memory: 80 KB at D = 64, 160 KB at D = 128.
-// * f32 at D = 64 and 128: flash_wgmma_f32_kernel, on the tensor cores at
+// * f32 at D = 64, 112 and 128: flash_wgmma_f32_kernel (D 112 in D 128's
+//   tiles, as the bf16 kernel takes it: K and V zero-filled by TMA past
+//   column 112, q's loop writing zeros there), on the tensor cores at
 //   f32 precision. wgmma reads f32 operands as TF32 (the top 19 bits), so
 //   each operand x is split into hi = tf32(x), rounded to nearest with
 //   cvt.rna, and lo = tf32(x - hi), and A B is taken as three products,
@@ -93,7 +100,7 @@
 //     in registers, so Q's parts go to shared memory (64 KB), with one
 //     consumer (64 rows), 32-key tiles, one raw and two split stages:
 //     224 KB.
-// * bf16 at D = 16 and 32: flash_mma_kernel, on the tensor cores by
+// * bf16 at D = 8, 16 and 32: flash_mma_kernel, on the tensor cores by
 //   warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate). Written for
 //   the Meta-pipe encoder's 32-token sequences (B 4,096 x S 32 x H 8,
 //   D 32: 2.2 GFLOP against 268 MB of q, k, v and o), which are bound by
@@ -133,8 +140,8 @@
 //   shared memory; the block then stores whole rows of its heads as
 //   16-byte vectors. Every base and stride must be a multiple of 16
 //   bytes; the wrapper copies an operand that is not.
-// * f32 at D = 16 and 32: flash_mma_f32_kernel, the mma kernel's skeleton
-//   (16-row strips of several heads a block, 16-byte cp.async copies of
+// * f32 at D = 8, 16 and 32: flash_mma_f32_kernel, the mma kernel's
+//   skeleton (16-row strips of several heads a block, 16-byte cp.async copies of
 //   f32 rows, two K/V stages where a strip visits more than one tile, the
 //   epilogue through shared memory) with the products on the tensor cores
 //   at f32 precision: mma.sync m16n8k8 TF32, each product taken as three,
@@ -199,6 +206,13 @@ constexpr int kStages = 2;            // depth of the K/V ring
 constexpr int kThreads = 384;         // producer + 2 consumer warpgroups
 constexpr int kConsumerWarps = 8;     // arrivals that free a ring stage
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The head dim of a kernel's tiles for a tensor's head dim `d`: D 112
+// (kimi-k2's) runs in D 128's layout and products, its columns past 112
+// zero in shared memory (TMA fills a box's columns past the tensor's last
+// with zeros, and the f32 kernel's q loop writes zeros there), so they add
+// nothing to Q K^T and give P V columns that are never stored.
+__host__ __device__ constexpr int tile_d(int d) { return d == 112 ? 128 : d; }
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
 // repeats every 8 rows of 128 bytes): Q, then per stage K and V, each
@@ -284,7 +298,7 @@ __device__ __forceinline__ void write_lse(float* lse, const float (&m)[2],
 // blockIdx.x -> (query tile, head, batch): the last query tile first over
 // every head and batch, heads that share a KV head side by side
 // (kernels/flash_attention.py: launch_order).
-template <int D>
+template <int DR>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -292,6 +306,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                    int sq, int sk, int n_heads, int batch, int group,
                    int n_q_tiles, float scale_log2) {
+  constexpr int D = tile_d(DR);
   using L = Layout<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -470,9 +485,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const int row = r0 + 8 * r;
       if (row >= sq) continue;
       __nv_bfloat16* orow =
-          o + ((static_cast<long long>(b) * sq + row) * n_heads + h) * D;
+          o + ((static_cast<long long>(b) * sq + row) * n_heads + h) * DR;
 #pragma unroll
-      for (int jb = 0; jb < D / 8; ++jb) {
+      for (int jb = 0; jb < DR / 8; ++jb) {
         const __nv_bfloat162 v2 = __floats2bfloat162_rn(
             acc[4 * jb + 2 * r] / l[r], acc[4 * jb + 2 * r + 1] / l[r]);
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jb + col0) = v2;
@@ -481,32 +496,33 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int D>
+template <int DR>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int batch, int sq, int sk, int n_heads, int group,
            const long long* maps, int n_q_tiles, float scale,
            cudaStream_t stream) {
+  constexpr int D = tile_d(DR);
   constexpr auto kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap qm, km, vm;
   if (n_q_tiles != (sq + kBQ - 1) / kBQ ||
-      !encode(&qm, q, maps, D, kBf16, kCols, kBQ)) {
+      !encode(&qm, q, maps, DR, kBf16, kCols, kBQ)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // an empty key axis loads no key tile (every row gives 0): its maps
   // are never read, and an empty tensor may have no address to encode
   if (sk == 0) {
     km = vm = qm;
-  } else if (!encode(&km, k, maps + 11, D, kBf16, kCols, kBK) ||
-             !encode(&vm, v, maps + 22, D, kBf16, kCols, kBK)) {
+  } else if (!encode(&km, k, maps + 11, DR, kBf16, kCols, kBK) ||
+             !encode(&vm, v, maps + 22, DR, kBf16, kCols, kBK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   constexpr int smem = Layout<D>::kAlloc;
   static std::atomic<unsigned long long> opted{0};
-  const cudaError_t err = opt_in(flash_wgmma_kernel<D>, smem, opted);
+  const cudaError_t err = opt_in(flash_wgmma_kernel<DR>, smem, opted);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks =
       static_cast<long long>(n_q_tiles) * n_heads * batch;
-  flash_wgmma_kernel<D><<<static_cast<unsigned>(blocks), kThreads, smem,
+  flash_wgmma_kernel<DR><<<static_cast<unsigned>(blocks), kThreads, smem,
                           stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, sq, sk, n_heads,
       batch, group, n_q_tiles, scale * kLog2e);
@@ -628,14 +644,15 @@ __device__ __forceinline__ void load_raw(uint32_t base, uint32_t raw_full0,
 }
 
 // blockIdx.x -> (query tile, head, batch) as in the bf16 kernel.
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+template <int DR>
+__global__ void __launch_bounds__(Cfg<tc::tile_d(DR)>::kThreads, 1)
 flash_wgmma_f32_kernel(const float* __restrict__ q, Strides qst,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
                        float* __restrict__ o, float* __restrict__ lse,
                        int sq, int sk, int n_heads, int batch, int group,
                        int n_q_tiles, float scale) {
+  constexpr int D = tc::tile_d(DR);
   using C = Cfg<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -724,7 +741,8 @@ flash_wgmma_f32_kernel(const float* __restrict__ q, Strides qst,
         for (int e = 0; e < 4; ++e) {
           const int row = r0 + 8 * (e & 1);
           const int col = 8 * kk + (lane & 3) + 4 * (e >> 1);
-          const float x = row < sq ? qb[row * qst.s + col] * scale : 0.f;
+          const float x =
+              row < sq && col < DR ? qb[row * qst.s + col] * scale : 0.f;
           const float hi = tf32(x);
           qh[kk][e] = __float_as_uint(hi);
           ql[kk][e] = __float_as_uint(tf32(x - hi));
@@ -736,7 +754,8 @@ flash_wgmma_f32_kernel(const float* __restrict__ q, Strides qst,
         const int r = i / D;
         const int c = i % D;
         const int row = row_wg + r;
-        const float x = row < sq ? qb[row * qst.s + c] * scale : 0.f;
+        const float x =
+            row < sq && c < DR ? qb[row * qst.s + c] * scale : 0.f;
         const float hi = tf32(x);
         *reinterpret_cast<float*>(qhi + swz<64>(r, c)) = hi;
         *reinterpret_cast<float*>(qhi + C::kQPart + swz<64>(r, c)) =
@@ -874,9 +893,9 @@ flash_wgmma_f32_kernel(const float* __restrict__ q, Strides qst,
       const int row = r0 + 8 * r;
       if (row >= sq) continue;
       float* orow =
-          o + ((static_cast<long long>(b) * sq + row) * n_heads + h) * D;
+          o + ((static_cast<long long>(b) * sq + row) * n_heads + h) * DR;
 #pragma unroll
-      for (int jb = 0; jb < D / 8; ++jb) {
+      for (int jb = 0; jb < DR / 8; ++jb) {
         *reinterpret_cast<float2*>(orow + 8 * jb + col0) = make_float2(
             acc[4 * jb + 2 * r] / l[r], acc[4 * jb + 2 * r + 1] / l[r]);
       }
@@ -884,11 +903,12 @@ flash_wgmma_f32_kernel(const float* __restrict__ q, Strides qst,
   }
 }
 
-template <int D>
+template <int DR>
 int launch(const void* q, Strides qst, const void* k, const void* v, void* o,
            float* lse, int batch, int sq, int sk, int n_heads, int group,
            const long long* maps, int n_q_tiles, float scale,
            cudaStream_t stream) {
+  constexpr int D = tc::tile_d(DR);
   using C = Cfg<D>;
   constexpr auto kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   if (n_q_tiles != (sq + C::kBQ - 1) / C::kBQ) {
@@ -896,17 +916,17 @@ int launch(const void* q, Strides qst, const void* k, const void* v, void* o,
   }
   // q is read through its strides; an empty key axis loads no key tile
   CUtensorMap km{}, vm{};
-  if (sk > 0 && (!tc::encode(&km, k, maps + 11, D, kF32, kCols, C::kBK) ||
-                 !tc::encode(&vm, v, maps + 22, D, kF32, kCols, C::kBK))) {
+  if (sk > 0 && (!tc::encode(&km, k, maps + 11, DR, kF32, kCols, C::kBK) ||
+                 !tc::encode(&vm, v, maps + 22, DR, kF32, kCols, C::kBK))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   static std::atomic<unsigned long long> opted{0};
   const cudaError_t err =
-      tc::opt_in(flash_wgmma_f32_kernel<D>, C::kAlloc, opted);
+      tc::opt_in(flash_wgmma_f32_kernel<DR>, C::kAlloc, opted);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks =
       static_cast<long long>(n_q_tiles) * n_heads * batch;
-  flash_wgmma_f32_kernel<D><<<static_cast<unsigned>(blocks), C::kThreads,
+  flash_wgmma_f32_kernel<DR><<<static_cast<unsigned>(blocks), C::kThreads,
                               C::kAlloc, stream>>>(
       static_cast<const float*>(q), qst, km, vm, static_cast<float*>(o), lse,
       sq, sk, n_heads, batch, group, n_q_tiles, scale);
@@ -1211,7 +1231,10 @@ __device__ __forceinline__ void store_o(T* o, const T* sm, const Unit& u,
 // c[2..3]; an A fragment a[0..3] holds (row g, k 2t..), (g + 8, 2t..),
 // (g, 2t + 8..), (g + 8, 2t + 8..). Three blocks of 8 warps an SM (up
 // to 85 registers a thread): the more blocks in flight, the more bytes,
-// but at four (64 registers) D = 32 spills.
+// but at four (64 registers) D = 32 spills. At D = 8 (qwen2-0.5b's smoke
+// heads) a row is one 16-byte piece and its padding piece: the padding is
+// zeroed once, so the k16 product of Q K^T reads 8 zero columns past the
+// head dim, and P V takes the one n8 tile of the k16 step's V fragments.
 template <int D>
 __global__ void __launch_bounds__(kMaxWarps * 32, 3)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -1240,6 +1263,13 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int stage_sz = 2 * pk.nkv * tile_sz;
   const uint32_t q_warp = sbase + 2 * (warp * kRows * kRS + u.hw * R::kVec);
 
+  if constexpr (D % 16 != 0) {
+    // the padding pieces that the k16 steps read as head-dim columns
+    const int n = smem_bytes(D, 2, warps, pk.hb, pk.nkv, pk.stages) / 16;
+    for (int i = tid; i < n; i += blockDim.x) smem4[i] = make_float4(0, 0,
+                                                                     0, 0);
+    __syncthreads();
+  }
   copy_q<__nv_bfloat16, D>(sbase, q, u, pk, qst, sq);
   if (u.n_tiles > 0) {
     copy_kv<__nv_bfloat16, D>(sbase + 2 * q_sz, k, v, u, pk, kst, vst, 0,
@@ -1278,7 +1308,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
         s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
       }
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < (D + 15) / 16; ++kk) {
         uint32_t qa[4], qp[3][4];
         const int r = (lane & 7) + (((lane >> 3) & 1) << 3);
         ldsm_x4(qa, q_warp + 2 * (r * kRS + kk * 16 + (lane >> 4) * 8));
@@ -1336,7 +1366,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
           split3(p0, p1, pp, e);
         }
 #pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
+        for (int dp = 0; dp < (D + 15) / 16; ++dp) {
           uint32_t vb[4];
           const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
           const int col = dp * 16 + ((lane >> 4) << 3);
@@ -1344,7 +1374,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
           for (int part = 2; part >= 0; --part) {
             mma(acc[2 * dp], pp[part], vb[0], vb[1]);
-            mma(acc[2 * dp + 1], pp[part], vb[2], vb[3]);
+            if constexpr (D >= 16) {
+              mma(acc[2 * dp + 1], pp[part], vb[2], vb[3]);
+            }
           }
         }
       }
@@ -1608,13 +1640,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 // with a contiguous last dim; o: (batch, sq, n_heads, d) contiguous. `plan`
 // is the host's launch plan (kernels/flash_attention.py: FlashPlan.args),
 // 51 values: batch, sq, sk, n_heads, n_kv_heads, d, dtype (0 = float32,
-// 1 = bfloat16), design (0 = the bf16 tensor-core kernel, d 64 and 128;
-// 1 = the mma_f32 kernel, f32 at d 16 and 32; 2 = the f32 tensor-core
-// kernel, d 64 and 128; 3 = the mma kernel, bf16 at d 16 and 32), query
-// tiles per head (designs 0 and 2; designs 1 and 3: their block count),
-// the element strides (batch, seq, head) of q, k and v, then the q, k and
-// v tensor maps, 11 values each (design 0; design 2: k and v); designs 1
-// and 3 append 5 values, their packing (mk::launch). `lse`: null, or the
+// 1 = bfloat16), design (0 = the bf16 tensor-core kernel, d 64, 112 and
+// 128; 1 = the mma_f32 kernel, f32 at d 8, 16 and 32; 2 = the f32
+// tensor-core kernel, d 64, 112 and 128; 3 = the mma kernel, bf16 at d 8,
+// 16 and 32), query tiles per head (designs 0 and 2; designs 1 and 3:
+// their block count), the element strides (batch, seq, head) of q, k and
+// v, then the q, k and v tensor maps, 11 values each (design 0; design 2:
+// k and v); designs 1 and 3 append 5 values, their packing (mk::launch).
+// `lse`: null, or the
 // (batch, n_heads, sq) f32 log-sum-exp of every query row, written by
 // designs 0 and 2 (the training forward; flash_attention_bwd.cu reads
 // it); designs 1 and 3 refuse a non-null one. Returns
@@ -1635,7 +1668,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                                        dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool wide = d == 64 || d == 128;
+  const bool wide = d == 64 || d == 112 || d == 128;
   if (design != (wide ? (dtype == 1 ? 0 : 2) : (dtype == 1 ? 3 : 1)) ||
       (!wide && lse != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1649,22 +1682,30 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const Strides qst{plan[9], plan[10], plan[11]},
       kst{plan[12], plan[13], plan[14]}, vst{plan[15], plan[16], plan[17]};
   if (design == 0) {
-    return d == 64 ? tc::launch<64>(q, k, v, o, lse, batch, sq, sk, n_heads,
-                                    group, maps, n_q_tiles, scale, s)
-                   : tc::launch<128>(q, k, v, o, lse, batch, sq, sk, n_heads,
-                                     group, maps, n_q_tiles, scale, s);
+    const auto fn = d == 64    ? &tc::launch<64>
+                    : d == 112 ? &tc::launch<112>
+                               : &tc::launch<128>;
+    return fn(q, k, v, o, lse, batch, sq, sk, n_heads, group, maps,
+              n_q_tiles, scale, s);
   }
   if (design == 2) {
-    return d == 64 ? tf::launch<64>(q, qst, k, v, o, lse, batch, sq, sk,
-                                    n_heads, group, maps, n_q_tiles, scale, s)
-                   : tf::launch<128>(q, qst, k, v, o, lse, batch, sq, sk,
-                                     n_heads, group, maps, n_q_tiles, scale,
-                                     s);
+    const auto fn = d == 64    ? &tf::launch<64>
+                    : d == 112 ? &tf::launch<112>
+                               : &tf::launch<128>;
+    return fn(q, qst, k, v, o, lse, batch, sq, sk, n_heads, group, maps,
+              n_q_tiles, scale, s);
   }
   // designs 1 (f32) and 3 (bf16): the mma kernels at d 16 and 32
   const long long* mp = plan + 51;
   const bool f32 = design == 1;
   switch (d) {
+    case 8:
+      return f32 ? mk::launch<float, 8>(q, k, v, o, batch, sq, sk, n_heads,
+                                        group, qst, kst, vst, mp, plan[8],
+                                        scale, s)
+                 : mk::launch<__nv_bfloat16, 8>(q, k, v, o, batch, sq, sk,
+                                                n_heads, group, qst, kst,
+                                                vst, mp, plan[8], scale, s);
     case 16:
       return f32 ? mk::launch<float, 16>(q, k, v, o, batch, sq, sk, n_heads,
                                          group, qst, kst, vst, mp, plan[8],

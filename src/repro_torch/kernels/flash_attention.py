@@ -13,24 +13,25 @@ strides, so nothing is transposed or padded first.
 
 Four designs, chosen by (dtype, D) alone (:func:`design`):
 
-* ``"wgmma"``, bf16 at D 64 and 128: Hopper's tensor cores. One block of
-  three warpgroups per (128-row query tile, head, batch); a producer
+* ``"wgmma"``, bf16 at D 64, 112 and 128: Hopper's tensor cores (D 112
+  in D 128's tiles, TMA filling the columns past 112 with zeros). One
+  block of three warpgroups per (128-row query tile, head, batch); a producer
   thread feeds Q once and K/V tiles of 128 keys through a ring in shared
   memory by TMA, and two consumer warpgroups of 64 rows each run both
   products with ``wgmma``. Blocks are launched heaviest query tile first.
-* ``"wgmma_f32"``, f32 at D 64 and 128: the same skeleton on the tensor
-  cores at f32 precision, each product taken as three TF32 products of
+* ``"wgmma_f32"``, f32 at D 64, 112 and 128: the same skeleton on the
+  tensor cores at f32 precision, each product taken as three TF32 products of
   the operands' hi and lo parts. The producer warpgroup loads raw K/V
   tiles by TMA and splits them (V transposed, since TF32 ``wgmma`` reads
   only K-major operands); q is read through its strides. Tiles per D in
   ``F32_TILES``.
-* ``"mma"``, bf16 at D 16 and 32 (the Meta-pipe encoder's 32-token
+* ``"mma"``, bf16 at D 8, 16 and 32 (the Meta-pipe encoder's 32-token
   sequences): warp-level ``mma.sync`` on the tensor cores. A warp owns a
   16-row query strip of one (head, batch), and a block packs several
   strips and heads (:func:`mma_plan`), so a 32-token sequence fills its
   block; q, k and v come into shared memory as bf16 in 16-byte
   ``cp.async`` copies.
-* ``"mma_f32"``, f32 at D 16 and 32: the ``mma`` skeleton (the same
+* ``"mma_f32"``, f32 at D 8, 16 and 32: the ``mma`` skeleton (the same
   packing, q, k and v as f32 in 16-byte ``cp.async`` copies) with both
   products on the tensor cores at f32 precision, each as three TF32
   ``mma.sync`` products of the operands' hi and lo parts, as
@@ -50,8 +51,8 @@ transposed B operands written by a producer warpgroup). The JAX package
 differentiates its XLA scan under ``jax.checkpoint``, which recomputes
 the forward in the backward; the port saves o and the lse instead, and
 the arithmetic is the same: f32 logits, P and dS, f32 sums.
-The ``mma`` designs (D 16 and 32) have no lse yet: a CUDA call of theirs
-that needs grad raises.
+The backward is built for D 64 and 128: a CUDA call at another head dim
+(the ``mma`` designs' D 8, 16 and 32, and D 112) that needs grad raises.
 
 The host side of the launches is computed here, so the CPU tests reach
 it: :func:`plan`, a pure function of the tensors' shapes, strides, dtype
@@ -74,11 +75,13 @@ import torch
 from . import _build, ref
 from ._compat import cdiv, count_launch
 
-#: head dims the kernels are built for (the JAX package's kernel tests and
-#: llama3.2-1b's 64)
-HEAD_DIMS = (16, 32, 64, 128)
-#: head dims that take the wgmma kernels (in either dtype)
-WGMMA_HEAD_DIMS = (64, 128)
+#: head dims the kernels are built for: 16 to 128 (the JAX package's
+#: kernel tests; llama3.2-1b's 64), kimi-k2's 112 and qwen2-0.5b's smoke
+#: config's 8
+HEAD_DIMS = (8, 16, 32, 64, 112, 128)
+#: head dims that take the wgmma kernels (in either dtype); D 112 runs in
+#: D 128's tiles, its columns past 112 zero-filled by TMA
+WGMMA_HEAD_DIMS = (64, 112, 128)
 #: the launcher's design codes are the indices
 DESIGNS = ("wgmma", "mma_f32", "wgmma_f32", "mma")
 #: the designs of 16-row strips packed a block (:func:`mma_plan`)
@@ -87,8 +90,8 @@ BLOCK_Q = 128    # query rows per block of the wgmma kernel (2 x 64)
 BLOCK_K = 128    # keys per K/V tile of the wgmma kernel
 #: the wgmma_f32 kernel's (query rows per block, keys per K/V tile) per D:
 #: two 64-row consumers and 64-key tiles at D 64, one consumer and 32-key
-#: tiles at D 128 (shared memory: 192 and 224 KB)
-F32_TILES = {64: (128, 64), 128: (64, 32)}
+#: tiles at D 128 and 112 (shared memory: 192 and 224 KB)
+F32_TILES = {64: (128, 64), 112: (64, 32), 128: (64, 32)}
 SWIZZLE_BYTES = 128  # a TMA box row: the row of the 128-byte swizzle
 BOX_COLS = 64    # head-dim columns per bf16 TMA box (32 per f32 box)
 TMA_ALIGN = 16   # bytes: TMA's alignment of the base and of every stride
@@ -124,8 +127,8 @@ BWD_OPERANDS = ("q", "k", "v", "do")
 
 def design(dtype: torch.dtype, d: int) -> str:
     """The kernel a (dtype, head dim) takes: ``"wgmma"`` for bf16 and
-    ``"wgmma_f32"`` for f32 at D 64 and 128, ``"mma"`` for bf16 and
-    ``"mma_f32"`` for f32 at D 16 and 32."""
+    ``"wgmma_f32"`` for f32 at D 64, 112 and 128, ``"mma"`` for bf16 and
+    ``"mma_f32"`` for f32 at D 8, 16 and 32."""
     bf16 = dtype == torch.bfloat16
     if d not in WGMMA_HEAD_DIMS:
         return "mma" if bf16 else "mma_f32"
@@ -406,12 +409,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and ``flash_attention.by_design``)."""
     _check(q, k, v, causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if (q.device.type == "cuda"
-                and design(q.dtype, q.shape[3]) in MMA_DESIGNS):
+        if q.device.type == "cuda" and q.shape[3] not in BWD_HEAD_DIMS:
             raise NotImplementedError(
-                f"the flash backward is built for D {BWD_HEAD_DIMS}; the "
-                f"{design(q.dtype, q.shape[3])} design at D {q.shape[3]} "
-                f"writes no log-sum-exp yet (ROADMAP.md Queue 2)")
+                f"the flash backward is built for D {BWD_HEAD_DIMS}, not "
+                f"D {q.shape[3]} (the {design(q.dtype, q.shape[3])} "
+                f"design's forward; ROADMAP.md Queue 2)")
         return FlashAttentionFn.apply(q, k, v)
     return _forward(q, k, v, lse=False)[0]
 

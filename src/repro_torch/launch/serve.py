@@ -1,9 +1,15 @@
 """Serving launcher: bring up the batched engine + scheduler for an
 architecture and run a synthetic request stream.
 
-    python -m repro_torch.launch.serve --arch llama3.2-1b [--smoke]
-        [--requests 16] [--max-new 16] [--max-batch 8] [--seed 0]
-        [--device cpu]
+    python -m repro_torch.launch.serve --arch jamba-v0.1-52b [--smoke]
+        [--layers 8] [--requests 16] [--max-new 16] [--max-batch 8]
+        [--seed 0] [--device cpu]
+
+``--arch`` takes every ported architecture (``configs.PORTED``: the dense,
+MoE, hybrid and RWKV6 decoders; whisper-medium raises, and so does
+qwen2-vl-72b, whose embedding inputs the engine does not take). ``--layers``
+cuts the depth (Jamba-v0.1's 52 B parameters do not fit one card; 8
+layers, one period of its 1:7 interleave, are 13.3 B, 26.6 GB in bf16).
 
 The weights are random, from a ``torch.Generator`` seeded with ``--seed``;
 the request stream is the JAX package's launcher's (prompts of 4-47
@@ -11,6 +17,7 @@ tokens from a numpy generator with the same seed). Without ``--device``
 it runs on the CUDA card, and raises if there is none.
 """
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -20,7 +27,7 @@ from ..configs.base import RunConfig, get_config, get_smoke_config
 from ..kernels._compat import resolve_device
 from ..models import build
 from ..obs.log import configure as configure_logging, get_logger
-from ..serve.engine import ServeConfig, ServeEngine
+from ..serve.engine import ServeConfig, ServeEngine, check_token_model
 from ..serve.scheduler import Scheduler
 
 log = get_logger("launch.serve")
@@ -30,6 +37,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="run only the first N layers (0: all)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
@@ -41,6 +50,9 @@ def main(argv=None) -> int:
 
     configure_logging("info", stream=sys.stdout)  # CLI progress on stdout
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    check_token_model(cfg)
     device = resolve_device(args.device)
     bundle = build(cfg)
     log.info("initializing %s (%.2fB params) on %s...", cfg.name,

@@ -1,6 +1,7 @@
-"""Model stack: the dense decoder family (llama3.2-1b) for serving, with
-the flash attention kernel in every prefill layer."""
-from .model import ModelBundle, build
+"""Model stack: the decoder-only families (dense, MoE, the Mamba hybrid,
+RWKV6, the M-RoPE VLM backbone) for serving and training, with the flash
+attention kernel in every attention layer's prefill."""
+from .model import ModelBundle, batch_specs, build
 from .transformer import DecodeState, FwdOpts
 
-__all__ = ["DecodeState", "FwdOpts", "ModelBundle", "build"]
+__all__ = ["DecodeState", "FwdOpts", "ModelBundle", "batch_specs", "build"]

@@ -12,8 +12,11 @@ Two softmax-attention implementations, selected by ``RunConfig.attn_impl``:
   The JAX scan keeps its (Sq, chunk) logits and probabilities in bf16 in
   the serving prefill (``compact_logits``); the kernel keeps them in f32,
   as the JAX package's Pallas kernel does. In training
-  (``attention_train``) the JAX package differentiates the scan; the port
-  runs the kernel's hand-written backward (``FlashAttentionFn``).
+  (``transformer.forward_train``) the JAX package differentiates the
+  scan; the port runs the kernel's hand-written backward
+  (``FlashAttentionFn``). The JAX package's sequence-parallel split of the
+  queries (``_wants_seq_parallel``) needs a mesh; one card has none
+  (ROADMAP.md Queue 1 item 3).
 
 Decode writes the new K/V into a ring slot (pos % S_max) of the cache, in
 place (the JAX package returns a new cache; the port updates the tensors
@@ -110,17 +113,6 @@ def run_attention(q, k, v, *, causal: bool, q_offset: int = 0,
                           kv_valid=kv_valid)
 
 
-def attention_train(p: dict, x: torch.Tensor, cfg, *,
-                    positions: torch.Tensor, impl: str = "xla"
-                    ) -> torch.Tensor:
-    """Causal self-attention with RoPE over the whole sequence (Sq = Sk),
-    no cache: the training forward, differentiable through either
-    implementation. The JAX package's sequence-parallel split of the
-    queries (``_wants_seq_parallel``) needs a mesh; one card has none
-    (ROADMAP.md Queue 1 item 3)."""
-    return attention_prefill(p, x, cfg, positions=positions, impl=impl)[0]
-
-
 def attention_prefill(p: dict, x: torch.Tensor, cfg, *,
                       positions: torch.Tensor, impl: str = "chunked"):
     """Returns (out, KVCache over the S prefill positions)."""
@@ -132,17 +124,20 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg, *,
 
 
 def attention_decode(p: dict, x: torch.Tensor, cfg, cache: KVCache, *,
-                     pos: int, cache_len: int) -> tuple[torch.Tensor,
-                                                         KVCache]:
+                     pos: int, cache_len: int,
+                     positions: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, KVCache]:
     """One-token decode. x: (B, 1, d); cache: (B, S_max, K, hd) ring,
     written in place at slot pos % S_max.
 
     pos: position of the new token; cache_len: count of valid cached
-    positions (== S_max when full)."""
+    positions (== S_max when full); positions: the token's rotary
+    position ids ((3, B, 1) for M-RoPE), else ``pos``."""
     b = x.shape[0]
     s_max = cache.k.shape[1]
     q, k, v = _qkv(p, x)
-    rp = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    rp = (positions if positions is not None else
+          torch.full((b, 1), pos, dtype=torch.int32, device=x.device))
     q = apply_rope(q, rp, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, rp, cfg.rope_theta, cfg.mrope_sections)
     slot = pos % s_max

@@ -36,30 +36,46 @@ import torch.nn.functional as F
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
-    init: str = "normal"              # normal | zeros | ones | embed
+    init: str = "normal"              # normal | zeros | ones | embed | small
     matrix: bool = True               # kept in the activation dtype
     fan_in: int = 0                   # 0: the second-to-last dim
+    scale: float = 1.0                # times the std, as the JAX package's
 
     @property
     def std(self) -> float:
         if self.init == "embed":
-            return 0.02
+            return self.scale * 0.02
+        if self.init == "small":
+            return self.scale * 0.01
         fan_in = self.fan_in or (self.shape[-2] if len(self.shape) >= 2
                                  else self.shape[-1])
-        return 1.0 / float(np.sqrt(max(fan_in, 1)))
+        return self.scale / float(np.sqrt(max(fan_in, 1)))
+
+
+#: the most elements drawn in f32 at once: a parameter is drawn a slice
+#: of its leading dim at a time (an expert stack of kimi-k2 is 5.6e9
+#: elements, 22.5 GB in f32), and a smaller one in a single slice
+DRAW_SLICE = 1 << 28
 
 
 def init_param(spec: ParamSpec, gen: torch.Generator, dtype: torch.dtype,
                device) -> torch.Tensor:
-    """One parameter: drawn in f32 (as the JAX package's masters), then
-    cast to ``dtype``."""
+    """One parameter: drawn in f32 (as the JAX package's masters) a
+    slice of the leading dim at a time, each slice cast into the
+    ``dtype`` tensor."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
-    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
-                    device=device)
-    return x.mul_(spec.std).to(dtype)
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    row_elems = max(1, out.numel() // max(1, spec.shape[0]))
+    rows = max(1, DRAW_SLICE // row_elems)
+    for r0 in range(0, spec.shape[0], rows):
+        part = out[r0:r0 + rows]
+        x = torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        part.copy_(x.mul_(spec.std))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -102,14 +118,27 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                sections: tuple[int, ...] | None = None) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S). Rotates the two halves of the
-    head dim (not interleaved pairs), in f32."""
-    if sections is not None:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet; "
-                                  "see ROADMAP.md")
+    """x: (B, S, H, D); positions: (B, S), or (3, B, S) for M-RoPE.
+    Rotates the two halves of the head dim (not interleaved pairs), in
+    f32.
+
+    M-RoPE (qwen2-vl): the D/2 frequency slots are split into
+    (temporal, height, width) ``sections``, each rotated by its own row
+    of position ids."""
     d = x.shape[-1]
     freqs = torch.as_tensor(rope_freqs(d, theta), device=x.device)
-    angles = positions[..., None].float() * freqs          # (B, S, D/2)
+    if sections is None:
+        angles = positions[..., None].float() * freqs      # (B, S, D/2)
+    else:
+        if positions.ndim != 3 or positions.shape[0] != len(sections):
+            raise ValueError(f"M-RoPE needs ({len(sections)}, B, S) "
+                             f"position ids, got {tuple(positions.shape)}")
+        if sum(sections) != freqs.shape[0]:
+            raise ValueError(f"M-RoPE sections {sections} do not cover "
+                             f"head_dim / 2 = {freqs.shape[0]}")
+        angles = torch.cat([positions[i][..., None].float() * f
+                            for i, f in enumerate(freqs.split(
+                                list(sections)))], dim=-1)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -8,8 +8,12 @@
 
 ``params`` is the port's tree of tensors on one device
 (``models/transformer.py``); ``models/weights.py`` makes one from the JAX
-package's parameter tree. Only the dense family is ported; the others
-raise.
+package's parameter tree. Every family of the decoder-only assembly is
+ported (dense, moe, hybrid, ssm, vlm); ``encdec`` (whisper) raises.
+
+``batch_specs(cfg, shape)`` gives the shape and dtype of every model
+input of an (arch x shape) cell, the JAX package's ``batch_specs`` as
+plain dicts: the card path and the tests build their inputs from it.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import dataclasses
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..kernels._compat import resolve_device
 from . import transformer as tf
 from .layers import ParamSpec, init_param
@@ -54,23 +58,59 @@ class ModelBundle:
 
     def prefill(self, params: dict, batch: dict, opts: FwdOpts | None = None,
                 pad_to: int | None = None):
-        return tf.prefill(params, self.cfg, batch["tokens"],
+        """``batch``: ``tokens`` or ``embeds``, and ``positions`` where
+        the config needs them (``batch_specs``)."""
+        return tf.prefill(params, self.cfg, batch,
                           opts or FwdOpts(attn_impl="chunked"), pad_to=pad_to)
 
     def decode(self, params: dict, token: torch.Tensor,
-               state: tf.DecodeState):
-        return tf.decode_step(params, self.cfg, token, state)
+               state: tf.DecodeState, positions: torch.Tensor | None = None):
+        return tf.decode_step(params, self.cfg, token, state, positions)
 
     def loss(self, params: dict, batch: dict, opts: FwdOpts | None = None):
-        """(loss, metrics) of a batch of ``tokens`` and ``labels``
-        (``transformer.loss_fn``), differentiable in ``params``."""
+        """(loss, metrics) of a batch of ``tokens`` (or ``embeds``) and
+        ``labels`` (``transformer.loss_fn``), differentiable in
+        ``params``."""
         return tf.loss_fn(params, self.cfg, batch, opts or FwdOpts())
 
 
+#: the families ``build`` serves (the JAX package's ``encdec``, whisper,
+#: has its own assembly and is not ported yet)
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm")
+
+
 def build(cfg: ModelConfig) -> ModelBundle:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family} family ({cfg.name}) is not ported yet; see "
             f"ROADMAP.md")
-    tf.check_dense(cfg)
     return ModelBundle(cfg)
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """{input name: (shape, dtype)} of every model input of the cell
+    (the JAX package's ``batch_specs``): ``tokens`` (B, S) int32 or
+    ``embeds`` (B, S, d) bf16, ``labels`` in training, M-RoPE's (3, B, S)
+    ``positions``; in decode one new ``token`` (B, 1) (or (B, 1, d)
+    embeddings) against an S-long state."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family} family ({cfg.name}) is not ported yet; see "
+            f"ROADMAP.md")
+    b, s = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    embeds = cfg.input_mode == "embeddings"
+    mrope = cfg.mrope_sections is not None
+    if shape.mode == "decode":
+        out = {"token": ((b, 1, cfg.d_model), bf16) if embeds
+               else ((b, 1), i32)}
+        if mrope:
+            out["positions"] = ((3, b, 1), i32)
+        return out
+    out = ({"embeds": ((b, s, cfg.d_model), bf16)} if embeds
+           else {"tokens": ((b, s), i32)})
+    if shape.mode == "train":
+        out["labels"] = ((b, s), i32)
+    if mrope:
+        out["positions"] = ((3, b, s), i32)
+    return out

@@ -1,0 +1,178 @@
+"""RWKV6 ("Finch") block: data-dependent per-channel decay, attention-free.
+
+The JAX package's ``src/repro/models/rwkv.py`` in torch ops. Recurrence
+per head (state S: a (Dk, Dv) matrix):
+
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+
+with w_t = exp(-exp(w_raw_t)) per (head, Dk) channel, kept as its log
+(<= 0, f32) until the scan. Within a chunk of ``CHUNK`` tokens the state
+maps S -> diag(w) S + kv compose by the log-depth scan of ``ssm.py``
+(``affine_scan``; the JAX package uses ``jax.lax.associative_scan``);
+chunks chain through an f32 carry of S. The sequential recurrence is kept
+for the tests.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from .layers import ParamSpec
+from .ssm import affine_scan
+
+CHUNK = 32
+LORA = 32
+LORA_W = 64
+
+
+def rwkv_time_spec(cfg) -> dict:
+    d = cfg.d_model
+    h = cfg.n_heads
+    dk = d // h
+    # w0, wlora2, bonus and ln_x stay f32: the JAX package applies their
+    # f32 masters in f32
+    return {
+        "mu_x": ParamSpec((d,), "zeros"),
+        "mu": ParamSpec((5, d), "zeros"),                       # w,k,v,r,g
+        "lora1": ParamSpec((d, 5 * LORA), "small"),
+        "lora2": ParamSpec((5, LORA, d), "small"),
+        "w0": ParamSpec((d,), "zeros", matrix=False),
+        "wlora1": ParamSpec((d, LORA_W), "small"),
+        "wlora2": ParamSpec((LORA_W, d), "small", matrix=False),
+        "bonus": ParamSpec((h, dk), "zeros", matrix=False),
+        "wr": ParamSpec((d, d)),
+        "wk": ParamSpec((d, d)),
+        "wv": ParamSpec((d, d)),
+        "wg": ParamSpec((d, d)),
+        "wo": ParamSpec((d, d)),
+        "ln_x_scale": ParamSpec((d,), "ones", matrix=False),
+        "ln_x_bias": ParamSpec((d,), "zeros", matrix=False),
+    }
+
+
+def rwkv_channel_spec(cfg) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "mu_k": ParamSpec((d,), "zeros"),
+        "mu_r": ParamSpec((d,), "zeros"),
+        "wk": ParamSpec((d, f)),
+        "wv": ParamSpec((f, d)),
+        "wr": ParamSpec((d, d)),
+    }
+
+
+class RWKVState(NamedTuple):
+    s: torch.Tensor        # (B, H, Dk, Dv) wkv matrix state, f32
+    shift_t: torch.Tensor  # (B, d) previous token's input to time-mix
+    shift_c: torch.Tensor  # (B, d) previous token's input to channel-mix
+
+
+def init_rwkv_state(cfg, batch: int, dtype=torch.float32,
+                    device=None) -> RWKVState:
+    d, h = cfg.d_model, cfg.n_heads
+    dk = d // h
+    return RWKVState(
+        s=torch.zeros((batch, h, dk, dk), dtype=torch.float32,
+                      device=device),
+        shift_t=torch.zeros((batch, d), dtype=dtype, device=device),
+        shift_c=torch.zeros((batch, d), dtype=dtype, device=device))
+
+
+def _token_shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
+    """xx_t = x_{t-1} (zero, or the carried state, at t = 0). x: (B, L, d)."""
+    if prev is None:
+        prev = torch.zeros_like(x[:, :1])
+    else:
+        prev = prev[:, None, :].to(x.dtype)
+    return torch.cat([prev, x[:, :-1]], dim=1)
+
+
+def _ddlerp(p, x, xx):
+    """RWKV6 data-dependent lerp -> [x_w, x_k, x_v, x_r, x_g]."""
+    dx = xx - x
+    z = x + dx * p["mu_x"].to(x.dtype)
+    lo = torch.tanh(z @ p["lora1"].to(x.dtype))              # (B, L, 5 LORA)
+    lo = lo.unflatten(-1, (5, LORA))
+    mix = torch.einsum("blsr,srd->bsld", lo, p["lora2"].to(x.dtype))
+    return [x + dx * (p["mu"][i].to(x.dtype) + mix[:, i]) for i in range(5)]
+
+
+def _decay(p, x_w):
+    """log w_t (<= 0, f32): w_t = exp(-exp(w0 + lora(x_w))) in (0, 1)."""
+    raw = p["w0"].float() + (
+        torch.tanh(x_w @ p["wlora1"].to(x_w.dtype)).float()
+        @ p["wlora2"].float())
+    return -torch.exp(torch.clamp(raw, -8.0, 4.0))
+
+
+def wkv_sequential(r, k, v, logw, u, s0):
+    """The plain recurrence. r/k/v/logw: (B, L, H, Dk); u: (H, Dk); s0:
+    (B, H, Dk, Dv)."""
+    s = s0
+    outs = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]          # (B,H,Dk,Dv)
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                                 s + u[..., None] * kv))
+        s = torch.exp(logw[:, t])[..., None] * s + kv
+    return torch.stack(outs, dim=1), s
+
+
+def wkv_chunked(r, k, v, logw, u, s0, *, chunk: int = CHUNK):
+    """The WKV recurrence a chunk at a time: within a chunk the state
+    maps compose by ``affine_scan``, the decay applied before the add."""
+    l = r.shape[1]
+    chunk = min(chunk, l)
+    s = s0
+    outs = []
+    for c0 in range(0, l, chunk):
+        rc, kc, vc = (t[:, c0:c0 + chunk] for t in (r, k, v))
+        w = torch.exp(logw[:, c0:c0 + chunk])                 # (B, c, H, Dk)
+        kv = kc[..., :, None] * vc[..., None, :]              # (B,c,H,Dk,Dv)
+        aa, bb = affine_scan(w, kv)
+        s_t = aa[..., None] * s[:, None] + bb                 # S after t
+        s_prev = torch.cat([s[:, None], s_t[:, :-1]], dim=1)
+        outs.append(torch.einsum("bchk,bchkv->bchv", rc,
+                                 s_prev + u[..., None] * kv))
+        s = s_t[:, -1]
+    return torch.cat(outs, dim=1), s
+
+
+def rwkv_time_mix(p, x, cfg, *, state: RWKVState | None = None,
+                  chunked: bool = True):
+    """x: (B, L, d) -> (out, (new wkv state, new time shift))."""
+    b, l, d = x.shape
+    h = cfg.n_heads
+    dk = d // h
+    xx = _token_shift(x, None if state is None else state.shift_t)
+    x_w, x_k, x_v, x_r, x_g = _ddlerp(p, x, xx)
+    logw = _decay(p, x_w).reshape(b, l, h, dk)
+    r = (x_r @ p["wr"].to(x.dtype)).reshape(b, l, h, dk)
+    k = (x_k @ p["wk"].to(x.dtype)).reshape(b, l, h, dk)
+    v = (x_v @ p["wv"].to(x.dtype)).reshape(b, l, h, dk)
+    g = F.silu(x_g @ p["wg"].to(x.dtype))
+    s0 = (torch.zeros((b, h, dk, dk), dtype=torch.float32, device=x.device)
+          if state is None else state.s)
+    u = p["bonus"].float()
+    wkv = wkv_chunked if chunked else wkv_sequential
+    out, s = wkv(r.float(), k.float(), v.float(), logw, u, s0)
+    # per-head group norm (ln_x)
+    mu = out.mean(-1, keepdim=True)
+    var = ((out - mu) ** 2).mean(-1, keepdim=True)
+    out = ((out - mu) * torch.rsqrt(var + 1e-5)).reshape(b, l, d)
+    out = out * p["ln_x_scale"].float() + p["ln_x_bias"].float()
+    out = (out.to(x.dtype) * g) @ p["wo"].to(x.dtype)
+    return out, (s, x[:, -1, :])
+
+
+def rwkv_channel_mix(p, x, cfg, *, state: RWKVState | None = None):
+    """x: (B, L, d) -> (out, new channel shift)."""
+    xx = _token_shift(x, None if state is None else state.shift_c)
+    xk = x + (xx - x) * p["mu_k"].to(x.dtype)
+    xr = x + (xx - x) * p["mu_r"].to(x.dtype)
+    k = torch.square(torch.relu(xk @ p["wk"].to(x.dtype)))
+    out = torch.sigmoid(xr @ p["wr"].to(x.dtype)) * (k @ p["wv"].to(x.dtype))
+    return out, x[:, -1, :]

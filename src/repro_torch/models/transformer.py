@@ -1,18 +1,29 @@
-"""Decoder-only LM assembly for the dense family: prefill and decode.
+"""Decoder-only LM assembly for the dense, MoE, hybrid, SSM and VLM
+families: prefill, decode and the training forward.
 
-Every layer is attention + MLP (the JAX package's ``("attn", "mlp")``
-kind); the other layer kinds (mamba, rwkv, moe) raise. Parameters are a
-plain tree of tensors, ``{"embed": {"tok"[, "head"]}, "layers": [per-layer
-{"norm1", "attn", "norm2", "mlp"}], "final_norm"}``: the JAX package's tree
-with its stacked layer axis unstacked (``models/weights.py`` converts
-between the two). The layer loop is a Python loop; the JAX package's
-``lax.scan`` over stacked layers has no counterpart the port needs.
+Every layer is a mixer (attention | mamba | rwkv time-mix) and a
+feed-forward (mlp | moe | rwkv channel-mix), the JAX package's
+``(mixer, ff)`` kinds (``layer_kinds``): dense is attention + MLP in every
+layer; jamba interleaves Mamba with one attention layer in eight and MoE
+on every other layer; rwkv6 is time-mix + channel-mix throughout.
+Parameters are a plain tree of tensors, ``{"embed": {"tok"[, "head"]},
+"layers": [per-layer {"norm1", <mixer>, "norm2", <ff>}], "final_norm"}``:
+the JAX package's tree, whose ``blocks`` stack each position of the
+layer pattern (``pattern``) over its repeats, unstacked into layers
+(``models/weights.py`` converts between the two). The layer loop is a
+Python loop; the JAX package's ``lax.scan`` over the pattern's groups
+has no counterpart the port needs.
+
+Inputs are token ids, or (``cfg.input_mode == "embeddings"``, qwen2-vl's
+stubbed vision frontend) precomputed embeddings ``embeds`` with M-RoPE's
+(3, B, S) ``positions``.
 
 Four entry points: ``forward_train`` (the final-normed hidden states of
-every position, no cache, each layer under ``FwdOpts.remat``: the
-encoder's forward and the loss's), ``loss_fn`` (causal-LM cross entropy
-with z-loss), ``prefill`` (build the KV caches + last-position logits)
-and ``decode_step`` (one token for the whole stack).
+every position and the MoE aux loss, no cache, each layer under
+``FwdOpts.remat``: the encoder's forward and the loss's), ``loss_fn``
+(causal-LM cross entropy with z-loss and the MoE aux loss), ``prefill``
+(build each layer's decode state + last-position logits) and
+``decode_step`` (one token for the whole stack).
 """
 from __future__ import annotations
 
@@ -25,6 +36,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from . import attention as attn
+from . import moe as moe_mod
+from . import rwkv as rwkv_mod
+from . import ssm as ssm_mod
 from .layers import (apply_embed, apply_head, apply_mlp, apply_norm,
                      embed_spec, mlp_spec, norm_spec)
 
@@ -42,40 +56,71 @@ def layer_kinds(cfg) -> list[tuple[str, str]]:
     return kinds
 
 
-def check_dense(cfg) -> None:
-    """Raise for a config with a layer kind the port does not have yet."""
-    other = sorted({k for k in layer_kinds(cfg) if k != ("attn", "mlp")})
-    if other or cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {other or [cfg.input_mode]} are not "
-            f"ported yet (only attention + MLP on token inputs); see "
-            f"ROADMAP.md")
+def pattern(cfg) -> tuple[int, int]:
+    """(period, n_groups): the smallest repeating prefix of
+    ``layer_kinds``, the JAX package's stacking of its parameters (layer
+    ``l`` is position ``l % period`` of group ``l // period``)."""
+    kinds = layer_kinds(cfg)
+    n = len(kinds)
+    for p in range(1, n + 1):
+        if n % p == 0 and kinds == kinds[:p] * (n // p):
+            return p, n // p
+    return n, 1
 
 
-def layer_spec(cfg) -> dict:
-    return {"norm1": norm_spec(cfg), "attn": attn.attn_spec(cfg),
-            "norm2": norm_spec(cfg), "mlp": mlp_spec(cfg)}
+def sublayer_spec(cfg, kind: tuple[str, str]) -> dict:
+    mixer, ff = kind
+    s: dict = {"norm1": norm_spec(cfg), "norm2": norm_spec(cfg)}
+    if mixer == "attn":
+        s["attn"] = attn.attn_spec(cfg)
+    elif mixer == "mamba":
+        s["mamba"] = ssm_mod.ssm_spec(cfg)
+    else:
+        s["rwkv_t"] = rwkv_mod.rwkv_time_spec(cfg)
+    if ff == "mlp":
+        s["mlp"] = mlp_spec(cfg)
+    elif ff == "moe":
+        s["moe"] = moe_mod.moe_spec(cfg)
+    else:
+        s["rwkv_c"] = rwkv_mod.rwkv_channel_spec(cfg)
+    return s
 
 
 def model_spec(cfg) -> dict:
-    check_dense(cfg)
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder family is not ported yet; "
+            f"see ROADMAP.md")
     return {"embed": embed_spec(cfg),
-            "layers": [layer_spec(cfg) for _ in range(cfg.n_layers)],
+            "layers": [sublayer_spec(cfg, k) for k in layer_kinds(cfg)],
             "final_norm": norm_spec(cfg)}
 
 
 class DecodeState(NamedTuple):
-    caches: list          # per layer: attn.KVCache (B, S_max, K, hd)
+    caches: list          # per layer: attn.KVCache (B, S_max, K, hd),
+                          # ssm.SSMState or rwkv.RWKVState
     pos: int              # absolute position of the next token
     cache_len: int        # number of valid cached positions
 
 
 def init_caches(cfg, batch: int, s_max: int, dtype=torch.bfloat16,
                 device=None) -> list:
-    shape = (batch, s_max, cfg.n_kv_heads, cfg.hd)
-    return [attn.KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                         v=torch.zeros(shape, dtype=dtype, device=device))
-            for _ in range(cfg.n_layers)]
+    """Each layer's empty decode state: a KV ring for attention, an f32
+    h and a ``dtype`` conv tail for Mamba, an f32 WKV state and ``dtype``
+    shifts for RWKV (the JAX package's ``init_caches``)."""
+    caches = []
+    for mixer, _ in layer_kinds(cfg):
+        if mixer == "attn":
+            shape = (batch, s_max, cfg.n_kv_heads, cfg.hd)
+            caches.append(attn.KVCache(
+                k=torch.zeros(shape, dtype=dtype, device=device),
+                v=torch.zeros(shape, dtype=dtype, device=device)))
+        elif mixer == "mamba":
+            caches.append(ssm_mod.init_ssm_state(cfg, batch, dtype, device))
+        else:
+            caches.append(rwkv_mod.init_rwkv_state(cfg, batch, dtype,
+                                                   device))
+    return caches
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,41 +164,81 @@ def _remat(fn, name: str):
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
-def _layer(p: dict, x: torch.Tensor, cfg, attn_fn):
+def _layer(p: dict, x: torch.Tensor, cfg, kind: tuple[str, str], *,
+           positions, impl: str = "xla", state=None, decode: bool = False):
+    """One layer: (x out, aux (0-d f32 MoE aux loss, or None), new decode
+    state or None). ``decode``: one token against ``state`` (a KV ring
+    written in place at ``state[1]``; see ``decode_step``)."""
+    mixer, ff = kind
+    cache = state[0] if decode else None
     h = apply_norm(p["norm1"], x, cfg.norm)
-    y, cache = attn_fn(p["attn"], h)
+    if mixer == "attn":
+        if decode:
+            y, new = attn.attention_decode(
+                p["attn"], h, cfg, cache, pos=state[1], cache_len=state[2],
+                positions=positions)
+        else:
+            y, new = attn.attention_prefill(p["attn"], h, cfg,
+                                            positions=positions, impl=impl)
+    elif mixer == "mamba":
+        y, new = ssm_mod.mamba_forward(p["mamba"], h, cfg, state=cache,
+                                       chunked=not decode)
+    else:
+        y, (s_wkv, shift_t) = rwkv_mod.rwkv_time_mix(p["rwkv_t"], h, cfg,
+                                                     state=cache)
     x = x + y
     h = apply_norm(p["norm2"], x, cfg.norm)
-    return x + apply_mlp(p["mlp"], h, cfg), cache
+    aux = None
+    if ff == "mlp":
+        y = apply_mlp(p["mlp"], h, cfg)
+    elif ff == "moe":
+        y, aux = moe_mod.apply_moe(p["moe"], h, cfg, no_drop=decode)
+    else:
+        y, shift_c = rwkv_mod.rwkv_channel_mix(p["rwkv_c"], h, cfg,
+                                               state=cache)
+        new = rwkv_mod.RWKVState(s=s_wkv, shift_t=shift_t.to(x.dtype),
+                                 shift_c=shift_c.to(x.dtype))
+    return x + y, aux, new
 
 
-def forward_train(params: dict, cfg, batch: dict,
-                  opts: FwdOpts = FwdOpts()):
-    """batch: ``{"tokens": (B, S) int}``, optionally ``"positions"`` (B,
-    S). Returns the final-normed hidden states (B, S, d) and the MoE aux
-    loss, a 0-d f32 zero for the dense family.
-
-    Not under ``torch.inference_mode``, so gradients flow through it
-    (through the flash kernel's hand-written backward with
-    ``attn_impl="chunked"``); each layer runs under ``opts.remat``.
-    Callers that only embed wrap it themselves."""
-    check_dense(cfg)
-    x = apply_embed(params["embed"], batch["tokens"])
+def _inputs(params: dict, cfg, batch: dict):
+    """(x (B, S, d), positions): the embedded tokens, or ``embeds`` in the
+    config's dtype for ``input_mode == "embeddings"``; ``positions`` from
+    the batch ((3, B, S) for M-RoPE) or 0 .. S-1."""
+    if cfg.input_mode == "embeddings":
+        x = batch["embeds"].to(getattr(torch, cfg.dtype))
+    else:
+        x = apply_embed(params["embed"], batch["tokens"])
     b, s = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
+    return x, positions
 
-    def layer(p, x):
-        return _layer(p, x, cfg, lambda pa, h: (attn.attention_train(
-            pa, h, cfg, positions=positions, impl=opts.attn_impl), None))[0]
 
-    layer = _remat(layer, opts.remat)
-    for p in params["layers"]:
-        x = layer(p, x)
+def forward_train(params: dict, cfg, batch: dict,
+                  opts: FwdOpts = FwdOpts()):
+    """batch: ``{"tokens": (B, S) int}`` or ``{"embeds": (B, S, d)}``,
+    optionally ``"positions"`` ((B, S), or (3, B, S) for M-RoPE).
+    Returns the final-normed hidden states (B, S, d) and the MoE aux loss
+    summed over the MoE layers, a 0-d f32 tensor (zero without MoE).
+
+    Not under ``torch.inference_mode``, so gradients flow through it
+    (through the flash kernel's hand-written backward with
+    ``attn_impl="chunked"``); each layer runs under ``opts.remat``.
+    Callers that only embed wrap it themselves."""
+    x, positions = _inputs(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, kind in zip(params["layers"], layer_kinds(cfg)):
+        def layer(p, x, kind=kind):
+            y, a, _ = _layer(p, x, cfg, kind, positions=positions,
+                             impl=opts.attn_impl)
+            return y, (a if a is not None else torch.zeros_like(aux))
+        x, a = _remat(layer, opts.remat)(p, x)
+        aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def loss_fn(params: dict, cfg, batch: dict, opts: FwdOpts = FwdOpts(),
@@ -161,8 +246,8 @@ def loss_fn(params: dict, cfg, batch: dict, opts: FwdOpts = FwdOpts(),
     """Causal-LM cross entropy with z-loss, the JAX package's arithmetic:
     labels = ``batch["labels"]`` (B, S), entries of -100 (any negative)
     masked; f32 logits; ``loss = ce + z_coef * mean(lse^2) + aux_coef *
-    moe_aux``. Returns (loss, {"ce", "z_loss", "moe_aux", "tokens"}), 0-d
-    f32 tensors."""
+    moe_aux`` (``aux_coef`` defaults to ``cfg.router_aux_coef``). Returns
+    (loss, {"ce", "z_loss", "moe_aux", "tokens"}), 0-d f32 tensors."""
     x, aux = forward_train(params, cfg, batch, opts)
     logits = apply_head(params["embed"], x).float()
     labels = batch["labels"].long()
@@ -180,24 +265,22 @@ def loss_fn(params: dict, cfg, batch: dict, opts: FwdOpts = FwdOpts(),
 
 
 @torch.inference_mode()
-def prefill(params: dict, cfg, tokens: torch.Tensor,
+def prefill(params: dict, cfg, batch: dict,
             opts: FwdOpts = FwdOpts(attn_impl="chunked"),
             pad_to: int | None = None):
-    """Full forward over the prompt; returns (logits (B, 1, V) f32 at the
-    LAST position, DecodeState).
+    """Full forward over the prompt (``batch`` as for ``forward_train``);
+    returns (logits (B, 1, V) f32 at the LAST position, DecodeState).
 
     pad_to: reserve KV-cache capacity for decode (defaults to the prompt
-    length: the decode ring then overwrites the oldest slot)."""
-    check_dense(cfg)
-    x = apply_embed(params["embed"], tokens)
+    length: the decode ring then overwrites the oldest slot). The Mamba
+    and RWKV states have no length."""
+    x, positions = _inputs(params, cfg, batch)
     b, s = x.shape[:2]
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device).expand(b, s)
     caches = []
-    for p in params["layers"]:
-        x, c = _layer(p, x, cfg, lambda pa, h: attn.attention_prefill(
-            pa, h, cfg, positions=positions, impl=opts.attn_impl))
-        if pad_to is not None and pad_to > s:
+    for p, kind in zip(params["layers"], layer_kinds(cfg)):
+        x, _, c = _layer(p, x, cfg, kind, positions=positions,
+                         impl=opts.attn_impl)
+        if isinstance(c, attn.KVCache) and pad_to is not None and pad_to > s:
             # the JAX package pads the stacked caches after the scan; one
             # layer at a time holds one unpadded cache at a time
             c = attn.KVCache(*(torch.cat([t, t.new_zeros(
@@ -209,20 +292,26 @@ def prefill(params: dict, cfg, tokens: torch.Tensor,
 
 
 @torch.inference_mode()
-def decode_step(params: dict, cfg, token: torch.Tensor,
-                state: DecodeState):
-    """One token for the whole stack. token: (B, 1) int. Returns (logits
-    (B, 1, V) f32, new DecodeState); the caches are updated in place."""
-    check_dense(cfg)
-    x = apply_embed(params["embed"], token)
+def decode_step(params: dict, cfg, token: torch.Tensor, state: DecodeState,
+                positions: torch.Tensor | None = None):
+    """One token for the whole stack. token: (B, 1) int, or (B, 1, d)
+    embeddings for ``input_mode == "embeddings"``; ``positions``: M-RoPE's
+    (3, B, 1) ids (else the token is at ``state.pos``). Returns (logits
+    (B, 1, V) f32, new DecodeState); the KV rings are updated in place,
+    the Mamba and RWKV states replaced."""
+    if cfg.input_mode == "embeddings" and token.ndim == 3:
+        x = token.to(getattr(torch, cfg.dtype))
+    else:
+        x = apply_embed(params["embed"], token)
     caches = []
-    for p, c in zip(params["layers"], state.caches):
-        x, nc = _layer(p, x, cfg, lambda pa, h, c=c: attn.attention_decode(
-            pa, h, cfg, c, pos=state.pos, cache_len=state.cache_len))
+    for p, kind, c in zip(params["layers"], layer_kinds(cfg), state.caches):
+        x, _, nc = _layer(p, x, cfg, kind, positions=positions,
+                          state=(c, state.pos, state.cache_len), decode=True)
         caches.append(nc)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     logits = apply_head(params["embed"], x)
-    s_max = caches[0].k.shape[1] if caches else 2**30
+    s_max = next((c.k.shape[1] for c in caches
+                  if isinstance(c, attn.KVCache)), 2**30)
     return logits.float(), DecodeState(
         caches=caches, pos=state.pos + 1,
         cache_len=min(state.cache_len + 1, s_max))

@@ -1,14 +1,17 @@
 """Carry parameters across from the JAX package's parameter tree.
 
 The JAX package's tree, as numpy arrays, is ``{"embed": {"tok"[, "head"]},
-"blocks": [one dict per sublayer of the layer pattern, each leaf stacked
-over the pattern's repeats], "final_norm"}``; for the dense family the
-pattern is one layer, so ``blocks`` holds one dict whose leaves carry a
-leading layer axis. ``from_jax_tree`` unstacks it into the port's
-per-layer tree on a device, casting the matrices to the config's dtype
-(the JAX package keeps f32 masters and casts them at each use, with the
-same rounding) and keeping the norm parameters in f32. ``to_jax_tree`` is
-the inverse, in f32.
+"blocks": [one dict per position of the layer pattern
+(``transformer.pattern``), each leaf stacked over the pattern's groups],
+"final_norm"}``: layer ``l`` is position ``l % period`` of group ``l //
+period`` (dense and rwkv6: a period of one layer, so one dict whose leaves
+carry a leading layer axis; jamba: a period of 8 sublayer trees, with
+attention, Mamba, MLP and MoE leaves). ``from_jax_tree`` unstacks it into
+the port's per-layer tree on a device, casting the matrices to the
+config's dtype (the JAX package keeps f32 masters and casts them at each
+use, with the same rounding) and keeping the f32 parameters (norms, the
+MoE router, the SSM's dt, A and skip, RWKV's decay and bonus) in f32.
+``to_jax_tree`` is the inverse, in f32.
 """
 from __future__ import annotations
 
@@ -36,20 +39,43 @@ def _set(tree: dict, path: tuple, value) -> None:
     tree[path[-1]] = value
 
 
+def _map(fn, tree):
+    """``fn`` over the leaves of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack(trees: list):
+    """One tree whose leaves stack the leaves of ``trees`` (same keys)."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _stacked(cfg, layers: list) -> list:
+    """The per-layer trees ``layers`` as the JAX package's ``blocks``."""
+    period, groups = tf.pattern(cfg)
+    return [_stack([layers[g * period + i] for g in range(groups)])
+            for i in range(period)]
+
+
 def from_jax_tree(cfg, tree: dict, device=None) -> dict:
     """The JAX package's parameter tree (numpy or array-likes) -> the
     port's parameter tree on ``device`` (None: the CUDA card). Raises on a
-    missing leaf or a shape that does not fit ``cfg``."""
+    missing leaf, a block count that is not the pattern's period, or a
+    shape that does not fit ``cfg``."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     spec = tf.model_spec(cfg)
     blocks = tree["blocks"]
-    if len(blocks) != 1:
-        raise ValueError(f"a dense tree has one block pattern, got "
-                         f"{len(blocks)}")
+    period, _ = tf.pattern(cfg)
+    if len(blocks) != period:
+        raise ValueError(f"{cfg.name}: a layer pattern of {period}, got "
+                         f"{len(blocks)} blocks")
     jax_like = {"embed": tree["embed"], "final_norm": tree["final_norm"],
-                "layers": [{k: {n: a[l] for n, a in v.items()}
-                            for k, v in blocks[0].items()}
+                "layers": [_map(lambda a, g=l // period: a[g],
+                                blocks[l % period])
                            for l in range(cfg.n_layers)]}
     out = _empty_like(spec)
     for path, s, arr in _leaves(spec, jax_like):
@@ -64,19 +90,14 @@ def from_jax_tree(cfg, tree: dict, device=None) -> dict:
 
 def to_jax_tree(cfg, params: dict) -> dict:
     """The port's parameter tree -> the JAX package's layout, as f32 numpy
-    arrays with the layer axis stacked."""
+    arrays stacked over the pattern's groups."""
     def host(t):
         return t.detach().float().cpu().numpy()
 
-    layers = params["layers"]
-    blocks = [{k: {n: np.stack([host(layers[l][k][n])
-                                for l in range(len(layers))])
-                   for n in layers[0][k]}
-               for k in layers[0]}]
-    return {"embed": {k: host(v) for k, v in params["embed"].items()},
-            "blocks": blocks,
-            "final_norm": {k: host(v)
-                           for k, v in params["final_norm"].items()}}
+    return {"embed": _map(host, params["embed"]),
+            "blocks": _stacked(cfg, [_map(host, lay)
+                                     for lay in params["layers"]]),
+            "final_norm": _map(host, params["final_norm"])}
 
 
 def random_tree(cfg, rng: np.random.Generator) -> dict:
@@ -97,11 +118,9 @@ def random_tree(cfg, rng: np.random.Generator) -> dict:
     port_like = _empty_like(spec)
     for path, s, _ in _leaves(spec, spec):
         _set(port_like, path, draw(s))
-    layers = port_like["layers"]
     return {"embed": port_like["embed"],
             "final_norm": port_like["final_norm"],
-            "blocks": [{k: {n: np.stack([lay[k][n] for lay in layers])
-                            for n in layers[0][k]} for k in layers[0]}]}
+            "blocks": _stacked(cfg, port_like["layers"])}
 
 
 def _empty_like(spec):

@@ -6,6 +6,14 @@ decoded step by step with per-request EOS masking; finished rows keep
 decoding into padding but are masked out of the results (slot reuse across
 bucket boundaries is the scheduler's job, serve/scheduler.py).
 
+The engine serves every ported family: the decode state it carries
+between steps is each layer's (a KV ring for attention, the Mamba h and
+conv tail, the RWKV wkv state and shifts; ``models/transformer.py``).
+Requests are token ids, as the JAX package's engine takes them: a model
+on embedding inputs (qwen2-vl's backbone, whose vision frontend is a
+stub) is refused, and is driven through ``ModelBundle.prefill`` /
+``decode`` with its embeddings and M-RoPE positions (ROADMAP.md).
+
 The engine runs on the device its parameters live on. Each ``generate``
 call is one ``serve.generate`` span (``obs/trace.py``) carrying the batch
 shape, the decode steps taken, and two stages: ``prefill`` (up to the
@@ -38,10 +46,20 @@ class ServeConfig:
     pad_id: int = 0
 
 
+def check_token_model(cfg: ModelConfig) -> None:
+    """Raise for a model on embedding inputs, which the engine does not
+    serve."""
+    if cfg.input_mode == "embeddings":
+        raise NotImplementedError(
+            f"{cfg.name}: the engine serves token models; an embeddings "
+            "model runs through ModelBundle.prefill / decode (ROADMAP.md)")
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: dict,
                  scfg: ServeConfig | None = None,
                  run: RunConfig | None = None):
+        check_token_model(cfg)
         # fresh default per engine: a shared ServeConfig() instance would
         # leak one caller's knob tweaks into every other engine
         self.cfg, self.scfg = cfg, scfg if scfg is not None else ServeConfig()

@@ -143,12 +143,14 @@ def test_bwd_plan_visits_exactly_the_causal_tiles(sq, sk):
 
 
 def test_bwd_plan_copies_what_the_kernels_cannot_read():
-    base = torch.empty((1, 10, 4, 64))
-    k = torch.empty((1, 10, 2, 64))
+    # values drawn, not left uninitialized: a NaN in the memory would
+    # fail the equality check below whatever the copy did
+    base = torch.randn((1, 10, 4, 64))
+    k = torch.randn((1, 10, 2, 64))
     assert tflash.bwd_plan(base, k, k).copies == ()
-    odd = torch.empty((1, 10, 4, 66))[..., :64]   # strides not % 4
+    odd = torch.randn((1, 10, 4, 66))[..., :64]   # strides not % 4
     assert tflash.bwd_plan(odd, k, k).copies == ("q",)
-    flat = torch.empty(1 * 10 * 2 * 64 + 1)[1:].view(1, 10, 2, 64)
+    flat = torch.randn(1 * 10 * 2 * 64 + 1)[1:].view(1, 10, 2, 64)
     assert tflash.bwd_plan(base, k, flat).copies == ("v",)   # base
     # the copies are fresh, aligned tensors, even of a contiguous view
     for t in (odd, flat):

@@ -32,8 +32,17 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                for m in sys.modules), "a blocked module slipped in"
+print(" ".join(names))
 print(len(names))
 """
+
+#: modules that must be among those walked: the model families' mixers
+#: and every ported config
+WALKED = ["repro_torch.models." + m for m in (
+    "moe", "ssm", "rwkv", "transformer", "attention", "layers", "model",
+    "weights")] + ["repro_torch.configs." + m for m in (
+        "grok_1_314b", "jamba_v0_1_52b", "kimi_k2_1t_a32b", "llama3_2_1b",
+        "olmo_1b", "qwen1_5_4b", "qwen2_0_5b", "qwen2_vl_72b", "rwkv6_7b")]
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():
@@ -42,6 +51,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                          capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 20  # every module was walked
+    walked = set(out.stdout.split()[:-1])
+    assert not set(WALKED) - walked, set(WALKED) - walked
 
 
 def test_no_source_line_imports_jax_or_repro():

@@ -298,9 +298,9 @@ def test_port_init_launcher_and_unported_families():
     assert torch.isfinite(loss) and float(metrics["tokens"]) == 18
     from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("rwkv6-7b")
+        get_config("whisper-medium")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(dataclasses.replace(tc, family="moe"))
+        build(dataclasses.replace(tc, family="encdec"))
     tops.flash_attention.launches = 0
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(
