@@ -114,15 +114,17 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   a thread reads version 10 while the second streams, and
                   every read must equal the one before); one
                   generate_files_batch (full versions 10 and 20, the
-                  blastp and annot increments, a key filter), every file
+                  blastp and annot increments, a key filter; under
+                  torch.profiler), every file
                   checked against FASTA written from the release text by
                   a regex, the increments' keys against the releases'
                   changed and new entries; the batch again (all cached),
-                  merge_files, flush; a new GeStore over the root, cache
-                  evicted, the batch again (the same sha256, under
-                  torch.profiler). Cut in depth (its "reduced"): no
-                  one-shard store built by add_release of the whole
-                  text (gestore_parity keeps one at 20,000 entries).
+                  merge_files, flush; a new GeStore over the root, its
+                  histories checked, cache evicted. Cut in depth (its
+                  "reduced"): no batch regenerated by the reopened
+                  GeStore, no one-shard store built by add_release of
+                  the whole text (gestore_parity keeps one at 20,000
+                  entries).
                   Walls (each stream's entries/s, each batch split into
                   increments, size context, full versions and format +
                   cache put), the launches of every kernel, the
@@ -210,14 +212,32 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   4,096-token prompt at batch 1, its wall over all 32
                   layers and a profiled prefill through the first 2, in
                   a fresh process, with the scan's share)
-  families        the above in brief, and the eight new smoke configs in
+  families        the above in brief, and the nine new smoke configs in
                   f32 through device="cpu" and device="cuda": the same
-                  greedy ids from a Scheduler run (qwen2-vl: greedy
-                  steps through ModelBundle on embeddings) and prefill
+                  greedy ids from a Scheduler run (qwen2-vl and
+                  whisper: greedy steps through ModelBundle on
+                  embeddings and on audio frames) and prefill
                   logits within SMOKE_TOL, with the card run's kernel
                   launches (counted from 0) and its flash calls by design
                   and head dim, which must add up to the launches
                   (flash_mma_f32_kernel at D 16 and 8)
+  kernel_edges_whisper  flash forward and backward at whisper's heads
+                  (H 16 / K 16, D 64) and lengths 4, 224 and 448, bf16
+                  and f32, against the plain versions, with the designs
+  whisper         whisper-medium at its published widths, all 24 + 24
+                  layers (811.3 M parameters, seeded on the card): 8
+                  clips of 1,500 frame embeddings, the 4-token
+                  start-of-transcript prompt, 128 greedy tokens through
+                  ModelBundle.prefill / decode, a 224-token prefill;
+                  encode, prefill and decode walls, peak memory, flash
+                  launches by design and head dim (24 a prefill, all
+                  wgmma<64>), one prefill profiled in a fresh process
+                  with the encoder attention's share; four Trainer steps
+                  at B 4 x 448 tokens + 1,500 frames (AdamW, chunked,
+                  remat): walls, tokens/s, peak memory, losses, launches
+                  by design; a 2 + 2-layer f32 copy at the published
+                  widths on the CPU and the card: ids equal, logits
+                  within SMOKE_TOL, loss and gradients within BWD_TOL
   search          table4_application at Swiss-Prot scale: 570,000
                   sequences (32 x int32) and a release at 3.1% churn, the
                   Meta-pipe encoder at its published widths in bf16
@@ -285,7 +305,11 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   the lse written (flash_attention_train, its launches
                   the train path's); and the wgmma forward rows at 32k
                   and at the train shape timed with a null lse pointer
-                  and with one, in alternating rounds
+                  and with one, in alternating rounds; flash at whisper's
+                  decoder shapes: bf16 and f32 at B 8 x S 224, H 16 /
+                  K 16, D 64 (flash_attention_whisper and _whisper_f32,
+                  the whisper phase's launches) and the bf16 backward at
+                  B 4 x S 448 (flash_bwd_*_whisper, its training's)
   kernel_edges_train  the flash backward's kernels at D 64/128, f32 and
                   bf16, GQA groups 1/4, S 1/127/128/129/1,000, Sq < Sk,
                   Sq > Sk (rows that see no key: gradient 0), a
@@ -322,6 +346,14 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   restore walls, stats(), the store kernels' launches.
                   tools/torch_train_ckpt_probe.py runs the full-width
                   save (4-5 minutes of host deflate a save)
+  tiles           launch.sweep on the card for the route (606,894 keys,
+                  4 shards) and the keep mask (4,706,255 cells) over the
+                  tiles each can launch, every candidate's output bit for
+                  bit against the plain version (a kernel line each),
+                  the winners in a cache under a temporary build/
+                  directory, a second sweep answered from it and
+                  tile_for returning the winner; the codec's tile stays
+                  the default
 
 then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any mismatch or error ends the run with a
@@ -331,6 +363,7 @@ generators seeded with ``--seed``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import cProfile
 import dataclasses
@@ -434,6 +467,14 @@ for _k in ("delta", "dkdv", "dq"):
             "src/repro_torch/csrc/flash_attention_bwd.cu", _BWD_REPLACES)
 # the bf16 forward at the train path's shape, the lse written
 SOURCES["flash_attention_train"] = SOURCES["flash_attention"]
+# whisper-medium's decoder: bf16 at B 8 x S 224, H 16 / K 16, D 64 (its
+# serving prefills' and training forwards' launches), the same values in
+# f32 (the f32 copy's), and the bf16 backward at B 4 x S 448 (training's)
+SOURCES["flash_attention_whisper"] = SOURCES["flash_attention"]
+SOURCES["flash_attention_whisper_f32"] = SOURCES["flash_attention"]
+for _k in ("delta", "dkdv", "dq"):
+    SOURCES[f"flash_bwd_{_k}_whisper"] = (
+        "src/repro_torch/csrc/flash_attention_bwd.cu", _BWD_REPLACES)
 # the packed gather's decode, one row per gather size of the main path
 # (Q = 1, 8 and 64 timestamps a get_versions call)
 DECODE_ROWS = {1: "chain_decode", 8: "chain_decode_q8", 64: "chain_decode_q64"}
@@ -462,6 +503,9 @@ PATH_KERNELS = {
               "flash_bwd_dq"),
     "train_checkpoint": ("fingerprint", "masked_cumsum", "delta_pack"),
     "families": ("flash_attention",),
+    "whisper": ("flash_attention", "flash_bwd_delta", "flash_bwd_dkdv",
+                "flash_bwd_dq"),
+    "tiles": ("shard_route_bytes", "keep_mask"),
 }
 ARCH = "llama3.2-1b"
 SERVE_REQUESTS, SERVE_MAX_NEW, SERVE_MAX_BATCH = 16, 16, 8
@@ -1116,10 +1160,13 @@ class KernelBench:
         fold of each key's ceil(len / 4) lanes."""
         n = offsets.shape[0] - 1
         lanes = int(((offsets[1:] - offsets[:-1] + 3) // 4).sum())
+        tile = self.kops.launch.tile_for("shard_route", n=n,
+                                         device=flat.device)
         return self.run(
             "shard_route_bytes", {"N": n, "bytes": flat.shape[0],
                                   "lanes": lanes, "shards": n_shards,
-                                  "base_align": flat.data_ptr() % 16},
+                                  "base_align": flat.data_ptr() % 16,
+                                  "tile": tile},
             lambda: self.kops.shard_route_bytes(flat, offsets, n_shards),
             lambda: self.kops.ref.ref_shard_route_bytes(flat, offsets,
                                                         n_shards),
@@ -1132,8 +1179,8 @@ class KernelBench:
         stats against the plain version (``ref``) on the same card.
         ``rounds``: as for :meth:`run`."""
         kops, ref = self.kops, self.kops.ref
-        tile = kops.launch.tile_for("delta_codec")
         n, w = a.shape
+        tile = kops.launch.tile_for("delta_codec", n=n, device=a.device)
         fl = a.is_floating_point()
         op = {"delta_pack": "xor" if fl else "sub",
               "delta_unpack": "xor" if fl else "add",
@@ -1352,15 +1399,20 @@ class KernelBench:
             + n * w * itemsize, ops=covered * w + n * w,
             timed=timed, main=main, quiet=quiet)
 
-    def keep_mask(self, ts, cutoff, *, timed=True, main=False):
+    def keep_mask(self, ts, cutoff, *, timed=True, main=False,
+                  quiet=False) -> dict:
+        """The keep mask and its per-tile counts at the tile it resolves
+        (``shape["tile"]``: cells per block), bit for bit."""
         (c,) = ts.shape
-        tile = self.kops.launch.tile_for("keep_mask")
+        tile = self.kops.launch.tile_for("compact_rewrite", n=c,
+                                         device=ts.device)
         n_tiles = -(-c // tile)
-        self.run("keep_mask", {"C": c, "cutoff": cutoff},
-                 lambda: self.kops.keep_mask(ts, cutoff),
-                 lambda: self.kops.ref.ref_keep_mask(ts, cutoff, tile),
-                 nbytes=8 * c + 4 * n_tiles, ops=2 * c,
-                 timed=timed, main=main, device=True)
+        return self.run(
+            "keep_mask", {"C": c, "cutoff": cutoff, "tile": tile},
+            lambda: self.kops.keep_mask(ts, cutoff),
+            lambda: self.kops.ref.ref_keep_mask(ts, cutoff, tile),
+            nbytes=8 * c + 4 * n_tiles, ops=2 * c,
+            timed=timed, main=main, quiet=quiet, device=True)
 
 
 def covered_cells(heads: np.ndarray, idx: np.ndarray) -> int:
@@ -2188,7 +2240,13 @@ SHARDING_REDUCED = {
                         "serial placement's went earlier), for the "
                         "families phase's time; main_path keeps Q = 64 on "
                         "one store, and the kernel rows the stacked scan "
-                        "at Q = 64"}
+                        "at Q = 64",
+    "serial_get_versions_q8": "dropped for the whisper phase's time: the "
+                              "serial placement's Q = 8 call and the "
+                              "check of its 8 views (3.3 s and the "
+                              "checks); the stacked placement keeps Q = 8 "
+                              "against the same answers, the serial one "
+                              "Q = 1 and the increments"}
 
 
 def phase_sharding(core, placement, kops, releases, root: str) -> dict:
@@ -2278,6 +2336,8 @@ def phase_sharding(core, placement, kops, releases, root: str) -> dict:
                                     "Bmax": placed.bmax,
                                     "cells": placed.n_cells}
         for q, tss in queries.items():
+            if name == "serial" and q == 8:
+                continue  # cut for time (SHARDING_REDUCED)
             stages = {}
             views, s = wall(lambda: st.get_versions(tss, trace=stages))
             rec["get_versions_s"][name][str(q)] = s
@@ -2898,7 +2958,11 @@ GS_PARITY_ENTRIES = 20_000
 GS_REDUCED = ("dropped: the one-shard store that add_release gave each "
               "whole release text (two parses and updates, its "
               "generate_files_batch, cached and reopened batches, its "
-              "share of flush); gestore_parity keeps one at 20,000 entries")
+              "share of flush); gestore_parity keeps one at 20,000 "
+              "entries. Dropped too, for the whisper phase's time: "
+              "the batch the reopened GeStore regenerated after "
+              "its cache was evicted (13.4 s profiled, its files' "
+              "hashes against the first batch's)")
 # 1,000 entries of the first release and 1,000 of the second's new ones
 GS_KEY_FILTER = r"^P005(69|70)"
 # the first accession and the sequence lines of a UniProtKB entry
@@ -3036,9 +3100,9 @@ def fasta_entries(text: str) -> dict[str, str]:
     return {e.split("\n", 1)[0]: e for e in text.split(">")[1:]}
 
 
-def check_generated(gens, want: list[str], store: str) -> list[str]:
+def check_generated(gens, want: list[str], store: str) -> None:
     """Each generated file byte for byte against its expected text (where
-    they differ, how many entries and the first); the files' sha256."""
+    they differ, how many entries and the first)."""
     for g, w, r in zip(gens, want, gestore_requests(store)):
         with open(g.path, encoding="latin-1") as f:
             got = f.read()
@@ -3053,21 +3117,20 @@ def check_generated(gens, want: list[str], store: str) -> list[str]:
                   f"{a.get(bad[0], '')[:80]!r} for {b[bad[0]][:80]!r}"
                   if bad else f"{store} {r}: entries reordered")
         check(g.n_entries == w.count(">"), f"{store} {r}: entry count")
-    return [file_sha(g.path) for g in gens]
 
 
 def phase_gestore(core, kops, seed: int, root: str) -> dict:
     """The GeStore facade at UniProtKB/Swiss-Prot scale on the card: two
     releases written by ``write_synth_uniprot``, streamed into a 4-shard
     store (journal, saves; a reader of version 10 on another thread while
-    the second streams); one generate_files_batch, again from the cache,
-    merge_files, flush; a new GeStore over the root, cache evicted, the
-    batch again. Every generated file is checked against FASTA written
-    from the release text, and the reopened GeStore's files against the
-    first batch's. Cut in depth (the line's ``reduced``): no one-shard
-    store given the whole release text by ``add_release`` (its two
-    ingests, batches and save were about 70 s of the script);
-    ``phase_gestore_parity`` keeps one at 20,000 entries."""
+    the second streams); one generate_files_batch (profiled), again from
+    the cache, merge_files, flush; a new GeStore over the root, its
+    stores' histories checked and its cache evicted. Every generated file
+    is checked against FASTA written from the release text. Cut in depth
+    (the line's ``reduced``): no one-shard store given the whole release
+    text by ``add_release`` (its two ingests, batches and save were about
+    70 s of the script); ``phase_gestore_parity`` keeps one at 20,000
+    entries; no batch regenerated by the reopened GeStore (15 s)."""
     import threading
     from repro_torch.core.ingest import write_synth_uniprot
     from repro_torch.core.parsers import UniProtParser
@@ -3151,15 +3214,15 @@ def phase_gestore(core, kops, seed: int, root: str) -> dict:
               and gs.stores["uniprot"].n_shards == N_SHARDS,
               "the streamed store is not a 4-shard store")
         # -- generated files ----------------------------------------------
-        shas, gens = {}, {}
+        gens = {}
         rec["generate_files_batch"], rec["cached_batch_s"] = {}, {}
         for name in ("uniprot",):
             gens[name], rec["generate_files_batch"][name] = gestore_batch(
-                gs, name)
+                gs, name, profile=True)
             check([g.mode for g in gens[name]] ==
                   ["full", "full", "increment", "increment", "full"],
                   f"{name}: modes {[g.mode for g in gens[name]]}")
-            shas[name] = check_generated(gens[name], want, name)
+            check_generated(gens[name], want, name)
             again, rec["cached_batch_s"][name] = wall(
                 lambda: gs.generate_files_batch(gestore_requests(name)))
             check({g.mode for g in again} == {"cached"},
@@ -3194,16 +3257,11 @@ def phase_gestore(core, kops, seed: int, root: str) -> dict:
         check(sorted(gs2.stores) == ["uniprot"]
               and not gs2.load_errors, f"reopen: {gs2.load_errors}")
         check(gs2.device.type == torch.device(DEV).type, "reopen device")
+        check([(v.n_new, v.n_updated, v.n_deleted)
+               for v in gs2.open_store("uniprot").versions] == infos,
+              "reopen: the store's history differs")
         rec["evicted_files"] = gs2.cache.evict(0)
         check(rec["evicted_files"] == 5, "the cache held other files")
-        rec["reopened_batch"] = {}
-        for name in ("uniprot",):
-            got, rec["reopened_batch"][name] = gestore_batch(
-                gs2, name, profile=True)
-            check({g.mode for g in got} == {"full", "increment"},
-                  f"reopened {name}: not materialized again")
-            check([file_sha(g.path) for g in got] == shas[name],
-                  f"reopened {name}: files differ")
     rec["launches"] = read_counts(kops)
     rec["fingerprint_launches_by_width"] = {
         str(w): n for w, n in sorted(fp_by_w.items())}
@@ -4004,7 +4062,7 @@ FAMILY_OTHERS = (("olmo-1b", 16), ("qwen1.5-4b", 40), ("qwen2-0.5b", 24),
 FAMILY_PROFILE_LAYERS = 2
 FAMILY_SMOKE = ("grok-1-314b", "jamba-v0.1-52b", "kimi-k2-1t-a32b",
                 "olmo-1b", "qwen1.5-4b", "qwen2-0.5b", "qwen2-vl-72b",
-                "rwkv6-7b")
+                "rwkv6-7b", "whisper-medium")
 #: the device-time regions of one prefill: the Mamba and RWKV scans, the
 #: MoE's routing, dispatch, expert products and combine (module, function)
 FAMILY_REGIONS = {
@@ -4268,23 +4326,16 @@ def family_profile_child(arch: str, layers: int, seed: int) -> None:
 
 
 def family_profile_fresh(arch: str, layers: int, seed: int) -> dict:
-    """:func:`family_profile_child` in a process of its own (the profiler
-    keeps every device event early in a process, and loses some a minute
-    or more into one); waits for it and returns its record."""
-    code = (f"import sys; sys.path[:0] = [{os.path.join(HERE, 'src')!r}, "
-            f"{HERE!r}]; import chip_smoke; "
-            f"chip_smoke.family_profile_child({arch!r}, {layers}, {seed})")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=600, cwd=HERE)
-    check(out.returncode == 0, f"{arch} profile: exit {out.returncode}: "
-                               f"{out.stderr[-2000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    """:func:`family_profile_child` in a process of its own
+    (:func:`fresh_process`)."""
+    return fresh_process(f"family_profile_child({arch!r}, {layers}, {seed})")
 
 
 def family_smoke_parity(kops, cfg, seed: int, keep: int = 0) -> dict:
     """A smoke config in f32 through device="cpu" and device="cuda": the
-    same greedy ids from a Scheduler run (qwen2-vl: from FAMILY_DECODE
-    greedy steps through ModelBundle on embeddings) and the same prefill
+    same greedy ids from a Scheduler run (qwen2-vl, on embeddings, and
+    whisper, on audio frames beside its prompt: from FAMILY_DECODE greedy
+    steps through ModelBundle) and the same prefill
     logits within SMOKE_TOL; the card run's kernel launches (the counts
     set to 0 just before it) and flash launches by design, its flash calls
     by design and head dim (which must add up to those launches, design
@@ -4304,19 +4355,27 @@ def family_smoke_parity(kops, cfg, seed: int, keep: int = 0) -> dict:
         if dev == DEV:
             reset_counts(kops)
         with counted as got:
-            if cfg.input_mode == "embeddings":
-                gen = torch.Generator().manual_seed(seed)
-                inp = {k: v.to(dev) for k, v in vlm_inputs(
-                    cfg, *batch.shape, gen, torch.float32).items()}
+            if cfg.input_mode == "embeddings" or cfg.family == "encdec":
+                if cfg.family == "encdec":
+                    inp = {"enc_embeds": whisper_frames(
+                        cfg, batch.shape[0], seed, dev, torch.float32),
+                        "tokens": torch.as_tensor(batch, device=dev)}
+                else:
+                    gen = torch.Generator().manual_seed(seed)
+                    inp = {k: v.to(dev) for k, v in vlm_inputs(
+                        cfg, *batch.shape, gen, torch.float32).items()}
                 lg, state = bundle.prefill(params, inp,
                                            pad_to=batch.shape[1]
                                            + FAMILY_DECODE)
                 ids = []
                 for t in range(FAMILY_DECODE):
                     ids.append(lg[:, 0].argmax(-1, keepdim=True))
-                    lg, state = bundle.decode(params, ids[-1], state,
-                                              vlm_step_positions(
-                                                  *batch.shape, t, dev))
+                    lg, state = (
+                        bundle.decode(params, ids[-1], state)
+                        if cfg.family == "encdec" else
+                        bundle.decode(params, ids[-1], state,
+                                      vlm_step_positions(*batch.shape, t,
+                                                         dev)))
                 outs.append({"greedy": torch.cat(ids, 1).cpu().numpy()})
                 logits.append(bundle.prefill(params, inp)[0].cpu())
             else:
@@ -4519,6 +4578,508 @@ def phase_kernel_families(bench: KernelBench, families_out, seed: int) -> None:
     bench.flash(*(x.to(torch.bfloat16) for x in (q, k, v)), main=True,
                 name="flash_attention_d8", rounds=TIMED_ROUNDS, device=True)
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# whisper-medium: the encoder-decoder family
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper-medium"
+WHISPER_BATCH = 8        # 30 s clips a batch, 1,500 frame embeddings each
+#: the start-of-transcript sequence: <|startoftranscript|> <|en|>
+#: <|transcribe|> <|notimestamps|> in whisper's multilingual vocabulary
+WHISPER_PROMPT = (50258, 50259, 50359, 50363)
+WHISPER_NEW = 128        # greedy tokens a clip
+WHISPER_PREV = 224       # previous-text conditioning: half the text context
+#: training: batch, decoder tokens (whisper's text context), steps
+WHISPER_TRAIN = (4, 448, 4)
+#: the f32 copy at the published widths: encoder and decoder layers;
+#: batch, loss tokens and greedy tokens on the card and the CPU
+WHISPER_PARITY_LAYERS = 2
+WHISPER_PARITY = (2, 16, 8)
+#: the device-time regions of one prefill: the encoder, and every
+#: full-logits attention (the encoder's self-attention and the decoder's
+#: cross-attention)
+WHISPER_REGIONS = {
+    "encode": ("repro_torch.models.whisper", "encode"),
+    "xla_attention": ("repro_torch.models.attention", "_xla_attention"),
+}
+
+
+def whisper_frames(cfg, b: int, seed: int, device=None,
+                   dtype=torch.bfloat16) -> torch.Tensor:
+    """(B, S_enc, d) seeded frame embeddings on ``device`` (None: DEV),
+    the stubbed frontend's output (from numpy, so the CPU and the card
+    get the same values)."""
+    x = np.random.default_rng(seed).standard_normal(
+        (b, cfg.encoder_seq, cfg.d_model), dtype=np.float32)
+    return torch.as_tensor(x, device=device or DEV).to(dtype)
+
+
+def whisper_prompt(b: int, s: int, seed: int, device=None) -> torch.Tensor:
+    """(B, S) prompts in whisper's vocabulary on ``device`` (None: DEV):
+    the start-of-transcript sequence, then (S > 4) seeded previous-text
+    tokens (ids below its special tokens)."""
+    head = np.tile(np.asarray(WHISPER_PROMPT, np.int64), (b, 1))
+    rest = np.random.default_rng(seed).integers(3, 50257,
+                                                (b, s - head.shape[1]))
+    return torch.as_tensor(np.concatenate([head, rest], 1),
+                           device=device or DEV)
+
+
+def whisper_greedy(bundle, params, frames, prompt, new: int):
+    """The prefill's logits (B, 1, V) and ``new`` greedy ids (B, new):
+    the first from the prefill, the rest from decode steps, the
+    self-attention rings padded to the prompt plus ``new``."""
+    logits, state = bundle.prefill(
+        params, {"enc_embeds": frames, "tokens": prompt},
+        pad_to=prompt.shape[1] + new)
+    first = logits
+    ids = [logits[:, 0].argmax(-1, keepdim=True)]
+    for _ in range(new - 1):
+        logits, state = bundle.decode(params, ids[-1], state)
+        ids.append(logits[:, 0].argmax(-1, keepdim=True))
+    return first, torch.cat(ids, 1)
+
+
+def whisper_profile_child(seed: int) -> None:
+    """In a fresh process: whisper-medium on the card, one warm-up
+    prefill of WHISPER_BATCH clips and the start-of-transcript prompt,
+    then one under :func:`region_shares`, and the encoder alone under it
+    (its full-logits attention is the encoder's self-attention), printed
+    as the last line."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build, whisper
+    cfg = get_config(WHISPER)
+    bundle = build(cfg)
+    params = bundle.init(seed, device=DEV)
+    inp = {"enc_embeds": whisper_frames(cfg, WHISPER_BATCH, seed + 3),
+           "tokens": whisper_prompt(WHISPER_BATCH, len(WHISPER_PROMPT),
+                                    seed)}
+    _, warm_s = wall(lambda: bundle.prefill(params, inp))
+    out = region_shares(lambda: bundle.prefill(params, inp), WHISPER_REGIONS)
+
+    def enc():
+        with torch.inference_mode():
+            return whisper.encode(params, cfg, inp["enc_embeds"])
+
+    enc_out = region_shares(enc, {"xla_attention": WHISPER_REGIONS[
+        "xla_attention"]})
+    att = enc_out["region_device_s"]["xla_attention"]
+    print(json.dumps({
+        "warm_prefill_s": warm_s, "prefill": out, "encode": enc_out,
+        "complete": out["complete"] and enc_out["complete"],
+        "encoder_attention_device_s": att,
+        "encoder_attention_share": (att / out["device_s"]
+                                    if out["device_s"] > 0 else None)}),
+        flush=True)
+
+
+def fresh_process(call: str) -> dict:
+    """``chip_smoke.<call>`` in a process of its own (the profiler keeps
+    every device event early in a process, and loses some a minute or
+    more into one); waits for it and returns its last line's record."""
+    code = (f"import sys; sys.path[:0] = [{os.path.join(HERE, 'src')!r}, "
+            f"{HERE!r}]; import chip_smoke; chip_smoke.{call}")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=HERE)
+    check(out.returncode == 0, f"{call}: exit {out.returncode}: "
+                               f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def phase_whisper(kops, seed: int) -> dict:
+    """whisper-medium at its published widths, all 24 + 24 layers, seeded
+    weights on the card. Serving: WHISPER_BATCH clips of 1,500 frames,
+    the 4-token start-of-transcript prompt, WHISPER_NEW greedy tokens
+    through ModelBundle.prefill / decode; a second prefill with a
+    WHISPER_PREV-token prompt; flash launches by design and head dim (24
+    a prefill, all wgmma at D 64); one prefill profiled in a fresh
+    process. Training: WHISPER_TRAIN's steps of Trainer (AdamW, chunked,
+    per-layer remat). Then the f32 copy (:func:`whisper_parity`)."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.models import build, whisper
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+    cfg = get_config(WHISPER)
+    bundle = build(cfg)
+    fa = kops.flash_attention
+    rec = {"phase": "whisper", "arch": WHISPER, "gpu": nvidia_smi_line(),
+           "layers": [cfg.encoder_layers, cfg.n_layers],
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": cfg.hd, "encoder_seq": cfg.encoder_seq,
+           "dtype": cfg.dtype, "flash": flash_key(cfg)}
+    reset_peak()
+    params, rec["init_s"] = wall(lambda: bundle.init(seed, device=DEV))
+    rec["params"], rec["weights_bytes"] = tree_sizes(params)
+    b, p0 = WHISPER_BATCH, len(WHISPER_PROMPT)
+    frames = whisper_frames(cfg, b, seed + 3)
+    prompt = whisper_prompt(b, p0, seed)
+    prev = whisper_prompt(b, WHISPER_PREV, seed + 4)
+
+    def encode():
+        with torch.inference_mode():
+            return whisper.encode(params, cfg, frames)
+
+    encode()                                  # warm-ups, not counted
+    bundle.prefill(params, {"enc_embeds": frames, "tokens": prompt})
+    enc, rec["encode_s"] = wall(encode)
+    check(enc.shape == (b, cfg.encoder_seq, cfg.d_model)
+          and bool(torch.isfinite(enc).all()), "whisper: encoder output")
+    del enc
+    serve = {"batch": b, "frames": cfg.encoder_seq, "prompt": p0,
+             "new_tokens": WHISPER_NEW, "prev_prompt": WHISPER_PREV}
+    reset_peak()
+    reset_counts(kops)
+    with flash_calls(keep=1) as calls:
+        (logits, state), serve["prefill_s"] = wall(lambda: bundle.prefill(
+            params, {"enc_embeds": frames, "tokens": prompt},
+            pad_to=p0 + WHISPER_NEW))
+        first = logits
+        ids = [logits[:, 0].argmax(-1, keepdim=True)]
+
+        def decode():
+            nonlocal logits, state
+            for _ in range(WHISPER_NEW - 1):
+                logits, state = bundle.decode(params, ids[-1], state)
+                ids.append(logits[:, 0].argmax(-1, keepdim=True))
+        _, serve["decode_s"] = wall(decode)
+        del state
+        (plog, _), serve["prefill_prev_s"] = wall(lambda: bundle.prefill(
+            params, {"enc_embeds": frames, "tokens": prev}))
+    serve["peak_memory_bytes"] = peak_bytes()
+    serve["decode_tokens_per_s"] = b * (WHISPER_NEW - 1) / serve["decode_s"]
+    counts = read_counts(kops)
+    serve["flash_launches"] = counts["flash_attention"]
+    serve["flash_launches_by_design"] = {k: v for k, v in
+                                         fa.by_design.items() if v}
+    serve["flash_calls_by_dim"] = dict(calls["by_dim"])
+    ids = torch.cat(ids, 1)
+    serve["greedy_ids_first_clip"] = ids[0, :16].tolist()
+    check(ids.shape == (b, WHISPER_NEW) and bool((ids >= 0).all())
+          and bool((ids < cfg.vocab).all()), f"whisper ids {ids.shape}")
+    check(all(bool(torch.isfinite(x).all()) for x in (first, logits, plog))
+          and plog.shape == (b, 1, cfg.vocab), "whisper logits")
+    per = cfg.n_layers * 2            # two prefills
+    check(counts["flash_attention"] == per
+          and calls["by_dim"] == {"wgmma<64>": per}
+          and serve["flash_launches_by_design"] == {"wgmma": per},
+          f"whisper serving flash: {counts['flash_attention']} launches, "
+          f"by dim {calls['by_dim']}, want {per} wgmma<64>")
+    s4_qkv = calls["qkv"][0]
+    check(tuple(s4_qkv[0].shape) == (b, p0, cfg.n_heads, cfg.hd)
+          and tuple(calls["last_qkv"][0].shape)
+          == (b, WHISPER_PREV, cfg.n_heads, cfg.hd), "whisper flash shapes")
+    rec["serving"] = serve
+    out = {"s4_qkv": s4_qkv, "s224_qkv": calls["last_qkv"],
+           "launches": {"flash_attention_whisper": counts["flash_attention"]}}
+    del calls, params, first, logits, plog, frames
+    torch.cuda.empty_cache()
+    rec["profile_prefill"] = fresh_process(f"whisper_profile_child({seed})")
+    # -- training ---------------------------------------------------------
+    bt, st, steps = WHISPER_TRAIN
+    run = RunConfig()
+    rng = np.random.default_rng(seed + 6)
+    toks = rng.integers(3, cfg.vocab, (bt, st + 1)).astype(np.int32)
+    batch = {"enc_embeds": rng.standard_normal(
+        (bt, cfg.encoder_seq, cfg.d_model), dtype=np.float32),
+        "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    train = {"batch": bt, "seq": st, "frames": cfg.encoder_seq,
+             "steps": steps, "optimizer": run.optimizer, "remat": run.remat,
+             "attn_impl": run.attn_impl}
+    reset_peak()
+    tr, train["init_s"] = wall(lambda: Trainer(
+        cfg, run, TrainerConfig(total_steps=steps), seed=seed))
+    walls, kept, t_prev = [], [], [0.0]
+
+    def hook(step, m):
+        sync()
+        now = time.perf_counter()
+        walls.append(now - t_prev[0])
+        t_prev[0] = now
+
+    reset_counts(kops)
+    with first_backward_inputs(kept):
+        sync()
+        t_prev[0] = time.perf_counter()
+        tr.run_loop(iter([batch] * steps), hook=hook)
+    counts = read_counts(kops)
+    train["peak_memory_bytes"] = peak_bytes()
+    losses = [m["loss"] for m in tr.history]
+    train.update(losses=losses, step_walls_s=walls,
+                 step_wall_median_s=float(np.median(walls)),
+                 tokens_per_s=bt * st / float(np.median(walls)),
+                 frames_per_s=bt * cfg.encoder_seq / float(np.median(walls)),
+                 launches={k: counts[k] for k in PATH_KERNELS["whisper"]},
+                 flash_launches_by_design=dict(fa.by_design),
+                 bwd_launches_by_design={
+                     k: dict(getattr(kops, k).by_design)
+                     for k in ("flash_bwd_dkdv", "flash_bwd_dq")})
+    check(len(losses) == steps and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0], f"whisper train losses {losses}")
+    per = cfg.n_layers * steps
+    check(fa.launches == 2 * per and fa.by_design["wgmma"] == 2 * per,
+          f"whisper train flash forward {fa.by_design}, want {2 * per} "
+          f"wgmma (a forward and a remat recompute per decoder layer)")
+    for k in ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"):
+        check(counts[k] == per, f"whisper {k}: {counts[k]}, want {per}")
+    for k, by in train["bwd_launches_by_design"].items():
+        check(by["wgmma"] == per, f"whisper {k} by design {by}")
+    rec["training"] = train
+    out["bwd_inputs"] = kept[0]
+    out["launches"]["flash_attention_whisper"] += counts["flash_attention"]
+    out["launches"].update({f"{k}_whisper": counts[k] for k in (
+        "flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")})
+    del tr
+    torch.cuda.empty_cache()
+    parity = whisper_parity(kops, seed)
+    rec["parity_f32"] = {k: v for k, v in parity.items() if k != "launches"}
+    out["launches"]["flash_attention_whisper_f32"] = parity["launches"].get(
+        "flash_attention", 0)
+    emit(rec)
+    return out
+
+
+def whisper_parity(kops, seed: int) -> dict:
+    """whisper-medium's widths at WHISPER_PARITY_LAYERS + its layers in
+    f32 from one host tree, on the CPU and the card, ``chunked`` (the
+    card's flash kernels, wgmma_f32 at D 64; the CPU's plain versions):
+    greedy ids equal, prefill logits within SMOKE_TOL, the loss and every
+    gradient leaf within BWD_TOL[f32] (relative to the leaf's largest
+    magnitude). The card run's launches are counted from 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import FwdOpts, build, weights
+    cfg = dataclasses.replace(get_config(WHISPER), dtype="float32",
+                              n_layers=WHISPER_PARITY_LAYERS,
+                              encoder_layers=WHISPER_PARITY_LAYERS)
+    tree = weights.random_tree(cfg, np.random.default_rng(seed + 7))
+    bundle = build(cfg)
+    b, s, new = WHISPER_PARITY
+    rng = np.random.default_rng(seed + 8)
+    toks = rng.integers(3, cfg.vocab, (b, s + 1))
+    res = {}
+    for dev in ("cpu", DEV):
+        params = weights.from_jax_tree(cfg, tree, device=dev)
+        frames = whisper_frames(cfg, b, seed + 9, dev, torch.float32)
+        prompt = whisper_prompt(b, len(WHISPER_PROMPT), seed, dev)
+        batch = {"enc_embeds": frames,
+                 "tokens": torch.as_tensor(toks[:, :-1], device=dev),
+                 "labels": torch.as_tensor(toks[:, 1:], device=dev)}
+        if dev == DEV:
+            reset_counts(kops)
+        first, ids = whisper_greedy(bundle, params, frames, prompt, new)
+        (loss, _), grads = value_and_grad(
+            lambda p: bundle.loss(p, batch, FwdOpts(attn_impl="chunked")),
+            params)
+        res[dev] = (first.cpu(), ids.cpu(), float(loss),
+                    weights.to_jax_tree(cfg, grads))
+        if dev == DEV:
+            launches = {k: v for k, v in read_counts(kops).items() if v}
+            by_design = {k: v for k, v in
+                         kops.flash_attention.by_design.items() if v}
+        del params, grads
+    (lc, ic, losc, gc), (lg, ig, losg, gg) = res["cpu"], res[DEV]
+    atol, rtol = BWD_TOL[torch.float32]
+    worst = 0.0
+    for (pc, a), (_, g) in zip(_jax_leaves(gc), _jax_leaves(gg)):
+        scale = float(np.abs(a).max())
+        e = float(np.abs(a - g).max()) / max(atol + rtol * scale, 1e-30)
+        worst = max(worst, e)
+    out = {"layers": [cfg.encoder_layers, cfg.n_layers], "batch": b,
+           "loss_tokens": s, "greedy_tokens": new,
+           "ids_equal": bool(torch.equal(ic, ig)),
+           "max_abs_logit_diff": float((lc - lg).abs().max()),
+           "logit_tol": SMOKE_TOL, "loss_cpu": losc, "loss_card": losg,
+           "loss_diff": abs(losc - losg), "grad_err_in_tol": worst,
+           "bwd_tol": {"atol": atol, "rtol": rtol}, "launches": launches,
+           "flash_launches_by_design": by_design}
+    check(out["ids_equal"], "whisper f32: greedy ids differ, cpu vs card")
+    check(out["max_abs_logit_diff"] <= SMOKE_TOL,
+          f"whisper f32: logits differ by {out['max_abs_logit_diff']}")
+    check(out["loss_diff"] <= atol + rtol * abs(losc),
+          f"whisper f32: loss {losg} vs {losc}")
+    check(worst <= 1.0, f"whisper f32: a gradient {worst} x its tolerance")
+    n = WHISPER_PARITY_LAYERS
+    want = {"wgmma_f32": n + 2 * n}  # the prefill; the loss and its remat
+    check(by_design == want and launches.get("flash_bwd_dkdv") == n
+          and launches.get("flash_bwd_dq") == n,
+          f"whisper f32 launches {launches}, by design {by_design}")
+    return out
+
+
+def _jax_leaves(tree, path=""):
+    """(path, array) of a JAX-layout host tree's leaves, keys sorted."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _jax_leaves(tree[k], f"{path}/{k}")
+    else:
+        yield path, np.asarray(tree, np.float64)
+
+
+#: whisper's decoder attention, multi-head (a group of 1) at D 64: the
+#: prompt lengths of its paths, B 2
+WHISPER_EDGE_S = (4, WHISPER_PREV, WHISPER_TRAIN[1])
+
+
+def phase_kernel_edges_whisper(bench: KernelBench, seed: int) -> None:
+    """Flash forward and backward at whisper's heads (H 16 / K 16, D 64)
+    and prompt lengths (WHISPER_EDGE_S: ragged against the kernels'
+    64- and 128-row tiles) in bf16 and f32 on seeded inputs: the forward
+    against its plain version within FLASH_TOL on its design (wgmma,
+    wgmma_f32), delta, dK, dV and dQ against the plain backward within
+    BWD_TOL on the backward's design; the worst error per check."""
+    from repro_torch.kernels import flash_attention as fa
+    kops, ref = bench.kops, bench.kops.ref
+    gen = torch.Generator(device=DEV).manual_seed(seed + 12)
+    worst, designs = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        for s in WHISPER_EDGE_S:
+            q, k, v, do = bwd_inputs(gen, 2, s, s, 16, 16, 64, "contiguous",
+                                     dt)
+            f = bench.flash(q, k, v, timed=False, quiet=True,
+                            name="flash_attention_whisper")
+            o, lse = fa._forward(q, k, v, lse=True)
+            delta = kops.flash_bwd_delta(o, do)
+            dk, dv = kops.flash_bwd_dkdv(q, k, v, do, lse, delta)
+            dq = kops.flash_bwd_dq(q, k, v, do, lse, delta)
+            want = ref.ref_flash_attention_bwd(q, k, v, o, lse, do,
+                                               bq=PLAIN_FLASH_TILE,
+                                               bk=PLAIN_FLASH_TILE)
+            tag = str(dt).split(".")[-1]
+            designs[tag] = [f["shape"]["design"],
+                            fa.bwd_plan(q, k, v, do).design]
+            worst[f"forward_{tag}"] = max(worst.get(f"forward_{tag}", 0.0),
+                                          f["max_abs_diff"])
+            for name, g_, w_, tol in (
+                    ("delta", delta, ref.ref_flash_bwd_delta(o, do),
+                     BWD_TOL[torch.float32]),
+                    ("dq", dq, want[0], BWD_TOL[dt]),
+                    ("dk", dk, want[1], BWD_TOL[dt]),
+                    ("dv", dv, want[2], BWD_TOL[dt])):
+                ok, err = within(g_, w_, tol)
+                check(ok, f"whisper flash backward {name} S {s} {dt}: {err}")
+                key = f"{name}_{tag}"
+                worst[key] = max(worst.get(key, 0.0), err)
+    check(designs == {"bfloat16": ["wgmma", "wgmma"],
+                      "float32": ["wgmma_f32", "wgmma_f32"]},
+          f"whisper flash designs {designs}")
+    emit({"phase": "kernel_edges_whisper", "heads": [16, 16], "D": 64,
+          "S": list(WHISPER_EDGE_S), "designs": designs,
+          "worst_abs_err": worst,
+          "tol": {"flash": {str(k).split(".")[-1]: v
+                            for k, v in FLASH_TOL.items()},
+                  "bwd": {str(k).split(".")[-1]: v
+                          for k, v in BWD_TOL.items()}}})
+
+
+def phase_kernel_whisper(bench: KernelBench, whisper_out) -> None:
+    """Flash attention at whisper's decoder shapes against its plain
+    version and SDPA: bf16 on layer 23's q, k, v of the WHISPER_PREV-token
+    prefill (B 8, H 16 / K 16, D 64; wgmma) and the same values in f32
+    (wgmma_f32); the 4-token prompt's layer-0 q, k, v checked; the
+    backward's three kernels on the first backward of whisper's training
+    (the last decoder layer, B 4 x S 448) in bf16."""
+    q, k, v = whisper_out.pop("s4_qkv")
+    bench.flash(q, k, v, timed=False, name="flash_attention_whisper")
+    q, k, v = whisper_out.pop("s224_qkv")
+    bench.flash(q, k, v, main=True, name="flash_attention_whisper",
+                rounds=3, device=True)
+    bench.flash(*(x.float() for x in (q, k, v)), main=True,
+                name="flash_attention_whisper_f32", rounds=3, device=True)
+    q, k, v, o, lse, do = (x.detach() for x in whisper_out.pop("bwd_inputs"))
+    bench.flash_bwd(q, k, v, o, lse, do, suffix="_whisper")
+    del q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# tiles: the kernels' tile resolution and its autotune sweep
+# ---------------------------------------------------------------------------
+
+TILE_ROUTE_KEYS = 606_894   # the sharding phase's last release, 4 shards
+TILE_MASK_CELLS = 4_706_255  # the main path's compacted log
+
+
+@contextlib.contextmanager
+def tile_env(launch, kernel: str, tile: int):
+    """``GESTORE_TILE_<KERNEL>`` set to ``tile`` inside the block."""
+    var = launch.ENV_PREFIX + kernel.upper()
+    old = os.environ.get(var)
+    os.environ[var] = str(tile)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = old
+
+
+def phase_tiles(bench: KernelBench, kops, seed: int) -> dict:
+    """``launch.sweep`` on the card for the route (flat key bytes,
+    TILE_ROUTE_KEYS keys, N_SHARDS shards) and the keep mask
+    (TILE_MASK_CELLS cells) over the candidates each can launch: every
+    candidate's output bit for bit against the plain version at that
+    tile, its times and bound (a kernel line each), the winner by the
+    card's time per call (device_ms) recorded in the winner cache
+    (``GESTORE_TORCH_TILE_CACHE``, under the run's temporary root); a
+    second sweep answers from the cache and ``tile_for`` returns the
+    winner. The codec is not swept: its tile is every segment's stat
+    tile, and stays the default."""
+    from repro_torch.kernels import launch
+    rec = {"phase": "tiles", "gpu": nvidia_smi_line(),
+           "device": launch.platform(DEV), "cache": os.path.relpath(
+               launch.cache_path(), HERE)}
+    keys = keys_of(np.arange(TILE_ROUTE_KEYS))
+    flat, offsets = (torch.as_tensor(x, device=DEV)
+                     for x in kops.key_bytes(keys))
+    rng = np.random.default_rng(seed + 11)
+    ts = torch.as_tensor(rng.choice(RELEASE_TS, TILE_MASK_CELLS).astype(
+        np.int32), device=DEV)
+    runs = {"shard_route": (TILE_ROUTE_KEYS, lambda: bench.shard_route_bytes(
+                flat, offsets, N_SHARDS, quiet=False)),
+            "compact_rewrite": (TILE_MASK_CELLS, lambda: bench.keep_mask(
+                ts, COMPACT_TS))}
+    reset_counts(kops)
+    for kernel, (n, one) in runs.items():
+        rows = {}
+
+        def time_at(tile, kernel=kernel, one=one, rows=rows):
+            with tile_env(launch, kernel, tile):
+                r = one()
+            check(r["shape"]["tile"] == tile, f"{kernel}: ran tile "
+                                               f"{r['shape']['tile']}")
+            rows[tile] = {k: r[k] for k in ("kernel_ms", "device_ms",
+                                            "plain_ms", "bound_ms",
+                                            "max_abs_diff")}
+            return r["device_ms"] / 1e3
+
+        first, wall_s = wall(lambda: launch.sweep(kernel, time_at, n=n,
+                                                  device=DEV))
+        again = launch.sweep(kernel, time_at, n=n, device=DEV)
+        want = [t for t in launch.SWEEP_CANDIDATES[kernel]
+                if launch.launchable(kernel, t)]
+        check(not first["cached"] and sorted(first["walls"]) == want,
+              f"{kernel}: swept {sorted(first['walls'])}, want {want}")
+        check(again["cached"] and again["tile"] == first["tile"]
+              and launch.tile_for(kernel, n=n, device=DEV) == first["tile"],
+              f"{kernel}: second sweep {again}, tile_for "
+              f"{launch.tile_for(kernel, n=n, device=DEV)}")
+        rec[kernel] = {"n": n, "bucket": first["bucket"],
+                       "winner": first["tile"],
+                       "default": launch.DEFAULT_TILES[kernel],
+                       "sweep_wall_s": wall_s, "second_sweep": again,
+                       "by_tile": rows}
+    rec["delta_codec_tile"] = launch.tile_for("delta_codec", n=TILE_MASK_CELLS,
+                                              device=DEV)
+    check(rec["delta_codec_tile"] == launch.DEFAULT_TILES["delta_codec"],
+          f"the codec's tile moved: {rec['delta_codec_tile']}")
+    counts = read_counts(kops)
+    rec["launches"] = {k: counts[k] for k in PATH_KERNELS["tiles"]}
+    for k in PATH_KERNELS["tiles"]:
+        check(counts[k] > 0, f"tiles: {k} was not launched")
+    emit(rec)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -5319,7 +5880,7 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch import core
     from repro_torch.core import FieldSchema, VersionedStore, placement
-    from repro_torch.kernels import _build, _compat, ops as kops
+    from repro_torch.kernels import _build, _compat, launch, ops as kops
     from repro_torch.launch import roofline
 
     # f32 products in full f32 on the card (the plain versions and the
@@ -5327,6 +5888,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    # the tile winner cache of this run, in the build tree (never ~): empty
+    # until the tiles phase, the last, sweeps
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tiles_root = tempfile.mkdtemp(prefix="chip_smoke_tiles_",
+                                  dir=os.path.join(HERE, "build"))
+    atexit.register(shutil.rmtree, tiles_root, True)
+    os.environ[launch.CACHE_ENV] = os.path.join(tiles_root,
+                                                "tiles_torch.json")
+    launch.reset_cache()
     smi = nvidia_smi_line()
     phase_env(_build.build_all(), smi)
     rng = np.random.default_rng(args.seed)
@@ -5378,6 +5948,9 @@ def main() -> int:
     phase_serving_parity(args.seed)
     families_out = phase_families(kops, args.seed)
     phase_kernel_families(bench, families_out, args.seed)
+    phase_kernel_edges_whisper(bench, args.seed)
+    whisper_out = phase_whisper(kops, args.seed)
+    phase_kernel_whisper(bench, whisper_out)
     search_out = phase_search(core, kops, args.seed)
     phase_kernel_search(bench, search_out, args.seed)
     # training: the backward's edges, the train path, chunked against xla
@@ -5390,17 +5963,19 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_kernel_train(bench, train_out, args.seed)
-    # each kernel's launches come from the path that runs it: the codec
-    # from persistence, the route and the stacked scan from sharding, the
-    # merge from its phase, flash attention from serving (at the encoder's
-    # shape, from search; at the train shape, from train; at the families'
-    # shapes and in f32 at D 16, from families), the fingerprint
-    # at UniProt's widths from gestore, the flash backward from train (its
+    phase_tiles(bench, kops, args.seed)
+    # each kernel's launches come from the path that runs it: flash at
+    # whisper's shapes from whisper, the codec from persistence, the route
+    # and the stacked scan from sharding, the merge from its phase, flash
+    # attention from serving (at the encoder's shape, from search; at the
+    # train shape, from train; at the families' shapes and in f32 at D 16,
+    # from families), the fingerprint at UniProt's widths from gestore, the flash backward from train (its
     # f32 rows from the f32 chunked-against-xla check, its D 128 rows from
     # no path), the rest from the main path (chain
     # decode's rows: the launches of their gathers); the frontdoor
     # phase's launches are on its own line
-    path_of = {k: (pers_out if k.startswith("delta_")
+    path_of = {k: (whisper_out if "whisper" in k
+                   else pers_out if k.startswith("delta_")
                    else train_out if k.startswith("flash_bwd")
                    or k == "flash_attention_train"
                    else gestore_out if k.startswith("fingerprint_w")

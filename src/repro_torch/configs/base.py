@@ -2,9 +2,8 @@
 shapes), RunConfig (parallelism/optimizer/runtime). The port's own copy of
 ``repro.configs.base``: one module per ported architecture lives next to
 this file, and `get_config(arch_id)` resolves them. Every assigned
-architecture but whisper-medium (family ``encdec``) has one; that one
-raises, naming the roadmap. The Meta-pipe encoder (``metapipe.py``) is no assigned
-architecture and is imported by module.
+architecture has one. The Meta-pipe encoder (``metapipe.py``) is no
+assigned architecture and is imported by module.
 """
 from __future__ import annotations
 
@@ -161,19 +160,15 @@ ARCH_IDS = [
 ]
 
 
-#: architectures with a config module in the port (whisper-medium waits
-#: for its encoder-decoder family; see ROADMAP.md)
+#: architectures with a config module in the port: every assigned one
 PORTED = ("grok-1-314b", "jamba-v0.1-52b", "kimi-k2-1t-a32b", "llama3.2-1b",
-          "olmo-1b", "qwen1.5-4b", "qwen2-0.5b", "qwen2-vl-72b", "rwkv6-7b")
+          "olmo-1b", "qwen1.5-4b", "qwen2-0.5b", "qwen2-vl-72b", "rwkv6-7b",
+          "whisper-medium")
 
 
 def _module_for(arch_id: str) -> str:
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch_id!r}; one of {ARCH_IDS}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"{arch_id} is not ported to repro_torch yet (see ROADMAP.md); "
-            f"ported: {PORTED}")
     return arch_id.replace("-", "_").replace(".", "_")
 
 

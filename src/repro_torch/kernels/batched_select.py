@@ -27,7 +27,7 @@ import torch
 
 from . import _build, ref
 from ._compat import cdiv, check_tensor, count_launch, stream_ptr
-from .launch import pow2_bucket
+from .launch import pow2_bucket, tile_for
 
 _ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -36,15 +36,15 @@ _ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
 #: a tile count made with any other
 TILE = 8192
 _MAX_CELLS = 2**31 - 1  # counts are int32
-# the JAX package's scan tile, the floor of its power-of-two cell buckets
-_BUCKET_FLOOR = 2048
 
 
 def scan_bucket(n: int) -> int:
-    """Power-of-two cell bucket of the fused ts array, floored at the JAX
-    package's scan tile (the store sizes its device ts buffer with it, like
-    the JAX package, so both report the same device bytes)."""
-    return pow2_bucket(n, floor=_BUCKET_FLOOR)
+    """Power-of-two cell bucket of the fused ts array, floored at the
+    resolved ``batched_select`` tile, the JAX package's scan tile (the
+    store sizes its device ts buffer with it, like the JAX package, so
+    under one environment both report the same device bytes). The
+    kernel's own tile stays ``TILE``."""
+    return pow2_bucket(n, floor=tile_for("batched_select"))
 
 
 @dataclasses.dataclass(frozen=True)

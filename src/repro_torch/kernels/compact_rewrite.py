@@ -20,7 +20,7 @@ from ..obs import kerneltel
 from . import _build, ref
 from ._compat import (bits_view, cdiv, check_tensor, count_launch,
                       from_bits, stream_ptr)
-from .launch import tile_for
+from .launch import check_tile, tile_for
 
 _ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -30,18 +30,21 @@ _I32_LO, _TS_MAX = -(2**31) + 1, 2**31 - 2
 
 def keep_mask(ts: torch.Tensor, cutoff: int):
     """ts: (C,) int32 -> (keep (C,) int32 = ts > cutoff, survivors per
-    tile (ceil(C / tile_for("keep_mask")),) int32).
+    tile (ceil(C / tile),) int32), the tile ``tile_for("compact_rewrite",
+    C)`` (the JAX package's, so the counts match its kernel's).
 
     A CPU tensor takes the plain torch version; a CUDA tensor launches the
-    kernel (and counts the launch in ``keep_mask.launches``)."""
+    kernel with the tile as its cells per block (and counts the launch in
+    ``keep_mask.launches``), or raises for a tile it cannot launch."""
     check_tensor(ts, "ts", torch.int32, 1)
     cutoff = int(cutoff)
     if not -(2**31) <= cutoff < 2**31:
         raise ValueError(f"cutoff {cutoff} outside int32")
-    tile = tile_for("keep_mask")
+    (c,) = ts.shape
+    tile = tile_for("compact_rewrite", n=c, device=ts.device)
     if ts.device.type == "cpu":
         return ref.ref_keep_mask(ts, cutoff, tile)
-    (c,) = ts.shape
+    check_tile("compact_rewrite", tile)
     n_tiles = cdiv(c, tile)
     keep = torch.empty(c, dtype=torch.int32, device=ts.device)
     counts = torch.empty(n_tiles, dtype=torch.int32, device=ts.device)

@@ -10,8 +10,10 @@ exploits).
 
 The elementwise ops are the CUDA kernel ``csrc/delta_codec.cu``:
 ``delta_pack`` / ``delta_unpack`` on 1-, 2- and 4-byte lanes, with one
-int32 stat per 512-row tile (max |delta| for ints, the nonzero count for
-float XOR), and ``delta_pack_wide`` / ``delta_unpack_wide`` on 8-byte
+int32 stat per tile of ``tile_for("delta_codec", N)`` rows, 512 unless
+``GESTORE_TILE_DELTA_CODEC`` or a winner says otherwise (max |delta| for
+ints, the nonzero count for float XOR), and ``delta_pack_wide`` /
+``delta_unpack_wide`` on 8-byte
 lanes (native int64 on Hopper, where the JAX package split each value into
 two int32 lanes). A CPU tensor takes the plain torch version in ``ref``; a
 CUDA tensor launches the kernel (and counts the launch on the wrapper's
@@ -52,7 +54,7 @@ from . import _build, ref
 from ._compat import (bits_view, cdiv, check_tensor, count_launch,
                       from_bits, resolve_device, round_up, stream_ptr,
                       truncate_bits)
-from .launch import tile_for
+from .launch import ENV_PREFIX, tile_for
 
 # a, b, out, stats, the launch's static args, the stream
 _ARGS = [ctypes.c_void_p] * 6
@@ -114,7 +116,8 @@ class CodecPlan:
         return self.n_tiles * self.blocks_per_tile
 
 
-def codec_plan(n: int, w: int, itemsize: int, stat: str) -> CodecPlan:
+def codec_plan(n: int, w: int, itemsize: int, stat: str,
+               tile: int | None = None) -> CodecPlan:
     """Chunks of at most ``CHUNK_BYTES`` of each operand, a whole number
     of 16-byte vectors, as few per tile as cover it; a block alone has up
     to ``BLOCK_THREADS`` threads, one vector of each operand per thread.
@@ -122,8 +125,10 @@ def codec_plan(n: int, w: int, itemsize: int, stat: str) -> CodecPlan:
     most ``MAX_BLOCKS_PER_TILE`` blocks of ``CLUSTER_THREADS``: at W = 64
     int32 a 512-row tile is 8 blocks of 4,096 lanes, so the grid is many
     waves of small blocks instead of one block per 128 KB tile. (Timed on
-    the card, clusters of larger blocks streamed slower.)"""
-    tile = tile_for("delta_codec")
+    the card, clusters of larger blocks streamed slower.) ``tile``: rows
+    per stat tile (None: ``tile_for("delta_codec")``); a tile whose chunks
+    pass the kernel's int32 lane count raises."""
+    tile = tile or tile_for("delta_codec")
     lanes = tile * w
     bpt = max(1, cdiv(lanes * itemsize, CHUNK_BYTES))
     cluster = stat != "none" and bpt > 1
@@ -133,6 +138,10 @@ def codec_plan(n: int, w: int, itemsize: int, stat: str) -> CodecPlan:
     threads = (CLUSTER_THREADS if cluster else
                min(BLOCK_THREADS, round_up(cdiv(chunk * itemsize, VEC_BYTES),
                                            32)))
+    if chunk >= 2**31 or cdiv(n, tile) * cdiv(lanes, chunk) >= 2**31:
+        raise ValueError(f"delta_codec: cannot launch a tile of {tile} rows "
+                         f"at W {w} (chunks of {chunk} lanes); set "
+                         f"{ENV_PREFIX}DELTA_CODEC to a smaller tile")
     return CodecPlan(cdiv(n, tile), cdiv(lanes, chunk), chunk, threads,
                      cluster, IDENTITY[stat])
 
@@ -152,7 +161,7 @@ def _aligned_like(a: torch.Tensor) -> torch.Tensor:
 def _run(wrapper, a, b, op: str, stat: str, *, unsigned: bool = False):
     """(a op b, per-tile stat): the plain version for CPU tensors, the
     kernel for CUDA tensors (counted on ``wrapper.launches``)."""
-    tile = tile_for("delta_codec")
+    tile = tile_for("delta_codec", n=a.shape[0], device=a.device)
     if a.is_cpu:
         out = ref.ref_codec(a, b, op)
         return out, ref.ref_tile_stat(out, tile, stat, unsigned=unsigned)
@@ -162,7 +171,7 @@ def _run(wrapper, a, b, op: str, stat: str, *, unsigned: bool = False):
     if n == 0 or w == 0:
         return out, stats.zero_()
     kind = ("maxabs_unsigned" if stat == "maxabs" and unsigned else stat)
-    args = _launch_args(n, w, a.element_size(), op, kind)
+    args = _launch_args(n, w, a.element_size(), op, kind, tile)
     fn = _build.kernel_fn("delta_codec", "delta_codec_launch", _ARGS)
     here = a.get_device() == torch.cuda.current_device()
     with contextlib.nullcontext() if here else torch.cuda.device(a.device):
@@ -174,12 +183,13 @@ def _run(wrapper, a, b, op: str, stat: str, *, unsigned: bool = False):
 
 
 @functools.lru_cache(maxsize=256)
-def _launch_args(n: int, w: int, itemsize: int, op: str, kind: str):
+def _launch_args(n: int, w: int, itemsize: int, op: str, kind: str,
+                 tile: int):
     """The launcher's static args as one long long array: n, W, itemsize,
     op, stat, tile rows, blocks per tile, chunk, identity, threads per
-    block (built once per shape)."""
-    plan = codec_plan(n, w, itemsize, kind)
-    vals = (n, w, itemsize, _OPS[op], _STATS[kind], tile_for("delta_codec"),
+    block (built once per shape and tile)."""
+    plan = codec_plan(n, w, itemsize, kind, tile)
+    vals = (n, w, itemsize, _OPS[op], _STATS[kind], tile,
             plan.blocks_per_tile, plan.chunk, plan.identity, plan.threads)
     return (ctypes.c_longlong * len(vals))(*vals)
 
@@ -190,12 +200,12 @@ def delta_pack(new: torch.Tensor, old: torch.Tensor, *,
     int8/int16/int32/float16/bfloat16/float32.
 
     Ints: ``delta = new - old`` in wraparound arithmetic, ``stat`` the max
-    |delta| of each 512-row tile widened to int32 (zero-extended when
-    ``unsigned``: pass it for the signed bit view of a uint8/uint16 field).
-    Floats: ``delta`` the XOR of the bits, ``stat`` the count of nonzero
-    lanes per tile. ``stat`` has ceil(N / 512) entries; a ragged last tile
-    counts as padded with zero rows. 8-byte lanes go to
-    :func:`delta_pack_wide`."""
+    |delta| of each tile of ``tile_for("delta_codec", N)`` rows widened to
+    int32 (zero-extended when ``unsigned``: pass it for the signed bit
+    view of a uint8/uint16 field). Floats: ``delta`` the XOR of the bits,
+    ``stat`` the count of nonzero lanes per tile. ``stat`` has ceil(N /
+    tile) entries; a ragged last tile counts as padded with zero rows.
+    8-byte lanes go to :func:`delta_pack_wide`."""
     _check_pair(new, old, "new,old", _NARROW)
     fl = new.is_floating_point()
     a, b = (ref.int_lanes(new), ref.int_lanes(old)) if fl else (new, old)

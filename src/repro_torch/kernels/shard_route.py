@@ -35,7 +35,7 @@ import torch
 
 from . import _build, ref
 from ._compat import check_tensor, count_launch, stream_ptr
-from .launch import tile_for
+from .launch import check_tile, tile_for
 from ..obs import kerneltel
 
 #: routing-function version tag, persisted in shard manifests: a store
@@ -62,7 +62,9 @@ def shard_route(lanes: torch.Tensor, lengths: torch.Tensor,
     (N,) int32 shard ids in [0, n_shards).
 
     A CPU tensor takes the plain torch version; a CUDA tensor launches the
-    kernel (and counts the launch in ``shard_route.launches``)."""
+    kernel, ``tile_for("shard_route", N)`` keys a block (and counts the
+    launch in ``shard_route.launches``), or raises for a tile it cannot
+    launch."""
     check_tensor(lanes, "lanes", torch.int32, 2)
     check_tensor(lengths, "lengths", torch.int32, 1)
     if lengths.device != lanes.device or lengths.shape[0] != lanes.shape[0]:
@@ -73,6 +75,8 @@ def shard_route(lanes: torch.Tensor, lengths: torch.Tensor,
     if lanes.device.type == "cpu":
         return ref.ref_shard_route(lanes, lengths, n_shards)
     n, w = lanes.shape
+    tile = check_tile("shard_route", tile_for("shard_route", n=n,
+                                               device=lanes.device))
     out = torch.empty(n, dtype=torch.int32, device=lanes.device)
     if n == 0:
         return out
@@ -81,7 +85,7 @@ def shard_route(lanes: torch.Tensor, lengths: torch.Tensor,
     with contextlib.nullcontext() if here else torch.cuda.device(
             lanes.device):
         rc = fn(lanes.data_ptr(), lengths.data_ptr(), out.data_ptr(), n, w,
-                n_shards, tile_for("shard_route"), stream_ptr(lanes))
+                n_shards, tile, stream_ptr(lanes))
     _build.check(rc, "shard_route", "shard_route_launch")
     count_launch(shard_route)
     return out
@@ -98,7 +102,9 @@ def shard_route_bytes(flat: torch.Tensor, offsets: torch.Tensor,
     [0, n_shards), the ids ``shard_route`` gives the same keys.
 
     A CPU tensor takes the plain torch version; a CUDA tensor launches the
-    kernel (and counts the launch in ``shard_route_bytes.launches``)."""
+    kernel, ``tile_for("shard_route", N)`` keys a block (and counts the
+    launch in ``shard_route_bytes.launches``), or raises for a tile it
+    cannot launch."""
     check_tensor(flat, "flat", torch.uint8, 1)
     check_tensor(offsets, "offsets", torch.int64, 1)
     if offsets.device != flat.device or offsets.shape[0] < 1:
@@ -109,6 +115,8 @@ def shard_route_bytes(flat: torch.Tensor, offsets: torch.Tensor,
     if flat.device.type == "cpu":
         return ref.ref_shard_route_bytes(flat, offsets, n_shards)
     n = offsets.shape[0] - 1
+    tile = check_tile("shard_route", tile_for("shard_route", n=n,
+                                               device=flat.device))
     out = torch.empty(n, dtype=torch.int32, device=flat.device)
     if n == 0:
         return out
@@ -117,7 +125,7 @@ def shard_route_bytes(flat: torch.Tensor, offsets: torch.Tensor,
     here = flat.get_device() == torch.cuda.current_device()
     with contextlib.nullcontext() if here else torch.cuda.device(flat.device):
         rc = fn(flat.data_ptr(), offsets.data_ptr(), out.data_ptr(), n,
-                n_shards, tile_for("shard_route"), stream_ptr(flat))
+                n_shards, tile, stream_ptr(flat))
     _build.check(rc, "shard_route", "shard_route_bytes_launch")
     count_launch(shard_route_bytes)
     return out

@@ -5,9 +5,10 @@ architecture and run a synthetic request stream.
         [--layers 8] [--requests 16] [--max-new 16] [--max-batch 8]
         [--seed 0] [--device cpu]
 
-``--arch`` takes every ported architecture (``configs.PORTED``: the dense,
-MoE, hybrid and RWKV6 decoders; whisper-medium raises, and so does
-qwen2-vl-72b, whose embedding inputs the engine does not take). ``--layers``
+``--arch`` takes the token decoders of ``configs.PORTED`` (the dense, MoE,
+hybrid and RWKV6 families); qwen2-vl-72b, on embedding inputs, and
+whisper-medium, an encoder-decoder on audio frames, raise before a model
+is built, since the engine takes token ids alone. ``--layers``
 cuts the depth (Jamba-v0.1's 52 B parameters do not fit one card; 8
 layers, one period of its 1:7 interleave, are 13.3 B, 26.6 GB in bf16).
 

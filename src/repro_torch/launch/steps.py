@@ -1,7 +1,7 @@
 """The functions that make the train step, shared by the trainer and its
-gradient-compressing variant. (The JAX package's prefill and serve step
-builders have no caller in the port: the serving engine makes its own
-calls.)
+gradient-compressing variant, and the serve step: one decode step of a
+built model. (The JAX package's prefill step builder has no caller in
+the port: the serving engine makes its own calls.)
 
 The JAX package jits these; the port's steps are plain Python and torch,
 run eagerly. A train step takes and returns ``{"params", "opt"}`` (and the
@@ -99,3 +99,18 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
 
     return train_step
 
+
+def make_serve_step(cfg: ModelConfig):
+    """``serve_step(params, token, state, positions=None) -> (logits,
+    state)``: one decode step, the JAX package's serve step. An
+    encoder-decoder (whisper) decodes against its ``WhisperState``, which
+    carries the cross K/V, and takes no positions; the decoder-only
+    families take M-RoPE's ``positions`` where the config has them."""
+    bundle = build(cfg)
+
+    def serve_step(params, token, state, positions=None):
+        if cfg.family == "encdec":
+            return bundle.decode(params, token, state)
+        return bundle.decode(params, token, state, positions)
+
+    return serve_step

@@ -1,6 +1,7 @@
 """Model stack: the decoder-only families (dense, MoE, the Mamba hybrid,
-RWKV6, the M-RoPE VLM backbone) for serving and training, with the flash
-attention kernel in every attention layer's prefill."""
+RWKV6, the M-RoPE VLM backbone) and whisper's encoder-decoder, for serving
+and training, with the flash attention kernel in every causal attention
+layer's prefill."""
 from .model import ModelBundle, batch_specs, build
 from .transformer import DecodeState, FwdOpts
 

@@ -18,6 +18,11 @@ Two softmax-attention implementations, selected by ``RunConfig.attn_impl``:
   queries (``_wants_seq_parallel``) needs a mesh; one card has none
   (ROADMAP.md Queue 1 item 3).
 
+Whisper's encoder self-attention and its cross-attention (k and v from
+the encoder's output, ``_qkv``'s ``xkv``) are non-causal and run ``xla``,
+as in the JAX package; a non-causal flash design for them is open work
+(ROADMAP.md Queue 2).
+
 Decode writes the new K/V into a ring slot (pos % S_max) of the cache, in
 place (the JAX package returns a new cache; the port updates the tensors
 it was given, which saves a copy of every layer's cache per token), and
@@ -61,13 +66,20 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * e)).unflatten(-1, (h, e))
 
 
-def _qkv(p: dict, x: torch.Tensor):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
-    if "bq" in p:
-        q = q + p["bq"]
+def _q(p: dict, x: torch.Tensor) -> torch.Tensor:
+    q = _proj(x, p["wq"])
+    return q + p["bq"] if "bq" in p else q
+
+
+def _qkv(p: dict, x: torch.Tensor, xkv: torch.Tensor | None = None):
+    """q from ``x``; k and v from ``xkv`` (a cross-attention's source,
+    the encoder's output), else from ``x``."""
+    xkv = x if xkv is None else xkv
+    k, v = _proj(xkv, p["wk"]), _proj(xkv, p["wv"])
+    if "bk" in p:
         k = k + p["bk"]
         v = v + p["bv"]
-    return q, k, v
+    return _q(p, x), k, v
 
 
 def _out(p: dict, o: torch.Tensor) -> torch.Tensor:
@@ -114,32 +126,39 @@ def run_attention(q, k, v, *, causal: bool, q_offset: int = 0,
 
 
 def attention_prefill(p: dict, x: torch.Tensor, cfg, *,
-                      positions: torch.Tensor, impl: str = "chunked"):
-    """Returns (out, KVCache over the S prefill positions)."""
+                      positions: torch.Tensor, impl: str = "chunked",
+                      use_rope: bool = True):
+    """Returns (out, KVCache over the S prefill positions). Training's
+    forward runs it too. ``use_rope=False``: no rotary positions
+    (whisper's decoder adds sinusoids to its inputs instead)."""
     q, k, v = _qkv(p, x)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     out = run_attention(q, k, v, causal=True, impl=impl)
     return _out(p, out), KVCache(k=k, v=v)
 
 
 def attention_decode(p: dict, x: torch.Tensor, cfg, cache: KVCache, *,
                      pos: int, cache_len: int,
-                     positions: torch.Tensor | None = None
+                     positions: torch.Tensor | None = None,
+                     use_rope: bool = True
                      ) -> tuple[torch.Tensor, KVCache]:
     """One-token decode. x: (B, 1, d); cache: (B, S_max, K, hd) ring,
     written in place at slot pos % S_max.
 
     pos: position of the new token; cache_len: count of valid cached
     positions (== S_max when full); positions: the token's rotary
-    position ids ((3, B, 1) for M-RoPE), else ``pos``."""
+    position ids ((3, B, 1) for M-RoPE), else ``pos``; ``use_rope=False``:
+    no rotary positions."""
     b = x.shape[0]
     s_max = cache.k.shape[1]
     q, k, v = _qkv(p, x)
-    rp = (positions if positions is not None else
-          torch.full((b, 1), pos, dtype=torch.int32, device=x.device))
-    q = apply_rope(q, rp, cfg.rope_theta, cfg.mrope_sections)
-    k = apply_rope(k, rp, cfg.rope_theta, cfg.mrope_sections)
+    if use_rope:
+        rp = (positions if positions is not None else
+              torch.full((b, 1), pos, dtype=torch.int32, device=x.device))
+        q = apply_rope(q, rp, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, rp, cfg.rope_theta, cfg.mrope_sections)
     slot = pos % s_max
     cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
     cache.v[:, slot] = v[:, 0].to(cache.v.dtype)

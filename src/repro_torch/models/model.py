@@ -7,9 +7,11 @@
     logits, state = bundle.decode(params, token, state)
 
 ``params`` is the port's tree of tensors on one device
-(``models/transformer.py``); ``models/weights.py`` makes one from the JAX
-package's parameter tree. Every family of the decoder-only assembly is
-ported (dense, moe, hybrid, ssm, vlm); ``encdec`` (whisper) raises.
+(``models/transformer.py``, or ``models/whisper.py`` for ``encdec``);
+``models/weights.py`` makes one from the JAX package's parameter tree.
+Every family is ported: the decoder-only assembly (dense, moe, hybrid,
+ssm, vlm) and whisper's encoder-decoder (``encdec``), whose batches carry
+the audio frames ``enc_embeds`` beside the ``tokens``.
 
 ``batch_specs(cfg, shape)`` gives the shape and dtype of every model
 input of an (arch x shape) cell, the JAX package's ``batch_specs`` as
@@ -24,6 +26,7 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..kernels._compat import resolve_device
 from . import transformer as tf
+from . import whisper as wh
 from .layers import ParamSpec, init_param
 from .transformer import FwdOpts
 
@@ -36,6 +39,12 @@ def _map_spec(fn, spec):
     return [_map_spec(fn, v) for v in spec]
 
 
+def model_spec(cfg: ModelConfig) -> dict:
+    """The parameter spec of ``cfg``'s family."""
+    return (wh.whisper_spec(cfg) if cfg.family == "encdec"
+            else tf.model_spec(cfg))
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``,
     on ``device`` (None: the CUDA card): matrices in the config's dtype,
@@ -46,7 +55,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     dtype = getattr(torch, cfg.dtype)
     return _map_spec(lambda s: init_param(
         s, gen, dtype if s.matrix else torch.float32, dev),
-        tf.model_spec(cfg))
+        model_spec(cfg))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,17 +83,35 @@ class ModelBundle:
         return tf.loss_fn(params, self.cfg, batch, opts or FwdOpts())
 
 
-#: the families ``build`` serves (the JAX package's ``encdec``, whisper,
-#: has its own assembly and is not ported yet)
-FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm")
+class EncDecBundle(ModelBundle):
+    """Whisper's entry points (``models/whisper.py``): batches of
+    ``enc_embeds`` (B, S_enc, d) and ``tokens``, and ``labels`` in
+    training; decode takes one token against a ``WhisperState``."""
+
+    def prefill(self, params: dict, batch: dict, opts: FwdOpts | None = None,
+                pad_to: int | None = None):
+        return wh.whisper_prefill(params, self.cfg, batch,
+                                  opts or FwdOpts(attn_impl="chunked"),
+                                  pad_to=pad_to)
+
+    def decode(self, params: dict, token: torch.Tensor,
+               state: wh.WhisperState):
+        return wh.whisper_decode_step(params, self.cfg, token, state)
+
+    def loss(self, params: dict, batch: dict, opts: FwdOpts | None = None):
+        return wh.whisper_loss_fn(params, self.cfg, batch, opts or FwdOpts())
+
+
+#: the families ``build`` serves: the decoder-only assembly's, and
+#: ``encdec`` (whisper)
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "encdec")
 
 
 def build(cfg: ModelConfig) -> ModelBundle:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet; see "
-            f"ROADMAP.md")
-    return ModelBundle(cfg)
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}); one "
+                         f"of {FAMILIES}")
+    return EncDecBundle(cfg) if cfg.family == "encdec" else ModelBundle(cfg)
 
 
 def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
@@ -92,15 +119,21 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     (the JAX package's ``batch_specs``): ``tokens`` (B, S) int32 or
     ``embeds`` (B, S, d) bf16, ``labels`` in training, M-RoPE's (3, B, S)
     ``positions``; in decode one new ``token`` (B, 1) (or (B, 1, d)
-    embeddings) against an S-long state."""
+    embeddings) against an S-long state; whisper (``encdec``) also takes
+    ``enc_embeds`` (B, S_enc, d) bf16 in training and prefill."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet; see "
-            f"ROADMAP.md")
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}); one "
+                         f"of {FAMILIES}")
     b, s = shape.global_batch, shape.seq_len
     i32, bf16 = torch.int32, torch.bfloat16
     embeds = cfg.input_mode == "embeddings"
     mrope = cfg.mrope_sections is not None
+    if cfg.family == "encdec" and shape.mode != "decode":
+        out = {"enc_embeds": ((b, cfg.encoder_seq, cfg.d_model), bf16),
+               "tokens": ((b, s), i32)}
+        if shape.mode == "train":
+            out["labels"] = ((b, s), i32)
+        return out
     if shape.mode == "decode":
         out = {"token": ((b, 1, cfg.d_model), bf16) if embeds
                else ((b, 1), i32)}

@@ -88,9 +88,8 @@ def sublayer_spec(cfg, kind: tuple[str, str]) -> dict:
 
 def model_spec(cfg) -> dict:
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is not ported yet; "
-            f"see ROADMAP.md")
+        raise ValueError(f"{cfg.name}: the encoder-decoder family's spec "
+                         f"is models/whisper.whisper_spec")
     return {"embed": embed_spec(cfg),
             "layers": [sublayer_spec(cfg, k) for k in layer_kinds(cfg)],
             "final_norm": norm_spec(cfg)}

@@ -12,6 +12,12 @@ config's dtype (the JAX package keeps f32 masters and casts them at each
 use, with the same rounding) and keeping the f32 parameters (norms, the
 MoE router, the SSM's dt, A and skip, RWKV's decay and bonus) in f32.
 ``to_jax_tree`` is the inverse, in f32.
+
+Whisper's tree (family ``encdec``) is ``{"embed": {"tok", "head"},
+"enc_blocks", "enc_final", "dec_blocks", "final_norm"}``, each of
+``enc_blocks`` / ``dec_blocks`` one dict whose leaves carry a leading
+layer axis; the port's lists are ``enc_layers`` / ``dec_layers``
+(``models/whisper.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +27,10 @@ import torch
 from ..kernels._compat import resolve_device
 from . import transformer as tf
 from .layers import ParamSpec
+from .model import model_spec
+
+#: whisper's stacked JAX blocks -> the port's per-layer lists
+_ENCDEC_STACKS = (("enc_blocks", "enc_layers"), ("dec_blocks", "dec_layers"))
 
 
 def _leaves(spec, tree, path=()):
@@ -60,6 +70,38 @@ def _stacked(cfg, layers: list) -> list:
             for i in range(period)]
 
 
+def _unstacked(cfg, tree: dict) -> dict:
+    """The JAX package's tree in the port's layout (leaves still host
+    arrays): each stack cut into per-layer trees."""
+    if cfg.family == "encdec":
+        out = {k: tree[k] for k in ("embed", "enc_final", "final_norm")}
+        for jk, pk in _ENCDEC_STACKS:
+            n = cfg.encoder_layers if jk == "enc_blocks" else cfg.n_layers
+            out[pk] = [_map(lambda a, l=l: a[l], tree[jk]) for l in range(n)]
+        return out
+    blocks = tree["blocks"]
+    period, _ = tf.pattern(cfg)
+    if len(blocks) != period:
+        raise ValueError(f"{cfg.name}: a layer pattern of {period}, got "
+                         f"{len(blocks)} blocks")
+    return {"embed": tree["embed"], "final_norm": tree["final_norm"],
+            "layers": [_map(lambda a, g=l // period: a[g],
+                            blocks[l % period])
+                       for l in range(cfg.n_layers)]}
+
+
+def _restacked(cfg, port_like: dict) -> dict:
+    """The inverse of :func:`_unstacked` on host arrays."""
+    if cfg.family == "encdec":
+        out = {k: port_like[k] for k in ("embed", "enc_final", "final_norm")}
+        for jk, pk in _ENCDEC_STACKS:
+            out[jk] = _stack(port_like[pk])
+        return out
+    return {"embed": port_like["embed"],
+            "final_norm": port_like["final_norm"],
+            "blocks": _stacked(cfg, port_like["layers"])}
+
+
 def from_jax_tree(cfg, tree: dict, device=None) -> dict:
     """The JAX package's parameter tree (numpy or array-likes) -> the
     port's parameter tree on ``device`` (None: the CUDA card). Raises on a
@@ -67,16 +109,8 @@ def from_jax_tree(cfg, tree: dict, device=None) -> dict:
     shape that does not fit ``cfg``."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
-    spec = tf.model_spec(cfg)
-    blocks = tree["blocks"]
-    period, _ = tf.pattern(cfg)
-    if len(blocks) != period:
-        raise ValueError(f"{cfg.name}: a layer pattern of {period}, got "
-                         f"{len(blocks)} blocks")
-    jax_like = {"embed": tree["embed"], "final_norm": tree["final_norm"],
-                "layers": [_map(lambda a, g=l // period: a[g],
-                                blocks[l % period])
-                           for l in range(cfg.n_layers)]}
+    spec = model_spec(cfg)
+    jax_like = _unstacked(cfg, tree)
     out = _empty_like(spec)
     for path, s, arr in _leaves(spec, jax_like):
         arr = np.array(arr, np.float32)  # a writable host copy
@@ -94,10 +128,9 @@ def to_jax_tree(cfg, params: dict) -> dict:
     def host(t):
         return t.detach().float().cpu().numpy()
 
-    return {"embed": _map(host, params["embed"]),
-            "blocks": _stacked(cfg, [_map(host, lay)
-                                     for lay in params["layers"]]),
-            "final_norm": _map(host, params["final_norm"])}
+    return _restacked(cfg, {k: ([_map(host, lay) for lay in v]
+                                if isinstance(v, list) else _map(host, v))
+                            for k, v in params.items()})
 
 
 def random_tree(cfg, rng: np.random.Generator) -> dict:
@@ -106,7 +139,7 @@ def random_tree(cfg, rng: np.random.Generator) -> dict:
     seeded weights that both packages can load. These follow the JAX
     package's rules except for the attention weights, whose fan-in is
     their contracted dims (see ``layers.py`` and ROADMAP.md Queue 3)."""
-    spec = tf.model_spec(cfg)
+    spec = model_spec(cfg)
 
     def draw(s: ParamSpec):
         if s.init in ("zeros", "ones"):
@@ -118,9 +151,7 @@ def random_tree(cfg, rng: np.random.Generator) -> dict:
     port_like = _empty_like(spec)
     for path, s, _ in _leaves(spec, spec):
         _set(port_like, path, draw(s))
-    return {"embed": port_like["embed"],
-            "final_norm": port_like["final_norm"],
-            "blocks": _stacked(cfg, port_like["layers"])}
+    return _restacked(cfg, port_like)
 
 
 def _empty_like(spec):

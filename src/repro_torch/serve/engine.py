@@ -12,7 +12,8 @@ conv tail, the RWKV wkv state and shifts; ``models/transformer.py``).
 Requests are token ids, as the JAX package's engine takes them: a model
 on embedding inputs (qwen2-vl's backbone, whose vision frontend is a
 stub) is refused, and is driven through ``ModelBundle.prefill`` /
-``decode`` with its embeddings and M-RoPE positions (ROADMAP.md).
+``decode`` with its embeddings and M-RoPE positions; so is whisper's
+encoder-decoder, whose prefill also takes the audio frames (ROADMAP.md).
 
 The engine runs on the device its parameters live on. Each ``generate``
 call is one ``serve.generate`` span (``obs/trace.py``) carrying the batch
@@ -47,12 +48,17 @@ class ServeConfig:
 
 
 def check_token_model(cfg: ModelConfig) -> None:
-    """Raise for a model on embedding inputs, which the engine does not
-    serve."""
+    """Raise for a model on embedding inputs or an encoder-decoder, which
+    the engine does not serve (its prefill takes token ids alone)."""
     if cfg.input_mode == "embeddings":
         raise NotImplementedError(
             f"{cfg.name}: the engine serves token models; an embeddings "
             "model runs through ModelBundle.prefill / decode (ROADMAP.md)")
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the engine serves decoder-only token models; an "
+            "encoder-decoder takes its audio frames (enc_embeds) through "
+            "ModelBundle.prefill / decode (ROADMAP.md)")
 
 
 class ServeEngine:

@@ -388,7 +388,7 @@ def test_keep_mask_matches_jax_kernel(c, rng):
     the padding as survivors when cutoff < 0 (harmless there: compact()
     never reads the counts); the port masks the ragged tile instead."""
     ts = rng.integers(-100, 100, c).astype(np.int32)
-    tile = tops.launch.tile_for("keep_mask")
+    tile = tops.launch.tile_for("compact_rewrite", n=c, device="cpu")
     pad = -c % tile
     for cutoff in (-(2**31) + 1, 0, 57, TS_MAX):
         keep, counts = tops.keep_mask(t(ts), cutoff)

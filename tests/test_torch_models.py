@@ -277,8 +277,9 @@ def test_scheduler_matches_jax(jax_tree, dtype):
 
 def test_port_init_launcher_and_unported_families():
     """The port's own seeded init is deterministic; the launcher runs on
-    the CPU; other families raise; the training loss (ported since) is a
-    finite 0-d f32 tensor on the port's own weights."""
+    the CPU; whisper-medium's config (its family raised here until it
+    was ported) has the published dims; the training loss (ported since)
+    is a finite 0-d f32 tensor on the port's own weights."""
     _, tc = configs("bfloat16")
     a = build(tc).init(7, device="cpu")
     b = build(tc).init(7, device="cpu")
@@ -297,10 +298,11 @@ def test_port_init_launcher_and_unported_families():
     assert loss.shape == () and loss.dtype == torch.float32
     assert torch.isfinite(loss) and float(metrics["tokens"]) == 18
     from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("whisper-medium")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(dataclasses.replace(tc, family="encdec"))
+    wcfg = get_config("whisper-medium")
+    assert (wcfg.family, wcfg.n_layers, wcfg.encoder_layers, wcfg.d_model,
+            wcfg.n_heads, wcfg.n_kv_heads, wcfg.hd, wcfg.encoder_seq,
+            wcfg.vocab) == ("encdec", 24, 24, 1024, 16, 16, 64, 1500, 51865)
+    assert not wcfg.tie_embeddings and wcfg.qkv_bias
     tops.flash_attention.launches = 0
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(
