@@ -288,7 +288,9 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   4,096, H 64 / K 8, D 8 at qwen2-0.5b-smoke's f32
                   prefill on the card and the same values in bf16 (no
                   path)),
-                  and the frontdoor phase's launches, and the seconds
+                  and the frontdoor phase's launches, the distributed
+                  phase's flash launches (rank 0's llama3.2-1b and
+                  qwen2-0.5b runs), and the seconds
                   since the start at which each phase's line was printed;
                   the flash backward's three kernels (delta, dkdv, dq) at
                   llama3.2-1b's training layer, B 2 x S 4,096, H 32 / K 8,
@@ -346,6 +348,34 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   restore walls, stats(), the store kernels' launches.
                   tools/torch_train_ckpt_probe.py runs the full-width
                   save (4-5 minutes of host deflate a save)
+  distributed     the sharded paths, each rank a process of its own on a
+                  card of its own (NCCL, a FileStore in the build tree;
+                  the kernels the parent built): 4 ranks from 4 cards
+                  up, else one rank on (1, 1) meshes
+                  (tools/torch_dist_probe.py: ranks cannot share a card
+                  over gloo). llama3.2-1b at its published widths on
+                  (data 2, model 2) and qwen2-0.5b on (data 1, model 4)
+                  (its 14 heads: the sequence-parallel branch), each
+                  DIST_STEPS / DIST_QWEN_STEPS train steps at B 2 x S
+                  4,096 (RunConfig() defaults) with the state laid out by
+                  the sharding rules, against the unsharded step on the
+                  same card, weights and batch: losses and gradient
+                  norms equal on one rank (within DIST_LOSS_TOL_RANKS /
+                  DIST_NORM_TOL_RANKS on several), step walls, each
+                  rank's peak memory, the
+                  flash launches per rank (a forward and a
+                  remat recompute per layer and step, one of each
+                  backward kernel), the collectives of llama's last step
+                  (op, bytes, group); grok-1's MoE block at its published
+                  widths on (data 2, model 2) over 4,096 tokens against
+                  apply_moe on each data shard and each (data shard,
+                  peer)'s _moe_local summed (equal; the aux loss within
+                  MOE_AUX_TOL_RANKS on several ranks);
+                  podwise_mean of compressed gradients on (pod 2, data
+                  2) within the int8 bound; llama3.2-1b cut to CKPT_DIMS
+                  saved sharded and restored by remesh onto 2 ranks, bit
+                  for bit. The backend, ranks, ranks per card and meshes
+                  are on the line
   tiles           launch.sweep on the card for the route (606,894 keys,
                   4 shards) and the keep mask (4,706,255 cells) over the
                   tiles each can launch, every candidate's output bit for
@@ -546,6 +576,20 @@ BWD_D128_HEADS = (16, 16, 128)
 CKPT_DIMS = dict(n_layers=2, d_model=512, n_heads=8, n_kv_heads=2,
                  head_dim=64, d_ff=1024, vocab=8192)
 CKPT_SEQ = 1024
+# the distributed phase: llama3.2-1b's and qwen2-0.5b's sharded steps at
+# TRAIN_BATCH x TRAIN_SEQ, grok-1's MoE block on MOE_TOKENS tokens
+DIST_STEPS, DIST_QWEN_STEPS, MOE_TOKENS = 3, 2, 4096
+# a sharded step's loss and gradient norm against the unsharded step's on
+# the same card and weights, relative, and the sharded MoE block against
+# its references. One rank ((1, 1) meshes) runs the unsharded ops on whole
+# tensors: equal, bit for bit. Four ranks on four cards sum partial
+# products in another order: at most 9.85e-5 of the loss and 1.20e-3 of
+# the gradient norm, the MoE block's output equal and its aux loss 6e-8
+# apart (tools/dist_phase.py on 4 H100s); the tolerances are 4x those
+DIST_LOSS_TOL_RANKS = 4e-4
+DIST_NORM_TOL_RANKS = 5e-3
+MOE_AUX_TOL_RANKS = 1e-6
+DIST_TIMEOUT_S = 480
 # flash backward kernels against their plain version, |got - want| <=
 # atol + rtol |want|. f32: every sum f32, in another order (dK and dV sum
 # G Sq terms). bf16: both round the same f32 result, one bf16 ulp (2^-7
@@ -1010,6 +1054,17 @@ def phase_env(build_info: dict, smi: str) -> None:
                       > 0, f"{name}: no HGMMA.F32.{variant} in its SASS")
 
 
+def sdpa_lower_right(qt, kt, vt):
+    """SDPA on (B, H, S, D) tensors with the kernels' causal mask at
+    Sq < Sk, the queries aligned to the end of the key axis
+    (``causal_lower_right``: SDPA's ``is_causal`` aligns them to its
+    start); k and v with every query head's copy."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    return F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=causal_lower_right(qt.shape[2], kt.shape[2]))
+
+
 class KernelBench:
     """Runs each kernel against its plain version and keeps the record of
     the main-path shape for the ``kernels`` line."""
@@ -1244,12 +1299,14 @@ class KernelBench:
 
     def flash(self, q, k, v, *, timed=True, main=False, quiet=False,
               reps=None, name="flash_attention", rounds=1,
-              device=False, lse=False) -> dict:
+              device=False, lse=False, lower_right=False) -> dict:
         """Flash attention against its plain version within FLASH_TOL,
         bound by its causal FLOPs at the dtype's peak (f32: three TF32
         products each, ``roofline.compute_peak``), with the design the
         wrapper takes (``shape["design"]``); the library yardstick (SDPA)
-        only at Sq == Sk, since its causal mask is top-left aligned. SDPA
+        at Sq == Sk, since its ``is_causal`` mask is top-left aligned,
+        and with ``lower_right`` at Sq < Sk in bf16 too, masked by
+        ``causal_lower_right`` (sdpa_lower_right). SDPA
         takes GQA itself in bf16; in f32 its memory-efficient kernel,
         which does not, gets k and v repeated over the query heads (made
         before the timing), since its math fallback would hold the full
@@ -1274,6 +1331,11 @@ class KernelBench:
                 with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
                     return F.scaled_dot_product_attention(qt, kt, vt,
                                                           is_causal=True)
+        elif lower_right and q.dtype == torch.bfloat16:
+            qt, kt, vt = (x.transpose(1, 2) for x in (
+                q, k.repeat_interleave(h // kh, 2),
+                v.repeat_interleave(h // kh, 2)))
+            library = lambda: sdpa_lower_right(qt, kt, vt)  # noqa: E731
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         return self.run(
             name, {"B": b, "Sq": sq, "Sk": sk, "H": h, "K": kh, "D": d,
@@ -1304,8 +1366,9 @@ class KernelBench:
         (``torch.autograd.grad`` of ``scaled_dot_product_attention`` with
         ``is_causal`` and ``enable_gqa``; in f32 its memory-efficient
         kernel with k and v repeated over the heads), which computes all
-        three gradients. Both designs (bf16: wgmma, f32: wgmma_f32) are on
-        the tensor cores."""
+        three gradients; at Sq < Sk masked by ``causal_lower_right`` on k
+        and v repeated over the heads (sdpa_lower_right). Both designs
+        (bf16: wgmma, f32: wgmma_f32) are on the tensor cores."""
         import torch.nn.functional as F
         from torch.nn.attention import SDPBackend, sdpa_kernel
         from repro_torch.kernels import flash_attention as fa
@@ -1327,12 +1390,15 @@ class KernelBench:
         else:
             ctx = lambda: sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION)  # noqa
             kr, vr = (x.repeat_interleave(h // kh, 2) for x in (k, v))
+        if sq != sk and q.dtype == torch.bfloat16:
+            kr, vr = (x.repeat_interleave(h // kh, 2) for x in (k, v))
         qt, kt, vt = (x.detach().transpose(1, 2).contiguous()
                       .requires_grad_() for x in (q, kr, vr))
         with ctx():
-            out = F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True,
-                enable_gqa=q.dtype == torch.bfloat16)
+            out = (sdpa_lower_right(qt, kt, vt) if sq != sk else
+                   F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True,
+                       enable_gqa=q.dtype == torch.bfloat16))
         dot = do.transpose(1, 2).contiguous()
 
         def library():
@@ -5849,6 +5915,365 @@ def phase_kernel_train(bench: KernelBench, train_out, seed: int) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# distributed: the sharded train step, sequence-parallel attention, the
+# sharded MoE, the cross-pod mean and elastic restore, one process a rank
+# ---------------------------------------------------------------------------
+
+def dist_layout(n_cards: int) -> tuple[int, dict]:
+    """(ranks, {run: mesh shape}), fixed by the card count alone.
+    tools/torch_dist_probe.py found that ranks cannot share one card over
+    gloo (a DTensor gathered whole over both mesh dims kills the ranks),
+    so each rank has a card of its own: 4 NCCL ranks from 4 cards up,
+    else one NCCL rank on (1, 1) meshes."""
+    if n_cards >= 4:
+        return 4, {"llama": (2, 2), "qwen": (1, 4), "moe": (2, 2),
+                   "pod": (2, 2), "elastic_to": 2}
+    return 1, {"llama": (1, 1), "qwen": (1, 1), "moe": (1, 1),
+               "pod": (1, 1), "elastic_to": 1}
+
+
+def full(x):
+    """A DTensor gathered whole (every rank of its mesh calls this), or
+    ``x`` as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def rel_err(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def dist_steps(kops, arch: str, mesh_shape: tuple, steps: int, seed: int,
+               record: bool = False) -> dict:
+    """``steps`` train steps of ``arch`` at its published widths (bf16,
+    RunConfig() defaults: AdamW, chunked, nothing_saveable remat) at
+    TRAIN_BATCH x TRAIN_SEQ on this rank's card: first unsharded, then
+    sharded by the rules on a ("data", "model") mesh of ``mesh_shape``,
+    from the same weights and batch. Losses and gradient norms side by
+    side, each sharded step's wall, the rank's peak memory in the
+    sharded run and its kernel launches; ``record``: the last sharded
+    step under the collective recorder."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.launch.roofline import collective_recorder
+    from repro_torch.launch.steps import default_hyper, make_train_step
+    from repro_torch.models.model import init_params, model_spec
+    from repro_torch.sharding import (distribute_tree, shard_batch_specs,
+                                      tree_shardings, use_mesh)
+    from repro_torch.sharding.rules import distribute
+    from repro_torch.train.optimizer import init_state, state_specs
+    cfg, run = get_config(arch), RunConfig()
+    hyper = default_hyper(cfg, run)
+    step = make_train_step(cfg, run, hyper)
+    params = init_params(cfg, seed, DEV)
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in lm_batch(
+        np.random.default_rng(seed), cfg.vocab, TRAIN_BATCH,
+        TRAIN_SEQ).items()}
+    rec = {"arch": arch, "mesh": list(mesh_shape), "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": steps, "optimizer": run.optimizer,
+           "attn_impl": run.attn_impl, "remat": run.remat}
+    state = {"params": params, "opt": init_state(params, hyper)}
+    ref = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        ref.append((float(m["loss"]), float(m["grad_norm"])))
+    del state, m
+    torch.cuda.empty_cache()
+    mesh = _mesh("cuda", mesh_shape, ("data", "model"))
+    spec = model_spec(cfg)
+    dstate = {"params": distribute_tree(params, tree_shardings(spec, mesh)),
+              "opt": distribute_tree(init_state(params, hyper),
+                                     tree_shardings(state_specs(spec, hyper),
+                                                    mesh))}
+    del params
+    bsh = shard_batch_specs({k: (tuple(v.shape), v.dtype)
+                             for k, v in batch.items()}, mesh)
+    dbatch = {k: distribute(v, bsh[k]) for k, v in batch.items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kops)
+    got, walls, coll = [], [], None
+    for i in range(steps):
+        recorder = (collective_recorder() if record and i == steps - 1
+                    else contextlib.nullcontext())
+        sync()
+        t0 = time.perf_counter()
+        with recorder, use_mesh(mesh):
+            dstate, m = step(dstate, dbatch)
+        got.append((float(full(m["loss"])), float(full(m["grad_norm"]))))
+        walls.append(time.perf_counter() - t0)
+        if recorder is not None and hasattr(recorder, "records"):
+            coll = recorder.records
+    rec["launches"] = read_counts(kops)
+    rec["flash_by_design"] = dict(kops.flash_attention.by_design)
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rec["layouts"] = sorted({str(tuple(x.placements)) for x in
+                             tree_leaves_of(dstate["params"])})
+    rec.update(losses=[g[0] for g in got], ref_losses=[r[0] for r in ref],
+               grad_norms=[g[1] for g in got],
+               ref_grad_norms=[r[1] for r in ref], step_walls_s=walls)
+    if coll is not None:
+        from repro_torch.launch.roofline import collective_bytes
+        rec["collectives_last_step"] = collective_bytes(coll)
+    one = math.prod(mesh_shape) == 1
+    tol_l, tol_n = ((0.0, 0.0) if one else
+                    (DIST_LOSS_TOL_RANKS, DIST_NORM_TOL_RANKS))
+    rec.update(loss_tol=tol_l, grad_norm_tol=tol_n, loss_rel_err=max(
+        rel_err(g[0], r[0]) for g, r in zip(got, ref)),
+        grad_norm_rel_err=max(rel_err(g[1], r[1]) for g, r in zip(got, ref)))
+    for (gl, gn), (rl, rn) in zip(got, ref):
+        check(math.isfinite(gl) and rel_err(gl, rl) <= tol_l,
+              f"{arch} sharded loss {gl} vs unsharded {rl} (tol {tol_l})")
+        check(rel_err(gn, rn) <= tol_n,
+              f"{arch} sharded grad norm {gn} vs unsharded {rn} "
+              f"(tol {tol_n})")
+    per = cfg.n_layers * steps
+    fa = kops.flash_attention
+    check(fa.launches == 2 * per, f"{arch}: {fa.launches} flash forward "
+          f"launches in the sharded run, want {2 * per} (a forward and a "
+          f"remat recompute per layer and step)")
+    for k in ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"):
+        check(rec["launches"][k] == per,
+              f"{arch}: {k} {rec['launches'][k]} launches, want {per}")
+    del dstate, dbatch, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tree_leaves_of(tree) -> list:
+    from repro_torch.train.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def dist_moe(kops, mesh_shape: tuple, seed: int) -> dict:
+    """grok-1's MoE block at its published widths (d 6,144, 8 experts of
+    d_ff 32,768, top-2; seeded bf16 weights, f32 router) on a 4,096-token
+    prefill (B 2 x S 2,048) through apply_moe_sharded on a ("data",
+    "model") mesh, against two references on the whole weights: the
+    unsharded apply_moe on each data shard's tokens (the capacity of its
+    t_loc tokens), and the JAX package's semantics, each (data shard,
+    model peer)'s _moe_local summed over the peers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.models.layers import init_param
+    from repro_torch.models.moe import _moe_local, apply_moe, \
+        apply_moe_sharded, capacity, moe_spec
+    from repro_torch.sharding import distribute_tree, tree_shardings, \
+        use_mesh
+    from repro_torch.sharding.rules import NamedSharding, distribute
+    cfg = get_config("grok-1-314b")
+    gen = torch.Generator(device=DEV).manual_seed(seed + 11)
+    p = {k: init_param(sp, gen, torch.bfloat16 if sp.matrix
+                       else torch.float32, DEV)
+         for k, sp in moe_spec(cfg).items()}
+    b, s = 2, MOE_TOKENS // 2
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    dp, n_model = mesh_shape
+    e = cfg.n_experts
+    ep = e % n_model == 0
+    e_local = e // n_model if ep else e
+    cap = capacity((b // dp) * s, cfg)
+    f_loc = cfg.d_ff_expert // n_model
+    with torch.no_grad():
+        parts = []
+        for i in range(dp):
+            xf = x[i * b // dp:(i + 1) * b // dp].reshape(-1, cfg.d_model)
+            y = 0
+            for r in range(n_model):
+                if ep:
+                    sl = slice(r * e_local, (r + 1) * e_local)
+                    w = {k: p[k][sl] for k in ("wi", "wg", "wo") if k in p}
+                else:
+                    sl = slice(r * f_loc, (r + 1) * f_loc)
+                    w = {k: p[k][..., sl] for k in ("wi", "wg") if k in p}
+                    w["wo"] = p["wo"][:, sl]
+                y = y + _moe_local(xf, p["router"], w["wi"], w.get("wg"),
+                                   w["wo"], cfg, e_lo=r * e_local if ep
+                                   else 0, e_local=e_local, cap=cap)[0]
+            parts.append(y.reshape(b // dp, s, -1))
+        want = torch.cat(parts)
+        shards = [apply_moe(p, x[i * b // dp:(i + 1) * b // dp], cfg)
+                  for i in range(dp)]
+        plain = torch.cat([y for y, _ in shards])
+        plain_aux = sum(float(a) for _, a in shards) / dp
+    mesh = _mesh("cuda", mesh_shape, ("data", "model"))
+    dpar = distribute_tree(p, tree_shardings(moe_spec(cfg), mesh))
+    xd = distribute(x, NamedSharding(mesh, ("data", None, None)))
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    with use_mesh(mesh), torch.no_grad():
+        y, aux = apply_moe_sharded(dpar, xd, cfg)
+        y = full(y)
+    sync()
+    rec = {"arch": cfg.name, "mesh": list(mesh_shape),
+           "mode": "ep" if ep else "tp", "experts_per_peer": e_local,
+           "tokens": b * s, "capacity": cap, "wall_s":
+           time.perf_counter() - t0,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "expert_weight_bytes_per_rank": sum(
+               t.to_local().numel() * t.element_size()
+               for k, t in dpar.items() if k != "router")}
+    aux = float(full(aux))
+    tol = 0.0 if math.prod(mesh_shape) == 1 else MOE_AUX_TOL_RANKS
+    err = float((y.float() - want.float()).abs().max())
+    err_plain = float((y.float() - plain.float()).abs().max())
+    scale = float(want.float().abs().max())
+    rec.update(max_abs_err=err, max_abs_err_apply_moe=err_plain,
+               max_abs=scale, aux=aux, aux_apply_moe=plain_aux, aux_tol=tol)
+    check(scale > 0 and err == 0,
+          f"sharded MoE differs from _moe_local summed: {err} of {scale}")
+    check(err_plain == 0 and rel_err(aux, plain_aux) <= tol,
+          f"sharded MoE differs from apply_moe: {err_plain} of {scale}, "
+          f"aux {aux} vs {plain_aux} (tol {tol})")
+    del p, dpar, x, xd, y, want, plain, shards
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dist_podwise(mesh_shape: tuple, seed: int) -> dict:
+    """compress_grads then podwise_mean on a ("pod", "data") mesh: each
+    pod's seeded gradient, against the mean of every pod's dequantized
+    gradient and within the JAX test's int8 bound of the true mean."""
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.train import grad_compress as gc
+    mesh = _mesh("cuda", mesh_shape, ("pod", "data"))
+    n_pod = mesh_shape[0]
+    gen = torch.Generator(device=DEV).manual_seed(seed + 13)
+    g = torch.randn((n_pod, 1 << 20), generator=gen, device=DEV)
+    mine = g[mesh.get_local_rank("pod")]
+    deq, _ = gc.compress_grads({"w": mine}, {"w": torch.zeros_like(mine)})
+    got = gc.podwise_mean(deq, mesh)["w"]
+    want = torch.stack([gc.compress_grads(
+        {"w": g[i]}, {"w": torch.zeros_like(g[i])})[0]["w"]
+        for i in range(n_pod)]).mean(0)
+    err = float((got - want).abs().max())
+    bound = float((got - g.mean(0)).abs().max())
+    scale = float(g.abs().max()) / 127
+    check(err <= 1e-6 and bound < 2.1 * scale,
+          f"podwise_mean: {err} from the dequantized mean, {bound} from "
+          f"the true mean (int8 bound {2.1 * scale})")
+    return {"mesh": list(mesh_shape), "elements": g.shape[1],
+            "max_abs_err": err, "err_to_true_mean": bound,
+            "int8_bound": 2.1 * scale}
+
+
+def dist_elastic(kops, mesh_shape: tuple, to: int, seed: int,
+                 root: str) -> dict:
+    """llama3.2-1b cut to CKPT_DIMS, sharded on a ("data", "model") mesh,
+    saved through CheckpointManager (rank 0 writes host rows; the store's
+    kernels on the card) and restored by remesh onto the first ``to``
+    ranks: every leaf equal bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.ft.elastic import remesh, restore_elastic
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.models.model import init_params, model_spec
+    from repro_torch.sharding import distribute_tree, tree_shardings
+    cfg = dataclasses.replace(get_config(ARCH), **CKPT_DIMS)
+    spec = model_spec(cfg)
+    params = init_params(cfg, seed, DEV)
+    mesh = _mesh("cuda", mesh_shape, ("data", "model"))
+    dparams = distribute_tree(params, tree_shardings(spec, mesh))
+    reset_counts(kops)
+    ckpt = CheckpointManager(os.path.join(root, "ckpt"), async_save=False)
+    t0 = time.perf_counter()
+    ckpt.save(1, dparams)
+    t_save = time.perf_counter() - t0
+    mesh2 = remesh(devices=list(range(to)))
+    t0 = time.perf_counter()
+    got = restore_elastic(ckpt, 1, like=params, spec_tree=spec, mesh=mesh2)
+    t_restore = time.perf_counter() - t0
+    rec = {"dims": CKPT_DIMS, "params": cfg.param_count(),
+           "from_mesh": list(mesh_shape), "to_mesh": list(mesh2.shape),
+           "save_s": t_save, "restore_s": t_restore,
+           "launches": {k: v for k, v in read_counts(kops).items() if v}}
+    if mesh2.get_coordinate() is not None:
+        same = all(torch.equal(full(a), b) for a, b in
+                   zip(tree_leaves_of(got), tree_leaves_of(params)))
+        check(same, "elastic restore is not bit for bit")
+        rec["bitwise"] = same
+    return rec
+
+
+def dist_rank(root: str, rank: int, world: int, seed: int) -> None:
+    """One rank of the distributed phase: joins the NCCL group through a
+    FileStore in ``root``, runs every check on its card (the kernels
+    load from the build the parent made) and writes its record to
+    ``root/rank<rank>.json``."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops as kops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(root, "store"), world), rank=rank, world_size=world,
+        device_id=dev)
+    _, shapes = dist_layout(torch.cuda.device_count())
+    t0 = time.perf_counter()
+    rec = {"rank": rank, "device": str(dev),
+           "llama": dist_steps(kops, ARCH, shapes["llama"], DIST_STEPS,
+                               seed, record=True)}
+    rec["qwen"] = dist_steps(kops, "qwen2-0.5b", shapes["qwen"],
+                             DIST_QWEN_STEPS, seed)
+    rec["moe"] = dist_moe(kops, shapes["moe"], seed)
+    rec["podwise"] = dist_podwise(shapes["pod"], seed)
+    rec["elastic"] = dist_elastic(kops, shapes["llama"],
+                                  shapes["elastic_to"], seed, root)
+    rec["seconds"] = time.perf_counter() - t0
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def phase_distributed(root: str, seed: int) -> dict:
+    """The distributed phase: its ranks (dist_layout) each in a process of
+    its own on a card of its own, every check in dist_rank; rank 0's
+    record, with each rank's wall and peak memory."""
+    n_cards = torch.cuda.device_count()
+    world, shapes = dist_layout(n_cards)
+    code = (f"import sys; sys.path[:0] = [{os.path.join(HERE, 'src')!r}, "
+            f"{HERE!r}]; import chip_smoke; chip_smoke.dist_rank("
+            f"{root!r}, {{r}}, {world}, {seed})")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code.format(r=r)],
+                              cwd=HERE, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    check(codes == [0] * world, "distributed ranks failed: " + "\n".join(
+        f"--- rank {r} (exit {c})\n{log[-3000:]}"
+        for r, (c, log) in enumerate(zip(codes, logs))))
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    rec = {"phase": "distributed", "backend": "nccl", "ranks": world,
+           "cards": n_cards, "ranks_per_card": 1, "meshes": shapes,
+           "wall_s": time.perf_counter() - t0,
+           "rank_seconds": [r["seconds"] for r in ranks],
+           "peak_memory_bytes_by_rank": {
+               k: [r[k]["peak_memory_bytes"] for r in ranks]
+               for k in ("llama", "qwen", "moe")},
+           **{k: ranks[0][k] for k in ("llama", "qwen", "moe", "podwise",
+                                       "elastic")}}
+    emit(rec)
+    launches = {k: rec["llama"]["launches"][k] + rec["qwen"]["launches"][k]
+                for k in PATH_KERNELS["train"]}
+    return {"launches": launches}
+
+
 def kernel_row(name: str, m: dict, launches: int) -> dict:
     """One row of the kernels line from the kernel's record ``m``."""
     source, replaces = SOURCES[name]
@@ -5963,6 +6388,13 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_kernel_train(bench, train_out, args.seed)
+    # the distributed phase's ranks, their store files in the build tree
+    root = tempfile.mkdtemp(prefix="chip_smoke_dist_",
+                            dir=os.path.join(HERE, "build"))
+    try:
+        dist_out = phase_distributed(root, args.seed)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     phase_tiles(bench, kops, args.seed)
     # each kernel's launches come from the path that runs it: flash at
     # whisper's shapes from whisper, the codec from persistence, the route
@@ -5990,6 +6422,7 @@ def main() -> int:
                        path_of[name]["launches"][name]) for name in SOURCES]
     emit({"kernels": rows, "frontdoor_launches": frontdoor_out["launches"],
           "train_checkpoint_launches": train_out["checkpoint"]["launches"],
+          "distributed_launches": dist_out["launches"],
           "seconds": time.perf_counter() - t_start,
           "phase_ends_s": PHASE_ENDS})
     print(smi, flush=True)

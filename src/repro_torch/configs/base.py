@@ -181,3 +181,11 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests."""
     mod = importlib.import_module(f"repro_torch.configs.{_module_for(arch_id)}")
     return mod.SMOKE
+
+
+def shapes_for(cfg: ModelConfig) -> list[ShapeConfig]:
+    """The assigned shape cells for an architecture (with documented skips)."""
+    out = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+    if cfg.supports_long_context:
+        out.append(SHAPES["long_500k"])
+    return out

@@ -61,6 +61,7 @@ import torch
 from ..kernels import launch as klaunch
 from ..kernels._compat import bits_view, from_bits
 from ..kernels.batched_select import scan_bucket, stacked_boundary_select
+from ..launch.mesh import make_shard_mesh
 from ..obs import kerneltel
 from .store import _SuperLog, _clamp_ts
 
@@ -104,13 +105,11 @@ def plan_placement(n_shards: int, *, devices=None,
         force = os.environ.get(PARALLEL_ENV)
     if force is not None:
         force = str(force).strip().lower() or None
-    devs = ([torch.device(d) for d in devices] if devices is not None
-            else [torch.device("cuda", i)
-                  for i in range(torch.cuda.device_count())])
     if n_shards < 2 or force in _FORCE_OFF:
         return ShardPlacement("serial")
-    if len(devs) >= n_shards:
-        return ShardPlacement("mesh", tuple(devs[:n_shards]))
+    devs = make_shard_mesh(n_shards, devices)
+    if devs is not None:
+        return ShardPlacement("mesh", devs)
     if force in _FORCE_ON:
         return ShardPlacement("stacked")
     return ShardPlacement("serial")

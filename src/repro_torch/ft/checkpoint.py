@@ -29,6 +29,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 CHUNK_W = 2048
 
@@ -180,7 +181,12 @@ def _leaf_rows(path: str, arr: np.ndarray):
 
 def _host(x) -> tuple[np.ndarray, str]:
     """A leaf as an f32 host array (what the rows hold) and its dtype's
-    name as the JAX package writes it (``float32``, ``bfloat16``, ...)."""
+    name as the JAX package writes it (``float32``, ``bfloat16``, ...).
+    A DTensor is gathered whole first (a collective: every rank of its
+    mesh calls this)."""
+    from ..sharding.rules import is_dtensor
+    if is_dtensor(x):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         return (x.detach().to(torch.float32).cpu().numpy(),
                 str(x.dtype).removeprefix("torch."))
@@ -211,10 +217,17 @@ class CheckpointManager:
     # -- save -----------------------------------------------------------------
     def save(self, step: int, state) -> dict:
         """Record ``state`` (a tree of tensors or arrays) as version
-        ts=step. The leaves are copied to the host before this returns."""
+        ts=step. The leaves are copied to the host before this returns.
+
+        A sharded tree (DTensor leaves) is saved as the same host rows:
+        every rank gathers each leaf whole, and rank 0 alone writes."""
+        from ..sharding.rules import is_dtensor
         from ..train.tree import leaves_with_path
         self.wait()
-        host = [(path, *_host(x)) for path, x in leaves_with_path(state)]
+        flat = leaves_with_path(state)
+        host = [(path, *_host(x)) for path, x in flat]
+        if any(is_dtensor(x) for _, x in flat) and dist.get_rank() != 0:
+            return {"async": self.async_save, "step": step, "writer": False}
 
         def work():
             keys: list[bytes] = []
@@ -259,13 +272,25 @@ class CheckpointManager:
         self.wait()
         return sorted(self.meta["steps"])
 
-    def restore(self, step: int, like=None):
+    def restore(self, step: int, like=None, mesh=None, shardings=None):
         """The tree at version ``step``: with ``like``, a tree of its
         structure whose leaves are tensors on the devices of ``like``'s
         leaves; without, ``{keystr path: CPU tensor}``. Each leaf has the
-        dtype it was saved with."""
+        dtype it was saved with.
+
+        With ``mesh`` and ``shardings`` (a tree of ``NamedSharding``s of
+        ``like``'s structure, ``sharding.tree_shardings``), each leaf is
+        distributed onto ``mesh`` as its sharding says: restoring onto
+        another mesh shape than the one that saved is the elastic
+        resharding path (the rows are mesh-agnostic). Every rank calls
+        it; the ranks that did not write read the store rank 0 wrote."""
         from ..train.tree import leaves_with_path, tree_unflatten
         self.wait()
+        if mesh is not None:
+            if dist.is_initialized():
+                dist.barrier()
+            if step not in self.meta["steps"]:
+                self._load_existing()
         view = self.store.get_version(step, fields=["w"])
         by_key = dict(zip(view.keys, view.values["w"]))
         leaves = {}
@@ -281,8 +306,13 @@ class CheckpointManager:
         if like is None:
             return leaves
         flat_like = leaves_with_path(like)
-        return tree_unflatten(like, [leaves[p].to(x.device)
-                                     for p, x in flat_like])
+        if shardings is None:
+            return tree_unflatten(like, [leaves[p].to(x.device)
+                                         for p, x in flat_like])
+        from ..sharding.rules import distribute_tree
+        dev = torch.device(mesh.device_type)
+        return distribute_tree(tree_unflatten(
+            like, [leaves[p].to(dev) for p, _ in flat_like]), shardings)
 
     # -- persistence -------------------------------------------------------------
     def _persist(self) -> None:

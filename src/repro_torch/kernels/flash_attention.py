@@ -408,6 +408,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :func:`design` (and counts the launch in ``flash_attention.launches``
     and ``flash_attention.by_design``)."""
     _check(q, k, v, causal)
+    if _is_fake(q):
+        return ShapeOnlyFlashFn.apply(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if q.device.type == "cuda" and q.shape[3] not in BWD_HEAD_DIMS:
             raise NotImplementedError(
@@ -753,3 +755,75 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         return flash_attention_bwd(q, k, v, o, lse, do)
+
+
+# ---------------------------------------------------------------------------
+# under fake tensors (the dry run, launch/dryrun.py): shapes and FLOPs only
+# ---------------------------------------------------------------------------
+
+def _is_fake(t) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
+_SHAPE_OPS: dict = {}
+
+
+def shape_ops():
+    """The ``torch.library`` ops ``repro_torch::flash_fwd_shape(q, k, v)
+    -> o`` and ``repro_torch::flash_bwd_shape(q, k, v, do) -> (dq, dk,
+    dv)``: each has only a fake implementation (the outputs' shapes), for
+    a fake-tensor trace, where no tensor has a device to launch on, and a
+    FLOP formula for ``torch.utils.flop_counter``'s registry from
+    :func:`causal_pairs`: 4 B H D pairs forward; 10 B H D pairs
+    backward (S recomputed, dS, dV, dQ and dK). Registered on first use;
+    called on real tensors they raise."""
+    if _SHAPE_OPS:
+        return _SHAPE_OPS["fwd"], _SHAPE_OPS["bwd"]
+    from torch.utils.flop_counter import register_flop_formula
+
+    @torch.library.custom_op("repro_torch::flash_fwd_shape", mutates_args=())
+    def fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+            ) -> torch.Tensor:
+        raise RuntimeError("flash_fwd_shape runs under fake tensors only")
+
+    @fwd.register_fake
+    def _(q, k, v):
+        return torch.empty_like(q)
+
+    @torch.library.custom_op("repro_torch::flash_bwd_shape", mutates_args=())
+    def bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            do: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+        raise RuntimeError("flash_bwd_shape runs under fake tensors only")
+
+    @bwd.register_fake
+    def _(q, k, v, do):
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+    def flops(mult):
+        def formula(q_shape, k_shape, *args, **kwargs):
+            b, sq, h, d = q_shape
+            return mult * b * h * d * causal_pairs(sq, k_shape[1])
+        return formula
+
+    register_flop_formula(torch.ops.repro_torch.flash_fwd_shape)(flops(4))
+    register_flop_formula(torch.ops.repro_torch.flash_bwd_shape)(flops(10))
+    _SHAPE_OPS.update(fwd=torch.ops.repro_torch.flash_fwd_shape,
+                      bwd=torch.ops.repro_torch.flash_bwd_shape)
+    return _SHAPE_OPS["fwd"], _SHAPE_OPS["bwd"]
+
+
+class ShapeOnlyFlashFn(torch.autograd.Function):
+    """Flash attention on fake tensors: :func:`shape_ops`' forward and
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return shape_ops()[0](q, k, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return shape_ops()[1](q, k, v, do)

@@ -6,6 +6,14 @@ the port: the serving engine makes its own calls.)
 The JAX package jits these; the port's steps are plain Python and torch,
 run eagerly. A train step takes and returns ``{"params", "opt"}`` (and the
 trainer's ``"ef"``) and leaves the state it was given untouched.
+
+The sharded train step is the same step on a state whose leaves are
+DTensors laid out by the sharding rules (``sharding.distribute_tree``),
+called under ``sharding.use_mesh(mesh)`` with a batch laid out by
+``sharding.shard_batch_specs``: DTensor propagates the layouts through
+the model, the flash kernels run per rank on local shards
+(``models/attention.py``), and the returned state keeps each leaf's
+layout.
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ import torch
 from ..configs.base import ModelConfig, RunConfig
 from ..models import build
 from ..models.transformer import FwdOpts
+from ..sharding.rules import layout_like
 from ..train.optimizer import OptHyper, apply_updates, clip_by_global_norm
 from ..train.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -36,13 +45,15 @@ def value_and_grad(loss_fn, params):
     """((loss, metrics), grads) of ``loss_fn(params) -> (loss, metrics)``:
     the gradient of every leaf of ``params`` (zeros where the loss does
     not reach one), in the leaf's dtype, as ``jax.value_and_grad(...,
-    has_aux=True)`` gives it."""
+    has_aux=True)`` gives it. A DTensor leaf's gradient is laid out as the
+    leaf is: a gradient that autograd leaves as a pending sum over ranks
+    (``Partial``) is reduced here, before anything nonlinear reads it."""
     leaves = tree_leaves(params)
     live = [p.detach().requires_grad_() for p in leaves]
     with torch.enable_grad():
         loss, metrics = loss_fn(tree_unflatten(params, live))
     grads = torch.autograd.grad(loss, live, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else layout_like(g, p)
              for p, g in zip(leaves, grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (loss.detach(), metrics), tree_unflatten(params, grads)
@@ -95,7 +106,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
                                             state["opt"])
         out_metrics = dict(metrics)
         out_metrics.update(loss=loss, grad_norm=gnorm)
-        return {"params": new_params, "opt": new_opt}, out_metrics
+        new = {"params": new_params, "opt": new_opt}
+        return tree_map(layout_like, new, {k: state[k] for k in new}), \
+            out_metrics
 
     return train_step
 

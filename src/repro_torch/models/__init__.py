@@ -2,7 +2,8 @@
 RWKV6, the M-RoPE VLM backbone) and whisper's encoder-decoder, for serving
 and training, with the flash attention kernel in every causal attention
 layer's prefill."""
-from .model import ModelBundle, batch_specs, build
+from .model import ModelBundle, abstract_decode_state, batch_specs, build
 from .transformer import DecodeState, FwdOpts
 
-__all__ = ["DecodeState", "FwdOpts", "ModelBundle", "batch_specs", "build"]
+__all__ = ["DecodeState", "FwdOpts", "ModelBundle", "abstract_decode_state",
+           "batch_specs", "build"]

@@ -8,8 +8,12 @@ matrix weights once, when they are made or loaded, and keeps them in the
 activation dtype (half the bytes a decode step reads in bf16). Norm scales
 and biases stay f32: the norms apply them in f32.
 
-``ParamSpec`` mirrors the JAX package's (shape and init rule; the logical
-sharding axes have no use in a one-card port). The port's own init draws
+``ParamSpec`` mirrors the JAX package's: the shape, the init rule and the
+logical axis of each dim (``axes``), which ``sharding/rules.py`` maps onto
+a mesh. The JAX package stacks each position of the layer pattern under a
+leading ``"layers"`` axis; the port keeps one leaf per layer, so a port
+leaf's axes are the JAX leaf's without that first entry (which the rules
+map to no mesh axis anyway). The port's own init draws
 from a seeded ``torch.Generator``: normal with std ``1 / sqrt(fan_in)``
 (0.02 for the embedding), ``fan_in`` the second-to-last dim as in the JAX
 package, except for the 3-D attention weights, where it is the size of
@@ -32,6 +36,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..sharding.rules import is_dtensor
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
@@ -40,6 +46,12 @@ class ParamSpec:
     matrix: bool = True               # kept in the activation dtype
     fan_in: int = 0                   # 0: the second-to-last dim
     scale: float = 1.0                # times the std, as the JAX package's
+    axes: tuple = ()                  # logical axis name per dim
+
+    def __post_init__(self):
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} do not fit shape "
+                             f"{self.shape}")
 
     @property
     def std(self) -> float:
@@ -86,9 +98,12 @@ def norm_spec(cfg) -> dict:
     if cfg.norm == "layernorm_np":     # OLMo: non-parametric LN
         return {}
     if cfg.norm == "layernorm":
-        return {"scale": ParamSpec((cfg.d_model,), "ones", matrix=False),
-                "bias": ParamSpec((cfg.d_model,), "zeros", matrix=False)}
-    return {"scale": ParamSpec((cfg.d_model,), "ones", matrix=False)}
+        return {"scale": ParamSpec((cfg.d_model,), "ones", matrix=False,
+                                   axes=("embed",)),
+                "bias": ParamSpec((cfg.d_model,), "zeros", matrix=False,
+                                  axes=("embed",))}
+    return {"scale": ParamSpec((cfg.d_model,), "ones", matrix=False,
+                               axes=("embed",))}
 
 
 def apply_norm(p: dict, x: torch.Tensor, kind: str,
@@ -152,10 +167,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 def mlp_spec(cfg, d_ff: int | None = None) -> dict:
     d_ff = d_ff or cfg.d_ff
-    s = {"wi": ParamSpec((cfg.d_model, d_ff)),
-         "wo": ParamSpec((d_ff, cfg.d_model))}
+    s = {"wi": ParamSpec((cfg.d_model, d_ff), axes=("embed", "mlp")),
+         "wo": ParamSpec((d_ff, cfg.d_model), axes=("mlp", "embed"))}
     if cfg.mlp_gated:
-        s["wg"] = ParamSpec((cfg.d_model, d_ff))
+        s["wg"] = ParamSpec((cfg.d_model, d_ff), axes=("embed", "mlp"))
     return s
 
 
@@ -179,14 +194,44 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def embed_spec(cfg) -> dict:
-    s = {"tok": ParamSpec((cfg.vocab, cfg.d_model), "embed")}
+    # "embed_tbl", not "embed": the JAX package keeps the table's d_model
+    # dim off the data axis (vocab over model gives vocab-sharded logits)
+    s = {"tok": ParamSpec((cfg.vocab, cfg.d_model), "embed",
+                          axes=("vocab", "embed_tbl"))}
     if not cfg.tie_embeddings:
-        s["head"] = ParamSpec((cfg.d_model, cfg.vocab))
+        s["head"] = ParamSpec((cfg.d_model, cfg.vocab),
+                              axes=("embed_tbl", "vocab"))
     return s
 
 
 def apply_embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(p["tok"]):
+        return _embed_rows(p["tok"], tokens)
     return p["tok"][tokens]
+
+
+def _embed_rows(tok, tokens):
+    """The lookup by ``local_map`` under a mesh: each rank's token ids,
+    laid out as they are, against the whole table (DTensor's own
+    strategies refuse ids sharded over two mesh dims, the batch over
+    ("pod", "data"), and lay the table's gradient out over a dim they
+    cannot name). The table's gradient is a partial sum over each mesh
+    dim that splits the ids."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = tok.device_mesh
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh,
+                                    [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    ids = list(tokens.placements)
+    grad = [Partial() if isinstance(pl, Shard) else Replicate()
+            for pl in ids]
+    whole = [Replicate()] * mesh.ndim
+    return local_map(lambda t, i: t[i], out_placements=ids,
+                     in_placements=(whole, ids),
+                     in_grad_placements=(grad, ids), device_mesh=mesh,
+                     redistribute_inputs=True)(tok, tokens)
 
 
 def apply_head(p: dict, x: torch.Tensor) -> torch.Tensor:

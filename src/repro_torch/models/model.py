@@ -147,3 +147,27 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     if mrope:
         out["positions"] = ((3, b, s), i32)
     return out
+
+
+def abstract_decode_state(cfg: ModelConfig, shape: ShapeConfig,
+                          device="meta"):
+    """The decode state of a decode cell with no data (``device="meta"``):
+    each layer's KV ring of ``shape.seq_len`` positions in bf16, the
+    Mamba and RWKV states, whisper's cross K/V over the encoder's
+    frames, full (``pos == cache_len == seq_len``). The JAX package's
+    ``abstract_decode_state``, per layer."""
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.family == "encdec":
+        kv = (b, s, cfg.n_kv_heads, cfg.hd)
+        cross = (b, cfg.encoder_seq, cfg.n_kv_heads, cfg.hd)
+
+        def empty(sh):
+            return torch.empty(sh, dtype=torch.bfloat16, device=device)
+        return wh.WhisperState(
+            self_caches=[tf.attn.KVCache(k=empty(kv), v=empty(kv))
+                         for _ in range(cfg.n_layers)],
+            cross_k=[empty(cross) for _ in range(cfg.n_layers)],
+            cross_v=[empty(cross) for _ in range(cfg.n_layers)],
+            pos=s, cache_len=s)
+    caches = tf.init_caches(cfg, b, s, torch.bfloat16, device=device)
+    return tf.DecodeState(caches=caches, pos=s, cache_len=s)

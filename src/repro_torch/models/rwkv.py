@@ -15,11 +15,13 @@ for the tests.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from ..sharding.rules import constrain, is_dtensor, mesh_shape, pspec_for
 from .layers import ParamSpec
 from .ssm import affine_scan
 
@@ -35,32 +37,37 @@ def rwkv_time_spec(cfg) -> dict:
     # w0, wlora2, bonus and ln_x stay f32: the JAX package applies their
     # f32 masters in f32
     return {
-        "mu_x": ParamSpec((d,), "zeros"),
-        "mu": ParamSpec((5, d), "zeros"),                       # w,k,v,r,g
-        "lora1": ParamSpec((d, 5 * LORA), "small"),
-        "lora2": ParamSpec((5, LORA, d), "small"),
-        "w0": ParamSpec((d,), "zeros", matrix=False),
-        "wlora1": ParamSpec((d, LORA_W), "small"),
-        "wlora2": ParamSpec((LORA_W, d), "small", matrix=False),
-        "bonus": ParamSpec((h, dk), "zeros", matrix=False),
-        "wr": ParamSpec((d, d)),
-        "wk": ParamSpec((d, d)),
-        "wv": ParamSpec((d, d)),
-        "wg": ParamSpec((d, d)),
-        "wo": ParamSpec((d, d)),
-        "ln_x_scale": ParamSpec((d,), "ones", matrix=False),
-        "ln_x_bias": ParamSpec((d,), "zeros", matrix=False),
+        "mu_x": ParamSpec((d,), "zeros", axes=("embed",)),
+        "mu": ParamSpec((5, d), "zeros", axes=(None, "embed")),  # w,k,v,r,g
+        "lora1": ParamSpec((d, 5 * LORA), "small", axes=("embed", None)),
+        "lora2": ParamSpec((5, LORA, d), "small",
+                           axes=(None, None, "embed")),
+        "w0": ParamSpec((d,), "zeros", matrix=False, axes=("embed",)),
+        "wlora1": ParamSpec((d, LORA_W), "small", axes=("embed", None)),
+        "wlora2": ParamSpec((LORA_W, d), "small", matrix=False,
+                            axes=(None, "embed")),
+        "bonus": ParamSpec((h, dk), "zeros", matrix=False,
+                           axes=("heads", "head_dim")),
+        "wr": ParamSpec((d, d), axes=("embed", "heads_flat")),
+        "wk": ParamSpec((d, d), axes=("embed", "heads_flat")),
+        "wv": ParamSpec((d, d), axes=("embed", "heads_flat")),
+        "wg": ParamSpec((d, d), axes=("embed", "heads_flat")),
+        "wo": ParamSpec((d, d), axes=("heads_flat", "embed")),
+        "ln_x_scale": ParamSpec((d,), "ones", matrix=False,
+                                axes=("embed",)),
+        "ln_x_bias": ParamSpec((d,), "zeros", matrix=False,
+                               axes=("embed",)),
     }
 
 
 def rwkv_channel_spec(cfg) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "mu_k": ParamSpec((d,), "zeros"),
-        "mu_r": ParamSpec((d,), "zeros"),
-        "wk": ParamSpec((d, f)),
-        "wv": ParamSpec((f, d)),
-        "wr": ParamSpec((d, d)),
+        "mu_k": ParamSpec((d,), "zeros", axes=("embed",)),
+        "mu_r": ParamSpec((d,), "zeros", axes=("embed",)),
+        "wk": ParamSpec((d, f), axes=("embed", "mlp")),
+        "wv": ParamSpec((f, d), axes=("mlp", "embed")),
+        "wr": ParamSpec((d, d), axes=("embed", "embed_out")),
     }
 
 
@@ -95,7 +102,9 @@ def _ddlerp(p, x, xx):
     dx = xx - x
     z = x + dx * p["mu_x"].to(x.dtype)
     lo = torch.tanh(z @ p["lora1"].to(x.dtype))              # (B, L, 5 LORA)
-    lo = lo.unflatten(-1, (5, LORA))
+    # whole on the model axis under a mesh: 5 LORA columns laid out over
+    # it do not split back into the 5 mixes (a no-op without one)
+    lo = constrain(lo, ("batch", None, None)).unflatten(-1, (5, LORA))
     mix = torch.einsum("blsr,srd->bsld", lo, p["lora2"].to(x.dtype))
     return [x + dx * (p["mu"][i].to(x.dtype) + mix[:, i]) for i in range(5)]
 
@@ -141,6 +150,39 @@ def wkv_chunked(r, k, v, logw, u, s0, *, chunk: int = CHUNK):
     return torch.cat(outs, dim=1), s
 
 
+def _wkv_sharded(wkv, r, k, v, logw, u, s0):
+    """``wkv`` on DTensors by ``local_map``: each rank's batch rows (the
+    data axes) and heads (``model``, where it divides H; else every model
+    peer runs every head), the recurrence being per head. The bonus
+    ``u`` reaches every batch row: its gradient is a partial sum over
+    the data axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = r.device_mesh
+    sizes = mesh_shape(mesh)
+    b, _, h, _ = r.shape
+    entry = pspec_for((b,), ("batch",), mesh)[0]
+    baxes = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    split = "model" in sizes and h % sizes["model"] == 0
+
+    def pl(head_dim, batch=Shard(0)):
+        return [Replicate() if sizes[a] == 1 else batch if a in baxes
+                else Shard(head_dim) if a == "model" and split
+                else Replicate() for a in sizes]
+    if not is_dtensor(s0):
+        s0 = DTensor.from_local(s0, mesh, [Replicate()] * len(sizes),
+                                run_check=False)
+    seq, state = pl(2), pl(1)
+    fn = local_map(wkv, out_placements=(seq, state),
+                   in_placements=(seq, seq, seq, seq, pl(0, Replicate()),
+                                  state),
+                   in_grad_placements=(seq, seq, seq, seq,
+                                       pl(0, Partial()), state),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(r, k, v, logw, u, s0)
+
+
 def rwkv_time_mix(p, x, cfg, *, state: RWKVState | None = None,
                   chunked: bool = True):
     """x: (B, L, d) -> (out, (new wkv state, new time shift))."""
@@ -158,6 +200,8 @@ def rwkv_time_mix(p, x, cfg, *, state: RWKVState | None = None,
           if state is None else state.s)
     u = p["bonus"].float()
     wkv = wkv_chunked if chunked else wkv_sequential
+    if is_dtensor(r):
+        wkv = functools.partial(_wkv_sharded, wkv)
     out, s = wkv(r.float(), k.float(), v.float(), logw, u, s0)
     # per-head group norm (ln_x)
     mu = out.mean(-1, keepdim=True)

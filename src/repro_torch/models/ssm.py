@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.rules import constrain
 from .layers import ParamSpec
 
 CHUNK = 128
@@ -33,15 +34,20 @@ def ssm_spec(cfg) -> dict:
     # dt_proj, dt_bias, a_log and d_skip stay f32: the JAX package applies
     # their f32 masters in f32
     return {
-        "in_proj": ParamSpec((d, 2 * di)),
-        "conv_w": ParamSpec((cfg.ssm_conv, di), scale=0.5),
-        "conv_b": ParamSpec((di,), "zeros"),
-        "x_proj": ParamSpec((di, r + 2 * n)),
-        "dt_proj": ParamSpec((r, di), matrix=False),
-        "dt_bias": ParamSpec((di,), "zeros", matrix=False),
-        "a_log": ParamSpec((di, n), "zeros", matrix=False),
-        "d_skip": ParamSpec((di,), "ones", matrix=False),
-        "out_proj": ParamSpec((di, d)),
+        "in_proj": ParamSpec((d, 2 * di), axes=("embed", "ssm_inner")),
+        "conv_w": ParamSpec((cfg.ssm_conv, di), scale=0.5,
+                            axes=(None, "ssm_inner")),
+        "conv_b": ParamSpec((di,), "zeros", axes=("ssm_inner",)),
+        "x_proj": ParamSpec((di, r + 2 * n), axes=("ssm_inner", None)),
+        "dt_proj": ParamSpec((r, di), matrix=False,
+                             axes=(None, "ssm_inner")),
+        "dt_bias": ParamSpec((di,), "zeros", matrix=False,
+                             axes=("ssm_inner",)),
+        "a_log": ParamSpec((di, n), "zeros", matrix=False,
+                           axes=("ssm_inner", None)),
+        "d_skip": ParamSpec((di,), "ones", matrix=False,
+                            axes=("ssm_inner",)),
+        "out_proj": ParamSpec((di, d), axes=("ssm_inner", "embed")),
     }
 
 
@@ -108,6 +114,9 @@ def _dt_bc(p, xc: torch.Tensor, cfg):
     r = max(1, cfg.d_model // 16)
     n = cfg.ssm_state
     dbl = xc @ p["x_proj"].to(xc.dtype)
+    # whole on the model axis under a mesh before the split (a no-op
+    # without one): the product over the sharded d_inner is a partial sum
+    dbl = constrain(dbl, ("batch",) + (None,) * (dbl.ndim - 1))
     dt_low, bc, cc = torch.split(dbl, [r, n, n], dim=-1)
     raw = dt_low.float() @ p["dt_proj"].float() + p["dt_bias"].float()
     dt = torch.logaddexp(raw, torch.zeros((), device=raw.device))

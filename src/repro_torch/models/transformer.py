@@ -35,6 +35,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..sharding.rules import constrain, current_mesh, use_mesh
 from . import attention as attn
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
@@ -144,17 +145,32 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _under_mesh(fn, mesh):
+    def run(*a):
+        with use_mesh(mesh):
+            return fn(*a)
+    return run
+
+
 def _remat(fn, name: str):
     """``fn`` under the JAX package's remat policy ``name``, per layer, by
     ``torch.utils.checkpoint`` (non-reentrant): ``"nothing_saveable"``
     keeps only the layer's inputs and recomputes the whole layer in the
     backward, ``"dots"`` keeps the matrix products' outputs and
     recomputes the rest, ``"none"`` keeps everything. Without grad there
-    is nothing to keep, and ``fn`` runs as it is."""
+    is nothing to keep, and ``fn`` runs as it is.
+
+    Under a mesh the recomputation runs under the same mesh: on CUDA
+    tensors the autograd engine runs the backward on a thread of its
+    own, where the caller's ambient mesh (``sharding.use_mesh``) is not
+    set."""
     if name not in ("nothing_saveable", "dots", "none"):
         raise ValueError(f"unknown remat policy {name!r}")
     if name == "none" or not torch.is_grad_enabled():
         return fn
+    mesh = current_mesh()
+    if mesh is not None:
+        fn = _under_mesh(fn, mesh)
     if name == "dots":
         ctx = functools.partial(create_selective_checkpoint_contexts,
                                 _save_dots)
@@ -164,10 +180,13 @@ def _remat(fn, name: str):
 
 
 def _layer(p: dict, x: torch.Tensor, cfg, kind: tuple[str, str], *,
-           positions, impl: str = "xla", state=None, decode: bool = False):
+           positions, impl: str = "xla", state=None, decode: bool = False,
+           train: bool = False):
     """One layer: (x out, aux (0-d f32 MoE aux loss, or None), new decode
     state or None). ``decode``: one token against ``state`` (a KV ring
-    written in place at ``state[1]``; see ``decode_step``)."""
+    written in place at ``state[1]``; see ``decode_step``). ``train``:
+    the training forward's attention (``attention_train``: no cache, the
+    sequence-parallel layout under a mesh that wants it)."""
     mixer, ff = kind
     cache = state[0] if decode else None
     h = apply_norm(p["norm1"], x, cfg.norm)
@@ -176,6 +195,10 @@ def _layer(p: dict, x: torch.Tensor, cfg, kind: tuple[str, str], *,
             y, new = attn.attention_decode(
                 p["attn"], h, cfg, cache, pos=state[1], cache_len=state[2],
                 positions=positions)
+        elif train:
+            y, new = attn.attention_train(p["attn"], h, cfg,
+                                          positions=positions,
+                                          impl=impl), None
         else:
             y, new = attn.attention_prefill(p["attn"], h, cfg,
                                             positions=positions, impl=impl)
@@ -191,7 +214,8 @@ def _layer(p: dict, x: torch.Tensor, cfg, kind: tuple[str, str], *,
     if ff == "mlp":
         y = apply_mlp(p["mlp"], h, cfg)
     elif ff == "moe":
-        y, aux = moe_mod.apply_moe(p["moe"], h, cfg, no_drop=decode)
+        y, aux = moe_mod.apply_moe_sharded(p["moe"], h, cfg,
+                                           no_drop=decode)
     else:
         y, shift_c = rwkv_mod.rwkv_channel_mix(p["rwkv_c"], h, cfg,
                                                state=cache)
@@ -232,7 +256,7 @@ def forward_train(params: dict, cfg, batch: dict,
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
         def layer(p, x, kind=kind):
             y, a, _ = _layer(p, x, cfg, kind, positions=positions,
-                             impl=opts.attn_impl)
+                             impl=opts.attn_impl, train=True)
             return y, (a if a is not None else torch.zeros_like(aux))
         x, a = _remat(layer, opts.remat)(p, x)
         aux = aux + a
@@ -248,7 +272,11 @@ def loss_fn(params: dict, cfg, batch: dict, opts: FwdOpts = FwdOpts(),
     moe_aux`` (``aux_coef`` defaults to ``cfg.router_aux_coef``). Returns
     (loss, {"ce", "z_loss", "moe_aux", "tokens"}), 0-d f32 tensors."""
     x, aux = forward_train(params, cfg, batch, opts)
-    logits = apply_head(params["embed"], x).float()
+    # under a mesh, the vocab-sharded logits are gathered whole over
+    # "model" first: DTensor has no vocab-parallel gather of the labels'
+    # logits (a no-op on plain tensors)
+    logits = constrain(apply_head(params["embed"], x).float(),
+                       ("batch", None, None))
     labels = batch["labels"].long()
     mask = (labels >= 0).float()
     lse = torch.logsumexp(logits, dim=-1)

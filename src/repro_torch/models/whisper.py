@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..sharding.rules import constrain
 from . import attention as attn
 from .layers import (apply_embed, apply_head, apply_mlp, apply_norm,
                      embed_spec, mlp_spec, norm_spec)
@@ -161,7 +162,9 @@ def whisper_loss_fn(params: dict, cfg, batch: dict,
     for p in params["dec_layers"]:
         x = _remat(layer, opts.remat)(p, x, enc_out)
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    logits = apply_head(params["embed"], x).float()
+    # whole over "model" under a mesh, as in transformer.loss_fn
+    logits = constrain(apply_head(params["embed"], x).float(),
+                       ("batch", None, None))
     labels = batch["labels"].long()
     mask = (labels >= 0).float()
     lse = torch.logsumexp(logits, dim=-1)

@@ -46,29 +46,34 @@ def _factorable(shape, hyper: OptHyper) -> bool:
         shape[-2] >= hyper.factored_min
 
 
-def _zeros(shape) -> ParamSpec:
-    return ParamSpec(tuple(shape), "zeros", matrix=False)
+def _zeros(shape, axes=()) -> ParamSpec:
+    return ParamSpec(tuple(shape), "zeros", matrix=False, axes=tuple(axes))
 
 
 def state_specs(param_specs, hyper: OptHyper) -> dict:
     """The optimizer state's shapes (``ParamSpec``s of f32 zeros) for a
-    tree of parameter ``ParamSpec``s."""
+    tree of parameter ``ParamSpec``s, each with its parameter's logical
+    axes (Adafactor's factored moments drop the reduced dim's axis, as
+    the JAX package's do)."""
     if hyper.name == "adamw":
-        return {"m": tree_map(lambda s: _zeros(s.shape), param_specs),
-                "v": tree_map(lambda s: _zeros(s.shape), param_specs),
+        return {"m": tree_map(lambda s: _zeros(s.shape, s.axes),
+                              param_specs),
+                "v": tree_map(lambda s: _zeros(s.shape, s.axes),
+                              param_specs),
                 "step": _zeros(())}
     if hyper.name != "adafactor":
         raise ValueError(f"unknown optimizer {hyper.name!r}")
 
     def vr(s: ParamSpec):
         if _factorable(s.shape, hyper):
-            return _zeros(s.shape[:-1])
-        return _zeros(s.shape)
+            return _zeros(s.shape[:-1], s.axes[:-1])
+        return _zeros(s.shape, s.axes)
 
     def vc(s: ParamSpec):
         if _factorable(s.shape, hyper):
-            return _zeros(s.shape[:-2] + s.shape[-1:])
-        return _zeros((1,))  # unused stub
+            return _zeros(s.shape[:-2] + s.shape[-1:],
+                          s.axes[:-2] + s.axes[-1:])
+        return _zeros((1,), (None,) if s.axes else ())  # unused stub
 
     return {"vr": tree_map(vr, param_specs), "vc": tree_map(vc, param_specs),
             "step": _zeros(())}

@@ -21,8 +21,12 @@ from ..kernels._compat import resolve_device
 from ..launch.steps import (default_hyper, fwd_opts, make_train_step,
                             value_and_grad)
 from ..models import build
+from ..models.model import model_spec
+from ..sharding.rules import (batch_from_local, distribute_tree, full_tensor,
+                              tree_shardings, use_mesh)
 from . import grad_compress, schedule
-from .optimizer import apply_updates, clip_by_global_norm, init_state
+from .optimizer import (apply_updates, clip_by_global_norm, init_state,
+                        state_specs)
 
 
 @dataclasses.dataclass
@@ -40,18 +44,33 @@ class TrainerConfig:
 
 class Trainer:
     """``device``: where the parameters, the optimizer state and the step
-    run (None: the CUDA card); the checkpoint store runs there too."""
+    run (None: the CUDA card); the checkpoint store runs there too.
+
+    ``mesh``: a ``DeviceMesh`` over the ranks of the process group. The
+    state is then distributed by the sharding rules (every rank builds the
+    same whole state from ``seed`` and keeps its shards), each batch that
+    ``run_loop`` takes is this rank's share of the global batch, split
+    along the batch dim over the mesh's data axes in rank order, and the
+    step runs under the mesh, so DTensor reduces the gradients over the
+    ranks. Checkpoints gather each leaf whole and rank 0 writes them."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, tcfg: TrainerConfig,
-                 params=None, seed: int = 0, device=None):
+                 params=None, seed: int = 0, device=None, mesh=None):
         self.cfg, self.run, self.tcfg = cfg, run, tcfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.bundle = build(cfg)
         self.hyper = default_hyper(cfg, run)
         params = params if params is not None else \
             self.bundle.init(seed, device=self.device)
-        self.state = {"params": params,
-                      "opt": init_state(params, self.hyper)}
+        opt = init_state(params, self.hyper)
+        if mesh is not None:
+            spec = model_spec(cfg)
+            self.shardings = tree_shardings(spec, mesh)
+            params = distribute_tree(params, self.shardings)
+            opt = distribute_tree(opt, tree_shardings(
+                state_specs(spec, self.hyper), mesh))
+        self.state = {"params": params, "opt": opt}
         if run.grad_compress:
             self.state["ef"] = grad_compress.init_error_state(params)
         self.step_fn = self._make_step()
@@ -103,8 +122,13 @@ class Trainer:
             t0 = time.time()
             jb = {k: torch.as_tensor(v, device=self.device)
                   for k, v in batch.items()}
-            self.state, metrics = self.step_fn(self.state, jb)
-            metrics = {k: float(v) for k, v in metrics.items()}
+            if self.mesh is None:
+                self.state, metrics = self.step_fn(self.state, jb)
+            else:
+                jb = batch_from_local(jb, self.mesh)
+                with use_mesh(self.mesh):
+                    self.state, metrics = self.step_fn(self.state, jb)
+            metrics = {k: float(full_tensor(v)) for k, v in metrics.items()}
             dt = time.time() - t0
             self.monitor.record(self.tcfg.host, dt)
             self.step += 1
@@ -120,6 +144,11 @@ class Trainer:
 
     def restore(self, step: int) -> None:
         assert self.ckpt is not None
-        self.state["params"] = self.ckpt.restore(step,
-                                                 like=self.state["params"])
+        if self.mesh is None:
+            self.state["params"] = self.ckpt.restore(
+                step, like=self.state["params"])
+        else:
+            self.state["params"] = self.ckpt.restore(
+                step, like=self.state["params"], mesh=self.mesh,
+                shardings=self.shardings)
         self.step = step

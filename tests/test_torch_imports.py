@@ -37,15 +37,19 @@ print(len(names))
 """
 
 #: modules that must be among those walked: the model families' mixers,
-#: whisper's encoder-decoder, every ported config and the kernels' tile
-#: resolution
+#: whisper's encoder-decoder, every ported config, the kernels' tile
+#: resolution, and distribution (the sharding rules, the meshes, the dry
+#: run, the roofline and elastic restore)
 WALKED = ["repro_torch.models." + m for m in (
     "moe", "ssm", "rwkv", "transformer", "attention", "layers", "model",
     "weights", "whisper")] + ["repro_torch.configs." + m for m in (
         "grok_1_314b", "jamba_v0_1_52b", "kimi_k2_1t_a32b", "llama3_2_1b",
         "olmo_1b", "qwen1_5_4b", "qwen2_0_5b", "qwen2_vl_72b", "rwkv6_7b",
         "whisper_medium")] + ["repro_torch.kernels.launch",
-                              "repro_torch.launch.steps"]
+                              "repro_torch.launch.steps"] + [
+    "repro_torch." + m for m in (
+        "sharding", "sharding.rules", "launch.mesh", "launch.dryrun",
+        "launch.roofline", "ft.elastic")]
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():
