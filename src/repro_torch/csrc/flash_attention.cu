@@ -2,9 +2,9 @@
 // flash_attention_bwd.cu):
 //   o[b, i, h, :] = softmax_j(q[b, i, h, :] . k[b, j, h / group, :] * D^-0.5)
 //                   @ v[b, j, h / group, :]   over keys j <= i + (Sk - Sq)
-// and, where the caller passes an lse buffer (training; the wgmma kernels
-// at D 64 and 128 only), each row's log-sum-exp m + log(max(l, 1e-30)) in
-// f32, (B, H, Sq), from the epilogue's m and l. A null lse (serving)
+// and, where the caller passes an lse buffer (training), each row's
+// log-sum-exp m + log(max(l, 1e-30)) in f32, (B, H, Sq), from the
+// epilogue's m and l, in every design. A null lse (serving, search)
 // changes nothing else.
 // with q (B, Sq, H, D), k and v (B, Sk, K, D), H = K * group, f32 or bf16,
 // D in {8, 16, 32, 64, 112, 128}. Queries are the last Sq positions of the key
@@ -187,9 +187,7 @@
 
 namespace {
 
-struct Strides {
-  long long b, s, h;  // elements; the head dim is contiguous
-};
+using hopper::Strides;
 
 // ---------------------------------------------------------------------------
 // The tensor-core kernel (bf16, D = 64 and 128)
@@ -207,12 +205,8 @@ constexpr int kThreads = 384;         // producer + 2 consumer warpgroups
 constexpr int kConsumerWarps = 8;     // arrivals that free a ring stage
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The head dim of a kernel's tiles for a tensor's head dim `d`: D 112
-// (kimi-k2's) runs in D 128's layout and products, its columns past 112
-// zero in shared memory (TMA fills a box's columns past the tensor's last
-// with zeros, and the f32 kernel's q loop writes zeros there), so they add
-// nothing to Q K^T and give P V columns that are never stored.
-__host__ __device__ constexpr int tile_d(int d) { return d == 112 ? 128 : d; }
+// The head dim of a kernel's tiles (hopper.cuh): D 112 in D 128's.
+using hopper::tile_d;
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
 // repeats every 8 rows of 128 bytes): Q, then per stage K and V, each
@@ -941,107 +935,13 @@ int launch(const void* q, Strides qst, const void* k, const void* v, void* o,
 
 namespace mk {
 
+using namespace hopper::strip;
 using tc::bits;
 using tc::ex2;
 using tc::smem_u32;
 using hopper::tf32;
 
-constexpr int kRows = 16;      // query rows a warp owns: one m16 strip
-constexpr int kBK = 32;        // keys per K/V tile
-constexpr int kMaxWarps = 8;
-constexpr int kVecBytes = 16;  // a cp.async piece; also the padding past
-                               // each shared row and each head's skew
 constexpr float kLog2e = 1.4426950408889634f;
-
-// The plan's packing (kernels/flash_attention.py: MmaPlan): strips and
-// heads a block, the most KV heads a block reads, K/V stages, strip and
-// head groups.
-struct Pack {
-  int sb, hb, nkv, stages, n_sg, n_hg;
-};
-
-// A head's row of D elements of T in shared memory: kVec elements (16
-// bytes) a piece, padded by one piece.
-template <typename T, int D>
-struct Rows {
-  static constexpr int kEs = static_cast<int>(sizeof(T));
-  static constexpr int kVec = kVecBytes / kEs;
-  static constexpr int kRS = D + kVec;  // bf16: 80 or 48 bytes; f32: 144
-                                        // or 80
-  static constexpr int kCh = D / kVec;  // pieces of a head's row
-};
-
-// Shared memory in elements, rows of rs = D + pad (pad: one 16-byte
-// piece): the block's query rows (warp w = hw * sb + sw at rows 16 w,
-// head hw's rows skewed by hw * pad), then per stage the K tiles of the
-// KV heads, then their V tiles (KV head i skewed by i * pad).
-__host__ __device__ constexpr int q_elems(int rs, int warps, int hb,
-                                          int pad) {
-  return warps * kRows * rs + hb * pad;
-}
-__host__ __device__ constexpr int tile_elems(int rs, int pad) {
-  return kBK * rs + pad;
-}
-// bytes, at element size es
-__host__ __device__ constexpr int smem_bytes(int d, int es, int warps,
-                                             int hb, int nkv, int stages) {
-  return es * (q_elems(d + kVecBytes / es, warps, hb, kVecBytes / es) +
-               stages * 2 * nkv *
-                   tile_elems(d + kVecBytes / es, kVecBytes / es));
-}
-
-// 16 bytes from global to shared memory, or 16 zero bytes where !ok
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
-                                     bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices; lanes 8 i .. 8 i + 7 give the row addresses of
-// matrix i, which lands in r[i]: lane (g, t) receives the 32 bits t of
-// row g (two bf16, or one f32).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// C (16 x 8, f32) += A (16 x 16, bf16, row) * B (16 x 8, bf16, col).
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// C (16 x 8, f32) += A (16 x 8, tf32, row) * B (8 x 8, tf32, col).
-__device__ __forceinline__ void mma_tf32(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Register e of three A fragments (part 0 the largest): two f32 values
 // each as three bf16 parts, hi = bf16(x), mid = bf16(x - hi) and lo =
@@ -1066,14 +966,6 @@ __device__ __forceinline__ void split2(float x, uint32_t& hi, uint32_t& lo) {
   const float h = tf32(x);
   hi = __float_as_uint(h);
   lo = __float_as_uint(tf32(x - h));
-}
-
-// Key tiles that the query rows up to `last` (past Sq: up to the last
-// row) visit: those holding keys up to its position, none when it
-// precedes every key.
-__device__ __forceinline__ int trips(int last, int sq, int sk) {
-  const int q_last = sk - sq + min(last, sq - 1);
-  return q_last < 0 ? 0 : min(q_last / kBK + 1, (sk + kBK - 1) / kBK);
 }
 
 // Logits past the causal diagonal or the key axis to -inf: s holds the
@@ -1123,83 +1015,27 @@ __device__ __forceinline__ void row_denominators(float (&l)[2]) {
   }
 }
 
-// What a block and one of its warps own. blockIdx.x -> (strip group,
-// head group, batch), as mma_units; warp w takes strip w % sb of head
-// w / sb of the block.
-struct Unit {
-  int b, h0, kv0, nkv;   // batch; the block's first head and KV head, and
-                         // its KV heads
-  int rows, row_blk;     // the block's query rows and its first row
-  int hw, row0, kvi;     // the warp's head in the block, first row, KV head
-  int my_trips, n_tiles; // key tiles of the warp's strip and of the block
-};
-
-__device__ __forceinline__ Unit unit_of(const Pack& pk, int batch, int group,
-                                        int sq, int sk, int warp) {
-  Unit u;
-  const int per = pk.n_hg * batch;
-  const int bid = static_cast<int>(blockIdx.x);
-  const int sg = pk.n_sg - 1 - bid / per;
-  u.h0 = bid % per % pk.n_hg * pk.hb;
-  u.b = bid % per / pk.n_hg;
-  u.kv0 = u.h0 / group;
-  u.nkv = (u.h0 + pk.hb - 1) / group - u.kv0 + 1;
-  u.rows = pk.sb * kRows;
-  u.row_blk = sg * u.rows;
-  u.hw = warp / pk.sb;
-  u.row0 = u.row_blk + (warp % pk.sb) * kRows;
-  u.kvi = (u.h0 + u.hw) / group - u.kv0;
-  u.my_trips = u.row0 < sq ? trips(u.row0 + kRows - 1, sq, sk) : 0;
-  u.n_tiles = trips(u.row_blk + u.rows - 1, sq, sk);
-  return u;
-}
-
-// The block's query rows into shared memory at sbase, piece ch of head
-// hh of row r, zero past Sq.
-template <typename T, int D>
-__device__ __forceinline__ void copy_q(uint32_t sbase, const T* q,
-                                       const Unit& u, const Pack& pk,
-                                       Strides qst, int sq) {
-  using R = Rows<T, D>;
-  const int n_q = u.rows * pk.hb * R::kCh;
-  for (int c = threadIdx.x; c < n_q; c += blockDim.x) {
-    const int ch = c % R::kCh;
-    const int hh = c / R::kCh % pk.hb;
-    const int r = c / (R::kCh * pk.hb);
-    const int qi = u.row_blk + r;
-    const bool ok = qi < sq;
-    cp16(sbase + R::kEs * ((hh * u.rows + r) * R::kRS + hh * R::kVec +
-                              ch * R::kVec),
-         q + u.b * qst.b + (ok ? qi : 0) * qst.s + (u.h0 + hh) * qst.h +
-             ch * R::kVec,
-         ok);
-  }
-}
-
-// Key tile j of the block's KV heads into the stage at kt (its K tiles,
-// then pk.nkv V tiles of tile_sz elements), zero past Sk.
-template <typename T, int D>
-__device__ __forceinline__ void copy_kv(uint32_t kt, const T* k, const T* v,
-                                        const Unit& u, const Pack& pk,
-                                        Strides kst, Strides vst, int j,
-                                        int sk, int tile_sz) {
-  using R = Rows<T, D>;
-  const uint32_t vt = kt + R::kEs * pk.nkv * tile_sz;
-  const int n = kBK * u.nkv * R::kCh;
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    const int ch = c % R::kCh;
-    const int i = c / R::kCh % u.nkv;
-    const int r = c / (R::kCh * u.nkv);
-    const int kj = j * kBK + r;
-    const bool ok = kj < sk;
-    const long long row = ok ? kj : 0;
-    const uint32_t dst = R::kEs * (i * tile_sz + r * R::kRS + ch * R::kVec);
-    cp16(kt + dst,
-         k + u.b * kst.b + row * kst.s + (u.kv0 + i) * kst.h + ch * R::kVec,
-         ok);
-    cp16(vt + dst,
-         v + u.b * vst.b + row * vst.s + (u.kv0 + i) * vst.h + ch * R::kVec,
-         ok);
+// The log-sum-exp of the warp's rows row0 + g and row0 + g + 8 (lse: the
+// (b, h) row of the (B, H, Sq) output) from their running max m (natural
+// units, or log2 units where kLog2) and l after row_denominators: m +
+// log(l) in natural units, the plain version's m + log(max(l, 1e-30));
+// -1e30, what that gives in f32, for a row that sees no key (l clamped to
+// 1e-30). Written by the first of the 4 lanes of a row, after the
+// epilogue (O's registers are free by then: at the 80 registers of three
+// blocks an SM, a write before it spilled), with the fast log (MUFU.LG2,
+// about 1e-7 off: well inside LSE_TOL).
+template <bool kLog2>
+__device__ __forceinline__ void write_lse(float* lse, const float (&m)[2],
+                                          const float (&l)[2], int row0,
+                                          int g, int t, int sq) {
+  if (t != 0) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row < sq) {
+      const float mn = kLog2 ? m[r] * 0.6931471805599453f : m[r];
+      lse[row] = l[r] > 1e-30f ? mn + __logf(l[r]) : -1e30f;
+    }
   }
 }
 
@@ -1235,14 +1071,18 @@ __device__ __forceinline__ void store_o(T* o, const T* sm, const Unit& u,
 // heads) a row is one 16-byte piece and its padding piece: the padding is
 // zeroed once, so the k16 product of Q K^T reads 8 zero columns past the
 // head dim, and P V takes the one n8 tile of the k16 step's V fragments.
-template <int D>
-__global__ void __launch_bounds__(kMaxWarps * 32, 3)
+// kLse: the training instantiation, which also writes each row's lse
+// (write_lse) and runs two blocks an SM (up to 128 registers: at 80 the
+// lse's registers spilled); serving's and search's null-lse launches take
+// the kLse = false one, whose code has no lse in it.
+template <int D, bool kLse>
+__global__ void __launch_bounds__(kMaxWarps * 32, kLse ? 2 : 3)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int sq, int sk, int n_heads,
-                 int batch, int group, Pack pk, Strides qst, Strides kst,
-                 Strides vst, float scale) {
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int sq, int sk, int n_heads, int batch, int group, Pack pk,
+                 Strides qst, Strides kst, Strides vst, float scale) {
   using R = Rows<__nv_bfloat16, D>;
   constexpr int kRS = R::kRS;
   extern __shared__ float4 smem4[];
@@ -1325,8 +1165,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
           ldsm_x4(kb, kt + 2 * (key * kRS + col));
 #pragma unroll
           for (int part = 2; part >= 0; --part) {
-            mma(s[2 * np], qp[part], kb[0], kb[1]);
-            mma(s[2 * np + 1], qp[part], kb[2], kb[3]);
+            mma_bf16(s[2 * np], qp[part], kb[0], kb[1]);
+            mma_bf16(s[2 * np + 1], qp[part], kb[2], kb[3]);
           }
         }
       }
@@ -1373,9 +1213,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
           ldsm_x4_t(vb, vt + 2 * (key * kRS + col));
 #pragma unroll
           for (int part = 2; part >= 0; --part) {
-            mma(acc[2 * dp], pp[part], vb[0], vb[1]);
+            mma_bf16(acc[2 * dp], pp[part], vb[0], vb[1]);
             if constexpr (D >= 16) {
-              mma(acc[2 * dp + 1], pp[part], vb[2], vb[3]);
+              mma_bf16(acc[2 * dp + 1], pp[part], vb[2], vb[3]);
             }
           }
         }
@@ -1403,20 +1243,26 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
   store_o<__nv_bfloat16, D>(o, sm, u, pk, sq, n_heads);
+  if constexpr (kLse) {
+    write_lse<false>(lse + (static_cast<long long>(u.b) * n_heads + u.h0 +
+                            u.hw) * sq,
+                     m, l, u.row0, g, t, sq);
+  }
 }
 
 // The same skeleton in f32 (rows of D + 4 floats, 4 floats a cp.async
 // piece), the products m16n8k8 TF32, three a product of split operands.
 // TF32 fragments (k8): A a[0..3] holds (row g, k t), (g + 8, t), (g,
 // t + 4), (g + 8, t + 4); B b[0..1] holds (k t, n g), (k t + 4, n g).
-template <int D>
-__global__ void __launch_bounds__(kMaxWarps * 32, 3)
+// kLse as in flash_mma_kernel.
+template <int D, bool kLse>
+__global__ void __launch_bounds__(kMaxWarps * 32, kLse ? 2 : 3)
 flash_mma_f32_kernel(const float* __restrict__ q,
                      const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int sq, int sk, int n_heads, int batch, int group,
-                     Pack pk, Strides qst, Strides kst, Strides vst,
-                     float scale) {
+                     float* __restrict__ lse, int sq, int sk, int n_heads,
+                     int batch, int group, Pack pk, Strides qst, Strides kst,
+                     Strides vst, float scale) {
   using R = Rows<float, D>;
   constexpr int kRS = R::kRS;
   extern __shared__ float4 smem4[];
@@ -1580,14 +1426,19 @@ flash_mma_f32_kernel(const float* __restrict__ q,
   }
   __syncthreads();
   store_o<float, D>(o, sm, u, pk, sq, n_heads);
+  if constexpr (kLse) {
+    write_lse<true>(lse + (static_cast<long long>(u.b) * n_heads + u.h0 +
+                           u.hw) * sq,
+                    m, l, u.row0, g, t, sq);
+  }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 auto kernel_of() {
   if constexpr (std::is_same_v<T, float>) {
-    return &flash_mma_f32_kernel<D>;
+    return &flash_mma_f32_kernel<D, kLse>;
   } else {
-    return &flash_mma_kernel<D>;
+    return &flash_mma_kernel<D, kLse>;
   }
 }
 
@@ -1595,10 +1446,10 @@ auto kernel_of() {
 // shared-memory bytes, checked against the packing they imply. T: f32
 // (flash_mma_f32_kernel) or bf16 (flash_mma_kernel).
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int sq, int sk, int n_heads, int group, Strides qst, Strides kst,
-           Strides vst, const long long* mp, long long blocks, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int sq, int sk, int n_heads, int group, Strides qst,
+           Strides kst, Strides vst, const long long* mp, long long blocks,
+           float scale, cudaStream_t stream) {
   constexpr int es = static_cast<int>(sizeof(T));
   Pack pk{static_cast<int>(mp[0]), static_cast<int>(mp[1]),
           static_cast<int>(mp[2]), static_cast<int>(mp[3]), 0, 0};
@@ -1621,15 +1472,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
       static_cast<long long>(pk.n_sg) * pk.n_hg * batch != blocks) {
     return bad;
   }
-  const auto kernel = kernel_of<T, D>();
-  static std::atomic<unsigned long long> opted{0};
+  // the training instantiation where the caller asks for the lse
+  const bool with_lse = lse != nullptr;
+  const auto kernel = with_lse ? kernel_of<T, D, true>()
+                               : kernel_of<T, D, false>();
+  static std::atomic<unsigned long long> opted[2];
   const cudaError_t err = tc::opt_in(
-      kernel, smem_bytes(D, es, kMaxWarps, kMaxWarps, kMaxWarps, 2), opted);
+      kernel, smem_bytes(D, es, kMaxWarps, kMaxWarps, kMaxWarps, 2),
+      opted[with_lse]);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, n_heads, batch,
-      group, pk, qst, kst, vst, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, n_heads,
+      batch, group, pk, qst, kst, vst, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1649,8 +1504,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 // k and v); designs 1 and 3 append 5 values, their packing (mk::launch).
 // `lse`: null, or the
 // (batch, n_heads, sq) f32 log-sum-exp of every query row, written by
-// designs 0 and 2 (the training forward; flash_attention_bwd.cu reads
-// it); designs 1 and 3 refuse a non-null one. Returns
+// every design (the training forward; flash_attention_bwd.cu reads it).
+// Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape, type or plan
 // the kernels do not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -1669,8 +1524,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool wide = d == 64 || d == 112 || d == 128;
-  if (design != (wide ? (dtype == 1 ? 0 : 2) : (dtype == 1 ? 3 : 1)) ||
-      (!wide && lse != nullptr)) {
+  if (design != (wide ? (dtype == 1 ? 0 : 2) : (dtype == 1 ? 3 : 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch <= 0 || sq <= 0 || n_heads <= 0) {
@@ -1695,31 +1549,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return fn(q, qst, k, v, o, lse, batch, sq, sk, n_heads, group, maps,
               n_q_tiles, scale, s);
   }
-  // designs 1 (f32) and 3 (bf16): the mma kernels at d 16 and 32
+  // designs 1 (f32) and 3 (bf16): the mma kernels at d 8, 16 and 32
   const long long* mp = plan + 51;
-  const bool f32 = design == 1;
-  switch (d) {
-    case 8:
-      return f32 ? mk::launch<float, 8>(q, k, v, o, batch, sq, sk, n_heads,
-                                        group, qst, kst, vst, mp, plan[8],
-                                        scale, s)
-                 : mk::launch<__nv_bfloat16, 8>(q, k, v, o, batch, sq, sk,
-                                                n_heads, group, qst, kst,
-                                                vst, mp, plan[8], scale, s);
-    case 16:
-      return f32 ? mk::launch<float, 16>(q, k, v, o, batch, sq, sk, n_heads,
-                                         group, qst, kst, vst, mp, plan[8],
-                                         scale, s)
-                 : mk::launch<__nv_bfloat16, 16>(q, k, v, o, batch, sq, sk,
-                                                 n_heads, group, qst, kst,
-                                                 vst, mp, plan[8], scale, s);
-    case 32:
-      return f32 ? mk::launch<float, 32>(q, k, v, o, batch, sq, sk, n_heads,
-                                         group, qst, kst, vst, mp, plan[8],
-                                         scale, s)
-                 : mk::launch<__nv_bfloat16, 32>(q, k, v, o, batch, sq, sk,
-                                                 n_heads, group, qst, kst,
-                                                 vst, mp, plan[8], scale, s);
+  const auto fn = design == 1 ? (d == 8    ? &mk::launch<float, 8>
+                                 : d == 16 ? &mk::launch<float, 16>
+                                           : &mk::launch<float, 32>)
+                              : (d == 8    ? &mk::launch<__nv_bfloat16, 8>
+                                 : d == 16 ? &mk::launch<__nv_bfloat16, 16>
+                                           : &mk::launch<__nv_bfloat16, 32>);
+  if (d != 8 && d != 16 && d != 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return fn(q, k, v, o, lse, batch, sq, sk, n_heads, group, qst, kst, vst, mp,
+            plan[8], scale, s);
 }

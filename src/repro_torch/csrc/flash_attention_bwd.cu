@@ -7,11 +7,12 @@
 //   dK_j   = D^-0.5 sum_i dS_ij q_i                         (dkdv kernels)
 //   dQ_i   = D^-0.5 sum_j dS_ij k_j                         (dq kernels)
 // with q, o, dO (B, Sq, H, D), k and v (B, Sk, K, D), H = K * G, f32 or
-// bf16, D 64 or 128, the queries the last Sq positions of the key axis
-// (key j visible to query i when j <= i + Sk - Sq), lse (B, H, Sq) f32 from
-// flash_attention.cu's wgmma kernels (m + log(max(l, 1e-30)); -1e30 for a
-// row that sees no key). dK and dV of a KV head sum over the G query heads
-// that read it. A masked pair, and a row that sees no key, add exactly 0.
+// bf16, D 8, 16, 32, 64, 112 or 128, the queries the last Sq positions of
+// the key axis (key j visible to query i when j <= i + Sk - Sq), lse (B, H,
+// Sq) f32 from flash_attention.cu's kernels (m + log(max(l, 1e-30)); -1e30
+// for a row that sees no key). dK and dV of a KV head sum over the G query
+// heads that read it. A masked pair, and a row that sees no key, add
+// exactly 0.
 // Every sum is f32; the outputs are written once, in q's dtype.
 //
 // Replaces no TPU kernel: the JAX package differentiates its attention by
@@ -32,33 +33,37 @@
 // than dQ folded into the dkdv pass with f32 atomics: 7 products a tile
 // pair instead of 5, but deterministic gradients.
 //
-// Two designs, by dtype (kernels/flash_attention.py: bwd_plan), both on
-// the tensor cores by wgmma, with the skeleton of flash_attention.cu's
-// wgmma kernels: warpgroup 0 the producer (one thread issues TMA loads of
-// 128-byte-swizzled boxes into a ring of stages, each with a full and an
-// empty mbarrier), 64-row consumer warpgroups, blocks heaviest first,
-// masks only on tiles that cross the diagonal, Sq or Sk. P and dS are
-// formed in f32 on the accumulator fragment and enter their products in
-// parts that keep them at f32 precision. dkdv is a block per (key tile,
-// KV head, batch), key tile 0 (the most query tiles) first: the block
-// takes its K and V once and, for each of the G query heads and each
-// query tile from the first that sees its keys (bwd_plan.first_q_tile),
-// the q and dO tiles and their lse (log2 units) and delta rows; its
-// consumers take the keys as the M side, S^T = K q^T, dP^T = V dO^T,
-// P^T = exp2(S^T D^-0.5 log2(e) - lse) and dS^T = P^T (dP^T - delta) with
-// the query the column, then dV += P^T dO and dK += dS^T q with P^T and
-// dS^T the register A operand (RS). dq is a block per (query tile, head,
-// batch), the last first: q and dO once, then each causal K and V tile,
-// S = q K^T, dP = dO V^T, dS = P (dP - delta), dQ += dS K (RS). dK, dV
-// and dQ stay in f32 registers and are written once (dK and dQ times
+// Four designs, by (dtype, D) as the forward's (kernels/flash_attention.py:
+// bwd_plan). At D 64, 112 and 128 two, by dtype, on the tensor cores by
+// wgmma, with the skeleton of flash_attention.cu's wgmma kernels (D 112
+// in D 128's tiles: TMA fills the box columns past 112 with zeros, so the
+// products over D take 16 zero columns, and the epilogues store 112; the
+// kernels' template argument is the tensors' D, their tiles tile_d(D)):
+// warpgroup 0 the producer (one thread issues TMA loads of 128-byte-swizzled
+// boxes into a ring of stages, each with a full and an empty mbarrier),
+// 64-row consumer warpgroups, blocks heaviest first, masks only on tiles
+// that cross the diagonal, Sq or Sk. P and dS are formed in f32 on the
+// accumulator fragment and enter their products in parts that keep them at
+// f32 precision. dkdv is a block per (key tile, KV head, batch), key tile 0
+// (the most query tiles) first: the block takes its K and V once and, for
+// each of the G query heads and each query tile from the first that sees its
+// keys (bwd_plan.first_q_tile), the q and dO tiles and their lse (log2
+// units) and delta rows; its consumers take the keys as the M side, S^T = K
+// q^T, dP^T = V dO^T, P^T = exp2(S^T D^-0.5 log2(e) - lse) and dS^T = P^T
+// (dP^T - delta) with the query the column, then dV += P^T dO and dK += dS^T
+// q with P^T and dS^T the register A operand (RS). dq is a block per (query
+// tile, head, batch), the last first: q and dO once, then each causal K and
+// V tile, S = q K^T, dP = dO V^T, dS = P (dP - delta), dQ += dS K (RS). dK,
+// dV and dQ stay in f32 registers and are written once (dK and dQ times
 // D^-0.5), with no atomics: the result does not depend on block order.
-//
 // * bf16: flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel. P and
 //   dS enter as two bf16 parts, hi = bf16(x) and lo = bf16(x - hi), each
 //   its own wgmma: hi + lo is x to 2^-17, and the other operand is a bf16
 //   input, so each product is exact in f32 and only the order of the f32
 //   sums differs from the plain version's; the outputs round once to
-//   bf16. P rounded to bf16 once (FlashAttention-2/3) would move outputs
+//   bf16. dkdv folds its accumulators into f32 running sums in shared
+//   memory every kFoldTrips trips (accumulator drift, as in the f32
+//   kernels below; 64 KB of shared memory). P rounded to bf16 once (FlashAttention-2/3) would move outputs
 //   by several bf16 ulps from the f32-P gradient. The price: dkdv issues 6
 //   product units a tile pair against the 4 of its bound, dq 4 against 3.
 //   The producer gives its registers away by setmaxnreg where there are
@@ -74,7 +79,7 @@
 //     with the tensor cores: S^T, then dP^T (P^T formed while it runs),
 //     then dV (dS^T formed while it runs), then dK. A tile where all of a
 //     consumer's keys follow all its queries is skipped. Shared memory:
-//     83 KB at D 64, 131 KB at D 128.
+//     147 KB at D 64, 195 KB at D 128 (64 KB of them the running sums).
 //   - dq: 128-row query tiles, two 64-row consumers; 64-key K and V tiles
 //     through two stages; S and dP as SS wgmma in two groups, dQ += dS K
 //     as RS wgmma with K the MN-major B operand. Shared memory: 65 KB at
@@ -146,13 +151,41 @@
 //     dkdv 4.21 ms and dq 2.74 ms on the card alone, 40% and 46% of their
 //     bounds (4.75 and 3.03 with two cvt an element); with the producer's
 //     per-trip split removed (timing only) 3.47-3.61 and 2.29 ms.
-// * flash_bwd_delta_kernel (either dtype): D / 4 threads a row, four
-//   elements each, a shuffle reduction; (B, H, Sq) f32.
+// * D 8, 16 and 32, both dtypes: flash_bwd_dkdv_mma_kernel and
+//   flash_bwd_dq_mma_kernel (namespace mb), warp-level mma.sync on the
+//   tensor cores with the forward mma kernels' packing, so that S 16-32
+//   sequences fill a block: rows through 16-byte cp.async copies into
+//   padded shared-memory rows (hopper.cuh: strip), 16-row strips a warp,
+//   several strips and heads a block, two stages where a block visits
+//   more than one tile. The FlashAttention-2 split, which holds at S 4,096
+//   too: dkdv takes a warp per 16-key strip of one (KV head, batch), the
+//   block's K and V strips once, then for each of the G query heads and
+//   each 32-row query tile from the first that sees a key of the block a
+//   trip of the hb query heads' q and dO tiles and lse and delta rows; the
+//   keys are the M side (S^T = K q^T, dP^T = V dO^T, dV += P^T dO, dK +=
+//   dS^T q). dq is the forward's packing (a warp a 16-row query strip of
+//   one (head, batch)) with dO's rows beside q's and the K and V tiles of
+//   32 keys through the stages (S = q K^T, dP = dO V^T, dQ += dS K). The
+//   arithmetic is the wgmma designs': in bf16 S and dP one product of the
+//   bf16 inputs (exact in f32), P and dS (P^T, dS^T) as two bf16 parts,
+//   each its own m16n8k16 product; in f32 every product three m16n8k8
+//   TF32 products of the operands' hi and lo parts (split in registers),
+//   with P's and dS's A fragments the accumulator's c0 c2 c1 c3 and the
+//   B operand read at rows 2t and 2t + 1 (flash_attention.cu's
+//   flash_mma_f32_kernel). Each trip's products go into a fresh
+//   accumulator, added to the f32 sums; masks only on trips that cross
+//   the diagonal, Sq or Sk. At D 8 (bf16) the k16 steps read the rows'
+//   zeroed padding as head-dim columns. Bound by bytes at the Meta-pipe
+//   encoder's B 4,096 x S 32 (one tile each way): a simple first design.
+// * flash_bwd_delta_kernel (either dtype): delta_lanes(D) threads a row (a
+//   power of two at most D / 4 and 32, so that a row's lanes sit inside a
+//   warp: 16 at D 112 over its 28 four-element pieces, 2 at D 8), four
+//   elements a load, a shuffle reduction; (B, H, Sq) f32.
 //
-// The dkdv and dq kernels read q, k, v and dO by TMA: every base and
-// stride a multiple of 16 bytes, the head dim contiguous; the wrapper
-// copies an operand that is not (a scalar loss's zero-stride dO among
-// them).
+// The wgmma dkdv and dq kernels read q, k, v and dO by TMA, the mma ones
+// by 16-byte cp.async: every base and stride a multiple of 16 bytes, the
+// head dim contiguous; the wrapper copies an operand that is not (a scalar
+// loss's zero-stride dO among them).
 #include <cuda_bf16.h>
 
 #include <atomic>
@@ -168,9 +201,8 @@ namespace {
 constexpr int kThreads = 256;  // the delta kernel's block
 constexpr float kLog2e = 1.4426950408889634f;
 
-struct Strides {
-  long long b, s, h;  // elements; the head dim is contiguous
-};
+using hopper::Strides;
+using hopper::tile_d;
 
 struct Shape {
   int batch, sq, sk, n_heads, n_kv_heads, group;
@@ -196,14 +228,27 @@ __device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
   return fmaf(a.w, b.w, acc);
 }
 
-// delta[(b H + h) Sq + i] = dO[b, i, h, :] . o[b, i, h, :], D / 4 threads
-// a row
+// The delta kernel's lanes a row: the largest power of two at most D / 4
+// and 32, so that a row's lanes are an aligned group within a warp and
+// the shuffle sum stays inside it. Each lane sums the four-element pieces
+// lane, lane + lanes, ... of the row: one at D 8 (2 lanes), 16, 32, 64 and
+// 128 (32 lanes), two or one at D 112 (28 pieces over 16 lanes)
+// (kernels/flash_attention.py: delta_lanes).
+__host__ __device__ constexpr int delta_lanes(int d) {
+  int n = 1;
+  while (2 * n <= d / 4 && 2 * n <= 32) n *= 2;
+  return n;
+}
+
+// delta[(b H + h) Sq + i] = dO[b, i, h, :] . o[b, i, h, :], delta_lanes(D)
+// threads a row
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_delta_kernel(const T* __restrict__ o, Strides ost,
                        const T* __restrict__ dO, Strides dst,
                        float* __restrict__ delta, Shape sh) {
-  constexpr int kLanes = D / 4;
+  constexpr int kLanes = delta_lanes(D);
+  constexpr int kPieces = D / 4;
   const long long r = static_cast<long long>(blockIdx.x) *
                           (kThreads / kLanes) + threadIdx.x / kLanes;
   const int lane = threadIdx.x % kLanes;
@@ -214,8 +259,11 @@ flash_bwd_delta_kernel(const T* __restrict__ o, Strides ost,
     const int i = static_cast<int>(r % sh.sq);
     const int h = static_cast<int>(r / sh.sq % sh.n_heads);
     const int b = static_cast<int>(r / sh.sq / sh.n_heads);
-    acc = dot4(0.f, load4(o + b * ost.b + i * ost.s + h * ost.h + 4 * lane),
-               load4(dO + b * dst.b + i * dst.s + h * dst.h + 4 * lane));
+    const T* orow = o + b * ost.b + i * ost.s + h * ost.h;
+    const T* drow = dO + b * dst.b + i * dst.s + h * dst.h;
+    for (int c = lane; c < kPieces; c += kLanes) {
+      acc = dot4(acc, load4(orow + 4 * c), load4(drow + 4 * c));
+    }
   }
 #pragma unroll
   for (int w = kLanes / 2; w > 0; w /= 2) {
@@ -249,11 +297,17 @@ constexpr int kCols = 64;  // head-dim columns a TMA box: one 128-byte
                            // swizzle row of bf16
 constexpr int kRow = 128;  // bytes of a box row
 
+// Trips of dkdv's tensor-core accumulators between two folds into the
+// f32 running sums (the fold: see flash_bwd_dkdv_wgmma_kernel).
+constexpr int kFoldTrips = 4;
+
 // flash_bwd_dkdv_wgmma_kernel's geometry. Shared memory from a 1024-byte
 // aligned base: the block's K and V tiles (D / 64 boxes of kBK rows each),
 // then per stage a q and a dO tile (D / 64 boxes of kBQ rows each), then
 // per stage the tile's lse (log2 units) and delta rows, then the
-// mbarriers: K/V full, then full and empty per stage.
+// mbarriers: K/V full, then full and empty per stage, then the consumers'
+// running sums of dK and dV (D floats a thread, as float4 slots
+// interleaved over the warpgroup's 128 threads).
 template <int D>
 struct Dkdv {
   static constexpr int kConsumers = D == 64 ? 2 : 1;  // 64-key warpgroups
@@ -269,7 +323,8 @@ struct Dkdv {
   static constexpr int kStage0 = 2 * kKTile;
   static constexpr int kRows = kStage0 + kStages * 2 * kQTile;
   static constexpr int kBars = kRows + kStages * 2 * kBQ * 4;
-  static constexpr int kAlloc = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr int kSums = (kBars + 8 * (1 + 2 * kStages) + 15) / 16 * 16;
+  static constexpr int kAlloc = kSums + kConsumers * 128 * D * 4 + 1024;
   static_assert(kAlloc <= 232448, "over the block's shared memory");
 };
 
@@ -337,6 +392,22 @@ __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
   lo = bits(__floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
 }
 
+// acc's values added into this thread's running sums (float4 slot i at
+// sums[128 i]) and acc cleared: the fold.
+template <int N>
+__device__ __forceinline__ void fold_into(float (&acc)[N], float4* sums) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    float4 r = sums[128 * i];
+    r.x += acc[4 * i];
+    r.y += acc[4 * i + 1];
+    r.z += acc[4 * i + 2];
+    r.w += acc[4 * i + 3];
+    sums[128 * i] = r;
+    acc[4 * i] = acc[4 * i + 1] = acc[4 * i + 2] = acc[4 * i + 3] = 0.f;
+  }
+}
+
 // The A fragment of k-step kk of a part: registers 4 kk .. 4 kk + 3.
 __device__ __forceinline__ void frag(const uint32_t (&part)[16], int kk,
                                      uint32_t (&a)[4]) {
@@ -346,8 +417,8 @@ __device__ __forceinline__ void frag(const uint32_t (&part)[16], int kk,
 
 // blockIdx.x -> (key tile, KV head, batch), key tile 0 (the most query
 // tiles) first (kernels/flash_attention.py: BwdPlan).
-template <int D>
-__global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
+template <int DR>
+__global__ void __launch_bounds__(Dkdv<tile_d(DR)>::kThreads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
@@ -357,6 +428,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             __nv_bfloat16* __restrict__ dk,
                             __nv_bfloat16* __restrict__ dv, Shape sh,
                             float scale) {
+  constexpr int D = tile_d(DR);
   using L = Dkdv<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -455,9 +527,21 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const uint32_t v_wg = k_wg + L::kV;
     const float scale_log2 = scale * kLog2e;
 
+    // the fold: the tensor cores' f32 sums drop low bits of addends much
+    // smaller than the sum (at S 4,096 and G 8 a key's dK and dV take 4,096
+    // wgmma adds, and drifted up to 2.1e-4 from the plain backward's on a
+    // unit-scale dO), so each kFoldTrips trips' products are added to f32
+    // running sums in shared memory and the accumulators cleared
     float acc_k[D / 2], acc_v[D / 2];
+    float4* sums_k =
+        reinterpret_cast<float4*>(sbase + L::kSums) + (wgi - 1) * 32 * D + t;
+    float4* sums_v = sums_k + 128 * (D / 8);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      sums_k[128 * i] = sums_v[128 * i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
 
     mbar_wait(kv_full, 0);
     for (int j = 0; j < n_trips; ++j) {
@@ -552,18 +636,30 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(empty0 + 8 * s);
+      if ((j + 1) % kFoldTrips == 0 || j + 1 == n_trips) {
+        fold_into(acc_k, sums_k);
+        fold_into(acc_v, sums_v);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const float4 rk = sums_k[128 * i], rv = sums_v[128 * i];
+      acc_k[4 * i] = rk.x, acc_k[4 * i + 1] = rk.y;
+      acc_k[4 * i + 2] = rk.z, acc_k[4 * i + 3] = rk.w;
+      acc_v[4 * i] = rv.x, acc_v[4 * i + 1] = rv.y;
+      acc_v[4 * i + 2] = rv.z, acc_v[4 * i + 3] = rv.w;
     }
 
-    // dK (times D^-0.5) and dV of keys < Sk, (B, Sk, K, D) contiguous
+    // dK (times D^-0.5) and dV of keys < Sk, (B, Sk, K, DR) contiguous
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = r0 + 8 * r;
       if (key >= sh.sk) continue;
       const long long off =
           ((static_cast<long long>(b) * sh.sk + key) * sh.n_kv_heads + kvh) *
-          D;
+          DR;
 #pragma unroll
-      for (int jb = 0; jb < D / 8; ++jb) {
+      for (int jb = 0; jb < DR / 8; ++jb) {
         const int i = 4 * jb + 2 * r;
         *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * jb + col0) =
             __floats2bfloat162_rn(acc_k[i] * scale, acc_k[i + 1] * scale);
@@ -576,8 +672,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // blockIdx.x -> (query tile, head, batch): the last query tile first over
 // every head and batch (the forward's launch_order at kBQ rows).
-template <int D>
-__global__ void __launch_bounds__(Dq<D>::kThreads, 1)
+template <int DR>
+__global__ void __launch_bounds__(Dq<tile_d(DR)>::kThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap,
@@ -586,6 +682,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const float* __restrict__ delta,
                           __nv_bfloat16* __restrict__ dq, Shape sh,
                           float scale) {
+  constexpr int D = tile_d(DR);
   using L = Dq<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -738,7 +835,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       if (lane == 0) mbar_arrive(empty0 + 8 * s);
     }
 
-    // dQ (times D^-0.5) of rows < Sq, (B, Sq, H, D) contiguous; rows that
+    // dQ (times D^-0.5) of rows < Sq, (B, Sq, H, DR) contiguous; rows that
     // see no key get 0
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -746,9 +843,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       if (row >= sh.sq) continue;
       __nv_bfloat16* out =
           dq + ((static_cast<long long>(b) * sh.sq + row) * sh.n_heads + h) *
-                   D;
+                   DR;
 #pragma unroll
-      for (int jb = 0; jb < D / 8; ++jb) {
+      for (int jb = 0; jb < DR / 8; ++jb) {
         const int i = 4 * jb + 2 * r;
         *reinterpret_cast<__nv_bfloat162*>(out + 8 * jb + col0) =
             __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
@@ -1036,11 +1133,12 @@ struct DkdvBlock {
 
 // One dkdv consumer warpgroup over the block's trips: kDV sums dV += P^T
 // dO (dO^T the B operand), else dK += dS^T q (q^T), and writes it (dK
-// times D^-0.5) for keys < Sk to `out`, (B, Sk, K, D) contiguous.
-template <int D, bool kDV>
+// times D^-0.5) for keys < Sk to `out`, (B, Sk, K, DR) contiguous.
+template <int DR, bool kDV>
 __device__ __forceinline__ void dkdv_consumer(const DkdvBlock blk,
                                               uint32_t parts, const Shape& sh,
                                               float scale, float* out) {
+  constexpr int D = tile_d(DR);
   using L = Dkdv<D>;
   const int t = threadIdx.x % 128;
   const int warp = t >> 5;
@@ -1178,9 +1276,9 @@ __device__ __forceinline__ void dkdv_consumer(const DkdvBlock blk,
     const int key = r0 + 8 * r;
     if (key >= sh.sk) continue;
     float* row = out + ((static_cast<long long>(blk.b) * sh.sk + key) *
-                            sh.n_kv_heads + blk.kvh) * D;
+                            sh.n_kv_heads + blk.kvh) * DR;
 #pragma unroll
-    for (int jb = 0; jb < D / 8; ++jb) {
+    for (int jb = 0; jb < DR / 8; ++jb) {
       const int i = 4 * jb + 2 * r;
       *reinterpret_cast<float2*>(row + 8 * jb + col0) =
           make_float2(acc[i] * mul, acc[i + 1] * mul);
@@ -1191,8 +1289,8 @@ __device__ __forceinline__ void dkdv_consumer(const DkdvBlock blk,
 // blockIdx.x -> (key tile, KV head, batch), key tile 0 (the most query
 // tiles) first (kernels/flash_attention.py: BwdPlan). Warpgroup 0 the
 // producer, 1 dV, 2 dK.
-template <int D>
-__global__ void __launch_bounds__(Dkdv<D>::kThreads, 1)
+template <int DR>
+__global__ void __launch_bounds__(Dkdv<tile_d(DR)>::kThreads, 1)
 flash_bwd_dkdv_wgmma_f32_kernel(const __grid_constant__ CUtensorMap qmap,
                                 const __grid_constant__ CUtensorMap kmap,
                                 const __grid_constant__ CUtensorMap vmap,
@@ -1202,6 +1300,7 @@ flash_bwd_dkdv_wgmma_f32_kernel(const __grid_constant__ CUtensorMap qmap,
                                 float* __restrict__ dk,
                                 float* __restrict__ dv, Shape sh,
                                 float scale) {
+  constexpr int D = tile_d(DR);
   using L = Dkdv<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -1305,17 +1404,17 @@ flash_bwd_dkdv_wgmma_f32_kernel(const __grid_constant__ CUtensorMap qmap,
     const DkdvBlock blk{base, sbase, full0, empty0, k0, kvh, b, offset,
                         first, n_per_head, n_trips};
     if (wgi == 1) {
-      dkdv_consumer<D, true>(blk, parts, sh, scale, dv);
+      dkdv_consumer<DR, true>(blk, parts, sh, scale, dv);
     } else {
-      dkdv_consumer<D, false>(blk, parts, sh, scale, dk);
+      dkdv_consumer<DR, false>(blk, parts, sh, scale, dk);
     }
   }
 }
 
 // blockIdx.x -> (64-row query tile, head, batch): the last query tile
 // first over every head and batch (the forward's launch_order at 64 rows).
-template <int D>
-__global__ void __launch_bounds__(Dq<D>::kThreads, 1)
+template <int DR>
+__global__ void __launch_bounds__(Dq<tile_d(DR)>::kThreads, 1)
 flash_bwd_dq_wgmma_f32_kernel(const __grid_constant__ CUtensorMap qmap,
                               const __grid_constant__ CUtensorMap kmap,
                               const __grid_constant__ CUtensorMap vmap,
@@ -1324,6 +1423,7 @@ flash_bwd_dq_wgmma_f32_kernel(const __grid_constant__ CUtensorMap qmap,
                               const float* __restrict__ delta,
                               float* __restrict__ dq, Shape sh,
                               float scale) {
+  constexpr int D = tile_d(DR);
   using L = Dq<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -1496,7 +1596,7 @@ flash_bwd_dq_wgmma_f32_kernel(const __grid_constant__ CUtensorMap qmap,
       }
     }
 
-    // dQ (times D^-0.5) of rows < Sq, (B, Sq, H, D) contiguous; rows that
+    // dQ (times D^-0.5) of rows < Sq, (B, Sq, H, DR) contiguous; rows that
     // see no key get 0
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -1504,9 +1604,9 @@ flash_bwd_dq_wgmma_f32_kernel(const __grid_constant__ CUtensorMap qmap,
       if (row >= sh.sq) continue;
       float* out =
           dq + ((static_cast<long long>(b) * sh.sq + row) * sh.n_heads + h) *
-                   D;
+                   DR;
 #pragma unroll
-      for (int jb = 0; jb < D / 8; ++jb) {
+      for (int jb = 0; jb < DR / 8; ++jb) {
         const int i = 4 * jb + 2 * r;
         *reinterpret_cast<float2*>(out + 8 * jb + col0) =
             make_float2(acc[i] * scale, acc[i + 1] * scale);
@@ -1517,15 +1617,520 @@ flash_bwd_dq_wgmma_f32_kernel(const __grid_constant__ CUtensorMap qmap,
 
 }  // namespace tf
 
-// plan (kernels/flash_attention.py: BwdPlan.args), 114 values: batch, sq,
-// sk, n_heads, n_kv_heads, d, dtype (0 f32, 1 bf16), the dkdv kernel's
-// query tiles and key tiles, the (batch, seq, head) element strides of q,
-// k, v, o and dO, the design (0: the f32 wgmma kernels, 1: the bf16
-// ones; it must be the dtype's), the dq kernel's query tiles, then the TMA
-// maps of q, k, v and dO for the dkdv kernel and again for the dq kernel,
-// 11 values each
+// ---------------------------------------------------------------------------
+// The short-sequence kernels (D = 8, 16 and 32, bf16 and f32): mma.sync
+// ---------------------------------------------------------------------------
+
+namespace mb {
+
+using namespace hopper::strip;
+using hopper::bits;
+using hopper::ex2;
+using hopper::smem_u32;
+using hopper::tf32;
+
+// x0, x1 as two bf16 parts each, packed as A-fragment registers: hi =
+// bf16(x), lo = bf16(x - hi), hi + lo = x to 2^-17.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
+}
+
+// x as the TF32 operands of three products: hi = tf32(x), lo = tf32(x -
+// hi); hi + lo is x to 2^-22 of it.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  const float h = tf32(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(tf32(x - h));
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
+}
+
+// c = A B^T (16 x 32, f32, 4 n8 accumulators): A the warp's 16 strip rows
+// at `a`, B the 32 rows of a tile at `b` (shared addresses, rows of D
+// elements padded to Rows::kRS), both as stored (the row the M or N side,
+// the head dim the depth). bf16: D/16 k16 steps of one product (the
+// operands are bf16 inputs: exact in f32); at D 8 the step reads the 8
+// zero columns of the padding. f32: D/8 k8 steps of three TF32 products of
+// the operands' hi and lo parts, the smallest first (f32 precision; A_lo
+// B_lo, 2^-22 of A B, dropped). Fragments by ldmatrix as the forward's:
+// lane (g, t) gets row g, elements 2t, 2t + 1 (bf16) or t (f32) of each
+// 8x8 matrix.
+template <typename T, int D>
+__device__ __forceinline__ void logits(float (&c)[4][4], uint32_t a,
+                                       uint32_t b, int lane) {
+  using R = Rows<T, D>;
+  constexpr int kRS = R::kRS;
+  zero(c);
+  const int ra = (lane & 7) + (((lane >> 3) & 1) << 3);
+  if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t x[4], ah[4], al[4];
+      ldsm_x4(x, a + 4 * (ra * kRS + kk * 8 + (lane >> 4) * 4));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        split_tf32(__uint_as_float(x[e]), ah[e], al[e]);
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t y[4], bh[4], bl[4];
+        const int row = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int col = kk * 8 + (((lane >> 3) & 1) << 2);
+        ldsm_x4(y, b + 4 * (row * kRS + col));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          split_tf32(__uint_as_float(y[e]), bh[e], bl[e]);
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          float(&cc)[4] = c[2 * np + n];
+          mma_tf32(cc, al, bh[2 * n], bh[2 * n + 1]);
+          mma_tf32(cc, ah, bl[2 * n], bl[2 * n + 1]);
+          mma_tf32(cc, ah, bh[2 * n], bh[2 * n + 1]);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < (D + 15) / 16; ++kk) {
+      uint32_t x[4];
+      ldsm_x4(x, a + 2 * (ra * kRS + kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t y[4];
+        const int row = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int col = kk * 16 + (((lane >> 3) & 1) << 3);
+        ldsm_x4(y, b + 2 * (row * kRS + col));
+        mma_bf16(c[2 * np], x, y[0], y[1]);
+        mma_bf16(c[2 * np + 1], x, y[2], y[3]);
+      }
+    }
+  }
+}
+
+// c += X Y (16 x D, D/8 n8 accumulators): X (16 x 32, f32) in the
+// accumulator layout of `logits`, Y the 32 rows of a tile (D columns) at
+// shared address `y` (f32: also `ys`, the same tile as a pointer), the
+// tile's row the depth. bf16: per 16 rows X's A fragment as two bf16
+// parts (each its own product, f32 precision) and Y by ldmatrix.trans. f32:
+// per 8 rows X's A fragment is the accumulator of n8 tile kk as c0, c2, c1,
+// c3 (k slot t is row 2t, t + 4 row 2t + 1), so Y's B fragment is rows 2t
+// and 2t + 1 at column g (scalar shared loads, no register moved between
+// lanes), three TF32 products each.
+template <typename T, int D>
+__device__ __forceinline__ void accumulate(float (&c)[D / 8][4],
+                                           const float (&x)[4][4], uint32_t y,
+                                           const T* ys, int lane) {
+  using R = Rows<T, D>;
+  constexpr int kRS = R::kRS;
+  if constexpr (std::is_same_v<T, float>) {
+    const int g = lane >> 2;
+    const int t = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ah[4], al[4];
+      split_tf32(x[kk][0], ah[0], al[0]);
+      split_tf32(x[kk][2], ah[1], al[1]);
+      split_tf32(x[kk][1], ah[2], al[2]);
+      split_tf32(x[kk][3], ah[3], al[3]);
+      const float* y0 = ys + (8 * kk + 2 * t) * kRS + g;
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        uint32_t bh[2], bl[2];
+        split_tf32(y0[8 * dn], bh[0], bl[0]);
+        split_tf32(y0[kRS + 8 * dn], bh[1], bl[1]);
+        mma_tf32(c[dn], al, bh[0], bh[1]);
+        mma_tf32(c[dn], ah, bl[0], bl[1]);
+        mma_tf32(c[dn], ah, bh[0], bh[1]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* xc = x[2 * kk + (e >> 1)];
+        const int r = e & 1;
+        split_bf16(xc[2 * r], xc[2 * r + 1], hi[e], lo[e]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < (D + 15) / 16; ++dp) {
+        uint32_t b[4];
+        const int row = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+        const int col = dp * 16 + ((lane >> 4) << 3);
+        ldsm_x4_t(b, y + 2 * (row * kRS + col));
+        mma_bf16(c[2 * dp], lo, b[0], b[1]);
+        mma_bf16(c[2 * dp], hi, b[0], b[1]);
+        if constexpr (D >= 16) {
+          mma_bf16(c[2 * dp + 1], lo, b[2], b[3]);
+          mma_bf16(c[2 * dp + 1], hi, b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// acc += c, f32 adds (the tensor cores' sums drop low bits of addends
+// much smaller than the sum: each trip's products go into a fresh c)
+template <int N>
+__device__ __forceinline__ void fold(float (&acc)[N][4],
+                                     const float (&c)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] += c[i][e];
+  }
+}
+
+// The warp's 16 x D result (rows row0 + g and row0 + g + 8 of the
+// accumulators, times mul) to out, rows of D elements `rs` apart, rows <
+// n_rows only.
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* out, long long rs,
+                                           const float (&acc)[D / 8][4],
+                                           float mul, int row0, int n_rows,
+                                           int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= n_rows) continue;
+    T* o = out + row * rs + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      const float x0 = acc[dt][2 * r] * mul, x1 = acc[dt][2 * r + 1] * mul;
+      if constexpr (std::is_same_v<T, float>) {
+        *reinterpret_cast<float2*>(o + 8 * dt) = make_float2(x0, x1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(o + 8 * dt) =
+            __floats2bfloat162_rn(x0, x1);
+      }
+    }
+  }
+}
+
+// Shared memory of the dq kernel, bytes: the block's q rows, then its dO
+// rows (as the forward's q region each), then per stage the K tiles of the
+// KV heads and their V tiles (the forward's stage).
+__host__ __device__ constexpr int dq_smem(int d, int es, int warps, int hb,
+                                          int nkv, int stages) {
+  return smem_bytes(d, es, warps, hb, nkv, stages) +
+         es * q_elems(d + kVecBytes / es, warps, hb, kVecBytes / es);
+}
+
+// Shared memory of the dkdv kernel, bytes: the block's K strip rows, its V
+// strip rows, per stage the q tiles of the hb query heads of a trip and
+// their dO tiles, then per stage those heads' lse (log2 units) and delta
+// rows (f32, kBK each).
+__host__ __device__ constexpr int dkdv_smem(int d, int es, int warps, int hb,
+                                            int stages) {
+  return smem_bytes(d, es, warps, hb, hb, stages) +
+         es * q_elems(d + kVecBytes / es, warps, hb, kVecBytes / es) +
+         stages * 2 * hb * kBK * 4;
+}
+
+// dQ_i = D^-0.5 sum_j dS_ij k_j of a 16-row query strip of one (head,
+// batch) a warp, packed as the forward's (hopper.cuh: unit_of;
+// kernels/flash_attention.py: mma_units): the block copies its q and dO
+// rows once, then each 32-key K and V tile of its KV heads through two
+// stages (one where a strip visits one tile). Per tile a warp forms S = q
+// K^T and dP = dO V^T (`logits`), P = exp2(S D^-0.5 log2(e) - lse) and dS
+// = P (dP - delta) in f32 on the accumulators (0 where masked, only on
+// tiles that cross the diagonal or Sk), and dQ += dS K (`accumulate`, K
+// the tile), into a fresh accumulator folded into the f32 sums.
+template <typename T, int D>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dO,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        Shape sh, Pack pk, Strides qst, Strides kst,
+                        Strides vst, Strides dst, float scale) {
+  using R = Rows<T, D>;
+  constexpr int kRS = R::kRS;
+  constexpr int kEs = R::kEs;
+  extern __shared__ float4 smem4[];
+  T* sm = reinterpret_cast<T*>(smem4);
+  const uint32_t sbase = smem_u32(sm);
+
+  const int warps = pk.sb * pk.hb;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const Unit u = unit_of(pk, sh.batch, sh.group, sh.sq, sh.sk, warp);
+  const int offset = sh.sk - sh.sq;
+  const int q_sz = q_elems(kRS, warps, pk.hb, R::kVec);
+  const int tile_sz = tile_elems(kRS, R::kVec);
+  const int stage_sz = 2 * pk.nkv * tile_sz;
+  const uint32_t q_warp = sbase + kEs * (warp * kRows * kRS + u.hw * R::kVec);
+  const uint32_t do_warp = q_warp + kEs * q_sz;
+
+  if constexpr (kEs == 2 && D % 16 != 0) {
+    // the padding pieces that the k16 steps read as head-dim columns
+    const int n = dq_smem(D, 2, warps, pk.hb, pk.nkv, pk.stages) / 16;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();
+  }
+  copy_q<T, D>(sbase, q, u, pk, qst, sh.sq);
+  copy_q<T, D>(sbase + kEs * q_sz, dO, u, pk, dst, sh.sq);
+  if (u.n_tiles > 0) {
+    copy_kv<T, D>(sbase + kEs * 2 * q_sz, k, v, u, pk, kst, vst, 0, sh.sk,
+                  tile_sz);
+  }
+  cp_commit();
+
+  // the rows' lse (log2 units) and delta, 0 past Sq
+  const int h = u.h0 + u.hw;
+  const long long rows =
+      (static_cast<long long>(u.b) * sh.n_heads + h) * sh.sq;
+  float lr[2], dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = u.row0 + g + 8 * r;
+    lr[r] = row < sh.sq ? lse[rows + row] * kLog2e : 0.f;
+    dr[r] = row < sh.sq ? delta[rows + row] : 0.f;
+  }
+  const float scale_log2 = scale * kLog2e;
+  float acc[D / 8][4];
+  zero(acc);
+
+  for (int j = 0; j < u.n_tiles; ++j) {
+    if (j + 1 < u.n_tiles) {
+      copy_kv<T, D>(sbase + kEs * (2 * q_sz + ((j + 1) & 1) * stage_sz), k,
+                    v, u, pk, kst, vst, j + 1, sh.sk, tile_sz);
+    }
+    cp_commit();
+    cp_wait<1>();     // every group but the newest: tile j (and q, dO)
+    __syncthreads();
+    if (j < u.my_trips) {
+      const int kt_el = 2 * q_sz + (j & 1) * stage_sz + u.kvi * tile_sz;
+      const uint32_t kt = sbase + kEs * kt_el;
+      const uint32_t vt = kt + kEs * pk.nkv * tile_sz;
+      float sc[4][4], dp[4][4];
+      logits<T, D>(sc, q_warp, kt, lane);
+      logits<T, D>(dp, do_warp, vt, lane);
+      const int k0 = j * kBK;
+      const int row_pos = offset + u.row0;
+      const bool edge = k0 + kBK - 1 > row_pos || k0 + kBK > sh.sk;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          float p = ex2(fmaf(sc[nt][i], scale_log2, -lr[r]));
+          if (edge) {
+            const int key = k0 + 8 * nt + 2 * t + (i & 1);
+            if (key > row_pos + g + 8 * r || key >= sh.sk) p = 0.f;
+          }
+          dp[nt][i] = p * (dp[nt][i] - dr[r]);
+        }
+      }
+      float c[D / 8][4];
+      zero(c);
+      accumulate<T, D>(c, dp, kt, sm + kt_el, lane);
+      fold(acc, c);
+    }
+    if (j + 1 < u.n_tiles) __syncthreads();  // stage j & 1 read by all
+  }
+  cp_wait<0>();
+
+  // dQ (times D^-0.5) of rows < Sq, (B, Sq, H, D) contiguous; rows that
+  // see no key get 0
+  store_rows<T, D>(dq + (static_cast<long long>(u.b) * sh.sq * sh.n_heads +
+                         h) * D,
+                   static_cast<long long>(sh.n_heads) * D, acc, scale,
+                   u.row0, sh.sq, lane);
+}
+
+// dK_j = D^-0.5 sum_i dS_ij q_i and dV_j = sum_i P_ij dO_i of a 16-key
+// strip of one (KV head, batch) a warp. A block packs sb consecutive key
+// strips of hb consecutive KV heads of one batch element
+// (kernels/flash_attention.py: mma_bwd_plan); blockIdx.x -> (strip group
+// x / (n_hg B), head group x % (n_hg B) % n_hg, batch x % (n_hg B) / n_hg),
+// strip group 0 (the most query tiles) first; warp w takes strip w % sb of
+// KV head w / sb. The block copies its K and V strips once, then, for each
+// of the G query heads of its KV heads and each 32-row query tile from the
+// first that sees one of its keys (a trip), the hb query heads' q and dO
+// tiles and their lse and delta rows, through two stages (one where the
+// plan has one trip). Per trip a warp forms S^T = K q^T and dP^T = V dO^T
+// with its keys as the M side (`logits`), P^T and dS^T = P^T (dP^T -
+// delta) on the accumulators (0 where masked), and dV += P^T dO, dK +=
+// dS^T q (`accumulate`, dO and q the tiles), each into a fresh accumulator
+// folded into the f32 sums. A trip where the warp's keys follow every
+// query is skipped.
+template <typename T, int D>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dO,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, Shape sh,
+                          Pack pk, Strides qst, Strides kst, Strides vst,
+                          Strides dst, float scale) {
+  using R = Rows<T, D>;
+  constexpr int kRS = R::kRS;
+  constexpr int kEs = R::kEs;
+  extern __shared__ float4 smem4[];
+  T* sm = reinterpret_cast<T*>(smem4);
+  const uint32_t sbase = smem_u32(sm);
+
+  const int warps = pk.sb * pk.hb;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // the block's keys and KV heads (Unit's rows are keys here, its heads
+  // KV heads; the trip's query heads are (kv0 + i) G + gi)
+  Unit u;
+  const int per = pk.n_hg * sh.batch;
+  const int bid = static_cast<int>(blockIdx.x);
+  u.h0 = u.kv0 = bid % per % pk.n_hg * pk.hb;
+  u.b = bid % per / pk.n_hg;
+  u.nkv = pk.hb;
+  u.rows = pk.sb * kRows;
+  u.row_blk = bid / per * u.rows;
+  u.hw = u.kvi = warp / pk.sb;
+  u.row0 = u.row_blk + (warp % pk.sb) * kRows;
+  u.my_trips = u.n_tiles = 0;
+  const int offset = sh.sk - sh.sq;
+  const int n_q_tiles = (sh.sq + kBK - 1) / kBK;
+  const int first = max(u.row_blk - offset, 0) / kBK;
+  const int n_per_head = n_q_tiles - first;
+  const int n_trips = sh.group * n_per_head;
+
+  const int q_sz = q_elems(kRS, warps, pk.hb, R::kVec);
+  const int tile_sz = tile_elems(kRS, R::kVec);
+  const int stage_sz = 2 * pk.hb * tile_sz;
+  const int strip_el = warp * kRows * kRS + u.hw * R::kVec;
+  const uint32_t k_warp = sbase + kEs * strip_el;
+  const uint32_t v_warp = k_warp + kEs * q_sz;
+  float* lsd = reinterpret_cast<float*>(
+      reinterpret_cast<uint8_t*>(sm) +
+      kEs * (2 * q_sz + pk.stages * stage_sz));
+
+  if constexpr (kEs == 2 && D % 16 != 0) {
+    const int n = dkdv_smem(D, 2, warps, pk.hb, pk.stages) / 16;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();
+  }
+  // trip j's q and dO tiles (cp.async) and its lse and delta rows (plain
+  // stores, read after the barrier that follows the stage's wait) into
+  // stage `st`
+  const auto load_trip = [&](int j, int st) {
+    const int gi = j / n_per_head;
+    const int jt = first + j % n_per_head;
+    copy_kv<T, D>(sbase + kEs * (2 * q_sz + st * stage_sz),
+                  q + gi * qst.h, dO + gi * dst.h, u, pk,
+                  Strides{qst.b, qst.s, qst.h * sh.group},
+                  Strides{dst.b, dst.s, dst.h * sh.group}, jt, sh.sq,
+                  tile_sz);
+    float* ls = lsd + st * 2 * pk.hb * kBK;
+    for (int c = threadIdx.x; c < pk.hb * kBK; c += blockDim.x) {
+      const int row = jt * kBK + c % kBK;
+      const int head = (u.h0 + c / kBK) * sh.group + gi;
+      const long long at =
+          (static_cast<long long>(u.b) * sh.n_heads + head) * sh.sq + row;
+      const bool ok = row < sh.sq;
+      ls[c] = ok ? lse[at] * kLog2e : 0.f;
+      ls[pk.hb * kBK + c] = ok ? delta[at] : 0.f;
+    }
+  };
+  copy_q<T, D>(sbase, k, u, pk, kst, sh.sk);
+  copy_q<T, D>(sbase + kEs * q_sz, v, u, pk, vst, sh.sk);
+  load_trip(0, 0);
+  cp_commit();
+
+  const float scale_log2 = scale * kLog2e;
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+  zero(acc_k);
+  zero(acc_v);
+
+  for (int j = 0; j < n_trips; ++j) {
+    if (j + 1 < n_trips) load_trip(j + 1, (j + 1) & 1);
+    cp_commit();
+    cp_wait<1>();     // every group but the newest: trip j (and K, V)
+    __syncthreads();
+    const int s = j & 1;
+    const int q0 = (first + j % n_per_head) * kBK;
+    if (u.row0 < sh.sk && u.row0 <= offset + min(q0 + kBK, sh.sq) - 1) {
+      const int qt_el = 2 * q_sz + s * stage_sz + u.hw * tile_sz;
+      const int dt_el = qt_el + pk.hb * tile_sz;
+      const float* ls = lsd + s * 2 * pk.hb * kBK + u.hw * kBK;
+      const float* ds = ls + pk.hb * kBK;
+      float st[4][4], dpt[4][4];
+      logits<T, D>(st, k_warp, sbase + kEs * qt_el, lane);
+      logits<T, D>(dpt, v_warp, sbase + kEs * dt_el, lane);
+      const bool edge = u.row0 + kRows - 1 > offset + q0 ||
+                        u.row0 + kRows > sh.sk || q0 + kBK > sh.sq;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = 8 * nt + 2 * t + (i & 1);
+          float p = ex2(fmaf(st[nt][i], scale_log2, -ls[col]));
+          if (edge) {
+            const int key = u.row0 + g + 8 * (i >> 1);
+            if (key >= sh.sk || key > offset + q0 + col ||
+                q0 + col >= sh.sq) {
+              p = 0.f;
+            }
+          }
+          st[nt][i] = p;
+          dpt[nt][i] = p * (dpt[nt][i] - ds[col]);
+        }
+      }
+      float c[D / 8][4];
+      zero(c);
+      accumulate<T, D>(c, st, sbase + kEs * dt_el, sm + dt_el, lane);
+      fold(acc_v, c);
+      zero(c);
+      accumulate<T, D>(c, dpt, sbase + kEs * qt_el, sm + qt_el, lane);
+      fold(acc_k, c);
+    }
+    if (j + 1 < n_trips) __syncthreads();  // stage j & 1 read by all
+  }
+  cp_wait<0>();
+
+  // dK (times D^-0.5) and dV of keys < Sk, (B, Sk, K, D) contiguous
+  const long long at =
+      (static_cast<long long>(u.b) * sh.sk * sh.n_kv_heads + u.h0 + u.hw) * D;
+  const long long rs = static_cast<long long>(sh.n_kv_heads) * D;
+  store_rows<T, D>(dk + at, rs, acc_k, scale, u.row0, sh.sk, lane);
+  store_rows<T, D>(dv + at, rs, acc_v, 1.f, u.row0, sh.sk, lane);
+}
+
+}  // namespace mb
+
+// plan (kernels/flash_attention.py: BwdPlan.args), 114 values, 125 for
+// the mma designs: batch, sq, sk, n_heads, n_kv_heads, d, dtype (0 f32, 1
+// bf16), the dkdv kernel's query tiles and key tiles (mma: 32-row query
+// tiles and 16-key strips), the (batch, seq, head) element strides of q,
+// k, v, o and dO, the design (0: the f32 wgmma kernels, 1: the bf16 ones,
+// at d 64, 112 and 128; 2: the f32 mma kernels, 3: the bf16 ones, at d 8,
+// 16 and 32; it must be the dtype's and d's), the dq kernel's query tiles
+// (mma: 16-row strips), then the TMA maps of q, k, v and dO for the dkdv
+// kernel and again for the dq kernel, 11 values each (zeros for the mma
+// designs); the mma designs append dkdv's packing (strips and KV heads a
+// block, stages, blocks, shared-memory bytes) and dq's (strips and heads a
+// block, KV heads a block, stages, blocks, shared-memory bytes)
 constexpr int kPlanMaps = 26;
 constexpr int kMapLongs = 11;
+constexpr int kPlanMma = kPlanMaps + 8 * kMapLongs;
 
 struct Args {
   Shape sh;
@@ -1533,8 +2138,10 @@ struct Args {
   Strides qst, kst, vst, ost, dst;
 };
 
+bool wide(int d) { return d == 64 || d == 112 || d == 128; }
+
 // (dkdv query rows a trip, dkdv keys a block, dq query rows a block) of a
-// design at D
+// design at D (the tile's D)
 template <int D>
 void tiles(int design, int& bq, int& bk, int& dq_bq) {
   if (design == 0) {
@@ -1563,16 +2170,17 @@ bool parse(const long long* p, Args& a) {
   a.dst = Strides{p[21], p[22], p[23]};
   a.design = static_cast<int>(p[24]);
   a.dq_q_tiles = static_cast<int>(p[25]);
+  const bool narrow = a.d == 8 || a.d == 16 || a.d == 32;
   if (a.sh.n_kv_heads <= 0 || a.sh.n_heads % a.sh.n_kv_heads != 0 ||
-      (a.d != 64 && a.d != 128) || (a.dtype != 0 && a.dtype != 1) ||
-      a.design != a.dtype || a.sh.batch <= 0 || a.sh.sq <= 0 ||
-      a.sh.sk <= 0) {
+      (!wide(a.d) && !narrow) || (a.dtype != 0 && a.dtype != 1) ||
+      a.design != (narrow ? 2 : 0) + a.dtype || a.sh.batch <= 0 ||
+      a.sh.sq <= 0 || a.sh.sk <= 0) {
     return false;
   }
-  int bq, bk, dq_bq;
+  int bq = mb::kBK, bk = mb::kRows, dq_bq = mb::kRows;
   if (a.d == 64) {
     tiles<64>(a.design, bq, bk, dq_bq);
-  } else {
+  } else if (a.d == 112 || a.d == 128) {
     tiles<128>(a.design, bq, bk, dq_bq);
   }
   if (a.n_q_tiles != (a.sh.sq + bq - 1) / bq ||
@@ -1587,7 +2195,7 @@ bool parse(const long long* p, Args& a) {
 template <typename T, int D>
 int delta_launch(const void* o, const void* dO, float* delta, const Args& a,
                  cudaStream_t s) {
-  constexpr int rows_per_block = kThreads / (D / 4);
+  constexpr int rows_per_block = kThreads / delta_lanes(D);
   const long long n_rows =
       static_cast<long long>(a.sh.batch) * a.sh.n_heads * a.sh.sq;
   const long long blocks = (n_rows + rows_per_block - 1) / rows_per_block;
@@ -1624,61 +2232,220 @@ int launch_maps(Kernel kernel, const CUtensorMap (&m)[4], long long blocks,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dkdv of the f32 design (the tf kernel) or the bf16 one (wg): a block per
-// (key tile, KV head, batch)
-template <int D, bool kF32>
+// dkdv of the f32 design (the tf kernel) or the bf16 one (wg) at the
+// tensors' head dim DR (D 112 in D 128's tiles): a block per (key tile, KV
+// head, batch)
+template <int DR, bool kF32>
 int dkdv_launch(const void* q, const void* k, const void* v, const void* dO,
                 const float* lse, const float* delta, void* dk, void* dv,
                 const Args& a, const long long* plan, float scale,
                 cudaStream_t s) {
+  constexpr int D = tile_d(DR);
   using L = std::conditional_t<kF32, tf::Dkdv<D>, wg::Dkdv<D>>;
   using Out = std::conditional_t<kF32, float, __nv_bfloat16>;
   CUtensorMap m[4];
-  if (!encode_qkvd<D>(m, q, k, v, dO, plan + kPlanMaps, L::kBQ, L::kBK,
-                      kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                      kF32 ? tf::kCols : wg::kCols)) {
+  if (!encode_qkvd<DR>(m, q, k, v, dO, plan + kPlanMaps, L::kBQ, L::kBK,
+                       kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                       kF32 ? tf::kCols : wg::kCols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   static std::atomic<unsigned long long> opted{0};
   const long long blocks =
       static_cast<long long>(a.n_k_tiles) * a.sh.n_kv_heads * a.sh.batch;
   if constexpr (kF32) {
-    return launch_maps<L>(tf::flash_bwd_dkdv_wgmma_f32_kernel<D>, m, blocks,
+    return launch_maps<L>(tf::flash_bwd_dkdv_wgmma_f32_kernel<DR>, m, blocks,
                           opted, s, lse, delta, static_cast<Out*>(dk),
                           static_cast<Out*>(dv), a.sh, scale);
   } else {
-    return launch_maps<L>(wg::flash_bwd_dkdv_wgmma_kernel<D>, m, blocks,
+    return launch_maps<L>(wg::flash_bwd_dkdv_wgmma_kernel<DR>, m, blocks,
                           opted, s, lse, delta, static_cast<Out*>(dk),
                           static_cast<Out*>(dv), a.sh, scale);
   }
 }
 
-// dq of either design: a block per (query tile, head, batch)
-template <int D, bool kF32>
+// dq of either wgmma design: a block per (query tile, head, batch)
+template <int DR, bool kF32>
 int dq_launch(const void* q, const void* k, const void* v, const void* dO,
               const float* lse, const float* delta, void* dq, const Args& a,
               const long long* plan, float scale, cudaStream_t s) {
+  constexpr int D = tile_d(DR);
   using L = std::conditional_t<kF32, tf::Dq<D>, wg::Dq<D>>;
   using Out = std::conditional_t<kF32, float, __nv_bfloat16>;
   CUtensorMap m[4];
-  if (!encode_qkvd<D>(m, q, k, v, dO, plan + kPlanMaps + 4 * kMapLongs,
-                      L::kBQ, L::kBK,
-                      kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                      kF32 ? tf::kCols : wg::kCols)) {
+  if (!encode_qkvd<DR>(m, q, k, v, dO, plan + kPlanMaps + 4 * kMapLongs,
+                       L::kBQ, L::kBK,
+                       kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                       kF32 ? tf::kCols : wg::kCols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   static std::atomic<unsigned long long> opted{0};
   const long long blocks =
       static_cast<long long>(a.dq_q_tiles) * a.sh.n_heads * a.sh.batch;
   if constexpr (kF32) {
-    return launch_maps<L>(tf::flash_bwd_dq_wgmma_f32_kernel<D>, m, blocks,
+    return launch_maps<L>(tf::flash_bwd_dq_wgmma_f32_kernel<DR>, m, blocks,
                           opted, s, lse, delta, static_cast<Out*>(dq), a.sh,
                           scale);
   } else {
-    return launch_maps<L>(wg::flash_bwd_dq_wgmma_kernel<D>, m, blocks, opted,
+    return launch_maps<L>(wg::flash_bwd_dq_wgmma_kernel<DR>, m, blocks, opted,
                           s, lse, delta, static_cast<Out*>(dq), a.sh, scale);
+  }
+}
+
+// The mma designs' packing from the plan (`mp`: strips and heads a block,
+// then, for dq, KV heads a block; stages, blocks, shared-memory bytes),
+// checked against what it implies: `n_strips` strips over `n_heads` heads
+// (dkdv: key strips over the KV heads, one query head of each a trip; dq:
+// query strips over the heads, as the forward's), `trips` the most tiles a
+// block visits. false where it disagrees.
+template <int D>
+bool mma_pack(const long long* mp, bool dq, int n_strips, int n_heads,
+              int group, int batch, int trips, int es, mb::Pack& pk,
+              long long& blocks, int& smem) {
+  pk = mb::Pack{static_cast<int>(mp[0]), static_cast<int>(mp[1]), 0, 0, 0,
+                0};
+  if (pk.sb < 1 || pk.hb < 1 || pk.sb * pk.hb > mb::kMaxWarps ||
+      n_heads % pk.hb != 0) {
+    return false;
+  }
+  int nkv = pk.hb;
+  if (dq) {
+    nkv = 0;
+    for (int h0 = 0; h0 < n_heads; h0 += pk.hb) {
+      const int n = (h0 + pk.hb - 1) / group - h0 / group + 1;
+      nkv = n > nkv ? n : nkv;
+    }
+  }
+  const long long* rest = mp + (dq ? 3 : 2);
+  pk.nkv = nkv;
+  pk.stages = trips > 1 ? 2 : 1;
+  pk.n_sg = (n_strips + pk.sb - 1) / pk.sb;
+  pk.n_hg = n_heads / pk.hb;
+  blocks = static_cast<long long>(pk.n_sg) * pk.n_hg * batch;
+  const int warps = pk.sb * pk.hb;
+  smem = dq ? mb::dq_smem(D, es, warps, pk.hb, nkv, pk.stages)
+            : mb::dkdv_smem(D, es, warps, pk.hb, pk.stages);
+  return (!dq || mp[2] == nkv) && rest[0] == pk.stages &&
+         rest[1] == blocks && rest[2] == smem;
+}
+
+template <typename T, int D>
+int dkdv_mma_launch(const void* q, const void* k, const void* v,
+                    const void* dO, const float* lse, const float* delta,
+                    void* dk, void* dv, const Args& a, const long long* plan,
+                    float scale, cudaStream_t s) {
+  constexpr int es = static_cast<int>(sizeof(T));
+  mb::Pack pk;
+  long long blocks;
+  int smem;
+  if (!mma_pack<D>(plan + kPlanMma, false, a.n_k_tiles, a.sh.n_kv_heads,
+                   a.sh.group, a.sh.batch, a.sh.group * a.n_q_tiles, es, pk,
+                   blocks, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = &mb::flash_bwd_dkdv_mma_kernel<T, D>;
+  static std::atomic<unsigned long long> opted{0};
+  const cudaError_t err = hopper::opt_in(
+      kernel, mb::dkdv_smem(D, es, mb::kMaxWarps, mb::kMaxWarps, 2), opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), pk.sb * pk.hb * 32, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dO), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), a.sh, pk, a.qst, a.kst, a.vst,
+      a.dst, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int dq_mma_launch(const void* q, const void* k, const void* v,
+                  const void* dO, const float* lse, const float* delta,
+                  void* dq, const Args& a, const long long* plan, float scale,
+                  cudaStream_t s) {
+  constexpr int es = static_cast<int>(sizeof(T));
+  mb::Pack pk;
+  long long blocks;
+  int smem;
+  const int n_tiles = (a.sh.sk + mb::kBK - 1) / mb::kBK;
+  if (!mma_pack<D>(plan + kPlanMma + 5, true, a.dq_q_tiles, a.sh.n_heads,
+                   a.sh.group, a.sh.batch, n_tiles, es, pk, blocks, smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = &mb::flash_bwd_dq_mma_kernel<T, D>;
+  static std::atomic<unsigned long long> opted{0};
+  const cudaError_t err = hopper::opt_in(
+      kernel,
+      mb::dq_smem(D, es, mb::kMaxWarps, mb::kMaxWarps, mb::kMaxWarps, 2),
+      opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), pk.sb * pk.hb * 32, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dO), lse, delta,
+      static_cast<T*>(dq), a.sh, pk, a.qst, a.kst, a.vst, a.dst, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+using DeltaFn = int (*)(const void*, const void*, float*, const Args&,
+                        cudaStream_t);
+using DkdvFn = int (*)(const void*, const void*, const void*, const void*,
+                       const float*, const float*, void*, void*, const Args&,
+                       const long long*, float, cudaStream_t);
+using DqFn = int (*)(const void*, const void*, const void*, const void*,
+                     const float*, const float*, void*, const Args&,
+                     const long long*, float, cudaStream_t);
+
+// The launch of each kernel for a parsed plan's design and head dim.
+template <typename T>
+DeltaFn delta_fn(int d) {
+  switch (d) {
+    case 8: return &delta_launch<T, 8>;
+    case 16: return &delta_launch<T, 16>;
+    case 32: return &delta_launch<T, 32>;
+    case 64: return &delta_launch<T, 64>;
+    case 112: return &delta_launch<T, 112>;
+    default: return &delta_launch<T, 128>;
+  }
+}
+
+DkdvFn dkdv_fn(const Args& a) {
+  switch (a.design) {
+    case 0:
+      return a.d == 64    ? &dkdv_launch<64, true>
+             : a.d == 112 ? &dkdv_launch<112, true>
+                          : &dkdv_launch<128, true>;
+    case 1:
+      return a.d == 64    ? &dkdv_launch<64, false>
+             : a.d == 112 ? &dkdv_launch<112, false>
+                          : &dkdv_launch<128, false>;
+    case 2:
+      return a.d == 8    ? &dkdv_mma_launch<float, 8>
+             : a.d == 16 ? &dkdv_mma_launch<float, 16>
+                         : &dkdv_mma_launch<float, 32>;
+    default:
+      return a.d == 8    ? &dkdv_mma_launch<__nv_bfloat16, 8>
+             : a.d == 16 ? &dkdv_mma_launch<__nv_bfloat16, 16>
+                         : &dkdv_mma_launch<__nv_bfloat16, 32>;
+  }
+}
+
+DqFn dq_fn(const Args& a) {
+  switch (a.design) {
+    case 0:
+      return a.d == 64    ? &dq_launch<64, true>
+             : a.d == 112 ? &dq_launch<112, true>
+                          : &dq_launch<128, true>;
+    case 1:
+      return a.d == 64    ? &dq_launch<64, false>
+             : a.d == 112 ? &dq_launch<112, false>
+                          : &dq_launch<128, false>;
+    case 2:
+      return a.d == 8    ? &dq_mma_launch<float, 8>
+             : a.d == 16 ? &dq_mma_launch<float, 16>
+                         : &dq_mma_launch<float, 32>;
+    default:
+      return a.d == 8    ? &dq_mma_launch<__nv_bfloat16, 8>
+             : a.d == 16 ? &dq_mma_launch<__nv_bfloat16, 16>
+                         : &dq_mma_launch<__nv_bfloat16, 32>;
   }
 }
 
@@ -1688,20 +2455,17 @@ int dq_launch(const void* q, const void* k, const void* v, const void* dO,
 // cudaErrorInvalidValue for a plan the kernels do not take (an empty axis
 // included: the wrapper launches nothing then). delta and lse are
 // (B, H, Sq) f32 contiguous; dq (B, Sq, H, D), dk and dv (B, Sk, K, D)
-// contiguous in the operands' dtype. f32 takes the tf kernels, bf16 the
-// wg ones; the delta kernel takes both.
+// contiguous in the operands' dtype. f32 takes the tf kernels at d 64,
+// 112 and 128 and the mb f32 ones at d 8, 16 and 32, bf16 the wg and the
+// mb bf16 ones; the delta kernel takes both.
 extern "C" int flash_bwd_delta_launch(const void* o, const void* dO,
                                       float* delta, const long long* plan,
                                       void* stream) {
   Args a;
   if (!parse(plan, a)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (a.dtype == 1) {
-    return a.d == 64 ? delta_launch<__nv_bfloat16, 64>(o, dO, delta, a, s)
-                     : delta_launch<__nv_bfloat16, 128>(o, dO, delta, a, s);
-  }
-  return a.d == 64 ? delta_launch<float, 64>(o, dO, delta, a, s)
-                   : delta_launch<float, 128>(o, dO, delta, a, s);
+  const auto fn = a.dtype == 1 ? delta_fn<__nv_bfloat16>(a.d)
+                               : delta_fn<float>(a.d);
+  return fn(o, dO, delta, a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_bwd_dkdv_launch(const void* q, const void* k,
@@ -1712,17 +2476,8 @@ extern "C" int flash_bwd_dkdv_launch(const void* q, const void* k,
                                      void* stream) {
   Args a;
   if (!parse(plan, a)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (a.design == 1) {
-    return a.d == 64 ? dkdv_launch<64, false>(q, k, v, dO, lse, delta, dk,
-                                              dv, a, plan, scale, s)
-                     : dkdv_launch<128, false>(q, k, v, dO, lse, delta, dk,
-                                               dv, a, plan, scale, s);
-  }
-  return a.d == 64 ? dkdv_launch<64, true>(q, k, v, dO, lse, delta, dk, dv,
-                                           a, plan, scale, s)
-                   : dkdv_launch<128, true>(q, k, v, dO, lse, delta, dk, dv,
-                                            a, plan, scale, s);
+  return dkdv_fn(a)(q, k, v, dO, lse, delta, dk, dv, a, plan, scale,
+                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
@@ -1732,15 +2487,6 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    float scale, void* stream) {
   Args a;
   if (!parse(plan, a)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (a.design == 1) {
-    return a.d == 64 ? dq_launch<64, false>(q, k, v, dO, lse, delta, dq, a,
-                                            plan, scale, s)
-                     : dq_launch<128, false>(q, k, v, dO, lse, delta, dq, a,
-                                             plan, scale, s);
-  }
-  return a.d == 64 ? dq_launch<64, true>(q, k, v, dO, lse, delta, dq, a,
-                                         plan, scale, s)
-                   : dq_launch<128, true>(q, k, v, dO, lse, delta, dq, a,
-                                          plan, scale, s);
+  return dq_fn(a)(q, k, v, dO, lse, delta, dq, a, plan, scale,
+                  static_cast<cudaStream_t>(stream));
 }

@@ -5,8 +5,9 @@
 // descriptors of 128-byte-swizzled tiles, the wgmma fences, commit and
 // wait, the bf16 product with its A operand in registers (and the packing
 // of its bf16 pairs), exp2, the f32 operands' TF32 parts, swizzled f32
-// tile offsets, named barriers and proxy fences, the TF32 products, and
-// the dynamic shared-memory opt-in.
+// tile offsets, named barriers and proxy fences, the TF32 products, the
+// dynamic shared-memory opt-in, and the mma designs' packing, copies and
+// mma.sync products (namespace strip).
 // Everything here is for sm_90a.
 #pragma once
 
@@ -297,6 +298,226 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2],
           "r"(scale_d));
   }
 }
+
+// A (B, S, heads, D) tensor's element strides; the head dim is contiguous.
+struct Strides {
+  long long b, s, h;
+};
+
+// The head dim of a wgmma kernel's tiles for a tensor's head dim `d`: D 112
+// (kimi-k2's) runs in D 128's layout and products, its columns past 112
+// zero in shared memory (TMA fills a box's columns past the tensor's last
+// with zeros, and the f32 forward's q loop writes zeros there), so they add
+// nothing to a product over D and give output columns that are never
+// stored.
+__host__ __device__ constexpr int tile_d(int d) { return d == 112 ? 128 : d; }
+
+// ---------------------------------------------------------------------------
+// The mma designs (flash_attention.cu's flash_mma_kernel and
+// flash_mma_f32_kernel, flash_attention_bwd.cu's mma backward): a warp owns
+// a 16-row strip of one (head, batch), a block packs several strips and
+// heads (kernels/flash_attention.py: mma_plan), rows come into padded
+// shared-memory rows by 16-byte cp.async copies, and the products are
+// warp-level mma.sync on the tensor cores.
+// ---------------------------------------------------------------------------
+
+namespace strip {
+
+constexpr int kRows = 16;      // rows a warp owns: one m16 strip
+constexpr int kBK = 32;        // rows of a tile a strip visits (keys of the
+                               // forward and dq; queries of dkdv)
+constexpr int kMaxWarps = 8;
+constexpr int kVecBytes = 16;  // a cp.async piece; also the padding past
+                               // each shared row and each head's skew
+
+// The plan's packing (kernels/flash_attention.py: MmaPlan): strips and
+// heads a block, the most tile heads a block reads, tile stages, strip and
+// head groups.
+struct Pack {
+  int sb, hb, nkv, stages, n_sg, n_hg;
+};
+
+// A head's row of D elements of T in shared memory: kVec elements (16
+// bytes) a piece, padded by one piece.
+template <typename T, int D>
+struct Rows {
+  static constexpr int kEs = static_cast<int>(sizeof(T));
+  static constexpr int kVec = kVecBytes / kEs;
+  static constexpr int kRS = D + kVec;  // bf16: 80 or 48 bytes; f32: 144
+                                        // or 80
+  static constexpr int kCh = D / kVec;  // pieces of a head's row
+};
+
+// Shared memory in elements, rows of rs = D + pad (pad: one 16-byte
+// piece): the block's strip rows (warp w = hw * sb + sw at rows 16 w,
+// head hw's rows skewed by hw * pad); a tile of kBK rows of one head.
+__host__ __device__ constexpr int q_elems(int rs, int warps, int hb,
+                                          int pad) {
+  return warps * kRows * rs + hb * pad;
+}
+__host__ __device__ constexpr int tile_elems(int rs, int pad) {
+  return kBK * rs + pad;
+}
+// bytes of the forward's layout at element size es: the strip rows, then
+// per stage the K tiles of the KV heads and their V tiles
+__host__ __device__ constexpr int smem_bytes(int d, int es, int warps,
+                                             int hb, int nkv, int stages) {
+  return es * (q_elems(d + kVecBytes / es, warps, hb, kVecBytes / es) +
+               stages * 2 * nkv *
+                   tile_elems(d + kVecBytes / es, kVecBytes / es));
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes where !ok
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
+                                     bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8 i .. 8 i + 7 give the row addresses of
+// matrix i, which lands in r[i]: lane (g, t) receives the 32 bits t of
+// row g (two bf16, or one f32).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+// The same, transposed: lane (g, t) receives elements g of rows 2t and
+// 2t + 1 (bf16).
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// C (16 x 8, f32) += A (16 x 16, bf16, row) * B (16 x 8, bf16, col).
+// Fragments (g = lane / 4, t = lane % 4): C holds row g in c[0..1]
+// (columns 2t, 2t + 1) and row g + 8 in c[2..3]; A holds (row g, k 2t..),
+// (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..); B (k 2t.., n g),
+// (k 2t + 8.., n g).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// C (16 x 8, f32) += A (16 x 8, tf32, row) * B (8 x 8, tf32, col). A holds
+// (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (k t, n g),
+// (k t + 4, n g).
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Key tiles that the query rows up to `last` (past Sq: up to the last
+// row) visit: those holding keys up to its position, none when it
+// precedes every key.
+__device__ __forceinline__ int trips(int last, int sq, int sk) {
+  const int q_last = sk - sq + min(last, sq - 1);
+  return q_last < 0 ? 0 : min(q_last / kBK + 1, (sk + kBK - 1) / kBK);
+}
+
+// What a block and one of its warps own. blockIdx.x -> (strip group, head
+// group, batch), as mma_units; warp w takes strip w % sb of head w / sb of
+// the block.
+struct Unit {
+  int b, h0, kv0, nkv;   // batch; the block's first head and KV head, and
+                         // its KV heads
+  int rows, row_blk;     // the block's strip rows and its first row
+  int hw, row0, kvi;     // the warp's head in the block, first row, KV head
+  int my_trips, n_tiles; // key tiles of the warp's strip and of the block
+};
+
+__device__ __forceinline__ Unit unit_of(const Pack& pk, int batch, int group,
+                                        int sq, int sk, int warp) {
+  Unit u;
+  const int per = pk.n_hg * batch;
+  const int bid = static_cast<int>(blockIdx.x);
+  const int sg = pk.n_sg - 1 - bid / per;
+  u.h0 = bid % per % pk.n_hg * pk.hb;
+  u.b = bid % per / pk.n_hg;
+  u.kv0 = u.h0 / group;
+  u.nkv = (u.h0 + pk.hb - 1) / group - u.kv0 + 1;
+  u.rows = pk.sb * kRows;
+  u.row_blk = sg * u.rows;
+  u.hw = warp / pk.sb;
+  u.row0 = u.row_blk + (warp % pk.sb) * kRows;
+  u.kvi = (u.h0 + u.hw) / group - u.kv0;
+  u.my_trips = u.row0 < sq ? trips(u.row0 + kRows - 1, sq, sk) : 0;
+  u.n_tiles = trips(u.row_blk + u.rows - 1, sq, sk);
+  return u;
+}
+
+// The block's strip rows of x into shared memory at sbase: piece ch of
+// head hh (u.h0 + hh) of row r, zero past n_rows.
+template <typename T, int D>
+__device__ __forceinline__ void copy_q(uint32_t sbase, const T* x,
+                                       const Unit& u, const Pack& pk,
+                                       Strides st, int n_rows) {
+  using R = Rows<T, D>;
+  const int n_q = u.rows * pk.hb * R::kCh;
+  for (int c = threadIdx.x; c < n_q; c += blockDim.x) {
+    const int ch = c % R::kCh;
+    const int hh = c / R::kCh % pk.hb;
+    const int r = c / (R::kCh * pk.hb);
+    const int qi = u.row_blk + r;
+    const bool ok = qi < n_rows;
+    cp16(sbase + R::kEs * ((hh * u.rows + r) * R::kRS + hh * R::kVec +
+                              ch * R::kVec),
+         x + u.b * st.b + (ok ? qi : 0) * st.s + (u.h0 + hh) * st.h +
+             ch * R::kVec,
+         ok);
+  }
+}
+
+// Tile j (kBK rows) of u.nkv heads (u.kv0 on) of a and of b into the stage
+// at at (the a tiles, then pk.nkv b tiles of tile_sz elements), zero past
+// n_rows.
+template <typename T, int D>
+__device__ __forceinline__ void copy_kv(uint32_t at, const T* a, const T* b,
+                                        const Unit& u, const Pack& pk,
+                                        Strides ast, Strides bst, int j,
+                                        int n_rows, int tile_sz) {
+  using R = Rows<T, D>;
+  const uint32_t bt = at + R::kEs * pk.nkv * tile_sz;
+  const int n = kBK * u.nkv * R::kCh;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const int ch = c % R::kCh;
+    const int i = c / R::kCh % u.nkv;
+    const int r = c / (R::kCh * u.nkv);
+    const int kj = j * kBK + r;
+    const bool ok = kj < n_rows;
+    const long long row = ok ? kj : 0;
+    const uint32_t dst = R::kEs * (i * tile_sz + r * R::kRS + ch * R::kVec);
+    cp16(at + dst,
+         a + u.b * ast.b + row * ast.s + (u.kv0 + i) * ast.h + ch * R::kVec,
+         ok);
+    cp16(bt + dst,
+         b + u.b * bst.b + row * bst.s + (u.kv0 + i) * bst.h + ch * R::kVec,
+         ok);
+  }
+}
+
+}  // namespace strip
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,

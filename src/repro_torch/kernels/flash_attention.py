@@ -39,20 +39,22 @@ Four designs, chosen by (dtype, D) alone (:func:`design`):
 
 Training goes through :class:`FlashAttentionFn` (what
 :func:`flash_attention` takes when an input requires grad): its forward
-launches a ``wgmma`` design with an lse buffer, so the kernel also writes
-each row's log-sum-exp, and its backward launches the three kernels of
-``csrc/flash_attention_bwd.cu`` (:func:`flash_bwd_delta`,
+launches the design of its (dtype, D) with an lse buffer, so the kernel
+also writes each row's log-sum-exp, and its backward launches the three
+kernels of ``csrc/flash_attention_bwd.cu`` (:func:`flash_bwd_delta`,
 :func:`flash_bwd_dkdv`, :func:`flash_bwd_dq`, planned by
-:func:`bwd_plan`), which recompute P from q, k and the lse: in bf16
-the dkdv and dq kernels run on the tensor cores (``wgmma`` fed by TMA, P
-and dS entering the products as two bf16 parts), and in f32 too
-(``wgmma_f32``: every product three TF32 products of split operands, the
-transposed B operands written by a producer warpgroup). The JAX package
-differentiates its XLA scan under ``jax.checkpoint``, which recomputes
-the forward in the backward; the port saves o and the lse instead, and
-the arithmetic is the same: f32 logits, P and dS, f32 sums.
-The backward is built for D 64 and 128: a CUDA call at another head dim
-(the ``mma`` designs' D 8, 16 and 32, and D 112) that needs grad raises.
+:func:`bwd_plan`), which recompute P from q, k and the lse, at every head
+dim of ``HEAD_DIMS``, on the tensor cores. At D 64, 112 and 128 the dkdv
+and dq kernels are ``wgmma`` fed by TMA (D 112 in D 128's tiles): in bf16
+P and dS enter the products as two bf16 parts, in f32 (``wgmma_f32``)
+every product is three TF32 products of split operands, the transposed B
+operands written by a producer warpgroup. At D 8, 16 and 32 they are
+``mma.sync`` kernels with the forward's packing (:func:`mma_bwd_plan`:
+16-key strips of several KV heads a block for dkdv, 16-row query strips
+as the forward's for dq), with the same arithmetic per dtype. The JAX
+package differentiates its XLA scan under ``jax.checkpoint``, which
+recomputes the forward in the backward; the port saves o and the lse
+instead, and the arithmetic is the same: f32 logits, P and dS, f32 sums.
 
 The host side of the launches is computed here, so the CPU tests reach
 it: :func:`plan`, a pure function of the tensors' shapes, strides, dtype
@@ -104,23 +106,27 @@ MMA_PAD = 16     # bytes past each shared-memory row (one cp.async piece)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # q, k, v, o, lse (or null), the plan's args, the scale, the stream
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_float, ctypes.c_void_p]
-#: head dims the backward kernels are built for (the wgmma designs')
-BWD_HEAD_DIMS = (64, 128)
-#: the backward's designs by launcher code, both on the tensor cores: f32
-#: (three TF32 products of split operands) and bf16
-BWD_DESIGNS = ("wgmma_f32", "wgmma")
+#: head dims the backward kernels are built for: every forward head dim
+BWD_HEAD_DIMS = HEAD_DIMS
+#: the backward's designs by launcher code, all on the tensor cores, the
+#: forward's names: at D 64, 112 and 128 f32 (three TF32 products of split
+#: operands) and bf16 by wgmma, at D 8, 16 and 32 the same by mma.sync
+BWD_DESIGNS = ("wgmma_f32", "wgmma", "mma_f32", "mma")
 BWD_THREADS = 256  # the delta kernel's block
 BWD_VEC = 4      # the delta kernel's elements a load: bases and strides a
                  # multiple of it
 #: the bf16 backward's tiles per D: dkdv's (query rows a tile, keys a
 #: block: 64 per consumer warpgroup, two at D 64 and one at D 128), and
 #: dq's (query rows a block: two 64-row consumers, keys a tile)
-BWD_WGMMA_TILES = {64: ((64, 128), (128, 64)), 128: ((64, 64), (128, 64))}
+BWD_WGMMA_TILES = {64: ((64, 128), (128, 64)), 112: ((64, 64), (128, 64)),
+                   128: ((64, 64), (128, 64))}
 #: the f32 backward's tiles per D: dkdv's (query rows a trip, keys a block:
 #: 64, the dV and dK warpgroups both on them), and dq's (query rows a
 #: block: one 64-row consumer, keys a trip); what shared memory holds with
-#: every operand as a TF32 hi and lo part (csrc/flash_attention_bwd.cu)
-BWD_WGMMA_F32_TILES = {64: ((32, 64), (64, 32)), 128: ((16, 64), (64, 16))}
+#: every operand as a TF32 hi and lo part (csrc/flash_attention_bwd.cu);
+#: D 112 in D 128's tiles, as in bf16
+BWD_WGMMA_F32_TILES = {64: ((32, 64), (64, 32)), 112: ((16, 64), (64, 16)),
+                       128: ((16, 64), (64, 16))}
 #: the names of the backward's TMA operands, in the launcher's map order
 BWD_OPERANDS = ("q", "k", "v", "do")
 
@@ -203,20 +209,91 @@ def mma_plan(sq: int, sk: int, n_heads: int, n_kv_heads: int, batch: int,
     per KV head, each row padded by ``MMA_PAD`` bytes and each head's
     region skewed by as many (no bank conflict for ``ldmatrix``)."""
     strips = cdiv(sq, MMA_ROWS)
-    sb = max(min(strips, MMA_WARPS), 1)
-    hb = max(x for x in range(1, n_heads + 1)
-             if n_heads % x == 0 and x * sb <= MMA_WARPS)
+    sb, hb = _mma_pack(strips, n_heads)
     group = n_heads // n_kv_heads
     nkv = max((h0 + hb - 1) // group - h0 // group + 1
               for h0 in range(0, n_heads, hb))
     stages = 2 if trip_count(strips - 1, sq, sk, MMA_ROWS, MMA_BK) > 1 else 1
     n_sg, n_hg = cdiv(strips, sb), n_heads // hb
     pad = MMA_PAD // es
-    rs = d + pad
-    smem = es * (sb * hb * MMA_ROWS * rs + hb * pad
-                 + stages * 2 * (nkv * MMA_BK * rs + nkv * pad))
+    smem = es * (_mma_rows(sb, hb, d, es)
+                 + stages * 2 * nkv * (MMA_BK * (d + pad) + pad))
     return MmaPlan(strips, sb, hb, nkv, stages, n_sg, n_hg,
                    n_sg * n_hg * batch, smem)
+
+
+def _mma_pack(strips: int, n_heads: int) -> tuple[int, int]:
+    """(strips, heads) a block: as many strips as fit in ``MMA_WARPS``
+    warps, then the largest divisor of the head count that the rest
+    allows."""
+    sb = max(min(strips, MMA_WARPS), 1)
+    hb = max(x for x in range(1, n_heads + 1)
+             if n_heads % x == 0 and x * sb <= MMA_WARPS)
+    return sb, hb
+
+
+def _mma_rows(sb: int, hb: int, d: int, es: int) -> int:
+    """Elements of a block's strip rows (one region of q, dO, K or V):
+    ``sb * hb`` warps of 16 rows of ``d + MMA_PAD // es``, each head's
+    rows skewed by one piece."""
+    pad = MMA_PAD // es
+    return sb * hb * MMA_ROWS * (d + pad) + hb * pad
+
+
+def mma_bwd_plan(sq: int, sk: int, n_heads: int, n_kv_heads: int,
+                 batch: int, d: int, es: int = 2) -> tuple[MmaPlan, MmaPlan]:
+    """The ``mma`` backward's packing, (dkdv, dq), at element size ``es``.
+
+    dkdv: a unit is one 16-key strip of one (KV head, batch), owned by a
+    warp; a block holds ``strips_per_block`` strips of ``heads_per_block``
+    KV heads (:func:`_mma_pack` over the key strips and the KV heads), and
+    each trip brings one query head of each of its KV heads
+    (``kv_heads_per_block`` = ``heads_per_block``): for each of the G
+    query heads and each 32-row query tile from the first that sees one of
+    the block's keys. Block ``x`` is (strip group ``x // (head_groups *
+    B)``, KV head group ``x % (head_groups * B) % head_groups``, batch
+    ``x % (head_groups * B) // head_groups``): strip group 0, the most
+    query tiles, first (:func:`mma_bwd_units`). Two stages where G times
+    the query tiles exceeds one. Shared memory: the K and V strip rows,
+    per stage the q and dO tiles of the trip's heads, then per stage their
+    lse and delta rows (f32).
+
+    dq: the forward's packing (:func:`mma_plan`), a warp a 16-row query
+    strip of one (head, batch), with dO's rows beside q's in shared
+    memory."""
+    strips = cdiv(sk, MMA_ROWS)
+    sb, hb = _mma_pack(strips, n_kv_heads)
+    group = n_heads // n_kv_heads
+    stages = 2 if group * cdiv(sq, MMA_BK) > 1 else 1
+    n_sg, n_hg = cdiv(strips, sb), n_kv_heads // hb
+    pad = MMA_PAD // es
+    tile = MMA_BK * (d + pad) + pad
+    smem = (es * (2 * _mma_rows(sb, hb, d, es) + stages * 2 * hb * tile)
+            + stages * 2 * hb * MMA_BK * 4)
+    dkdv = MmaPlan(strips, sb, hb, hb, stages, n_sg, n_hg,
+                   n_sg * n_hg * batch, smem)
+    fwd = mma_plan(sq, sk, n_heads, n_kv_heads, batch, d, es)
+    dq = dataclasses.replace(fwd, smem=fwd.smem + es * _mma_rows(
+        fwd.strips_per_block, fwd.heads_per_block, d, es))
+    return dkdv, dq
+
+
+def mma_bwd_units(p: MmaPlan, batch: int) -> list[list[tuple | None]]:
+    """(key strip, KV head, batch) of each warp of each block of the
+    ``mma`` dkdv kernel, by ``blockIdx.x`` and warp (``p`` its plan from
+    :func:`mma_bwd_plan`), or None for a warp past the last strip: strip
+    group 0 first."""
+    per = p.head_groups * batch
+    out = []
+    for x in range(p.blocks):
+        sg, hg, b = x // per, x % per % p.head_groups, x % per // p.head_groups
+        warps = []
+        for w in range(p.warps):
+            strip = sg * p.strips_per_block + w % p.strips_per_block
+            head = hg * p.heads_per_block + w // p.strips_per_block
+            warps.append((strip, head, b) if strip < p.strips else None)
+        out.append(warps)
+    return out
 
 
 def mma_units(p: MmaPlan, batch: int) -> list[list[tuple | None]]:
@@ -411,11 +488,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _is_fake(q):
         return ShapeOnlyFlashFn.apply(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if q.device.type == "cuda" and q.shape[3] not in BWD_HEAD_DIMS:
-            raise NotImplementedError(
-                f"the flash backward is built for D {BWD_HEAD_DIMS}, not "
-                f"D {q.shape[3]} (the {design(q.dtype, q.shape[3])} "
-                f"design's forward; ROADMAP.md Queue 2)")
         return FlashAttentionFn.apply(q, k, v)
     return _forward(q, k, v, lse=False)[0]
 
@@ -423,8 +495,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _forward(q, k, v, *, lse: bool):
     """(o, lse or None) of checked q, k, v: the plain version on the CPU,
     else one launch of the kernel of the tensors' design, which also
-    writes the (B, H, Sq) f32 log-sum-exp where ``lse`` (wgmma designs
-    only)."""
+    writes the (B, H, Sq) f32 log-sum-exp where ``lse`` (every design)."""
     if q.device.type == "cpu":
         if lse:
             return ref.ref_flash_attention(q, k, v, return_lse=True)
@@ -468,9 +539,13 @@ def causal_pairs(sq: int, sk: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """The backward kernels' launch geometry, by ``design``: ``"wgmma"``
-    (bf16, tiles ``BWD_WGMMA_TILES``) or ``"wgmma_f32"`` (f32, tiles
-    ``BWD_WGMMA_F32_TILES``), both on the tensor cores.
+    """The backward kernels' launch geometry, by ``design`` (the forward's
+    design of the (dtype, D)): at D 64, 112 and 128 ``"wgmma"`` (bf16,
+    tiles ``BWD_WGMMA_TILES``) or ``"wgmma_f32"`` (f32, tiles
+    ``BWD_WGMMA_F32_TILES``); at D 8, 16 and 32 ``"mma"`` or ``"mma_f32"``,
+    packed by :func:`mma_bwd_plan` (``mma``: its dkdv and dq plans), with
+    ``bq`` 32-row query tiles, ``bk`` 16-key strips, ``dq_bq`` 16-row
+    query strips and ``dq_bk`` 32-key tiles. All on the tensor cores.
 
     * dkdv: ``dkdv_blocks`` = key tiles of ``bk`` keys x KV heads x B;
       block ``x`` is (key tile ``x // (K B)``, KV head ``x % (K B) % K``,
@@ -482,15 +557,16 @@ class BwdPlan:
     * dq: ``dq_blocks`` = query tiles of ``dq_bq`` rows x H x B, in the
       forward's order (:func:`launch_order` at ``dq_bq``); query tile
       ``t`` visits key tiles of ``dq_bk`` keys 0 .. ``dq_trips[t] - 1``.
-    * delta: D / 4 threads a row, ``delta_blocks``.
+    * delta: :func:`delta_lanes` threads a row, ``delta_blocks``.
 
     ``copies`` names the operands of q, k, v and dO (``BWD_OPERANDS``)
-    that TMA cannot read as they lie: a base or stride that is not a
-    multiple of ``TMA_ALIGN`` bytes, a zero stride (the dO of a scalar
-    loss) or a head dim that is not contiguous. The wrappers copy those
-    and plan again. ``maps`` (once nothing needs a copy): the TMA maps of
-    q, k, v and dO with dkdv's boxes, then with dq's (32-column boxes in
-    f32, 64 in bf16: one 128-byte swizzle row)."""
+    that the kernels cannot read as they lie: a base or stride that is not
+    a multiple of ``TMA_ALIGN`` bytes or a head dim that is not contiguous
+    (both designs), a zero stride (the dO of a scalar loss; TMA only). The
+    wrappers copy those and plan again. ``maps`` (wgmma designs, once
+    nothing needs a copy): the TMA maps of q, k, v and dO with dkdv's
+    boxes, then with dq's (32-column boxes in f32, 64 in bf16: one
+    128-byte swizzle row)."""
     n_q_tiles: int
     n_k_tiles: int
     dkdv_blocks: int
@@ -506,6 +582,17 @@ class BwdPlan:
     dq_bq: int
     dq_bk: int
     maps: tuple | None
+    mma: tuple[MmaPlan, MmaPlan] | None = None
+
+
+def delta_lanes(d: int) -> int:
+    """The delta kernel's threads a row: the largest power of two at most
+    D / 4 and 32, so that a row's lanes are an aligned group inside a warp
+    (D 112: 16 lanes over its 28 four-element pieces)."""
+    n = 1
+    while 2 * n <= min(d // 4, 32):
+        n *= 2
+    return n
 
 
 def _vec_ok(t: torch.Tensor) -> bool:
@@ -551,32 +638,45 @@ def _bwd_plan(dtype, *operands) -> BwdPlan:
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"the flash backward kernels are built for D "
                          f"{BWD_HEAD_DIMS}, not {d}")
-    kind = "wgmma" if dtype == torch.bfloat16 else "wgmma_f32"
-    (bq, bk), (dq_bq, dq_bk) = (BWD_WGMMA_TILES if kind == "wgmma"
-                                else BWD_WGMMA_F32_TILES)[d]
+    kind = design(dtype, d)
+    es = torch.empty((), dtype=dtype).element_size()
+    mma = None
+    if kind in MMA_DESIGNS:
+        (bq, bk), (dq_bq, dq_bk) = (MMA_BK, MMA_ROWS), (MMA_ROWS, MMA_BK)
+        mma = mma_bwd_plan(sq, sk, h, kh, b, d, es)
+        maps = None
+        copies = tuple(n for n, (shape, stride, aligned)
+                       in zip(BWD_OPERANDS, operands)
+                       if stride[3] != 1
+                       or _strides(shape, stride, es, aligned) is None)
+    else:
+        (bq, bk), (dq_bq, dq_bk) = (BWD_WGMMA_TILES if kind == "wgmma"
+                                    else BWD_WGMMA_F32_TILES)[d]
+        boxes = [(bq, bk, bk, bq), (dq_bq, dq_bk, dq_bk, dq_bq)]
+        maps = tuple(_bwd_map(shape, stride, es, aligned, rows)
+                     for box in boxes
+                     for (shape, stride, aligned), rows in zip(operands, box))
+        copies = tuple(n for n, m in zip(BWD_OPERANDS, maps) if m is None)
+        if copies:
+            maps = None
     n_q, n_k, n_dq = cdiv(sq, bq), cdiv(sk, bk), cdiv(sq, dq_bq)
     offset = sk - sq
     first = tuple(max(t * bk - offset, 0) // bq for t in range(n_k))
     trips = tuple(trip_count(t, sq, sk, dq_bq, dq_bk) for t in range(n_dq))
-    rows_per_block = BWD_THREADS // (d // 4)
-    es = torch.empty((), dtype=dtype).element_size()
-    boxes = [(bq, bk, bk, bq), (dq_bq, dq_bk, dq_bk, dq_bq)]
-    maps = tuple(_bwd_map(shape, stride, es, aligned, rows)
-                 for box in boxes
-                 for (shape, stride, aligned), rows in zip(operands, box))
-    copies = tuple(n for n, m in zip(BWD_OPERANDS, maps) if m is None)
-    if copies:
-        maps = None
-    return BwdPlan(n_q, n_k, n_k * kh * b, n_dq * h * b,
-                   cdiv(b * h * sq, rows_per_block), first, trips, copies,
-                   bq, bk, kind, n_dq, dq_bq, dq_bk, maps)
+    blocks = ((mma[0].blocks, mma[1].blocks) if mma
+              else (n_k * kh * b, n_dq * h * b))
+    return BwdPlan(n_q, n_k, *blocks,
+                   cdiv(b * h * sq, BWD_THREADS // delta_lanes(d)), first,
+                   trips, copies, bq, bk, kind, n_dq, dq_bq, dq_bk, maps,
+                   mma)
 
 
 def _bwd_check(q, k, v, like_q=(), rows=()) -> None:
     """Raise on inputs the backward kernels do not take: q, k, v as the
-    forward takes them; each of ``like_q`` (o, dO) q's shape, dtype and
-    device; each of ``rows`` (lse, delta) a contiguous (B, H, Sq) f32
-    tensor on q's device; on a card, D in ``BWD_HEAD_DIMS``."""
+    forward takes them (D in ``HEAD_DIMS``, all of which the backward is
+    built for); each of ``like_q`` (o, dO) q's shape, dtype and device;
+    each of ``rows`` (lse, delta) a contiguous (B, H, Sq) f32 tensor on
+    q's device."""
     _check(q, k, v, True)
     for t in like_q:
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -590,10 +690,6 @@ def _bwd_check(q, k, v, like_q=(), rows=()) -> None:
             raise ValueError(f"lse and delta must be contiguous ({b}, {h}, "
                              f"{sq}) float32 on {q.device}, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
-    if q.device.type == "cuda" and q.shape[3] not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"the flash backward kernels are built for D {BWD_HEAD_DIMS}, "
-            f"not {q.shape[3]} (ROADMAP.md Queue 2)")
 
 
 def _vec_ready(*ts):
@@ -621,17 +717,28 @@ def _bwd_args(p: BwdPlan, q, k, v, o, do) -> ctypes.Array:
     """The launchers' plan (csrc/flash_attention_bwd.cu: Args): the
     shapes, the tile counts of ``p``, which the launchers check against
     their own, the operands' (batch, seq, head) strides, the design, and
-    ``p``'s TMA maps (zeros where it has none: the delta kernel reads
-    through the strides)."""
+    ``p``'s TMA maps (zeros where it has none: the delta kernel and the
+    ``mma`` designs read through the strides); the ``mma`` designs append
+    their packing, dkdv's (strips and KV heads a block, stages, blocks,
+    shared memory) and dq's (strips, heads and KV heads a block, stages,
+    blocks, shared memory), which the launchers check too."""
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
     # eight maps of 11 values (TensorMap.packed), zeros where there are none
     maps = ([x for m in p.maps for x in m.packed()] if p.maps
             else [0] * (2 * len(BWD_OPERANDS) * 11))
+    pack = []
+    if p.mma:
+        dk_p, dq_p = p.mma
+        pack = [dk_p.strips_per_block, dk_p.heads_per_block, dk_p.stages,
+                dk_p.blocks, dk_p.smem, dq_p.strips_per_block,
+                dq_p.heads_per_block, dq_p.kv_heads_per_block, dq_p.stages,
+                dq_p.blocks, dq_p.smem]
     return _longs([b, sq, sk, h, kh, d, _DTYPES[q.dtype], p.n_q_tiles,
                    p.n_k_tiles]
                   + [st for t in (q, k, v, o, do) for st in t.stride()[:3]]
-                  + [BWD_DESIGNS.index(p.design), p.dq_q_tiles] + maps)
+                  + [BWD_DESIGNS.index(p.design), p.dq_q_tiles] + maps
+                  + pack)
 
 
 def _bwd_launch(symbol: str, wrapper, ptrs: list, args, scale=None,
@@ -672,8 +779,9 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta):
     k, v given dO, the forward's lse and delta (each (B, H, Sq) f32). A CPU
     tensor takes the plain backward's; a CUDA tensor launches the kernel
     of its design, ``flash_bwd_dkdv_wgmma_kernel`` for bf16 and
-    ``flash_bwd_dkdv_wgmma_f32_kernel`` for f32 (``flash_bwd_dkdv.launches``
-    and ``.by_design``), or raises."""
+    ``flash_bwd_dkdv_wgmma_f32_kernel`` for f32 at D 64, 112 and 128,
+    ``flash_bwd_dkdv_mma_kernel`` at D 8, 16 and 32
+    (``flash_bwd_dkdv.launches`` and ``.by_design``), or raises."""
     _bwd_check(q, k, v, like_q=(do,), rows=(lse, delta))
     if q.device.type == "cpu":
         _, dk, dv = _ref_bwd(q, k, v, do, lse, delta)
@@ -697,7 +805,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta):
     """dq, (B, Sq, H, D) in q's dtype, of the causal attention of q, k, v
     given dO, lse and delta. A CPU tensor takes the plain backward's; a
     CUDA tensor launches ``flash_bwd_dq_wgmma_kernel`` for bf16 and
-    ``flash_bwd_dq_wgmma_f32_kernel`` for f32 (``flash_bwd_dq.launches``
+    ``flash_bwd_dq_wgmma_f32_kernel`` for f32 at D 64, 112 and 128,
+    ``flash_bwd_dq_mma_kernel`` at D 8, 16 and 32 (``flash_bwd_dq.launches``
     and ``.by_design``), or raises."""
     _bwd_check(q, k, v, like_q=(do,), rows=(lse, delta))
     if q.device.type == "cpu":

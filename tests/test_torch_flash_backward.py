@@ -8,8 +8,9 @@ numpy inputs, and against f64 autograd through ``ref.ref_attention``.
 ``FlashAttentionFn`` (what ``flash_attention`` takes when an input needs
 grad) must hand q, k and v the plain backward's gradients on CPU tensors.
 The kernels themselves are held against the plain version on the card by
-``chip_smoke.py``'s ``train`` phase, which also pins that an ``mma``-design
-call needing grad raises there.
+``chip_smoke.py``'s ``kernel_edges_train`` phase, at every head dim (D 8
+to 128: the ``mma`` designs' backward and the ``wgmma`` designs', D 112
+in D 128's tiles).
 """
 import numpy as np
 import pytest
@@ -50,7 +51,7 @@ def port_grads(q, k, v, do, dtype=torch.float32):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("s", [1, 33, 130])
 @pytest.mark.parametrize("g", [1, 4])
-@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 112])
 def test_plain_backward_matches_jax_vjp_of_chunked(d, g, s, dtype):
     kh = 2
     q, k, v, do = inputs(s * 31 + d + g, 1, s, s, kh * g, kh, d)

@@ -15,6 +15,7 @@ each part's product summed in f32, must hold the plain backward
 and ``jax.vjp`` of the JAX package's ``_chunked_attention`` within the
 backward tests' tolerance.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -176,8 +177,10 @@ def test_bwd_plan_maps_and_copies():
     assert fa.bwd_plan(q.float(), mis32, k.float()).copies == ("k",)
     assert list(fa._bwd_args(p32, *(t.float() for t in (q, k, k, q, q))))[
         24:26] == [0, p32.dq_q_tiles]
+    # every forward head dim has a backward; a head dim with no design
+    # has neither
     with pytest.raises(ValueError, match="built for D"):
-        fa.bwd_plan(*(torch.zeros((1, 4, 2, 32), dtype=BF16),) * 3)
+        fa.bwd_plan(*(torch.zeros((1, 4, 2, 96), dtype=BF16),) * 3)
 
 
 def split2(x):
@@ -299,3 +302,158 @@ def test_backward_wrappers_count_by_design(dtype):
              for w in (fa.flash_bwd_dkdv, fa.flash_bwd_dq)]
     assert before == after
     assert all(set(bd) == set(fa.BWD_DESIGNS) for _, bd in after)
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+def test_d112_backward_takes_d128_tiles_over_112_columns(dtype):
+    """D 112 (kimi-k2) on the wgmma backward: D 128's tiles and trips,
+    TMA maps over the tensors' 112 columns (the kernels' boxes past column
+    112 come back zero-filled), and the launchers' plan naming D 112."""
+    b, s, h, kh = 1, 300, 16, 2
+    q = torch.zeros((b, s, h, 112), dtype=dtype)
+    k = torch.zeros((b, s, kh, 112), dtype=dtype)
+    p, p128 = fa.bwd_plan(q, k, k), fa.bwd_plan(
+        torch.zeros((b, s, h, 128), dtype=dtype),
+        *(torch.zeros((b, s, kh, 128), dtype=dtype),) * 2)
+    assert p.design == p128.design == fa.design(dtype, 112)
+    tiles = (fa.BWD_WGMMA_TILES if dtype == BF16 else
+             fa.BWD_WGMMA_F32_TILES)
+    assert tiles[112] == tiles[128]
+    for f in ("n_q_tiles", "n_k_tiles", "dkdv_blocks", "dq_blocks",
+              "first_q_tile", "dq_trips", "bq", "bk", "dq_bq", "dq_bk"):
+        assert getattr(p, f) == getattr(p128, f), f
+    es = q.element_size()
+    rows = [p.bq, p.bk, p.bk, p.bq, p.dq_bq, p.dq_bk, p.dq_bk, p.dq_bq]
+    for m, t, r in zip(p.maps, (q, k, k, q) * 2, rows):
+        assert m.dims == (112, t.shape[2], s, b)
+        assert m.box == (fa.SWIZZLE_BYTES // es, 1, r, 1)
+        assert m.strides == tuple(st * es for st in (t.stride(2),
+                                                     t.stride(1),
+                                                     t.stride(0)))
+    args = list(fa._bwd_args(p, q, k, k, q, q))
+    assert len(args) == 114 and args[5] == 112
+    assert fa.BWD_DESIGNS[args[24]] == p.design
+    # the delta kernel: 16 lanes a row over D 112's 28 pieces
+    assert p.delta_blocks == -(-b * h * s // (256 // 16))
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 112, 128])
+def test_delta_lanes_cover_each_row_once_inside_a_warp(d):
+    lanes = fa.delta_lanes(d)
+    assert lanes & (lanes - 1) == 0 and lanes <= 32 and 32 % lanes == 0
+    assert lanes <= d // 4 < 2 * lanes or lanes == 32
+    pieces = sorted(c for lane in range(lanes)
+                    for c in range(lane, d // 4, lanes))
+    assert pieces == list(range(d // 4))
+
+
+def mma_dkdv_visits(p, sq, sk, h, kh, b):
+    """(batch, query head, 32-row query tile, 16-key strip) of every trip
+    a warp of the mma dkdv kernel computes, as it maps ``blockIdx.x`` and
+    its warps (``mma_bwd_units``): the block's trips are the G query heads
+    of its KV heads over the query tiles from the first that sees its
+    first key, and a warp skips a trip where every key of its strip
+    follows every query of the tile (or lies past Sk)."""
+    dk_p, _ = p.mma
+    g, offset = h // kh, sk - sq
+    n_q = -(-sq // 32)
+    visits, trips = [], []
+    for x, warps in enumerate(fa.mma_bwd_units(dk_p, b)):
+        per = dk_p.head_groups * b
+        k_blk = x // per * dk_p.strips_per_block * 16
+        first = max(k_blk - offset, 0) // 32
+        trips.append(g * (n_q - first))
+        for gi in range(g):
+            for qt in range(first, n_q):
+                q_last = min(qt * 32 + 32, sq) - 1
+                for unit in warps:
+                    if unit is None:
+                        continue
+                    strip, kvh, bb = unit
+                    if strip * 16 < sk and strip * 16 <= offset + q_last:
+                        visits.append((bb, kvh * g + gi, qt, strip))
+    return visits, trips
+
+
+def mma_dq_visits(p, sq, sk, b):
+    """The same for the mma dq kernel: the forward's units
+    (``mma_units``), each warp over the key tiles its strip sees."""
+    _, dq_p = p.mma
+    visits = []
+    for warps in fa.mma_units(dq_p, b):
+        for unit in warps:
+            if unit is None:
+                continue
+            strip, hh, bb = unit
+            n = fa.trip_count(strip, sq, sk, 16, 32)
+            visits += [(bb, hh, strip, kt) for kt in range(n)]
+    return visits
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [8, 16, 32])
+@pytest.mark.parametrize("b,sq,sk,h,kh", [
+    (2, 1, 1, 2, 2), (1, 33, 33, 8, 8), (4, 32, 32, 8, 8), (2, 65, 65, 7, 1),
+    (1, 127, 300, 8, 2), (1, 300, 70, 4, 1), (2, 129, 129, 14, 2),
+    (1, 16, 1000, 4, 4)])
+def test_mma_bwd_plan_visits_every_causal_pair_once(b, sq, sk, h, kh, d,
+                                                     dtype):
+    """The mma backward's packing (``mma_bwd_plan``): dkdv packs 16-key
+    strips of several KV heads a block (every (strip, KV head, batch) one
+    warp's), dq the forward's 16-row query strips; between them every
+    (query tile, key strip) and (query strip, key tile) pair that holds a
+    visible (query, key) pair is computed once for every head, the
+    heaviest dkdv blocks first; and their shared memory fits a block."""
+    q = torch.zeros((b, sq, h, d), dtype=dtype)
+    k = torch.zeros((b, sk, kh, d), dtype=dtype)
+    p = fa.bwd_plan(q, k, k)
+    es = q.element_size()
+    dk_p, dq_p = p.mma
+    assert p.design == fa.design(dtype, d) and p.maps is None
+    assert (p.bq, p.bk, p.dq_bq, p.dq_bk) == (32, 16, 16, 32)
+    assert dq_p == dataclasses.replace(
+        fa.mma_plan(sq, sk, h, kh, b, d, es), smem=dq_p.smem)
+    units = [u for w in fa.mma_bwd_units(dk_p, b) for u in w if u]
+    assert sorted(units) == sorted(
+        (s, kvh, bb) for s in range(-(-sk // 16)) for kvh in range(kh)
+        for bb in range(b))
+    assert dk_p.warps <= fa.MMA_WARPS and kh % dk_p.heads_per_block == 0
+    for mp in (dk_p, dq_p):
+        assert mp.smem <= 227 * 1024
+    visits, trips = mma_dkdv_visits(p, sq, sk, h, kh, b)
+    want = {(bb, hh, t, c) for bb in range(b) for hh in range(h)
+            for t, c in tiles_seen(sq, sk, 32, 16)}
+    assert len(visits) == len(set(visits)) and set(visits) == want
+    assert trips == sorted(trips, reverse=True)
+    assert dk_p.stages == (2 if h // kh * -(-sq // 32) > 1 else 1)
+    visits = mma_dq_visits(p, sq, sk, b)
+    want = {(bb, hh, t, c) for bb in range(b) for hh in range(h)
+            for t, c in tiles_seen(sq, sk, 16, 32)}
+    assert len(visits) == len(set(visits)) and set(visits) == want
+    # the launchers' plan: no maps, the two packings appended
+    args = list(fa._bwd_args(p, q, k, k, q, q))
+    assert args[26:114] == [0] * 88 and args[114:] == [
+        dk_p.strips_per_block, dk_p.heads_per_block, dk_p.stages,
+        dk_p.blocks, dk_p.smem, dq_p.strips_per_block, dq_p.heads_per_block,
+        dq_p.kv_heads_per_block, dq_p.stages, dq_p.blocks, dq_p.smem]
+
+
+def test_mma_bwd_packs_the_encoder_shape_into_full_blocks():
+    """At the Meta-pipe encoder's S 32 with 8 heads over 8 KV heads: dkdv
+    2 key strips x 4 KV heads, dq 2 query strips x 4 heads, 8 warps each,
+    one stage (one trip); a zero-stride dO (a scalar loss's) and a q with
+    rows that are no multiple of 16 bytes are copied, a transposed q is
+    read as it lies."""
+    q = torch.zeros((4096, 32, 8, 32), dtype=BF16)
+    p = fa.bwd_plan(q, q, q)
+    dk_p, dq_p = p.mma
+    assert (dk_p.strips_per_block, dk_p.heads_per_block, dk_p.stages) == (
+        2, 4, 1)
+    assert (dq_p.strips_per_block, dq_p.heads_per_block) == (2, 4)
+    assert dk_p.blocks == dq_p.blocks == 4096 * 2
+    ones = torch.ones(()).to(BF16).expand(q.shape)
+    assert fa.bwd_plan(q, q, q, ones).copies == ("do",)
+    padded = torch.zeros((4096, 32, 8, 33), dtype=BF16)[..., :32]
+    assert fa.bwd_plan(padded, q, q).copies == ("q",)
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert fa.bwd_plan(qt, q, q).copies == ()

@@ -13,9 +13,13 @@ config), on the CPU.
   (strip, head, batch) of H 7 / K 1 once.
 * A CUDA tensor never takes the plain version: a call on one (a tensor
   that reports the card) goes to the kernel's launch or raises, and one
-  whose inputs need grad raises at the head dims the backward is not
-  built for (8, 16, 112).
+  whose inputs need grad goes through ``FlashAttentionFn`` to the
+  forward's launch with the lse, and its backward to the backward
+  kernels' launches (the design of its dtype and head dim), at every
+  head dim the backward is now built for (8, 16, 32, 112).
 """
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -127,13 +131,87 @@ def on_card(*shape, dtype=torch.float32):
     return torch.zeros(*shape, dtype=dtype).as_subclass(OnCard)
 
 
-@pytest.mark.parametrize("d", [8, 16, 112])
-def test_a_card_call_with_grad_raises_where_no_backward_is_built(d):
-    q = on_card(1, 4, 4, d, dtype=torch.bfloat16).requires_grad_()
-    kv = on_card(1, 4, 2, d, dtype=torch.bfloat16)
+class PlainRan(Exception):
+    pass
+
+
+class Launched(Exception):
+    pass
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [8, 16, 32, 112])
+def test_a_card_call_with_grad_goes_to_the_backward_kernels(d, dtype,
+                                                            monkeypatch):
+    """With grad, a tensor on the card goes through ``FlashAttentionFn``
+    to the forward's launch with an lse buffer, and the backward's
+    wrappers go to their kernels' launches with the plan of the design of
+    (dtype, D), never to a plain version and never to a
+    NotImplementedError. The launches are stopped where the kernel would
+    be called (there is no card here): ``torch.empty`` on the card cannot
+    allocate on this machine, so the buffers are made on the CPU."""
+    def plain(*a, **k):
+        raise PlainRan
+
+    for name in ("ref_flash_attention", "ref_flash_attention_bwd",
+                 "ref_flash_bwd_delta"):
+        monkeypatch.setattr(tref, name, plain)
+    empty = torch.empty
+
+    def cpu_empty(*a, **k):
+        k.pop("device", None)
+        return empty(*a, **k)
+
+    asked = []
+
+    def kernel_fn(source, symbol, argtypes):
+        def launch(*args):
+            asked.append((symbol, args))
+            raise Launched
+        return launch
+
+    monkeypatch.setattr(fa.torch, "empty", cpu_empty)
+    monkeypatch.setattr(fa._build, "kernel_fn", kernel_fn)
+    monkeypatch.setattr(fa.torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(fa.torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    entered = []
+    forward = fa.FlashAttentionFn.forward
+
+    def spy(ctx, *args):
+        entered.append(len(args))
+        return forward(ctx, *args)
+
+    monkeypatch.setattr(fa.FlashAttentionFn, "forward", staticmethod(spy))
+    q = on_card(1, 40, 4, d, dtype=dtype).requires_grad_()
+    kv = on_card(1, 40, 2, d, dtype=dtype)
     assert q.device.type == "cuda"
-    with pytest.raises(NotImplementedError, match="backward"):
+    with pytest.raises(Launched):
         tops.flash_attention(q, kv, kv)
+    assert entered == [3]
+    (symbol, args), = asked
+    assert symbol == "flash_attention_launch" and args[4] != 0  # the lse
+    plan = list(args[5])
+    assert plan[5] == d and fa.DESIGNS[plan[7]] == fa.design(dtype, d)
+    # the backward's three wrappers, each to its kernel's launch
+    x = on_card(1, 40, 4, d, dtype=dtype)
+    rows = on_card(1, 4, 40)
+    kind = fa.design(dtype, d)
+    for call, want in (
+            (lambda: fa.flash_bwd_delta(x, x), "flash_bwd_delta_launch"),
+            (lambda: fa.flash_bwd_dkdv(x, kv, kv, x, rows, rows),
+             "flash_bwd_dkdv_launch"),
+            (lambda: fa.flash_bwd_dq(x, kv, kv, x, rows, rows),
+             "flash_bwd_dq_launch")):
+        asked.clear()
+        with pytest.raises(Launched):
+            call()
+        (symbol, args), = asked
+        assert symbol == want
+        plan = list(next(a for a in args if isinstance(a, ctypes.Array)))
+        assert plan[5] == d and fa.BWD_DESIGNS[plan[24]] == kind
+        assert len(plan) == 114 + 11 * (kind in fa.MMA_DESIGNS)
 
 
 @pytest.mark.parametrize("d", [8, 112])

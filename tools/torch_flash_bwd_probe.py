@@ -11,14 +11,19 @@ forward's lse, ``csrc/flash_attention_bwd.cu``) and prints, as JSON lines:
 * ``build``: each backward and wgmma forward kernel's registers and spill
   bytes from the ptxas report, and its HGMMA instructions by variant
   (``cuobjdump``);
-* ``edges`` (unless ``--no-edges``): ``chip_smoke.bwd_edge_shapes`` in
-  bf16 and f32 through ``flash_bwd_dkdv`` and ``flash_bwd_dq`` on the
-  forward kernel's o and lse, each gradient against the plain backward
-  (``ref.ref_flash_attention_bwd``) within ``chip_smoke.BWD_TOL``, the
-  worst error per gradient and dtype, and the launches by design;
+* ``edges`` (unless ``--no-edges``): ``chip_smoke.bwd_edge_shapes`` (D
+  8 to 128) in bf16 and f32 through ``flash_bwd_dkdv`` and
+  ``flash_bwd_dq`` on the forward kernel's o and lse, the lse against the
+  plain forward's within ``chip_smoke.LSE_TOL`` and each gradient against
+  the plain backward (``ref.ref_flash_attention_bwd``) within
+  ``chip_smoke.BWD_TOL``, the worst error per gradient, dtype and head
+  dim, and the launches by design;
 * ``times`` (unless ``--no-times``): llama3.2-1b's training layer, B 2 x
-  S 4,096, H 32 / K 8, D 64, in bf16 and f32, and olmo-1b's attention,
-  B 2 x S 4,096, H 16 / K 16, D 128, in f32: dkdv and dq by CUDA events
+  S 4,096, H 32 / K 8, D 64, in bf16 and f32, olmo-1b's attention, B 2 x
+  S 4,096, H 16 / K 16, D 128, in f32, kimi-k2's, B 1 x S 4,096, H 64 /
+  K 8, D 112, in bf16, and the Meta-pipe encoder's shape, B 4,096 x S 32,
+  H 8 / K 8, at D 32 and 16 in both dtypes (the mma designs): dkdv and dq
+  by CUDA events
   over N calls (default 10) and their device time alone (calls queued
   behind a spin kernel), beside SDPA's whole backward (f32: its
   memory-efficient kernel, k and v repeated over the heads) and each
@@ -45,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -61,13 +67,22 @@ import chip_smoke as cs  # noqa: E402
 
 KERNELS = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
            "flash_bwd_dkdv_wgmma_f32_kernel", "flash_bwd_dq_wgmma_f32_kernel",
-           "flash_wgmma_kernel", "flash_wgmma_f32_kernel")
+           "flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel",
+           "flash_bwd_delta_kernel", "flash_wgmma_kernel",
+           "flash_wgmma_f32_kernel", "flash_mma_kernel",
+           "flash_mma_f32_kernel")
 PEAK = {torch.bfloat16: 989.4e12, torch.float32: 494.7e12 / 3}
 # (name, B, S, H, K, D, dtype): llama3.2-1b's training layer in both
-# dtypes, olmo-1b's attention in f32
+# dtypes, olmo-1b's attention in f32, kimi-k2's in bf16, the Meta-pipe
+# encoder's shape at D 32 and 16 in both
 SHAPES = (("llama_bf16", 2, 4096, 32, 8, 64, torch.bfloat16),
           ("llama_f32", 2, 4096, 32, 8, 64, torch.float32),
-          ("olmo_d128_f32", 2, 4096, 16, 16, 128, torch.float32))
+          ("olmo_d128_f32", 2, 4096, 16, 16, 128, torch.float32),
+          ("kimi_d112", 1, 4096, 64, 8, 112, torch.bfloat16),
+          ("encoder_d32", 4096, 32, 8, 8, 32, torch.bfloat16),
+          ("encoder_d32_f32", 4096, 32, 8, 8, 32, torch.float32),
+          ("encoder_d16", 4096, 32, 8, 8, 16, torch.bfloat16),
+          ("encoder_d16_f32", 4096, 32, 8, 8, 16, torch.float32))
 
 
 def build_report() -> dict:
@@ -96,6 +111,15 @@ def edges() -> dict:
         for dt in (torch.bfloat16, torch.float32):
             q, k, v, do = cs.bwd_inputs(gen, *shape, dt)
             o, lse = fa._forward(q, k, v, lse=True)
+            _, lse_want = ref.ref_flash_attention(
+                q, k, v, bq=cs.PLAIN_FLASH_TILE, bk=cs.PLAIN_FLASH_TILE,
+                return_lse=True)
+            seen = lse_want > -1e29
+            ok, err = cs.within(lse[seen], lse_want[seen], cs.LSE_TOL)
+            key = f"lse_{str(dt).split('.')[-1]}_d{shape[5]}"
+            worst[key] = max(worst.get(key, 0.0), err)
+            if not ok or not bool((lse[~seen] == -1e30).all()):
+                fails.append([list(shape), str(dt), "lse", err])
             delta = fa.flash_bwd_delta(o, do)
             dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse, delta)
             dq = fa.flash_bwd_dq(q, k, v, do, lse, delta)
@@ -103,9 +127,12 @@ def edges() -> dict:
                 q, k, v, o, lse, do, bq=cs.PLAIN_FLASH_TILE,
                 bk=cs.PLAIN_FLASH_TILE)
             torch.cuda.synchronize()
-            for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
-                ok, err = cs.within(got, w, cs.BWD_TOL[dt])
-                key = f"{name}_{str(dt).split('.')[-1]}"
+            for name, got, w, tol in zip(
+                    ("dq", "dk", "dv", "delta"), (dq, dk, dv, delta),
+                    (*want, ref.ref_flash_bwd_delta(o, do)),
+                    (cs.BWD_TOL[dt],) * 3 + (cs.BWD_TOL[torch.float32],)):
+                ok, err = cs.within(got, w, tol)
+                key = f"{name}_{str(dt).split('.')[-1]}_d{shape[5]}"
                 worst[key] = max(worst.get(key, 0.0), err)
                 if not ok or not torch.isfinite(got.float()).all():
                     fails.append([list(shape), str(dt), name, err])
@@ -159,7 +186,7 @@ def time_shape(name, b, s, h, kh, d, dt, reps, check=True) -> dict:
 
     plan = fa.bwd_plan(q, k, v)
     rec = {"shape": [b, s, h, kh, d, str(dt)], "reps": reps,
-           "plan": {k_: v_ for k_, v_ in vars(plan).items()
+           "plan": {k_: v_ for k_, v_ in dataclasses.asdict(plan).items()
                     if k_ not in ("first_q_tile", "dq_trips", "maps")}}
     if not bf16 and check:
         dk_, dv_ = dkdv()
