@@ -192,6 +192,16 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   pool stats and pressure, the device over one read wave
                   of each store (torch.profiler and CUDA-event spans of
                   every device operation), launches
+  kernel_edges_scans  the scan kernels against their plain versions
+                  within SCAN_TOL: Mamba's selective scan (ssm_scan.cu)
+                  at N 8 and 16, x f32 and bf16, d_inner 200 (a ragged
+                  channel block), B and C strided or not, and RWKV6's WKV
+                  recurrence (wkv.cu) at Dk 16 and 64, each at L 1, 2,
+                  127, 128, 129 and 1,000, B 1 and 3, from a nonzero
+                  state (at L <= 2 also the decode step's sequential
+                  plain version); decays that all underflow to 0; logw at
+                  both ends of its clip over 1,000 steps (the slow end at
+                  small scale, and at unit scale held against f64)
   families_served Jamba-v0.1 at its published widths (d 4,096, 32 / 8
                   heads of 128, 16 experts top-2, Mamba state 16), 8 of
                   its 32 layers (one period of the 1:7 interleave), weights
@@ -199,10 +209,12 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   and ServeEngine (the serving phase's 16 requests, 16
                   tokens each), then one 4,096-token prompt at batch 1:
                   walls, decode tokens/s, peak memory, flash launches by
-                  design and head dim (flash_wgmma_kernel<128>), and one
-                  profiled prefill of the long prompt (the same weights,
-                  in a fresh process) with the device time of the Mamba
-                  scan and of the MoE's routing, dispatch, expert
+                  design and head dim (flash_wgmma_kernel<128>), the scan
+                  kernel's launches (7 Mamba layers x every prefill and
+                  decode step, checked), and one profiled prefill of the
+                  long prompt (the same weights, in a fresh process) with
+                  the device time of the Mamba scan (the kernel's
+                  wrapper) and of the MoE's routing, dispatch, expert
                   products and combine
   families_config each other new config at its published widths for one
                   bucket's prefill and 8 greedy decode steps: olmo-1b,
@@ -210,10 +222,11 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   at 2 layers, kimi-k2 at 1 (flash_wgmma_kernel<112>),
                   qwen2-vl-72b at 2 on embeddings with M-RoPE positions;
                   prefill wall, decode tokens/s, peak memory, flash calls
-                  by design and head dim (rwkv6-7b: none; and its
-                  4,096-token prompt at batch 1, its wall over all 32
-                  layers and a profiled prefill through the first 2, in
-                  a fresh process, with the scan's share)
+                  by design and head dim (rwkv6-7b: none; its WKV
+                  kernel's launches 32 x every prefill and decode step,
+                  checked; and its 4,096-token prompt at batch 1, its
+                  wall over all 32 layers and a profiled prefill through
+                  the first 2, in a fresh process, with the scan's share)
   families        the above in brief, and the nine new smoke configs in
                   f32 through device="cpu" and device="cuda": the same
                   greedy ids from a Scheduler run (qwen2-vl and
@@ -222,7 +235,9 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   logits within SMOKE_TOL, with the card run's kernel
                   launches (counted from 0) and its flash calls by design
                   and head dim, which must add up to the launches
-                  (flash_mma_f32_kernel at D 16 and 8)
+                  (flash_mma_f32_kernel at D 16 and 8); jamba-smoke and
+                  rwkv6-smoke through the scan kernels (N 8 with f32 x,
+                  Dk 16), no other config launching one
   kernel_edges_whisper  flash forward and backward at whisper's heads
                   (H 16 / K 16, D 64) and lengths 4, 224 and 448, bf16
                   and f32, against the plain versions, with the designs
@@ -296,7 +311,8 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   since the start at which each phase's line was printed;
                   the flash backward's three kernels (delta, dkdv, dq) at
                   llama3.2-1b's training layer, B 2 x S 4,096, H 32 / K 8,
-                  D 64, in bf16 (flash_bwd_dkdv_wgmma_kernel and
+                  D 64 (its q, k, v, o and lse, a seeded unit-scale dO),
+                  in bf16 (flash_bwd_dkdv_wgmma_kernel and
                   flash_bwd_dq_wgmma_kernel on the tensor cores, the
                   train path's launches) and f32
                   (flash_bwd_dkdv_wgmma_f32_kernel and
@@ -313,7 +329,8 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   decoder shapes: bf16 and f32 at B 8 x S 224, H 16 /
                   K 16, D 64 (flash_attention_whisper and _whisper_f32,
                   the whisper phase's launches) and the bf16 backward at
-                  B 4 x S 448 (flash_bwd_*_whisper, its training's);
+                  B 4 x S 448 (flash_bwd_*_whisper, its training's; a
+                  seeded unit-scale dO);
                   the backward at kimi-k2's training shape, B 1 x S
                   4,096, H 64 / K 8, D 112 (flash_bwd_*_d112, the
                   families_train path's: its q, k, v, o and lse, a
@@ -322,7 +339,18 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   and f32 (flash_bwd_*_d32, _d16, _d32_f32, _d16_f32; D
                   16 the families_train smoke steps', D 32 no path's);
                   the four encoder-shape forward rows also with a null
-                  lse and with the lse written, in alternating rounds
+                  lse and with the lse written, in alternating rounds;
+                  the scan kernels at the families' shapes (ssm_scan on
+                  Jamba-v0.1's first Mamba layer of its 4,096-token
+                  prefill, its launches the families_served path's; wkv
+                  on rwkv6-7b's layer 0 of its 4,096-token prefill, its
+                  launches that config's run), each with the kernel's
+                  and the plain chunked version's largest error against
+                  the sequential recurrence in f64 (f64), the kernel's at
+                  most SCAN_F64_FACTOR times the plain version's; their
+                  bounds: bytes against f32 operations, the selective
+                  scan's exponentials split between the SFU and the FMA
+                  pipe (exp_bound_s; on the SFU alone beside it)
   kernel_edges_train  the flash backward's kernels at D 8/16/32 (the mma
                   designs) and 64/112/128 (wgmma, D 112 in D 128's
                   tiles), f32 and bf16, GQA groups 1/4 (and 7 heads over
@@ -383,7 +411,9 @@ nvcc; it builds the port's kernels from ``src/repro_torch/csrc`` into
                   card from one random tree: losses within SMOKE_TOL,
                   every gradient leaf within FAMILY_GRAD_TOL, the
                   backward launched on the mma_f32 kernels (D 16; D 8 for
-                  qwen2-0.5b; none for rwkv6); kimi-k2's smoke config in
+                  qwen2-0.5b; none for rwkv6), no scan kernel launched
+                  (training runs the scans as torch ops); kimi-k2's
+                  smoke config in
                   bf16 on the card, chunked against xla (the bf16 mma
                   backward)
   distributed     the sharded paths, each rank a process of its own on a
@@ -559,6 +589,19 @@ SOURCES.update(dict.fromkeys(DECODE_ROWS.values(), (
     "src/repro_torch/csrc/chain_decode.cu",
     "src/repro/kernels/delta_codec.py:261 (chain_decode, a "
     "jax.lax.associative_scan, not Pallas)")))
+# the scan kernels (no TPU kernel: the JAX package runs both recurrences
+# as jax.lax.associative_scan over chunks, its TPU form of the CUDA kernels
+# these are), at Jamba-v0.1's first Mamba layer and rwkv6-7b's layer 0 of
+# a FAMILY_LONG-token prefill
+SOURCES["ssm_scan"] = (
+    "src/repro_torch/csrc/ssm_scan.cu",
+    "src/repro/models/ssm.py:91 (ssm_scan_chunked, a "
+    "jax.lax.associative_scan, not Pallas; :135 ssm_scan_sequential in "
+    "decode)")
+SOURCES["wkv"] = (
+    "src/repro_torch/csrc/wkv.cu",
+    "src/repro/models/rwkv.py:122 (wkv_chunked, a jax.lax.associative_scan, "
+    "not Pallas; :109 wkv_sequential)")
 # the kernels each driven path must launch at least once
 PATH_KERNELS = {
     "main_path": ("fingerprint", "masked_cumsum", "keep_mask",
@@ -581,7 +624,7 @@ PATH_KERNELS = {
     "families_train": ("flash_attention", "flash_bwd_delta",
                        "flash_bwd_dkdv", "flash_bwd_dq"),
     "train_checkpoint": ("fingerprint", "masked_cumsum", "delta_pack"),
-    "families": ("flash_attention",),
+    "families": ("flash_attention", "ssm_scan", "wkv"),
     "whisper": ("flash_attention", "flash_bwd_delta", "flash_bwd_dkdv",
                 "flash_bwd_dq"),
     "tiles": ("shard_route_bytes", "keep_mask"),
@@ -598,6 +641,37 @@ SERVE_TOL = 1e-3
 SERVE_TOL_BF16 = 0.25
 SERVE_CHECK_STEPS = 4  # f32 decode steps of the first bucket on both sides
 SMOKE_TOL = 1e-4  # f32 logits, card against CPU (sums in another order)
+# the scan kernels against their plain versions (the edge cases): |got -
+# want| <= 1e-5 + 1e-5 |want|, tests/test_torch_model_mixers.py's
+# tolerance: the same f32 recurrence, summed in another order. Its atol
+# holds where the state stays within a few units (kernel_edges_scans'
+# inputs); over a long prompt both drift from the exact value, so there
+# each is held against an f64 run (SCAN_F64_FACTOR)
+SCAN_TOL = (1e-5, 1e-5)
+# a scan kernel's largest error against f64 may be this many times the
+# plain chunked version's (else within SCAN_TOL of f64)
+SCAN_F64_FACTOR = 2.0
+# the special-function units' ex2 rate: 16 a clock on each of the 132 SMs
+# at the 1.98 GHz boost clock (the selective scan takes one exponential an
+# element of (B, L, d_inner, N))
+SFU_EX2_PER_S = 16 * 132 * 1.98e9
+# an exponential run on the FMA pipe instead, as FlashAttention-3 splits
+# them: a Cody-Waite exp2 (floor and subtract, a degree-5 polynomial's 5
+# FMAs at 2 operations each, the exponent's shift and add), in f32
+# operations
+EXP_POLY_OPS = 14
+
+
+def exp_bound_s(exps: float, other_ops: float, peak_ops: float) -> float:
+    """The least time for ``exps`` exponentials beside ``other_ops`` f32
+    operations at ``peak_ops`` a second, each exponential on the
+    special-function units (SFU_EX2_PER_S) or as EXP_POLY_OPS operations
+    beside the rest: the split that ends both pipes together, or all on
+    the units where the other work alone outlasts them."""
+    if other_ops / peak_ops >= exps / SFU_EX2_PER_S:
+        return other_ops / peak_ops
+    return ((other_ops + EXP_POLY_OPS * exps)
+            / (peak_ops + EXP_POLY_OPS * SFU_EX2_PER_S))
 # the Meta-pipe encoder in f32 on the card, chunked (the mma_f32 flash
 # kernel) against xla (torch ops), relative to max(1, max |xla|): the
 # same f32 arithmetic with attention's sums in another order, carried
@@ -1028,7 +1102,15 @@ def nvidia_smi_line() -> str:
 def kernel_label(mangled: str) -> str:
     """``flash_wgmma_f32_kernel<128>`` from a flash kernel's mangled name
     (the name itself where it does not parse); ``flash_mma_kernel<32,lse>``
-    for the mma forward's instantiation that writes the lse."""
+    for the mma forward's instantiation that writes the lse;
+    ``ssm_scan_kernel<16,bf16>`` (N, x's dtype) and ``wkv_kernel<64>``
+    (Dk) for the scan kernels."""
+    m = re.search(r"\d((?:ssm_scan|wkv)_kernel)I(.*?)EE", mangled)
+    if m:  # ssm_scan_kernel<16,bf16>, wkv_kernel<64>
+        args = re.findall(r"Li(\d+)", m.group(2))
+        if m.group(1) == "ssm_scan_kernel":
+            args += ["bf16" if "bfloat16" in m.group(2) else "float"]
+        return f"{m.group(1)}<{','.join(args)}>"
     m = re.search(r"\d(flash\w*?_kernel)I(.*?)EEEv", mangled)
     if not m:
         return mangled
@@ -1072,7 +1154,10 @@ def phase_env(build_info: dict, smi: str) -> None:
     flash_bwd_dkdv_wgmma_f32_kernel and flash_bwd_dq_wgmma_f32_kernel at D
     64, 112 and 128, none spilling; and its HMMA per kernel (mma.sync):
     BF16 in flash_bwd_dkdv_mma_kernel and flash_bwd_dq_mma_kernel at D 8,
-    16 and 32 in bf16, TF32 in their f32 instantiations."""
+    16 and 32 in bf16, TF32 in their f32 instantiations; the scan kernels'
+    registers and spills per instantiation (ssm_scan_kernel at N 8 and 16,
+    x f32 and bf16; wkv_kernel at Dk 16 and 64), none of which may
+    spill."""
     from repro_torch.kernels import _build
     ptxas = build_info["ptxas"]
     by_fn = _build.sass_opcodes_by_function("flash_attention", "HGMMA")
@@ -1086,6 +1171,8 @@ def phase_env(build_info: dict, smi: str) -> None:
     bwd_hgmma = (None if bwd_fn is None else
                  {kernel_label(k): v for k, v in sorted(bwd_fn.items())})
     bwd_regs = ptxas_by_kernel(ptxas.get("flash_attention_bwd", ""))
+    scan_regs = {k: v for src in ("ssm_scan", "wkv")
+                 for k, v in ptxas_by_kernel(ptxas.get(src, "")).items()}
     bwd_mma_fn = _build.sass_opcodes_by_function("flash_attention_bwd",
                                                  "HMMA")
     bwd_hmma = (None if bwd_mma_fn is None else
@@ -1107,7 +1194,18 @@ def phase_env(build_info: dict, smi: str) -> None:
           "flash_registers_by_kernel": flash_regs,
           "flash_bwd_hgmma_by_kernel": bwd_hgmma,
           "flash_bwd_hmma_by_kernel": bwd_hmma,
-          "flash_bwd_registers_by_kernel": bwd_regs})
+          "flash_bwd_registers_by_kernel": bwd_regs,
+          "scan_registers_by_kernel": scan_regs})
+    for src, names in (("ssm_scan", [f"ssm_scan_kernel<{n},{x}>"
+                                     for n in (8, 16)
+                                     for x in ("float", "bf16")]),
+                       ("wkv", [f"wkv_kernel<{d}>" for d in (16, 64)])):
+        for name in names:
+            if src in ptxas:
+                got = scan_regs.get(name, {})
+                check(got.get("spill_stores") == 0
+                      and got.get("spill_loads") == 0,
+                      f"{name}: spills or no ptxas report: {got}")
     # the serving instantiations and the training ones (the lse written)
     for name, variant in [(f"flash_mma_kernel<{d}{x}>", "HMMA.16816.F32.BF16")
                           for d in (8, 16, 32) for x in ("", ",lse")] + [
@@ -1594,6 +1692,65 @@ class KernelBench:
             lambda: self.kops.ref.ref_keep_mask(ts, cutoff, tile),
             nbytes=8 * c + 4 * n_tiles, ops=2 * c,
             timed=timed, main=main, quiet=quiet, device=True)
+
+    def ssm_scan(self, dt, bmat, cmat, x, a, h0, *, chunked=True,
+                 timed=False, main=False, quiet=False, tol=SCAN_TOL,
+                 reps=None, extra=None, label=None) -> dict:
+        """The selective scan against its plain version (the chunked torch
+        ops, or at ``chunked=False`` the sequential recurrence) within
+        ``tol``. Its bound: dt, x, B, C, A and h0 read once, y and h_L
+        written once, against one exponential and 7 other f32 operations
+        an element of (B, L, d_inner, N), the exponentials split between
+        the special-function units and the FMA pipe (``exp_bound_s``);
+        beside it the exponentials on the units alone
+        (``bound_ex2_sfu_ms``), the other f32 work alone
+        (``bound_fp32_ms``) and the bytes (``bound_bytes_ms``). No single
+        PyTorch call computes a scan: no library time."""
+        from repro_torch.kernels import ref
+        b, l, di = dt.shape
+        n = a.shape[1]
+        plain = ref.ssm_scan_chunked if chunked else ref.ssm_scan_sequential
+        elems = b * l * di * n
+        nbytes = (4 * (dt.numel() + bmat.numel() + cmat.numel() + a.numel()
+                       + 2 * h0.numel() + b * l * di)
+                  + x.numel() * x.element_size())
+        return self.run(
+            "ssm_scan", {"B": b, "L": l, "d_inner": di, "N": n,
+                         "x": str(x.dtype), "chunked": chunked,
+                         "b_strides": list(bmat.stride()),
+                         **({"case": label} if label else {})},
+            lambda: self.kops.ssm_scan(dt, bmat, cmat, x, a, h0,
+                                       chunked=chunked),
+            lambda: plain(dt, bmat, cmat, x, a, h0),
+            nbytes=nbytes, ops=elems, peak=elems / exp_bound_s(
+                elems, 7 * elems, self.roof.PEAK_CUDA_CORE_OPS), tol=tol,
+            timed=timed, main=main, quiet=quiet, reps=reps, device=timed,
+            extra={"bound_ex2_sfu_ms": elems / SFU_EX2_PER_S * 1e3,
+                   "bound_fp32_ms": 7 * elems
+                   / self.roof.PEAK_CUDA_CORE_OPS * 1e3,
+                   "bound_bytes_ms": nbytes / self.roof.HBM_BW * 1e3,
+                   **(extra or {})})
+
+    def wkv(self, r, k, v, logw, u, s0, *, chunked=True, timed=False,
+            main=False, quiet=False, tol=SCAN_TOL, reps=None,
+            extra=None, label=None) -> dict:
+        """The WKV recurrence against its plain version (chunked, or the
+        sequential recurrence) within ``tol``. Its bound: r, k, v, logw,
+        u and S_0 read once, o and S_L written once, against 5 f32
+        operations an (i, j) of each head's state a step (r S, the
+        decay's product and the k v add) at the CUDA cores' rate. No
+        library time."""
+        from repro_torch.kernels import ref
+        b, l, h, dk = r.shape
+        plain = ref.wkv_chunked if chunked else ref.wkv_sequential
+        return self.run(
+            "wkv", {"B": b, "L": l, "H": h, "Dk": dk, "chunked": chunked,
+                    **({"case": label} if label else {})},
+            lambda: self.kops.wkv(r, k, v, logw, u, s0, chunked=chunked),
+            lambda: plain(r, k, v, logw, u, s0),
+            nbytes=4 * (5 * r.numel() + u.numel() + 2 * s0.numel()),
+            ops=5 * b * l * h * dk * dk, tol=tol, timed=timed, main=main,
+            quiet=quiet, reps=reps, device=timed, extra=extra)
 
 
 def covered_cells(heads: np.ndarray, idx: np.ndarray) -> int:
@@ -4247,16 +4404,23 @@ FAMILY_PROFILE_LAYERS = 2
 FAMILY_SMOKE = ("grok-1-314b", "jamba-v0.1-52b", "kimi-k2-1t-a32b",
                 "olmo-1b", "qwen1.5-4b", "qwen2-0.5b", "qwen2-vl-72b",
                 "rwkv6-7b", "whisper-medium")
-#: the device-time regions of one prefill: the Mamba and RWKV scans, the
-#: MoE's routing, dispatch, expert products and combine (module, function)
+#: the device-time regions of one prefill: the Mamba and RWKV scans (the
+#: scan kernels' wrappers, as the model modules call them), the MoE's
+#: routing, dispatch, expert products and combine (module, function)
 FAMILY_REGIONS = {
-    "mamba_scan": ("repro_torch.models.ssm", "ssm_scan_chunked"),
-    "rwkv_scan": ("repro_torch.models.rwkv", "wkv_chunked"),
+    "mamba_scan": ("repro_torch.models.ssm", "ssm_scan"),
+    "rwkv_scan": ("repro_torch.models.rwkv", "wkv"),
     "moe_route": ("repro_torch.models.moe", "route"),
     "moe_dispatch": ("repro_torch.models.moe", "dispatch"),
     "moe_experts": ("repro_torch.models.moe", "expert_ffn"),
     "moe_combine": ("repro_torch.models.moe", "combine"),
 }
+#: the scan regions' kernels by name: the profiler records a kernel that
+#: the port's libraries launch (through ctypes), but need not tie it to
+#: the host range that launched it, so the regions' kernel time is also
+#: read by name (``kernel_device_s``)
+FAMILY_REGION_KERNELS = {"mamba_scan": "ssm_scan_kernel",
+                         "rwkv_scan": "wkv_kernel"}
 
 
 #: families_train: kimi-k2 trained on one card at its published widths,
@@ -4367,7 +4531,7 @@ def _dev_us(e, attr: str) -> float:
     return float(v if v is not None else getattr(e, attr, 0) or 0)
 
 
-def region_shares(fn, regions: dict) -> dict:
+def region_shares(fn, regions: dict, kernels: dict | None = None) -> dict:
     """One run of ``fn`` under torch.profiler with each region labelled:
     the device time of every kernel and copy the profiler kept
     (``device_s``), and per region its kernels' device time (the kernels
@@ -4375,6 +4539,12 @@ def region_shares(fn, regions: dict) -> dict:
     ``device_s`` (``share``); beside them each region's summed CUDA-event
     spans on the stream (``region_span_s``: an upper bound, the spans also
     hold the card's waits on the host inside the region).
+
+    ``kernels`` ({label: a kernel name}): the device time of the kept
+    kernels whose name holds it (``kernel_device_s``) and its share of
+    ``device_s`` (``kernel_share``), for kernels that the port launches
+    through ctypes. ``top_ms``: the six kernels (by name, first 80
+    characters) with the most device time, in ms.
 
     Where the profiler lost events (``complete`` false) no share is read:
     the kept events are then not only fewer but can be misattributed (a
@@ -4397,6 +4567,14 @@ def region_shares(fn, regions: dict) -> dict:
                    and bool(ENQUEUE_CALL.match(e.name)) for e in evs)
     span_s = {k: sum(a.elapsed_time(b) for a, b in v) / 1e3
               for k, v in spans.items()}
+    by_name = {k: sum(_dev_us(e, "self_cuda_time_total") for e in dev
+                      if name in e.name) / 1e6
+               for k, name in (kernels or {}).items()}
+    per_kernel: dict = {}
+    for e in dev:
+        key = e.name[:80]
+        per_kernel[key] = (per_kernel.get(key, 0.0)
+                           + _dev_us(e, "self_cuda_time_total") / 1e3)
     return {"wall_s": s, "device_s": total, "idle_share":
             1 - total / s if s > 0 else None,
             "complete": len(dev) >= enqueued, "calls": {
@@ -4406,7 +4584,11 @@ def region_shares(fn, regions: dict) -> dict:
                       for k, v in by.items()},
             "region_span_s": span_s,
             "span_share": {k: (v / s if s > 0 else None)
-                           for k, v in span_s.items()}}
+                           for k, v in span_s.items()},
+            "kernel_device_s": by_name,
+            "kernel_share": {k: (v / total if total > 0 else None)
+                             for k, v in by_name.items()},
+            "top_ms": sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]}
 
 
 def vlm_inputs(cfg, b: int, s: int, gen, dtype) -> dict:
@@ -4433,10 +4615,12 @@ def family_one_bucket(kops, cfg, seed: int, profile_layers: int = 0) -> dict:
     widths on the card: the prefill, then FAMILY_DECODE greedy decode
     steps (qwen2-vl through ModelBundle with embeddings and M-RoPE
     positions), with walls, peak memory and flash calls by design and
-    head dim; with ``profile_layers``, a FAMILY_LONG-token prompt at batch
-    1 (as Jamba's): one prefill for its wall, then
-    :func:`family_profile_fresh` of the first ``profile_layers`` layers.
-    The model is freed after."""
+    head dim, and the scan kernels' launches (one a Mamba or RWKV layer a
+    prefill or decode step, checked); with ``profile_layers``, a
+    FAMILY_LONG-token prompt at batch 1 (as Jamba's): one prefill for its
+    wall (its scan inputs of the first scan layer kept, ``scan_inputs``),
+    then :func:`family_profile_fresh` of the first ``profile_layers``
+    layers. The model is freed after."""
     from repro_torch.models import build, transformer
     bundle = build(cfg)
     reset_peak()
@@ -4455,7 +4639,7 @@ def family_one_bucket(kops, cfg, seed: int, profile_layers: int = 0) -> dict:
     else:
         inp = {"tokens": torch.as_tensor(batch, device=DEV)}
     reset_counts(kops)
-    with flash_calls() as calls:
+    with flash_calls() as calls, scan_calls(FAMILY_LONG) as scans:
         (logits, state), rec["prefill_s"] = wall(lambda: bundle.prefill(
             params, inp, pad_to=s + FAMILY_DECODE))
         first = logits
@@ -4484,13 +4668,34 @@ def family_one_bucket(kops, cfg, seed: int, profile_layers: int = 0) -> dict:
           f"{rec['launches']}, not {want}")
     rec["last_qkv_shape"] = (list(calls["last_qkv"][0].shape)
                              if n_attn else None)
+    per_pass = {"ssm_scan": sum(m == "mamba" for m, _ in kinds),
+                "wkv": sum(m == "rwkv" for m, _ in kinds)}
+    passes = 1 + FAMILY_DECODE
+    rec["scan_launches"] = {k: read_counts(kops)[k] for k in per_pass}
+    check(all(rec["scan_launches"][k] == scans[k] == n * passes
+              for k, n in per_pass.items()),
+          f"{cfg.name}: scan launches {rec['scan_launches']}, calls "
+          f"{scans}, not {passes} passes of {per_pass}")
     del state, logits, first, calls
     if profile_layers:
         long_inp = long_prompt_batch(cfg, seed)
         reset_peak()
-        _, rec["long_prefill_s"] = wall(
-            lambda: bundle.prefill(params, long_inp))
+        with scan_calls(FAMILY_LONG) as scans:
+            _, rec["long_prefill_s"] = wall(
+                lambda: bundle.prefill(params, long_inp))
         rec["peak_memory_long_bytes"] = peak_bytes()
+        passes += 1
+        rec["scan_launches"] = {k: read_counts(kops)[k] for k in per_pass}
+        check(all(rec["scan_launches"][k] == n * passes
+                  for k, n in per_pass.items()),
+              f"{cfg.name}: scan launches {rec['scan_launches']} after "
+              f"the long prefill, not {passes} passes of {per_pass}")
+        rec["scan_inputs"] = scans["kept"]
+        if per_pass["wkv"]:
+            r = scans["kept"]["wkv"][0]
+            check(tuple(r.shape) == (1, FAMILY_LONG, cfg.n_heads,
+                                     cfg.d_model // cfg.n_heads),
+                  f"{cfg.name}: the long prompt's r is {tuple(r.shape)}")
     del params, inp
     torch.cuda.empty_cache()
     if profile_layers:
@@ -4517,7 +4722,8 @@ def family_profile_child(arch: str, layers: int, seed: int) -> None:
     params = bundle.init(seed, device=DEV)
     inp = long_prompt_batch(cfg, seed)
     _, warm_s = wall(lambda: bundle.prefill(params, inp))
-    out = region_shares(lambda: bundle.prefill(params, inp), FAMILY_REGIONS)
+    out = region_shares(lambda: bundle.prefill(params, inp), FAMILY_REGIONS,
+                        FAMILY_REGION_KERNELS)
     print(json.dumps({"layers": layers, "warm_prefill_s": warm_s, **out}),
           flush=True)
 
@@ -4613,9 +4819,13 @@ def phase_families(kops, seed: int) -> dict:
     FAMILY_LONG-token prompt at batch 1: Mamba, MoE and bf16 flash at D
     128 on one path; one profiled prefill of that prompt and of rwkv6-7b's
     FAMILY_LONG-token prompt (FAMILY_PROFILE_LAYERS deep) with the scans'
-    and the MoE's share of the device time. Then every other new config (FAMILY_OTHERS) for one
-    bucket; then the eight smoke configs in f32 on the CPU and the card,
-    their flash launches counted on the card run."""
+    and the MoE's share of the device time; the scan kernel's launches one
+    a Mamba layer each prefill and decode step, and the scan inputs of the
+    long prefill's first Mamba layer kept (``ssm_scan_inputs``). Then
+    every other new config (FAMILY_OTHERS) for one bucket (rwkv6-7b's WKV
+    launches checked the same way, its long prefill's layer-0 inputs kept:
+    ``wkv_inputs``); then the smoke configs in f32 on the CPU and the
+    card, their flash and scan launches counted on the card run."""
     from repro_torch.configs import RunConfig, get_config, get_smoke_config
     from repro_torch.models import build, transformer
     from repro_torch.obs.recorder import RECORDER
@@ -4642,7 +4852,7 @@ def phase_families(kops, seed: int) -> dict:
         3, cfg.vocab, (1, FAMILY_LONG)).astype(np.int32)
     RECORDER.clear()
     reset_counts(kops)
-    with flash_calls() as calls:
+    with flash_calls() as calls, scan_calls(FAMILY_LONG) as scans:
         for rid, toks in requests:
             sched.submit(rid, toks)
         stats, served["scheduler_wall_s"] = wall(sched.run_until_drained)
@@ -4687,7 +4897,21 @@ def phase_families(kops, seed: int) -> dict:
     long_qkv = calls["last_qkv"]
     check(tuple(long_qkv[0].shape) == (1, FAMILY_LONG, cfg.n_heads, cfg.hd),
           f"the long prompt's q is {tuple(long_qkv[0].shape)}")
-    del calls, engine, sched, params
+    # the scan kernel: one launch a Mamba layer each prefill and decode
+    # step (every generate span: a prefill, then its decode steps)
+    n_mamba = sum(m == "mamba" for m, _ in kinds)
+    passes = len(hist) + sum(h["decode_steps"] for h in hist)
+    n_scan = served["launches"]["ssm_scan"]
+    served["ssm_scan_passes"] = passes
+    check(n_scan == n_mamba * passes == scans["ssm_scan"]
+          and served["launches"]["wkv"] == 0,
+          f"jamba ssm_scan launches {n_scan} (calls {scans['ssm_scan']}), "
+          f"not {n_mamba} x {passes} prefills and decode steps")
+    ssm_inputs = scans["kept"]["ssm_scan"]
+    check(tuple(ssm_inputs[0].shape) == (1, FAMILY_LONG,
+                                         cfg.ssm_expand * cfg.d_model),
+          f"the long prompt's dt is {tuple(ssm_inputs[0].shape)}")
+    del calls, scans, engine, sched, params
     torch.cuda.empty_cache()
     # where the device time of one long prefill goes: the Mamba scan, the
     # MoE's steps, the rest (the same weights and prompt, profiled in a
@@ -4705,6 +4929,10 @@ def phase_families(kops, seed: int) -> dict:
         one = family_one_bucket(
             kops, family_cfg(name, depth), seed + 10 + i,
             FAMILY_PROFILE_LAYERS if name == "rwkv6-7b" else 0)
+        scan_kept = one.pop("scan_inputs", {})
+        if "wkv" in scan_kept:
+            wkv_inputs = scan_kept["wkv"]
+            launches["wkv"] = one["scan_launches"]["wkv"]
         others[name] = one
         launches["flash_attention_d112"] += one["flash_calls_by_dim"].get(
             "wgmma<112>", 0)
@@ -4713,7 +4941,8 @@ def phase_families(kops, seed: int) -> dict:
             None if depth == full else f"{depth} of {full} layers"), **one})
     rec["others"] = {k: {x: v[x] for x in (
         "layers", "prefill_s", "decode_tokens_per_s", "peak_memory_bytes",
-        "flash_calls_by_dim")} for k, v in others.items()}
+        "flash_calls_by_dim", "scan_launches")} for k, v in others.items()}
+    check("wkv" in launches, "rwkv6-7b: no long prefill's WKV inputs")
     # -- the eight smoke configs in f32, CPU against the card ------------
     smoke, kept = {}, {}
     for i, name in enumerate(FAMILY_SMOKE):
@@ -4732,7 +4961,25 @@ def phase_families(kops, seed: int) -> dict:
     rec["smoke_f32_flash_calls_by_dim"] = by_dim
     rec["smoke_f32_flash_launches"] = sum(
         one["launches"].get("flash_attention", 0) for one in smoke.values())
+    # the f32 smoke checks of jamba and rwkv6 run the scan kernels (one
+    # launch a scan layer a pass); no other config launches one
+    rec["smoke_f32_scan_launches"] = {
+        name: {k: one["launches"].get(k, 0) for k in ("ssm_scan", "wkv")}
+        for name, one in smoke.items()}
+    rec["served"]["ssm_scan_launches"] = n_scan
+    rec["served"]["ssm_scan_passes"] = passes
     emit(rec)
+    for name, one in rec["smoke_f32_scan_launches"].items():
+        c = get_smoke_config(name)
+        per = {"ssm_scan": 0, "wkv": 0}
+        if c.family != "encdec":
+            per = {"ssm_scan": sum(m == "mamba" for m, _ in
+                                   transformer.layer_kinds(c)),
+                   "wkv": sum(m == "rwkv" for m, _ in
+                              transformer.layer_kinds(c))}
+        check(all((one[k] > 0 and one[k] % n == 0) if n else one[k] == 0
+                  for k, n in per.items()),
+              f"{name} smoke f32: scan launches {one}, layers {per}")
     for name, one in smoke.items():
         check(one["ids_equal"], f"{name} smoke f32: greedy ids differ "
                                 f"between cpu and cuda")
@@ -4747,8 +4994,12 @@ def phase_families(kops, seed: int) -> dict:
         "flash_attention_d128_4k": n_flash,
         "flash_attention_d8_f32": by_dim["mma_f32<8>"],
         "flash_attention_d16_f32": by_dim["mma_f32<16>"],
-        "flash_attention_d8": 0})
-    return {"launches": launches, "long_qkv": long_qkv, **kept}
+        "flash_attention_d8": 0, "ssm_scan": n_scan})
+    for k in PATH_KERNELS["families"]:
+        check(served["launches"][k] > 0 or launches.get(k, 0) > 0,
+              f"families: no {k} launch")
+    return {"launches": launches, "long_qkv": long_qkv,
+            "ssm_scan_inputs": ssm_inputs, "wkv_inputs": wkv_inputs, **kept}
 
 
 def phase_kernel_families(bench: KernelBench, families_out, seed: int) -> None:
@@ -4775,6 +5026,214 @@ def phase_kernel_families(bench: KernelBench, families_out, seed: int) -> None:
     bench.flash(*(x.to(torch.bfloat16) for x in (q, k, v)), main=True,
                 name="flash_attention_d8", rounds=TIMED_ROUNDS, device=True)
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the scan kernels: Mamba's selective scan and RWKV6's WKV recurrence
+# ---------------------------------------------------------------------------
+
+SCAN_EDGE_L = (1, 2, 127, 128, 129, 1000)  # on and off the 32-step tiles
+SCAN_EDGE_B = (1, 3)
+SSM_EDGE_DI = 200  # six of the kernel's 32-channel blocks and a ragged one
+WKV_EDGE_HEADS = {16: 5, 64: 3}
+#: k and v's scale in the WKV edge cases (r unit normal): o sums Dk
+#: products r_i S_ij, and where they cancel, two f32 orders of that sum
+#: part by more than SCAN_TOL's atol at unit scale (the card read 2.2e-5
+#: on o of size 8 at logw's fast end, Dk 64, over 576,000 outputs); at
+#: 0.5, o is about unit size
+WKV_EDGE_SCALE = 0.5
+#: the same where the decay is at the slow end of its clip: S then sums
+#: about L outer products, and over 1,000 steps the rounding of each step
+#: compounds, so two f32 orders part further. Both ends of the clip also
+#: run at unit scale, held against f64
+WKV_SLOW_SCALE = 0.02
+
+
+@contextlib.contextmanager
+def scan_calls(keep_len: int):
+    """Count the model modules' calls of the scan wrappers on the card
+    (``models.ssm.ssm_scan``, ``models.rwkv.wkv``) and keep the inputs of
+    the first call of each over ``keep_len`` tokens at batch 1 (the first
+    scan layer of a long prompt's prefill): {"ssm_scan": calls, "wkv":
+    calls, "kept": {name: args}}."""
+    from repro_torch.models import rwkv, ssm
+    out, patched = {"ssm_scan": 0, "wkv": 0, "kept": {}}, []
+    for mod, name in ((ssm, "ssm_scan"), (rwkv, "wkv")):
+        orig = getattr(mod, name)
+
+        def wrapped(*a, _orig=orig, _name=name, **kw):
+            if a[0].device.type == torch.device(DEV).type:
+                out[_name] += 1
+                if (tuple(a[0].shape[:2]) == (1, keep_len)
+                        and _name not in out["kept"]):
+                    out["kept"][_name] = tuple(a)
+            return _orig(*a, **kw)
+
+        setattr(mod, name, wrapped)
+        patched.append((mod, name, orig))
+    try:
+        yield out
+    finally:
+        for mod, name, orig in patched:
+            setattr(mod, name, orig)
+
+
+def ssm_edge_inputs(gen, b: int, l: int, n: int, x_dtype, *,
+                    underflow: bool = False, strided: bool = False):
+    """The selective scan's inputs on the card from ``gen``: dt in the
+    model's softplus range, A = -(exp(.) + 1), x in ``x_dtype``, B and C
+    (where ``strided``, views of one (B, L, 3 + 2N) product, as the f32
+    model's split leaves them), a nonzero h0. ``underflow``: dt from 4 to
+    6 against |A| over 30, so that every decay exp(dt A) is under e^-120
+    and underflows to 0 in f32, x at half scale."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV)
+    di = SSM_EDGE_DI
+    if underflow:
+        dt = 4 + 2 * torch.rand(b, l, di, generator=gen, device=DEV)
+        a = -(torch.exp(0.3 * randn(di, n)) + 30)
+    else:
+        dt = torch.nn.functional.softplus(randn(b, l, di) - 1)
+        a = -(torch.exp(0.3 * randn(di, n)) + 1)
+    _, bm, cm = torch.split(randn(b, l, 3 + 2 * n), [3, n, n], dim=-1)
+    if not strided:
+        bm, cm = bm.contiguous(), cm.contiguous()
+    x = ((0.5 if underflow else 1.0) * randn(b, l, di)).to(x_dtype)
+    return dt, bm, cm, x, a, 0.5 * randn(b, di, n)
+
+
+def wkv_edge_inputs(gen, b: int, l: int, dk: int, logw=None,
+                    scale: float = WKV_EDGE_SCALE):
+    """The WKV recurrence's inputs on the card from ``gen``: r unit
+    normal, k, v and S_0 at ``scale``, u at half scale; logw as the
+    model's decay draws it (-exp of a unit normal clipped to [-8, 4]), or
+    the constant ``logw``."""
+    h = WKV_EDGE_HEADS[dk]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV)
+    lw = (-torch.exp(randn(b, l, h, dk).clamp(-8.0, 4.0)) if logw is None
+          else torch.full((b, l, h, dk), logw, device=DEV))
+    return (randn(b, l, h, dk), scale * randn(b, l, h, dk),
+            scale * randn(b, l, h, dk), lw, 0.5 * randn(h, dk),
+            0.5 * scale * randn(b, h, dk, dk))
+
+
+def scan_f64(kernel, plain, seq, args) -> dict:
+    """A scan kernel and its plain chunked version, each held against the
+    sequential plain version in f64 on the same inputs, output by output
+    (y or o, then the last state): each one's largest error, and whether
+    the kernel's is at most SCAN_F64_FACTOR times the plain version's or
+    within SCAN_TOL of f64. Over a long prompt both drift from the exact
+    value, so the kernel against the plain version alone cannot say which
+    one drifted."""
+    want = seq(*(t.double() for t in args))
+    got, base = kernel(*args), plain(*args)
+    sync()
+    out = {"kernel_err": [], "plain_err": [], "kernel_within_tol": []}
+    for g, p, w in zip(got, base, want):
+        out["kernel_err"].append(float((g.double() - w).abs().max()))
+        out["plain_err"].append(float((p.double() - w).abs().max()))
+        out["kernel_within_tol"].append(bool(
+            ((g.double() - w).abs()
+             <= SCAN_TOL[0] + SCAN_TOL[1] * w.abs()).all()))
+    out["ok"] = all(k <= SCAN_F64_FACTOR * p or within for k, p, within in
+                    zip(out["kernel_err"], out["plain_err"],
+                        out["kernel_within_tol"]))
+    del want, got, base
+    return out
+
+
+def phase_kernel_edges_scans(bench: KernelBench, seed: int) -> None:
+    """Both scan kernels against their plain versions on the card within
+    SCAN_TOL: L 1, 2, 127, 128, 129 and 1,000 (the 32-step tiles' edges)
+    at B 1 and 3, from a nonzero state. The selective scan at N 8 and 16
+    with x in f32 and bf16, d_inner SSM_EDGE_DI (a ragged channel block),
+    B and C strided in every other case, and at every (N, x) a case whose
+    decays all underflow to 0; the WKV recurrence at Dk 16 and 64 with
+    the model's decays, and with logw at both ends of its clip (-e^4, a
+    decay of 2e-24, and -e^-8, of 0.99966) over 1,000 steps, k and v at
+    WKV_EDGE_SCALE (the slow end at WKV_SLOW_SCALE), and both ends again
+    at unit scale against f64 (the kernel's error at most SCAN_F64_FACTOR
+    times the plain version's). At L <= 2 also the decode step's plain
+    version (the sequential recurrence)."""
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=DEV).manual_seed(seed + 50)
+    worst = {"ssm_scan": 0.0, "wkv": 0.0}
+    cases = {"ssm_scan": 0, "wkv": 0}
+
+    def held(name, rec):
+        worst[name] = max(worst[name], rec["max_abs_diff"])
+        cases[name] += 1
+
+    for n in (8, 16):
+        for xdt in (torch.float32, torch.bfloat16):
+            for l in SCAN_EDGE_L:
+                for b in SCAN_EDGE_B:
+                    args = ssm_edge_inputs(gen, b, l, n, xdt,
+                                           strided=(l + b) % 2 == 0)
+                    for chunked in ((True, False) if l <= 2 else (True,)):
+                        held("ssm_scan", bench.ssm_scan(
+                            *args, chunked=chunked, quiet=True))
+            args = ssm_edge_inputs(gen, 3, 129, n, xdt, underflow=True,
+                                   strided=True)
+            check(bool((torch.exp(args[0][..., None] * args[4]) == 0).all()),
+                  "the underflow case has a decay over 0")
+            held("ssm_scan", bench.ssm_scan(*args, quiet=True,
+                                            label="underflow"))
+    f64 = {}
+    for dk in (16, 64):
+        for l in SCAN_EDGE_L:
+            for b in SCAN_EDGE_B:
+                args = wkv_edge_inputs(gen, b, l, dk)
+                for chunked in ((True, False) if l <= 2 else (True,)):
+                    held("wkv", bench.wkv(*args, chunked=chunked,
+                                          quiet=True))
+        for logw, scale, label in (
+                (-math.exp(4.0), WKV_EDGE_SCALE, "fast decay"),
+                (-math.exp(-8.0), WKV_SLOW_SCALE, "slow decay")):
+            held("wkv", bench.wkv(*wkv_edge_inputs(gen, 3, 1000, dk, logw,
+                                                   scale), quiet=True,
+                                  label=label))
+            f64[f"{label.split()[0]}_dk{dk}"] = one = scan_f64(
+                bench.kops.wkv, ref.wkv_chunked, ref.wkv_sequential,
+                wkv_edge_inputs(gen, 3, 1000, dk, logw, 1.0))
+            check(one["ok"], f"wkv at the {label}, Dk {dk}, against f64: "
+                             f"{one}")
+    emit({"phase": "kernel_edges_scans", "cases": cases,
+          "worst_abs_err": worst, "tol": {"atol": SCAN_TOL[0],
+                                          "rtol": SCAN_TOL[1]},
+          "wkv_scales": {"edges": WKV_EDGE_SCALE,
+                         "slow_decay": WKV_SLOW_SCALE},
+          "decay_ends_unit_scale_f64": f64})
+    torch.cuda.empty_cache()
+
+
+def phase_kernel_scans(bench: KernelBench, families_out) -> None:
+    """Both scan kernels at the families' shapes, timed, each held
+    against the sequential plain version in f64 beside the plain chunked
+    version (:func:`scan_f64`): the selective scan on the inputs of
+    Jamba-v0.1's first Mamba layer in its FAMILY_LONG-token prefill (B 1,
+    d_inner 8,192, N 16, x bf16; bf16 B and C cast, so contiguous), the
+    WKV recurrence on rwkv6-7b's layer 0 of its FAMILY_LONG-token prefill
+    (B 1, H 64, Dk 64). The kernels' rows compare the kernel with the
+    plain version within an atol of SCAN_TOL's plus 3 times the plain
+    version's largest f64 error: where the kernel sits within twice that
+    error of f64 (or within SCAN_TOL of it) and the plain version within
+    it, the two can be that far apart."""
+    from repro_torch.kernels import ref
+    for name, plain, seq in (
+            ("ssm_scan", ref.ssm_scan_chunked, ref.ssm_scan_sequential),
+            ("wkv", ref.wkv_chunked, ref.wkv_sequential)):
+        args = families_out.pop(f"{name}_inputs")
+        held = scan_f64(getattr(bench.kops, name), plain, seq, args)
+        check(held["ok"], f"{name} at the families' shape against f64: "
+                          f"{held}")
+        tol = (SCAN_TOL[0] + 3 * max(held["plain_err"]), SCAN_TOL[1])
+        getattr(bench, name)(*args, timed=True, main=True, reps=5, tol=tol,
+                             extra={"f64": held})
+        del args
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -5172,13 +5631,15 @@ def phase_kernel_edges_whisper(bench: KernelBench, seed: int) -> None:
                           for k, v in BWD_TOL.items()}}})
 
 
-def phase_kernel_whisper(bench: KernelBench, whisper_out) -> None:
+def phase_kernel_whisper(bench: KernelBench, whisper_out, seed: int) -> None:
     """Flash attention at whisper's decoder shapes against its plain
     version and SDPA: bf16 on layer 23's q, k, v of the WHISPER_PREV-token
     prefill (B 8, H 16 / K 16, D 64; wgmma) and the same values in f32
     (wgmma_f32); the 4-token prompt's layer-0 q, k, v checked; the
     backward's three kernels on the first backward of whisper's training
-    (the last decoder layer, B 4 x S 448) in bf16."""
+    (the last decoder layer, B 4 x S 448) in bf16, its q, k, v, o and lse
+    with a seeded unit-scale dO, held ``scaled`` (the step's own dO gives
+    gradients under BWD_TOL's atol)."""
     q, k, v = whisper_out.pop("s4_qkv")
     bench.flash(q, k, v, timed=False, name="flash_attention_whisper")
     q, k, v = whisper_out.pop("s224_qkv")
@@ -5186,8 +5647,10 @@ def phase_kernel_whisper(bench: KernelBench, whisper_out) -> None:
                 rounds=3, device=True)
     bench.flash(*(x.float() for x in (q, k, v)), main=True,
                 name="flash_attention_whisper_f32", rounds=3, device=True)
-    q, k, v, o, lse, do = (x.detach() for x in whisper_out.pop("bwd_inputs"))
-    bench.flash_bwd(q, k, v, o, lse, do, suffix="_whisper")
+    q, k, v, o, lse, _ = (x.detach() for x in whisper_out.pop("bwd_inputs"))
+    gen = torch.Generator(device=DEV).manual_seed(seed + 37)
+    do = torch.randn(q.shape, generator=gen, device=DEV).to(q.dtype)
+    bench.flash_bwd(q, k, v, o, lse, do, suffix="_whisper", scaled=True)
     del q, k, v, o, lse, do
     torch.cuda.empty_cache()
 
@@ -6081,21 +6544,26 @@ def phase_train_checkpoint(kops, cfg, seed: int, root: str) -> dict:
 
 def phase_kernel_train(bench: KernelBench, train_out, seed: int) -> None:
     """The backward kernels at the train path's shape, timed: the first
-    backward's inputs of the first step (the last layer's q, k, v, o, lse
-    and dO) in bf16, and the same values in f32 with o and lse from the
-    f32 forward; the bf16 forward on those q, k, v with the lse written
-    (flash_attention_train, with lse_rounds); then the backward at
-    olmo-1b's attention (BWD_D128_HEADS) on seeded inputs, in bf16 and
-    f32, launched by no path."""
+    backward's inputs of the first step (the last layer's q, k, v, o and
+    lse) with a seeded unit-scale dO in bf16, and the same values in f32
+    with o and lse from the f32 forward, each held ``scaled`` (the step's
+    own dO, from a mean over 8,192 tokens, gives gradients of 1e-6 to
+    8e-5, under BWD_TOL's atol; the kernels' work does not depend on dO's
+    values, so the times are the path's); the bf16 forward on those q, k,
+    v with the lse written (flash_attention_train, with lse_rounds); then
+    the backward at olmo-1b's attention (BWD_D128_HEADS) on seeded inputs,
+    in bf16 and f32, launched by no path."""
     from repro_torch.kernels import flash_attention as fa
-    q, k, v, o, lse, do = (x.detach() for x in train_out.pop("bwd_inputs"))
-    bench.flash_bwd(q, k, v, o, lse, do)
+    q, k, v, o, lse, _ = (x.detach() for x in train_out.pop("bwd_inputs"))
+    gen = torch.Generator(device=DEV).manual_seed(seed + 36)
+    do = torch.randn(q.shape, generator=gen, device=DEV).to(q.dtype)
+    bench.flash_bwd(q, k, v, o, lse, do, scaled=True)
     bench.flash(q, k, v, main=True, reps=3, name="flash_attention_train",
                 device=True, lse=True)
     bench.main["flash_attention_train"].update(lse_rounds(bench, q, k, v))
     q, k, v, do = (x.float() for x in (q, k, v, do))
     o, lse = fa._forward(q, k, v, lse=True)
-    bench.flash_bwd(q, k, v, o, lse, do, suffix="_f32")
+    bench.flash_bwd(q, k, v, o, lse, do, suffix="_f32", scaled=True)
     del q, k, v, o, lse, do
     torch.cuda.empty_cache()
     h, kh, d = BWD_D128_HEADS
@@ -6165,7 +6633,8 @@ def family_train_smoke(kops, arch: str, seed: int) -> dict:
     counts set to 0 just before it), its flash calls by design and head
     dim, and the backward's launches by design, which must be the
     mma_f32 kernels' (one delta, dkdv and dq an attention layer; the
-    forward twice, remat's recomputation)."""
+    forward twice, remat's recomputation), and no scan kernel's (the
+    training forward runs the Mamba and RWKV scans as torch ops)."""
     from repro_torch.configs import RunConfig, get_smoke_config
     from repro_torch.models import weights
     from repro_torch.train.train_loop import Trainer, TrainerConfig
@@ -6210,6 +6679,10 @@ def family_train_smoke(kops, arch: str, seed: int) -> dict:
            "launches_by_design": by_design}
     check(abs(lc - lg) <= SMOKE_TOL, f"{arch} smoke train: loss {lg} on "
                                      f"the card, {lc} on the cpu")
+    # the training forward runs the scans' chunked torch ops: no scan
+    # kernel launches in a train step
+    check("ssm_scan" not in launches and "wkv" not in launches,
+          f"{arch} smoke train launched a scan kernel: {launches}")
     check(worst <= 1.0, f"{arch} smoke train: gradient {worst_leaf} "
                         f"{worst} x its tolerance")
     want_fwd = ({} if cfg.rwkv else {f"mma_f32<{cfg.hd}>": n_fwd})
@@ -6856,7 +7329,9 @@ def kernel_row(name: str, m: dict, launches: int) -> dict:
             "shape": m["shape"],
             **{k: m[k] for k in ("bound_both_operands_ms", "rounds_won",
                                  "device_ms", "null_lse_ms", "lse_ms",
-                                 "null_lse_rounds_ms", "lse_rounds_ms")
+                                 "null_lse_rounds_ms", "lse_rounds_ms",
+                                 "bound_ex2_sfu_ms", "bound_fp32_ms",
+                                 "bound_bytes_ms", "f64")
                if k in m}}
 
 
@@ -6942,11 +7417,13 @@ def main() -> int:
     serving_out = phase_serving(kops, args.seed)
     phase_kernel_serving(bench, merge_out, serving_out)
     phase_serving_parity(args.seed)
+    phase_kernel_edges_scans(bench, args.seed)
     families_out = phase_families(kops, args.seed)
     phase_kernel_families(bench, families_out, args.seed)
+    phase_kernel_scans(bench, families_out)
     phase_kernel_edges_whisper(bench, args.seed)
     whisper_out = phase_whisper(kops, args.seed)
-    phase_kernel_whisper(bench, whisper_out)
+    phase_kernel_whisper(bench, whisper_out, args.seed)
     search_out = phase_search(core, kops, args.seed)
     phase_kernel_search(bench, search_out, args.seed)
     # training: the backward's edges, the train path, chunked against xla

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fingerprint", "masked_cumsum", "keep_mask", "delta_codec",
            "shard_route", "masked_merge", "flash_attention", "chain_decode",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "ssm_scan", "wkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -28,7 +28,9 @@ from .flash_attention import (flash_attention, flash_bwd_delta, flash_bwd_dkdv,
 from .masked_merge import masked_merge
 from .shard_route import (key_bytes, key_lanes, merge_shard_rows, route_keys,
                           shard_route, shard_route_bytes)
+from .ssm_scan import ssm_scan
 from .version_select import masked_cumsum, version_select
+from .wkv import wkv
 
 __all__ = [
     "KERNELS", "batched_masked_cumsum", "batched_version_select",
@@ -40,8 +42,8 @@ __all__ = [
     "key_bytes", "key_lanes", "launch", "masked_cumsum", "masked_merge",
     "merge_shard_rows", "narrow_dtype", "ref", "ref_chain_decode_at",
     "ref_compact_rewrite", "route_keys", "scan_bucket", "shard_route",
-    "shard_route_bytes", "stacked_boundary_select", "stacked_masked_cumsum",
-    "to_int_lanes", "version_select",
+    "shard_route_bytes", "ssm_scan", "stacked_boundary_select",
+    "stacked_masked_cumsum", "to_int_lanes", "version_select", "wkv",
 ]
 
 #: kernel name -> the wrapper that launches it (and counts its launches)
@@ -62,6 +64,8 @@ KERNELS = {
     "flash_bwd_dkdv": flash_bwd_dkdv,
     "flash_bwd_dq": flash_bwd_dq,
     "chain_decode": chain_decode_at,
+    "ssm_scan": ssm_scan,
+    "wkv": wkv,
 }
 
 

@@ -495,3 +495,106 @@ def ref_flash_attention_bwd(q: torch.Tensor, k: torch.Tensor,
     dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
     return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
             dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Mamba's selective scan and RWKV6's WKV recurrence (models/ssm.py,
+# models/rwkv.py). The chunked forms are the prefill's plain versions, the
+# sequential ones the decode step's; the training forward runs the chunked
+# forms directly, so autograd differentiates them.
+# ---------------------------------------------------------------------------
+
+SSM_CHUNK = 128
+WKV_CHUNK = 32
+
+
+def affine_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive prefix composition along dim 1 of the maps h -> a_t h +
+    b_t (a broadcast against b's trailing dims): (A_t, B_t) with h_t =
+    A_t h_0 + B_t. Log-depth: at step i each position composes its map
+    with the one 2^i before it (the later map applied last)."""
+    n = a.shape[1]
+    off = 1
+    while off < n:
+        a_hi = a[:, off:]
+        b = torch.cat([b[:, :off], _times(a_hi, b[:, :-off]) + b[:, off:]],
+                      dim=1)
+        a = torch.cat([a[:, :off], a_hi * a[:, :-off]], dim=1)
+        off *= 2
+    return a, b
+
+
+def _times(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a times b, a's dims a leading prefix of b's."""
+    while a.ndim < b.ndim:
+        a = a[..., None]
+    return a * b
+
+
+def ssm_scan_chunked(dt, bmat, cmat, x1, a, h0, *, chunk: int = SSM_CHUNK):
+    """dt: (B, L, di); bmat/cmat: (B, L, N); x1: (B, L, di); a: (di, N);
+    h0: (B, di, N). Returns (y (B, L, di) f32, h_final (B, di, N) f32)."""
+    l = dt.shape[1]
+    chunk = min(chunk, l)
+    h = h0.float()
+    ys = []
+    for c0 in range(0, l, chunk):
+        dtc = dt[:, c0:c0 + chunk]                       # (B, c, di)
+        bc, cc = bmat[:, c0:c0 + chunk], cmat[:, c0:c0 + chunk]
+        xc = x1[:, c0:c0 + chunk].float()
+        la = dtc[..., None] * a                          # log decay <= 0
+        binp = dtc[..., None] * bc[:, :, None, :] * xc[..., None]
+        aa, bb = affine_scan(torch.exp(la), binp)
+        h_t = aa * h[:, None] + bb                       # (B, c, di, N)
+        ys.append(torch.einsum("bcn,bcdn->bcd", cc, h_t))
+        h = h_t[:, -1]
+    return torch.cat(ys, dim=1), h
+
+
+def ssm_scan_sequential(dt, bmat, cmat, x1, a, h0):
+    """The plain per-token recurrence (the decode step, and the tests'
+    reference). In f32, or in f64 where ``dt`` is f64 (the card's
+    reference of the kernel over a long prompt)."""
+    acc = torch.float64 if dt.dtype == torch.float64 else torch.float32
+    h = h0.to(acc)
+    ys = []
+    for t in range(dt.shape[1]):
+        dtt = dt[:, t]
+        da = torch.exp(dtt[..., None] * a)
+        h = da * h + dtt[..., None] * bmat[:, t, None, :] \
+            * x1[:, t].to(acc)[..., None]
+        ys.append(torch.einsum("bn,bdn->bd", cmat[:, t], h))
+    return torch.stack(ys, dim=1), h
+
+
+def wkv_sequential(r, k, v, logw, u, s0):
+    """The plain recurrence. r/k/v/logw: (B, L, H, Dk); u: (H, Dk); s0:
+    (B, H, Dk, Dv)."""
+    s = s0
+    outs = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]          # (B,H,Dk,Dv)
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                                 s + u[..., None] * kv))
+        s = torch.exp(logw[:, t])[..., None] * s + kv
+    return torch.stack(outs, dim=1), s
+
+
+def wkv_chunked(r, k, v, logw, u, s0, *, chunk: int = WKV_CHUNK):
+    """The WKV recurrence a chunk at a time: within a chunk the state
+    maps compose by ``affine_scan``, the decay applied before the add."""
+    l = r.shape[1]
+    chunk = min(chunk, l)
+    s = s0
+    outs = []
+    for c0 in range(0, l, chunk):
+        rc, kc, vc = (t[:, c0:c0 + chunk] for t in (r, k, v))
+        w = torch.exp(logw[:, c0:c0 + chunk])                 # (B, c, H, Dk)
+        kv = kc[..., :, None] * vc[..., None, :]              # (B,c,H,Dk,Dv)
+        aa, bb = affine_scan(w, kv)
+        s_t = aa[..., None] * s[:, None] + bb                 # S after t
+        s_prev = torch.cat([s[:, None], s_t[:, :-1]], dim=1)
+        outs.append(torch.einsum("bchk,bchkv->bchv", rc,
+                                 s_prev + u[..., None] * kv))
+        s = s_t[:, -1]
+    return torch.cat(outs, dim=1), s

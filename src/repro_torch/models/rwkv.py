@@ -1,17 +1,22 @@
 """RWKV6 ("Finch") block: data-dependent per-channel decay, attention-free.
 
-The JAX package's ``src/repro/models/rwkv.py`` in torch ops. Recurrence
-per head (state S: a (Dk, Dv) matrix):
+The JAX package's ``src/repro/models/rwkv.py`` in torch ops, the
+recurrence aside. Per head (state S: a (Dk, Dv) matrix):
 
     S_t = diag(w_t) S_{t-1} + k_t^T v_t
     o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 
 with w_t = exp(-exp(w_raw_t)) per (head, Dk) channel, kept as its log
-(<= 0, f32) until the scan. Within a chunk of ``CHUNK`` tokens the state
-maps S -> diag(w) S + kv compose by the log-depth scan of ``ssm.py``
-(``affine_scan``; the JAX package uses ``jax.lax.associative_scan``);
-chunks chain through an f32 carry of S. The sequential recurrence is kept
-for the tests.
+(<= 0, f32) until the recurrence. On the served path
+(``transformer.prefill`` and ``decode_step``) it is the hand-written
+kernel ``csrc/wkv.cu`` (``kernels.ops.wkv``): the sequential recurrence
+with S in registers, which the JAX package's chunked form adapts to the
+TPU. The training forward (``train=True``) runs the chunked torch ops
+(``kernels/ref.py``, re-exported here): within a chunk of ``CHUNK``
+tokens the state maps S -> diag(w) S + kv compose by the log-depth scan
+``affine_scan`` (the JAX package uses ``jax.lax.associative_scan``),
+chunks chaining through an f32 carry of S, and autograd differentiates
+them.
 """
 from __future__ import annotations
 
@@ -21,11 +26,14 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..sharding.rules import constrain, is_dtensor, mesh_shape, pspec_for
+from ..kernels import ref
+from ..kernels.ops import wkv
+from ..kernels.ref import wkv_chunked, wkv_sequential  # noqa: F401
+from ..sharding.rules import (constrain, is_dtensor, replicated,
+                              scan_placements)
 from .layers import ParamSpec
-from .ssm import affine_scan
 
-CHUNK = 32
+CHUNK = ref.WKV_CHUNK
 LORA = 32
 LORA_W = 64
 
@@ -117,75 +125,33 @@ def _decay(p, x_w):
     return -torch.exp(torch.clamp(raw, -8.0, 4.0))
 
 
-def wkv_sequential(r, k, v, logw, u, s0):
-    """The plain recurrence. r/k/v/logw: (B, L, H, Dk); u: (H, Dk); s0:
-    (B, H, Dk, Dv)."""
-    s = s0
-    outs = []
-    for t in range(r.shape[1]):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]          # (B,H,Dk,Dv)
-        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
-                                 s + u[..., None] * kv))
-        s = torch.exp(logw[:, t])[..., None] * s + kv
-    return torch.stack(outs, dim=1), s
-
-
-def wkv_chunked(r, k, v, logw, u, s0, *, chunk: int = CHUNK):
-    """The WKV recurrence a chunk at a time: within a chunk the state
-    maps compose by ``affine_scan``, the decay applied before the add."""
-    l = r.shape[1]
-    chunk = min(chunk, l)
-    s = s0
-    outs = []
-    for c0 in range(0, l, chunk):
-        rc, kc, vc = (t[:, c0:c0 + chunk] for t in (r, k, v))
-        w = torch.exp(logw[:, c0:c0 + chunk])                 # (B, c, H, Dk)
-        kv = kc[..., :, None] * vc[..., None, :]              # (B,c,H,Dk,Dv)
-        aa, bb = affine_scan(w, kv)
-        s_t = aa[..., None] * s[:, None] + bb                 # S after t
-        s_prev = torch.cat([s[:, None], s_t[:, :-1]], dim=1)
-        outs.append(torch.einsum("bchk,bchkv->bchv", rc,
-                                 s_prev + u[..., None] * kv))
-        s = s_t[:, -1]
-    return torch.cat(outs, dim=1), s
-
-
-def _wkv_sharded(wkv, r, k, v, logw, u, s0):
-    """``wkv`` on DTensors by ``local_map``: each rank's batch rows (the
+def _wkv_sharded(scan, r, k, v, logw, u, s0):
+    """``scan`` on DTensors by ``local_map``: each rank's batch rows (the
     data axes) and heads (``model``, where it divides H; else every model
     peer runs every head), the recurrence being per head. The bonus
     ``u`` reaches every batch row: its gradient is a partial sum over
     the data axes."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
     mesh = r.device_mesh
-    sizes = mesh_shape(mesh)
-    b, _, h, _ = r.shape
-    entry = pspec_for((b,), ("batch",), mesh)[0]
-    baxes = () if entry is None else (
-        (entry,) if isinstance(entry, str) else tuple(entry))
-    split = "model" in sizes and h % sizes["model"] == 0
-
-    def pl(head_dim, batch=Shard(0)):
-        return [Replicate() if sizes[a] == 1 else batch if a in baxes
-                else Shard(head_dim) if a == "model" and split
-                else Replicate() for a in sizes]
-    if not is_dtensor(s0):
-        s0 = DTensor.from_local(s0, mesh, [Replicate()] * len(sizes),
-                                run_check=False)
+    pl = scan_placements(mesh, r.shape[0], r.shape[2])
     seq, state = pl(2), pl(1)
-    fn = local_map(wkv, out_placements=(seq, state),
+    fn = local_map(scan, out_placements=(seq, state),
                    in_placements=(seq, seq, seq, seq, pl(0, Replicate()),
                                   state),
                    in_grad_placements=(seq, seq, seq, seq,
                                        pl(0, Partial()), state),
                    device_mesh=mesh, redistribute_inputs=True)
-    return fn(r, k, v, logw, u, s0)
+    return fn(r, k, v, logw, u, replicated(s0, mesh))
 
 
 def rwkv_time_mix(p, x, cfg, *, state: RWKVState | None = None,
-                  chunked: bool = True):
-    """x: (B, L, d) -> (out, (new wkv state, new time shift))."""
+                  chunked: bool = True, train: bool = False):
+    """x: (B, L, d) -> (out, (new wkv state, new time shift)).
+    ``train``: the training forward, whose recurrence is the chunked
+    torch ops (autograd differentiates them); otherwise the WKV kernel's
+    wrapper ``wkv`` (its plain version on the CPU). Either runs per rank
+    under a mesh (``_wkv_sharded``)."""
     b, l, d = x.shape
     h = cfg.n_heads
     dk = d // h
@@ -199,10 +165,13 @@ def rwkv_time_mix(p, x, cfg, *, state: RWKVState | None = None,
     s0 = (torch.zeros((b, h, dk, dk), dtype=torch.float32, device=x.device)
           if state is None else state.s)
     u = p["bonus"].float()
-    wkv = wkv_chunked if chunked else wkv_sequential
+    if train:
+        scan = wkv_chunked if chunked else wkv_sequential
+    else:
+        scan = functools.partial(wkv, chunked=chunked)
     if is_dtensor(r):
-        wkv = functools.partial(_wkv_sharded, wkv)
-    out, s = wkv(r.float(), k.float(), v.float(), logw, u, s0)
+        scan = functools.partial(_wkv_sharded, scan)
+    out, s = scan(r.float(), k.float(), v.float(), logw, u, s0)
     # per-head group norm (ln_x)
     mu = out.mean(-1, keepdim=True)
     var = ((out - mu) ** 2).mean(-1, keepdim=True)

@@ -1,29 +1,35 @@
 """Mamba (selective SSM) block for the Jamba hybrid architecture.
 
-The JAX package's ``src/repro/models/ssm.py`` in torch ops. Within a chunk
-of ``CHUNK`` tokens the recurrence h_t = a_t h_{t-1} + b_t (a_t =
-exp(dt_t A) in (0, 1], b_t = dt_t B_t x_t) is the composition of the
-affine maps h -> a h + b, taken by a log-depth (Hillis-Steele) scan of
-torch ops: log2(chunk) steps, each composing every map with the one
-``2^i`` positions before it. No step divides by a cumulative product of
-a, which would underflow. The JAX package composes the same maps with
-``jax.lax.associative_scan``, in another order. Chunks chain through an
-f32 carry of h, so the scan's intermediates are (B, CHUNK, d_inner, N),
-not (B, L, d_inner, N). On the card these torch ops take most of a
-Jamba prefill's device time (``chip_smoke.py``'s ``families_served``
-profile); a scan kernel is queued in ROADMAP.md.
+The JAX package's ``src/repro/models/ssm.py`` in torch ops, the scan
+aside. On the served path (``transformer.prefill`` and ``decode_step``)
+the recurrence h_t = a_t h_{t-1} + b_t (a_t = exp(dt_t A) in (0, 1], b_t =
+dt_t B_t x_t) is the hand-written kernel ``csrc/ssm_scan.cu``
+(``kernels.ops.ssm_scan``): the sequential recurrence with each channel's
+states in registers, which the JAX package's chunked scan adapts to the
+TPU. The training forward (``train=True``) runs the chunked torch ops
+(``kernels/ref.py``, re-exported here): within a chunk of ``CHUNK``
+tokens the affine maps h -> a h + b compose by a log-depth
+(Hillis-Steele) scan, chunks chaining through an f32 carry of h, and
+autograd differentiates them. The JAX package composes the same maps with
+``jax.lax.associative_scan``, in another order.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from ..sharding.rules import constrain
+from ..kernels import ref
+from ..kernels.ops import ssm_scan
+from ..kernels.ref import (ssm_scan_chunked,  # noqa: F401
+                           ssm_scan_sequential)
+from ..sharding.rules import (constrain, is_dtensor, replicated,
+                              scan_placements)
 from .layers import ParamSpec
 
-CHUNK = 128
+CHUNK = ref.SSM_CHUNK
 
 
 def ssm_spec(cfg) -> dict:
@@ -66,29 +72,6 @@ def init_ssm_state(cfg, batch: int, dtype=torch.float32,
                          device=device))
 
 
-def affine_scan(a: torch.Tensor, b: torch.Tensor):
-    """Inclusive prefix composition along dim 1 of the maps h -> a_t h +
-    b_t (a broadcast against b's trailing dims): (A_t, B_t) with h_t =
-    A_t h_0 + B_t. Log-depth: at step i each position composes its map
-    with the one 2^i before it (the later map applied last)."""
-    n = a.shape[1]
-    off = 1
-    while off < n:
-        a_hi = a[:, off:]
-        b = torch.cat([b[:, :off], _times(a_hi, b[:, :-off]) + b[:, off:]],
-                      dim=1)
-        a = torch.cat([a[:, :off], a_hi * a[:, :-off]], dim=1)
-        off *= 2
-    return a, b
-
-
-def _times(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a times b, a's dims a leading prefix of b's."""
-    while a.ndim < b.ndim:
-        a = a[..., None]
-    return a * b
-
-
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  history: torch.Tensor | None = None) -> torch.Tensor:
     """Depthwise causal conv by shifted adds. x: (B, L, di); w: (cw, di)."""
@@ -123,43 +106,33 @@ def _dt_bc(p, xc: torch.Tensor, cfg):
     return dt, bc.float(), cc.float()
 
 
-def ssm_scan_chunked(dt, bmat, cmat, x1, a, h0, *, chunk: int = CHUNK):
-    """dt: (B, L, di); bmat/cmat: (B, L, N); x1: (B, L, di); a: (di, N);
-    h0: (B, di, N). Returns (y (B, L, di) f32, h_final (B, di, N) f32)."""
-    l = dt.shape[1]
-    chunk = min(chunk, l)
-    h = h0.float()
-    ys = []
-    for c0 in range(0, l, chunk):
-        dtc = dt[:, c0:c0 + chunk]                       # (B, c, di)
-        bc, cc = bmat[:, c0:c0 + chunk], cmat[:, c0:c0 + chunk]
-        xc = x1[:, c0:c0 + chunk].float()
-        la = dtc[..., None] * a                          # log decay <= 0
-        binp = dtc[..., None] * bc[:, :, None, :] * xc[..., None]
-        aa, bb = affine_scan(torch.exp(la), binp)
-        h_t = aa * h[:, None] + bb                       # (B, c, di, N)
-        ys.append(torch.einsum("bcn,bcdn->bcd", cc, h_t))
-        h = h_t[:, -1]
-    return torch.cat(ys, dim=1), h
-
-
-def ssm_scan_sequential(dt, bmat, cmat, x1, a, h0):
-    """The plain per-token recurrence (the decode step, and the tests'
-    reference)."""
-    h = h0.float()
-    ys = []
-    for t in range(dt.shape[1]):
-        dtt = dt[:, t]
-        da = torch.exp(dtt[..., None] * a)
-        h = da * h + dtt[..., None] * bmat[:, t, None, :] \
-            * x1[:, t].float()[..., None]
-        ys.append(torch.einsum("bn,bdn->bd", cmat[:, t], h))
-    return torch.stack(ys, dim=1), h
+def _ssm_sharded(scan, dt, bmat, cmat, x1, a, h0):
+    """``scan`` on DTensors by ``local_map``, as ``rwkv._wkv_sharded``
+    runs the WKV recurrence: each rank's batch rows (the data axes) and
+    d_inner channels (``model``, where it divides d_inner; else every
+    model peer runs every channel), the recurrence being per channel; B
+    and C reach every channel of a rank's rows. The served path's layout
+    under a mesh (the dry run's prefill and decode cells); the training
+    forward runs the chunked torch ops on the DTensors themselves."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = dt.device_mesh
+    pl = scan_placements(mesh, dt.shape[0], dt.shape[2])
+    seq, bc, state = pl(2), pl(None), pl(1)
+    fn = local_map(scan, out_placements=(seq, state),
+                   in_placements=(seq, bc, bc, seq, pl(0, Replicate()),
+                                  state),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(dt, bmat, cmat, x1, a, replicated(h0, mesh))
 
 
 def mamba_forward(p, x, cfg, *, state: SSMState | None = None,
-                  chunked: bool = True):
-    """x: (B, L, d) -> (out (B, L, d), final SSMState)."""
+                  chunked: bool = True, train: bool = False):
+    """x: (B, L, d) -> (out (B, L, d), final SSMState). ``chunked``: a
+    prefill (else one decode step); ``train``: the training forward,
+    whose scan is the chunked torch ops (autograd differentiates them);
+    otherwise the scan kernel's wrapper ``ssm_scan`` (its plain version on
+    the CPU), per rank under a mesh."""
     di = cfg.ssm_expand * cfg.d_model
     xz = x @ p["in_proj"].to(x.dtype)
     x1, z = torch.chunk(xz, 2, dim=-1)
@@ -170,7 +143,12 @@ def mamba_forward(p, x, cfg, *, state: SSMState | None = None,
     h0 = state.h if state is not None else torch.zeros(
         (x.shape[0], di, cfg.ssm_state), dtype=torch.float32,
         device=x.device)
-    scan = ssm_scan_chunked if chunked else ssm_scan_sequential
+    if train:
+        scan = ssm_scan_chunked if chunked else ssm_scan_sequential
+    else:
+        scan = functools.partial(ssm_scan, chunked=chunked)
+        if is_dtensor(dt):
+            scan = functools.partial(_ssm_sharded, scan)
     y, h_fin = scan(dt, bmat, cmat, xc, a, h0)
     y = y + p["d_skip"].float() * xc.float()
     out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"].to(x.dtype)

@@ -186,7 +186,10 @@ def _layer(p: dict, x: torch.Tensor, cfg, kind: tuple[str, str], *,
     state or None). ``decode``: one token against ``state`` (a KV ring
     written in place at ``state[1]``; see ``decode_step``). ``train``:
     the training forward's attention (``attention_train``: no cache, the
-    sequence-parallel layout under a mesh that wants it)."""
+    sequence-parallel layout under a mesh that wants it) and the Mamba
+    and RWKV recurrences as the chunked torch ops, which autograd
+    differentiates; otherwise (prefill and decode) those recurrences are
+    the scan kernels (``kernels.ops.ssm_scan`` and ``wkv``)."""
     mixer, ff = kind
     cache = state[0] if decode else None
     h = apply_norm(p["norm1"], x, cfg.norm)
@@ -204,10 +207,10 @@ def _layer(p: dict, x: torch.Tensor, cfg, kind: tuple[str, str], *,
                                             positions=positions, impl=impl)
     elif mixer == "mamba":
         y, new = ssm_mod.mamba_forward(p["mamba"], h, cfg, state=cache,
-                                       chunked=not decode)
+                                       chunked=not decode, train=train)
     else:
-        y, (s_wkv, shift_t) = rwkv_mod.rwkv_time_mix(p["rwkv_t"], h, cfg,
-                                                     state=cache)
+        y, (s_wkv, shift_t) = rwkv_mod.rwkv_time_mix(
+            p["rwkv_t"], h, cfg, state=cache, train=train)
     x = x + y
     h = apply_norm(p["norm2"], x, cfg.norm)
     aux = None

@@ -143,6 +143,36 @@ def placements_for(spec: Spec, mesh) -> tuple:
                  else Replicate() for a in sizes)
 
 
+def scan_placements(mesh, rows: int, inner: int):
+    """The placements of a recurrence run per rank by ``local_map``
+    (the Mamba scan, the WKV recurrence), as a function: ``pl(dim,
+    batch=Shard(0))`` gives one placement a mesh dim, ``batch`` on the
+    axes that the ``batch`` rule gives ``rows`` batch rows, ``Shard(dim)`` on
+    ``model`` where it divides ``inner`` (the channels or heads, which the
+    recurrence runs apart) and ``dim`` is not None, else (and on any mesh
+    dim of size 1) ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    sizes = mesh_shape(mesh)
+    baxes = _entry_axes(pspec_for((rows,), ("batch",), mesh)[0])
+    split = "model" in sizes and inner % sizes["model"] == 0
+
+    def pl(dim, batch=Shard(0)):
+        return [Replicate() if sizes[ax] == 1 else batch if ax in baxes
+                else Shard(dim) if ax == "model" and split
+                and dim is not None else Replicate() for ax in sizes]
+    return pl
+
+
+def replicated(t, mesh):
+    """``t`` as a DTensor replicated over ``mesh`` (a decode state made
+    outside the mesh), or as it is where it is a DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if is_dtensor(t):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * len(mesh_shape(mesh)),
+                              run_check=False)
+
+
 def local_shape(shape: Sequence[int], spec: Spec, mesh) -> tuple[int, ...]:
     """Each rank's shard of a tensor of ``shape`` laid out by ``spec``
     (which ``pspec_for`` makes divide evenly)."""

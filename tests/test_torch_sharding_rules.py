@@ -256,6 +256,26 @@ def test_placements_for():
         == (8, 256)
 
 
+def test_scan_placements():
+    """The per-rank layout of the Mamba scan and the WKV recurrence: batch
+    rows on the axes the ``batch`` rule gives them, the channel or head
+    dim on ``model`` where it divides, replicated otherwise and on any
+    mesh dim of size 1."""
+    from torch.distributed.tensor import Replicate, Shard
+    rep = Replicate()
+    pl = rules.scan_placements(SINGLE, 32, 64)
+    assert pl(2) == [Shard(0), Shard(2)]
+    assert pl(None) == [Shard(0), rep]
+    assert pl(0, rep) == [rep, Shard(0)]
+    assert rules.scan_placements(SINGLE, 32, 24)(2) == [Shard(0), rep]
+    assert rules.scan_placements(SINGLE, 8, 64)(1) == [rep, Shard(1)]
+    pod = FakeMesh(MESHES["2x16x16"])
+    assert rules.scan_placements(pod, 64, 64)(2) == [Shard(0), Shard(0),
+                                                     Shard(2)]
+    one = FakeMesh({"data": 1, "model": 4})
+    assert rules.scan_placements(one, 4, 8)(1) == [rep, Shard(1)]
+
+
 def test_constrain_is_a_no_op_without_a_mesh_or_on_plain_tensors():
     x = torch.ones(4, 4)
     assert rules.constrain(x, ("batch", None)) is x

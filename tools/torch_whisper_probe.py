@@ -56,7 +56,7 @@ def main() -> int:
     cs.phase_kernel_edges_whisper(bench, args.seed)
     if not args.no_whisper:
         out = cs.phase_whisper(kops, args.seed)
-        cs.phase_kernel_whisper(bench, out)
+        cs.phase_kernel_whisper(bench, out, args.seed)
         for name, n in out["launches"].items():
             print(cs.json.dumps(cs.kernel_row(name, bench.main[name], n)),
                   flush=True)
